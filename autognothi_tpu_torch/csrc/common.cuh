@@ -52,4 +52,17 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// The card's SM count, for the GEMMs' tile choice (one card per process:
+// the first query is cached).
+static inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 1;
+  }
+  return n;
+}
+
 }  // namespace ag

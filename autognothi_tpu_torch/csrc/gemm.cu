@@ -231,17 +231,6 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm128_kernel(GemmArgs p) {
   }
 }
 
-static int sm_count() {
-  static int n = 0;  // one card per process: cache the first query
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 1;
-  }
-  return n;
-}
-
 // Tile choice from the problem size: the 128x128 kernel when its tiles fill
 // at least one wave of the card's SMs, else the 64x64 kernel (narrow N = 96
 // ladders, small serving batches), which puts more blocks in flight.

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of `csrc/`.
 
-The sources are compiled at first use with `nvcc` for `sm_90a` into one
+The sources are compiled at first use with `nvcc` for `sm_90a`, one
+`nvcc` process per `.cu` file, all started together, and linked into one
 shared library with a plain C interface, loaded with `ctypes`.  The build
 goes into `<repo>/build/kernels/<hash of sources and flags>/`, a directory
 git ignores, so a fresh checkout builds everything it runs.  A missing
@@ -25,7 +26,7 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libautognothi_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -40,6 +41,9 @@ _SIGNATURES = {
     "ag_attention": (_I, [_I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
     "ag_attention_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     "ag_attention_supports": (_I, [_I, _I]),
+    "ag_quant_rows": (_I, [_I, _P, _I, _I, _I, _F, _P, _P, _I, _P, _P, _P]),
+    "ag_gemm_i8": (_I, [_I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I,
+                        _I, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -80,18 +84,36 @@ def build() -> pathlib.Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sources() if p.suffix == ".cu")]
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    units = [p for p in sources() if p.suffix == ".cu"]
+    objs = [out_dir / f"{p.stem}.{tag}.o" for p in units]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                str(u)], stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True), u)
+             for u, o in zip(units, objs)]
+    logs, failed = [], []
+    for proc, unit in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {unit.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{unit.name} (exit {proc.returncode})")
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *(str(o) for o in objs)],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link (exit {link.returncode})")
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    build_log = "".join(logs)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{build_log}")
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{build_log}")
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
 

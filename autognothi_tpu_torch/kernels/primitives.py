@@ -23,9 +23,13 @@ MAX_SMEM_BYTES = 232448
 
 
 def _dtype_code(t: torch.Tensor) -> int:
-    if t.dtype not in _DTYPES:
-        raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
-    return _DTYPES[t.dtype]
+    return _code(t.dtype)
+
+
+def _code(dtype: torch.dtype) -> int:
+    if dtype not in _DTYPES:
+        raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
+    return _DTYPES[dtype]
 
 
 def _stream() -> int:
@@ -121,6 +125,74 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: int, *,
     return out
 
 
+I8_EPI_BIAS, I8_EPI_BIAS_RESID, I8_EPI_GELU_F32, I8_EPI_GELU = 0, 1, 2, 3
+
+
+def quant_rows(x: torch.Tensor, *, weight: bool = False,
+               ln: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """<M, N> fp32/bf16 -> (int8 codes <M, N> contiguous, fp32 scales <M>).
+
+    weight=False: the per-token activation recipe (`_quant_rows`), of
+    LN(x) rounded to x's dtype when ln = (w, b, eps) is given;
+    weight=True: the per-output-channel recipe (`quant_cols`) of a torch
+    (out, in) weight, whose rows are the output channels."""
+    ldx = _rows(x, "x")
+    m, n = x.shape
+    if weight and ln is not None:
+        raise ValueError("the weight recipe has no LN prologue")
+    q = torch.empty((m, n), device=x.device, dtype=torch.int8)
+    scale = torch.empty(m, device=x.device, dtype=torch.float32)
+    ptrs, eps = [None, None], 0.0
+    if ln is not None:
+        keep = (_vec32(ln[0], n, "ln weight"), _vec32(ln[1], n, "ln bias"))
+        ptrs, eps = [t.data_ptr() for t in keep], float(ln[2])
+    _check(load().ag_quant_rows(_dtype_code(x), x.data_ptr(), ldx, m, n, eps,
+                                *ptrs, int(weight), q.data_ptr(),
+                                scale.data_ptr(), _stream()), "ag_quant_rows")
+    return q, scale
+
+
+def gemm_i8(a: torch.Tensor, a_scale: torch.Tensor, w: torch.Tensor,
+            w_scale: torch.Tensor, bias: torch.Tensor, epi: int,
+            dtype: torch.dtype, *, resid: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """out <M, N> = epilogue((a @ w.T) * a_scale[:, None] * w_scale + bias)
+    with int8 a <M, K>, int8 w <N, K> (torch layout) and an exact int32
+    accumulator.  `dtype` is the activation dtype; the output is fp32 for
+    I8_EPI_GELU_F32 and `dtype` otherwise; resid (`dtype` <M, N>, rows
+    contiguous) is added after the cast by I8_EPI_BIAS_RESID."""
+    lda = _rows(a, "a")
+    m, k = a.shape
+    n = w.shape[0]
+    if a.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError("gemm_i8 takes int8 operands")
+    if w.shape != (n, k) or not w.is_contiguous():
+        raise ValueError(f"w must be a contiguous int8 ({n}, {k}) matrix, "
+                         f"got {tuple(w.shape)}")
+    if k % 16 or lda % 16 or a.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"the int8 GEMM reads 16-byte chunks: K and the "
+                         f"row stride must be multiples of 16, got K={k}, "
+                         f"stride {lda}")
+    sa = _vec32(a_scale, m, "a_scale")
+    sw, b32 = _vec32(w_scale, n, "w_scale"), _vec32(bias, n, "bias")
+    out = torch.empty((m, n), device=a.device, dtype=torch.float32
+                      if epi == I8_EPI_GELU_F32 else dtype)
+    if (epi == I8_EPI_BIAS_RESID) != (resid is not None):
+        raise ValueError("resid is required exactly by I8_EPI_BIAS_RESID")
+    ldr, r_ptr = 0, None
+    if resid is not None:
+        ldr = _rows(resid, "resid")
+        if resid.shape != (m, n) or resid.dtype != dtype:
+            raise ValueError(f"resid must be {dtype} ({m}, {n})")
+        r_ptr = resid.data_ptr()
+    _check(load().ag_gemm_i8(_code(dtype), epi, a.data_ptr(), lda,
+                             sa.data_ptr(), w.data_ptr(), sw.data_ptr(),
+                             b32.data_ptr(), r_ptr, ldr, out.data_ptr(), n,
+                             m, n, k, _stream()), "ag_gemm_i8")
+    return out
+
+
 def attention_core(qkv: torch.Tensor, mask_row: torch.Tensor, b: int, t: int,
                    h: int, n_heads: int, mode: str) -> torch.Tensor:
     """Packed projections <B*T, 3H> (q | k | v) + mask <B, T> -> the
@@ -180,13 +252,21 @@ class _KernelFn(torch.autograd.Function):
 
 
 def dispatch(launch: Callable, plain: Callable, counter,
-             tensors: Sequence[torch.Tensor], static: dict):
+             tensors: Sequence[torch.Tensor], static: dict,
+             grad: Optional[Callable] = None):
     """The one routing rule of every kernel op: CPU tensors take the plain
     version; CUDA tensors launch the kernel (and count the call), with the
-    plain version as the gradient; any other device raises."""
+    plain version as the gradient; any other device raises.
+
+    `grad`, when given, is the function whose autograd is the gradient on
+    both devices (the int8 ops: the unquantized math, as the JAX package's
+    custom_vjp backward; rounding would zero the gradients)."""
     device = tensors[0].device
     if device.type == "cpu":
-        return plain(*tensors, **static)
+        if grad is None:
+            return plain(*tensors, **static)
+        return _KernelFn.apply(functools.partial(plain, **static),
+                               functools.partial(grad, **static), *tensors)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
 
@@ -195,5 +275,5 @@ def dispatch(launch: Callable, plain: Callable, counter,
         counter.add()
         return out
 
-    return _KernelFn.apply(kernel, functools.partial(plain, **static),
+    return _KernelFn.apply(kernel, functools.partial(grad or plain, **static),
                            *tensors)

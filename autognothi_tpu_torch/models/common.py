@@ -10,6 +10,7 @@ takes its statistics in fp32.
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -17,6 +18,8 @@ import torch.nn.functional as F
 
 __all__ = [
     "dense",
+    "dense_serving",
+    "quant_mode",
     "layer_norm",
     "gelu",
     "split_heads",
@@ -37,6 +40,40 @@ def dense(x: torch.Tensor, w: torch.Tensor,
     y = F.linear(x.float(), w.to(x.dtype).float(),
                  None if b is None else b.float())
     return y.to(x.dtype)
+
+
+def quant_mode() -> str:
+    """AUTOGNOTHI_INT8=1 switches the serving path to W8A8: the fused ops
+    run their int8 versions (per-output-channel int8 weights, per-token
+    int8 activations, int32 accumulation).  Read per call, as the JAX
+    package reads it.  The env var chooses the arithmetic, never the
+    device: CPU tensors take the plain int8 versions, CUDA tensors the
+    int8 kernels."""
+    return "int8" if os.environ.get("AUTOGNOTHI_INT8", "0") == "1" \
+        else "none"
+
+
+def dense_serving(x: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor]) -> torch.Tensor:
+    """`dense`, or in int8 mode the eager W8A8 dense (`_dense_int8`): x
+    quantized per token, w (not cast) per output channel, the exact int8
+    product dequantized and biased in fp32, then cast to x's dtype.  Under
+    autograd its gradient is the full-precision dense's."""
+    if quant_mode() != "int8":
+        return dense(x, w, b)
+    from ..kernels.primitives import _KernelFn
+
+    if b is None:
+        b = torch.zeros(w.shape[0], device=x.device)
+    return _KernelFn.apply(_dense_int8, dense, x, w, b)
+
+
+def _dense_int8(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    from ..ops.mlp_block import _quant_rows, int8_linear, quant_cols
+
+    return int8_linear(*_quant_rows(x.float()), *quant_cols(w),
+                       b).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

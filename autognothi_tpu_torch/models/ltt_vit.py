@@ -3,7 +3,11 @@
 side ladders beside it (branch 0 the surrogate, branch 1 the explainer),
 one explainer side layer, the explainer MLP head and the efficiency
 normalisation, giving class probabilities and per-patch attributions in one
-forward pass."""
+forward pass.  With AUTOGNOTHI_INT8=1 (`quant_mode()`) the forward is the
+W8A8 serving path: per trunk layer the int8 attention block (K1) and the
+int8 trunk MLP fused with both ladder updates (K2); the explainer side
+layer as int8 attention and MLP blocks (K1, K4); the fused int8 head
+(K3)."""
 
 from __future__ import annotations
 
@@ -13,9 +17,9 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..ops.ladder_block import ladder_block
+from ..ops.ladder_block import ladder_block, mlp_ladder_block
 from ..ops.shapley import normalize_shapley_explanation
-from .common import dense, init_embedding, init_linear, layer_norm
+from .common import dense, init_embedding, init_linear, layer_norm, quant_mode
 from .vit import (VanillaViTConfig, ViTEmbeddings, ViTLayer,
                   explainer_mlp_head, explainer_mlp_head_module, fill_linear,
                   fill_norm, linear, norm, vit_embeddings)
@@ -165,17 +169,26 @@ def ltt_vit_backbone(model: LttViTFinal, cfg: LttViTConfig,
                      branches: Sequence[int]
                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Embeddings, the trunk layers with the ladder step of every branch
-    after each, then the final LayerNorms (`:182-357`)."""
+    after each, then the final LayerNorms (`:182-357`).  int8 mode: the
+    trunk layer's attention block, then one op for its MLP block and the
+    ladder step (`:251-291`)."""
     vit = model.vit
     h = vit_embeddings(vit.embeddings, cfg.into(), pixels)
     b_sz, t = h.shape[:2]
     sides = [h.new_zeros((b_sz, t, cfg.s_attn_hidden_size))
              for _ in branches]
+    heads, eps = cfg.num_attention_heads, cfg.layer_norm_eps
+    int8 = quant_mode() == "int8"
     for i, layer in enumerate(vit.encoder.layers):
-        h = layer(h, mask, cfg.num_attention_heads, cfg.layer_norm_eps)
-        sides = list(ladder_block(
-            h, sides, mask, [_ladder_weights(model, b, i) for b in branches],
-            cfg.num_attention_heads, "mul", True, cfg.layer_norm_eps))
+        ladders = [_ladder_weights(model, b, i) for b in branches]
+        if int8:
+            h, *sides = mlp_ladder_block(
+                layer.attend(h, mask, heads, eps, "int8"), sides, mask,
+                layer.mlp_weights(), ladders, heads, "mul", eps)
+            continue
+        h = layer(h, mask, heads, eps)
+        sides = list(ladder_block(h, sides, mask, ladders, heads, "mul",
+                                  True, eps))
     h = layer_norm(h, vit.layernorm.weight, vit.layernorm.bias,
                    cfg.layer_norm_eps)
     sides = [layer_norm(side, vit.s_attn_layernorm[str(b)].weight,
@@ -199,7 +212,7 @@ def ltt_vit_explainer_head(model: LttViTFinal, cfg: LttViTConfig,
     side_cfg = cfg.side()
     for layer in model.s_explainer_attn:
         side = layer(side, mask, side_cfg.num_attention_heads,
-                     side_cfg.layer_norm_eps)
+                     side_cfg.layer_norm_eps, quant_mode())
     out = explainer_mlp_head(model.s_explainer_mlp, side)
     if cfg.explainer_normalize:
         out = normalize_shapley_explanation(out, grand, null)

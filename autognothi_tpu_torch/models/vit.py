@@ -5,7 +5,9 @@ Modules hold parameters under exactly the JAX flat names, e.g.
 `attention.self.query.weight` or `layernorm_before.bias`, so a JAX
 parameter dict loads with `load_state_dict(strict=True)`.  The pre-norm
 layer runs through the fused attention-block and MLP-block ops, which pick
-the CUDA kernel for CUDA tensors and the plain version for CPU tensors.
+the CUDA kernel for CUDA tensors and the plain version for CPU tensors; in
+int8 mode (`quant_mode()`) the layer takes their W8A8 versions and the
+explainer head its fused int8 kernel.
 """
 
 from __future__ import annotations
@@ -16,8 +18,10 @@ import torch
 from torch import nn
 
 from ..ops.attention_block import attention_block
+from ..ops.head_block import explainer_head_block
 from ..ops.mlp_block import mlp_block
-from .common import dense, gelu, init_layer_norm, init_linear, layer_norm
+from .common import (dense, dense_serving, gelu, init_layer_norm, init_linear,
+                     layer_norm, quant_mode)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,23 +110,35 @@ class ViTLayer(nn.Module):
             fill_norm(self.layernorm_before)
         fill_norm(self.layernorm_after)
 
-    def forward(self, h: torch.Tensor, mask: torch.Tensor, n_heads: int,
-                eps: float) -> torch.Tensor:
+    def attend(self, h: torch.Tensor, mask: torch.Tensor, n_heads: int,
+               eps: float, quant: str = "none") -> torch.Tensor:
+        """The attention half: h + OutProj(Attn(LN1?(h)))."""
         sa = self.attention.get_submodule("self")
         ln1 = ((self.layernorm_before.weight, self.layernorm_before.bias, eps)
                if self.has_ln1 else None)
-        h = attention_block(
+        return attention_block(
             h, mask,
             (sa.query.weight, sa.query.bias, sa.key.weight, sa.key.bias,
              sa.value.weight, sa.value.bias,
              self.attention.output.dense.weight,
              self.attention.output.dense.bias),
-            n_heads, "mul", ln=ln1, ln_position="prologue")
-        return mlp_block(
-            h, self.intermediate.dense.weight, self.intermediate.dense.bias,
-            self.output.dense.weight, self.output.dense.bias,
-            ln=(self.layernorm_after.weight, self.layernorm_after.bias, eps),
-            ln_position="prologue")
+            n_heads, "mul", ln=ln1, ln_position="prologue", quant=quant)
+
+    def mlp_weights(self) -> dict:
+        """The MLP half's weights under the keys `mlp_ladder_block` takes."""
+        return {"w1": self.intermediate.dense.weight,
+                "b1": self.intermediate.dense.bias,
+                "w2": self.output.dense.weight, "b2": self.output.dense.bias,
+                "ln_w": self.layernorm_after.weight,
+                "ln_b": self.layernorm_after.bias}
+
+    def forward(self, h: torch.Tensor, mask: torch.Tensor, n_heads: int,
+                eps: float, quant: str = "none") -> torch.Tensor:
+        h = self.attend(h, mask, n_heads, eps, quant)
+        w = self.mlp_weights()
+        return mlp_block(h, w["w1"], w["b1"], w["w2"], w["b2"],
+                         ln=(w["ln_w"], w["ln_b"], eps),
+                         ln_position="prologue", quant=quant)
 
 
 class ViTEmbeddings(nn.Module):
@@ -178,10 +194,19 @@ def vit_embeddings(emb: ViTEmbeddings, cfg: VanillaViTConfig,
 
 
 def explainer_mlp_head(head: nn.ModuleDict, h: torch.Tensor) -> torch.Tensor:
-    """LN (torch default eps 1e-5) -> d1 -> GELU -> d2 -> GELU -> d3.  The
-    JAX package runs these denses outside any Pallas kernel on the fp32
-    serving path, so they stay plain here."""
-    h = layer_norm(h, head["0"].weight, head["0"].bias, 1e-5)
-    h = gelu(dense(h, head["1"].weight, head["1"].bias))
-    h = gelu(dense(h, head["3"].weight, head["3"].bias))
-    return dense(h, head["5"].weight, head["5"].bias)
+    """LN (torch default eps 1e-5) -> d1 -> GELU -> d2 -> GELU -> d3.  In
+    int8 mode, when d1 and d2 are equally wide (`models/vit.py:398-401`),
+    the whole head is the fused int8 head op (K3, `ops/head_block.py`).
+    Otherwise it is plain: LN and `dense_serving` denses (W8A8 in int8
+    mode), as the JAX package runs them outside any Pallas kernel."""
+    ln_w, ln_b = head["0"].weight, head["0"].bias
+    d1, d2, d3 = head["1"], head["3"], head["5"]
+    if quant_mode() == "int8" and h.dim() == 3 \
+            and d1.weight.shape[0] == d2.weight.shape[0]:
+        return explainer_head_block(h, d1.weight, d1.bias, d2.weight,
+                                    d2.bias, d3.weight, d3.bias, ln_w, ln_b,
+                                    1e-5)
+    h = layer_norm(h, ln_w, ln_b, 1e-5)
+    h = gelu(dense_serving(h, d1.weight, d1.bias))
+    h = gelu(dense_serving(h, d2.weight, d2.bias))
+    return dense(h, d3.weight, d3.bias)

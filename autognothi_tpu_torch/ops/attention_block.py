@@ -11,6 +11,16 @@ epilogue adds bias and residual (plus an LN pass for post-norm).  The
 <B, heads, T, T> scores stay on chip; Q/K/V and the context go to device
 memory.  What bounds it: the SIMT fp32 GEMMs (see `csrc/gemm.cu`).
 
+quant="int8" is the W8A8 block instead, replacing
+`_pallas_attention_block_q` (body `_kernel_q`, K1): the (LN'd) input is
+quantized per token, Q/K/V run as int8 products with per-output-channel
+weight codes (of the live weights, at each call), the masked attention
+itself stays in the activation dtype, and the context is re-quantized per
+token for the int8 output projection.  On the H100: the row quantizer
+with the LN prologue, one int8 GEMM for the packed Q/K/V, the same
+attention core, the row quantizer on the context and the int8 GEMM with
+the residual epilogue (`csrc/int8.cu`, `csrc/attention.cu`).
+
 `attention_block` takes the plain version for CPU tensors and the kernel
 for CUDA tensors; there is no other switch.
 """
@@ -23,11 +33,14 @@ from typing import Optional, Tuple
 import torch
 
 from ..kernels.build import LaunchCounter
-from ..kernels.primitives import (EPI_BIAS, EPI_BIAS_RESID, attention_core,
-                                  dispatch, gemm, layernorm_, rowstats)
+from ..kernels.primitives import (EPI_BIAS, EPI_BIAS_RESID, I8_EPI_BIAS,
+                                  I8_EPI_BIAS_RESID, attention_core,
+                                  dispatch, gemm, gemm_i8, layernorm_,
+                                  quant_rows, rowstats)
 from ..models.common import dense, layer_norm
 
 COUNTER = LaunchCounter("attention_block")
+COUNTER_INT8 = LaunchCounter("attention_block_int8")
 
 LN_POSITIONS = ("prologue", "epilogue", "none")
 
@@ -41,22 +54,56 @@ def attention_block_plain(resid, mask_row, wq, bq, wk, bk, wv, bv, wo, bo,
     bias to the residual's dtype before the add."""
     x = (layer_norm(resid, ln_w, ln_b, ln_eps) if ln_position == "prologue"
          else resid)
-    b_sz, t, h = x.shape
+    ctx = _attend(dense(x, wq, bq), dense(x, wk, bk), dense(x, wv, bv),
+                  mask_row, n_heads, mode)
+    out = resid + dense(ctx, wo, bo).to(resid.dtype)
+    if ln_position == "epilogue":
+        out = layer_norm(out, ln_w, ln_b, ln_eps)
+    return out
+
+
+def _attend(q, k, v, mask_row, n_heads: int, mode: str) -> torch.Tensor:
+    """Masked multi-head attention over <B, T, H> projections in the
+    activation dtype (`_heads_attention`): fp32 scores and softmax, the
+    probabilities cast to v's dtype, fp32 P.V cast to q's dtype."""
+    b_sz, t, h = q.shape
     d = h // n_heads
 
     def heads(y):
         return y.reshape(b_sz, t, n_heads, d).transpose(1, 2)
 
-    q, k, v = heads(dense(x, wq, bq)), heads(dense(x, wk, bk)), \
-        heads(dense(x, wv, bv))
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+    scores = torch.matmul(heads(q).float(), heads(k).float().transpose(-1, -2)) \
         * (1.0 / math.sqrt(d))
     m = mask_row.float()[:, None, None, :]
     scores = scores + m if mode == "add" else scores * m
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    ctx = torch.matmul(probs.float(), v.float()).to(x.dtype)
-    ctx = ctx.transpose(1, 2).reshape(b_sz, t, h)
-    out = resid + dense(ctx, wo, bo).to(resid.dtype)
+    ctx = torch.matmul(probs.float(), heads(v).float()).to(q.dtype)
+    return ctx.transpose(1, 2).reshape(b_sz, t, h)
+
+
+def attention_block_int8_plain(resid, mask_row, wq, bq, wk, bk, wv, bv, wo,
+                               bo, ln_w, ln_b, *, n_heads: int, mode: str,
+                               ln_position: str,
+                               ln_eps: float) -> torch.Tensor:
+    """Reference math of K1 (`_kernel_q`): the (LN'd, in x's dtype) input
+    quantized per token; Q/K/V = int8 products + bias, cast to x's dtype;
+    unquantized attention; the context quantized per token; int8 out-proj
+    + bias, cast, + resid; LN?  Weights are cast to x's dtype before they
+    are quantized."""
+    from .mlp_block import _quant_rows, int8_linear, quant_cols
+
+    x = (layer_norm(resid, ln_w, ln_b, ln_eps) if ln_position == "prologue"
+         else resid)
+    xq = _quant_rows(x.float())
+
+    def proj(w, b):
+        return int8_linear(*xq, *quant_cols(w.to(x.dtype)), b).to(x.dtype)
+
+    ctx = _attend(proj(wq, bq), proj(wk, bk), proj(wv, bv), mask_row,
+                  n_heads, mode)
+    out = int8_linear(*_quant_rows(ctx.float()),
+                      *quant_cols(wo.to(x.dtype)), bo)
+    out = resid + out.to(resid.dtype)
     if ln_position == "epilogue":
         out = layer_norm(out, ln_w, ln_b, ln_eps)
     return out
@@ -76,6 +123,28 @@ def attention_block_launch(resid, mask_row, wq, bq, wk, bk, wv, bv, wo, bo,
     qkv = gemm(x, w_qkv, torch.cat([bq, bk, bv]), EPI_BIAS, ln=ln)
     ctx = attention_core(qkv, mask_row, b_sz, t, h, n_heads, mode)
     out = gemm(ctx, wo.to(x.dtype).contiguous(), bo, EPI_BIAS_RESID, resid=x)
+    if ln_position == "epilogue":
+        layernorm_(out, ln_w, ln_b, ln_eps)
+    return out.reshape(b_sz, t, h)
+
+
+def attention_block_int8_launch(resid, mask_row, wq, bq, wk, bk, wv, bv, wo,
+                                bo, ln_w, ln_b, *, n_heads: int, mode: str,
+                                ln_position: str,
+                                ln_eps: float) -> torch.Tensor:
+    """The CUDA version of K1 (launches only; no counting, no autograd)."""
+    b_sz, t, h = resid.shape
+    x = resid.contiguous().reshape(b_sz * t, h)
+    ln = (ln_w, ln_b, ln_eps) if ln_position == "prologue" else None
+    # per-output-channel codes: quantizing the stacked rows is quantizing
+    # each projection's own
+    w_qkv = torch.cat([wq, wk, wv]).to(x.dtype)
+    qkv = gemm_i8(*quant_rows(x, ln=ln), *quant_rows(w_qkv, weight=True),
+                  torch.cat([bq, bk, bv]), I8_EPI_BIAS, x.dtype)
+    ctx = attention_core(qkv, mask_row, b_sz, t, h, n_heads, mode)
+    out = gemm_i8(*quant_rows(ctx),
+                  *quant_rows(wo.to(x.dtype).contiguous(), weight=True), bo,
+                  I8_EPI_BIAS_RESID, x.dtype, resid=x)
     if ln_position == "epilogue":
         layernorm_(out, ln_w, ln_b, ln_eps)
     return out.reshape(b_sz, t, h)
@@ -108,11 +177,18 @@ def attention_block_args(
     return (resid, mask_row, *weights, ln_w, ln_b), static
 
 
-def attention_block(*args, **kwargs) -> torch.Tensor:
+def attention_block(*args, quant: str = "none", **kwargs) -> torch.Tensor:
     """prologue: resid + OutProj(Attn(LN(resid)));
     epilogue: LN(resid + OutProj(Attn(resid)));
     none:     resid + OutProj(Attn(resid)).
-    Arguments as `attention_block_args`."""
+    Arguments as `attention_block_args`; quant="int8" is the W8A8 block
+    (K1), whose gradient is the unquantized math's."""
     tensors, static = attention_block_args(*args, **kwargs)
+    if quant == "int8":
+        return dispatch(attention_block_int8_launch,
+                        attention_block_int8_plain, COUNTER_INT8, tensors,
+                        static, grad=attention_block_plain)
+    if quant != "none":
+        raise ValueError(f"unknown quant mode {quant!r}")
     return dispatch(attention_block_launch, attention_block_plain, COUNTER,
                     tensors, static)

@@ -14,7 +14,16 @@ work in P.V.
 
 The CUDA version supports what the ViT path needs, the "mul" mask with
 pre-norm; it raises on "add" / post-norm (BERT, a later slice).  The plain
-version covers both.  `ladder_block` takes the plain version for CPU
+version covers both.
+
+`mlp_ladder_block` is the int8 serving step (K2), replacing
+`_pallas_mlp_ladder_q` (body `_kernel_mlp_ladder_q`): the trunk's
+pre-norm W8A8 MLP block writes the fresh layer output h once, and every
+branch's ladder update above reads it, unquantized.  On the H100 that is
+the K4 launches (`ops/mlp_block.py`) followed by this module's ladder
+launches on h.
+
+`ladder_block` and `mlp_ladder_block` take the plain version for CPU
 tensors and the kernel for CUDA tensors; there is no other switch.
 """
 
@@ -29,9 +38,12 @@ from ..kernels.build import LaunchCounter
 from ..kernels.primitives import EPI_BIAS_GELU_RESID, dispatch, gemm
 from ..models.common import gelu
 from .attention_block import attention_block_launch, attention_block_plain
-from .mlp_block import mlp_block_launch, mlp_block_plain
+from .mlp_block import (mlp_block_int8_launch, mlp_block_int8_plain,
+                        mlp_block_launch, mlp_block_plain)
 
 COUNTER = LaunchCounter("ladder_block")
+COUNTER_MLP_LADDER = LaunchCounter("mlp_ladder_block")
+TRUNK_MLP_KEYS = ("w1", "b1", "w2", "b2", "ln_w", "ln_b")
 
 BRANCH_KEYS = ("map_w", "map_b", "ln1_w", "ln1_b", "wq", "bq", "wk", "bk",
                "wv", "bv", "wo", "bo", "ln2_w", "ln2_b", "w1", "b1", "w2",
@@ -123,3 +135,67 @@ def ladder_block(*args, **kwargs) -> Tuple[torch.Tensor, ...]:
     tensors, static = ladder_block_args(*args, **kwargs)
     return dispatch(ladder_block_launch, ladder_block_plain, COUNTER,
                     tensors, static)
+
+
+# ------------------------------------------------- trunk int8 MLP + ladder
+
+
+def _mlp_ladder(mlp, ladder, h_attn, mask_row, w1, b1, w2, b2, ln_w, ln_b,
+                *flat, n_branches, n_heads, mode, ln_eps):
+    h = mlp(h_attn, w1, b1, w2, b2, ln_w, ln_b, ln_position="prologue",
+            ln_eps=ln_eps)
+    return (h, *ladder(h, mask_row, *flat, n_branches=n_branches,
+                       n_heads=n_heads, mode=mode, pre_norm=True,
+                       ln_eps=ln_eps))
+
+
+def mlp_ladder_block_plain(h_attn, mask_row, *args, **static):
+    """Reference math of K2: the int8 trunk MLP block (pre-norm), then every
+    branch's unquantized ladder update from the fresh h -> (h, *sides)."""
+    return _mlp_ladder(mlp_block_int8_plain, ladder_block_plain, h_attn,
+                       mask_row, *args, **static)
+
+
+def mlp_ladder_block_float(h_attn, mask_row, *args, **static):
+    """The same step with an unquantized trunk MLP (`_xla_mlp_ladder`, the
+    gradient of K2)."""
+    return _mlp_ladder(mlp_block_plain, ladder_block_plain, h_attn,
+                       mask_row, *args, **static)
+
+
+def mlp_ladder_block_launch(h_attn, mask_row, *args, **static):
+    """The CUDA version of K2 (launches only; no counting, no autograd):
+    h is written once, by the W2 GEMM, and read by every branch."""
+    return _mlp_ladder(mlp_block_int8_launch, ladder_block_launch, h_attn,
+                       mask_row, *args, **static)
+
+
+def mlp_ladder_block_args(
+    h_attn: torch.Tensor,             # <B, T, hidden> trunk attention out
+    sides: Sequence[torch.Tensor],    # per-branch <B, T, s_hidden>
+    mask_row: torch.Tensor,           # <B, T>
+    trunk_mlp: Dict[str, torch.Tensor],  # TRUNK_MLP_KEYS, torch layout
+    branch_weights: Sequence[Dict[str, torch.Tensor]],
+    n_heads: int,
+    mode: str,
+    ln_eps: float,
+):
+    """`mlp_ladder_block`'s arguments -> (tensors, static keywords) of its
+    plain version and its kernel.  The branch weights are cast to h's
+    dtype as the JAX op casts them (the MLP ops cast the trunk's w1/w2)."""
+    (h, mask_row, *flat), static = ladder_block_args(
+        h_attn, sides, mask_row, branch_weights, n_heads, mode, True, ln_eps)
+    static.pop("pre_norm")
+    trunk = [trunk_mlp[k] for k in TRUNK_MLP_KEYS]
+    return (h, mask_row, *trunk, *flat), static
+
+
+def mlp_ladder_block(*args, **kwargs) -> Tuple[torch.Tensor, ...]:
+    """-> (h_next, *updated sides): the trunk's pre-norm int8 MLP block
+    fused with the full ladder step (W8A8 trunk products; ladders in the
+    activation dtype); the gradient is the unquantized step's.  Arguments
+    as `mlp_ladder_block_args`."""
+    tensors, static = mlp_ladder_block_args(*args, **kwargs)
+    return dispatch(mlp_ladder_block_launch, mlp_ladder_block_plain,
+                    COUNTER_MLP_LADDER, tensors, static,
+                    grad=mlp_ladder_block_float)

@@ -144,3 +144,184 @@ def test_gemm_tiles_and_epilogues(dev, m, n, dtype):
             got = kp.gemm(a, w, bias, epi, ln=ln,
                           resid=resid if epi >= kp.EPI_BIAS_RESID else None)
             _close(got, want, dtype)
+
+
+# ------------------------------------------------------------- int8 path
+# The int8 ops against their plain int8 versions.  Both quantize the same
+# values with the same recipe, but an input that differs in its last bit
+# (LayerNorm and softmax sums in another order) can fall on the other side
+# of a code boundary now and then; each such flip moves its row by one
+# quantization step (~1e-3 here), so the bound allows a few steps: fp32
+# 1e-2 x max(1, max|ref|); bf16 as the float ops.
+TOL_INT8 = {torch.float32: 1e-2, torch.bfloat16: 3e-2}
+
+
+def _close_int8(got, want, dtype):
+    err = (got.float() - want.float()).abs().max().item()
+    bound = TOL_INT8[dtype] * max(1.0, want.float().abs().max().item())
+    assert torch.isfinite(got.float()).all() and err <= bound, (err, bound)
+
+
+def test_quant_rows_kernel_rounds_ties_to_even_and_divides(dev):
+    from autognothi_tpu_torch.kernels import primitives as kp
+
+    ties = torch.tensor([[127.0, 2.5, -3.5, 0.5, 1.5, -0.5, -126.5]],
+                        device=dev)
+    want = [127, 2, -4, 0, 2, 0, -126]
+    for weight in (False, True):  # amax 127: both scales are exactly 1
+        q, s = kp.quant_rows(ties, weight=weight)
+        assert q.tolist() == [want] and s.tolist() == [1.0]
+    # 127 / amax is one correctly rounded division, as jnp's
+    q, _ = kp.quant_rows(torch.tensor([[5.988135, 0.070726]], device=dev))
+    assert q.tolist() == [[127, 1]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_rows_kernel_matches_plain(dev, dtype):
+    from autognothi_tpu_torch.kernels import primitives as kp
+    from autognothi_tpu_torch.models.common import layer_norm
+    from autognothi_tpu_torch.ops.mlp_block import _quant_rows, quant_cols
+
+    g = torch.Generator().manual_seed(4)
+    x = _rand(g, dev, 301, 768, scale=2.0).to(dtype)
+    x[5] = 0  # an all-zero row: scale 1e-12 / 127, codes 0
+    q, s = kp.quant_rows(x)
+    wq, ws = _quant_rows(x.float())
+    assert torch.equal(q, wq) and torch.equal(s, ws[:, 0])
+    q, s = kp.quant_rows(x, weight=True)
+    wq, ws = quant_cols(x)
+    assert torch.equal(q, wq) and torch.equal(s, ws)
+    ln = (1 + _rand(g, dev, 768, scale=0.1), _rand(g, dev, 768, scale=0.1))
+    q, s = kp.quant_rows(x, ln=(*ln, 1e-12))
+    wq, ws = _quant_rows(layer_norm(x, *ln, 1e-12).float())
+    # the LN sums run in another order: a code may move by one, rarely, and
+    # in bf16 a row's largest value may round to the neighbouring bf16
+    diff = (q.int() - wq.int()).abs()
+    assert diff.max() <= 1 and diff.float().mean() < 1e-3
+    torch.testing.assert_close(
+        s, ws[:, 0], rtol=1e-5 if dtype == torch.float32 else 8e-3, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,k", [(4099, 768, 3072), (300, 200, 96),
+                                   (37, 96, 384)])
+def test_gemm_i8_tiles_and_epilogues(dev, m, n, k, dtype):
+    """Both tile variants and every epilogue against the exact int8 product
+    of the plain version; one row and column of 127s drive the int32 sum
+    past 2^24 (at K=3072), where fp32 accumulation would round."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+    from autognothi_tpu_torch.ops.mlp_block import int8_linear
+
+    g = torch.Generator().manual_seed(5)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    a[0], w[0] = 127, 127
+    a, w = a.to(dev), w.to(dev)
+    sa, sw = _rand(g, dev, m).abs() * 1e-2, _rand(g, dev, n).abs() * 1e-3
+    bias, resid = _rand(g, dev, n), _rand(g, dev, m, n).to(dtype)
+    y = int8_linear(a, sa[:, None], w, sw, bias)
+    gelu = torch.nn.functional.gelu
+    cases = {kp.I8_EPI_BIAS: y.to(dtype),
+             kp.I8_EPI_BIAS_RESID: resid + y.to(dtype),
+             kp.I8_EPI_GELU_F32: gelu(y),
+             kp.I8_EPI_GELU: gelu(y).to(dtype)}
+    for epi, want in cases.items():
+        got = kp.gemm_i8(a, sa, w, sw, bias, epi, dtype,
+                         resid=resid if epi == kp.I8_EPI_BIAS_RESID else None)
+        assert got.dtype == want.dtype
+        # same fp32 epilogue on an exact sum: one ulp of the output dtype
+        # at most (GELU's erf differs in its last bits)
+        ulp = 2e-6 if got.dtype == torch.float32 else 8e-3
+        bound = ulp * max(1.0, want.float().abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= bound
+    with pytest.raises(ValueError):  # K must be a multiple of 16
+        kp.gemm_i8(a[:, :k - 8], sa, w[:, :k - 8].contiguous(), sw, bias,
+                   kp.I8_EPI_BIAS, dtype)
+
+
+@pytest.mark.parametrize("random_mask", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_attention_and_mlp_block_kernels(dev, dtype, random_mask):
+    from autognothi_tpu_torch.ops import attention_block as ab
+    from autognothi_tpu_torch.ops import mlp_block as mb
+
+    g = torch.Generator().manual_seed(6)
+    b, t, h, inter = 3, 37, 64, 256
+    resid = _rand(g, dev, b, t, h).to(dtype)
+    ws = tuple(_rand(g, dev, *s, scale=0.1) for s in [(h, h), (h,)] * 4)
+    ln = (1 + _rand(g, dev, h, scale=0.1), _rand(g, dev, h, scale=0.1), 1e-12)
+    mask = _mask(g, dev, b, t, random_mask)
+    w1, b1 = _rand(g, dev, inter, h, scale=0.1), _rand(g, dev, inter)
+    w2, b2 = _rand(g, dev, h, inter, scale=0.05), _rand(g, dev, h)
+    for position in ("prologue", "epilogue", "none"):
+        before = ab.COUNTER_INT8.count
+        got = ab.attention_block(resid, mask, ws, 4, "mul", ln=ln,
+                                 ln_position=position, quant="int8")
+        assert ab.COUNTER_INT8.count == before + 1
+        want = ab.attention_block_int8_plain(
+            resid, mask, *ws, ln[0], ln[1], n_heads=4, mode="mul",
+            ln_position=position, ln_eps=1e-12)
+        _close_int8(got, want, dtype)
+        before = mb.COUNTER_INT8.count
+        got = mb.mlp_block(resid, w1, b1, w2, b2, ln=ln, ln_position=position,
+                           quant="int8")
+        assert mb.COUNTER_INT8.count == before + 1
+        want = mb.mlp_block_int8_plain(resid, w1, b1, w2, b2, ln[0], ln[1],
+                                       ln_position=position, ln_eps=1e-12)
+        _close_int8(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_ladder_block_kernel_and_backward(dev, dtype):
+    from autognothi_tpu_torch.ops import ladder_block as lb
+
+    g = torch.Generator().manual_seed(7)
+    b, t, h, s, inter = 2, 21, 64, 32, 256
+    hid = _rand(g, dev, b, t, h).to(dtype)
+    sides = [_rand(g, dev, b, t, s).to(dtype) for _ in range(2)]
+    shapes = {"map_w": (s, h), "w1": (4 * s, s), "b1": (4 * s,),
+              "w2": (s, 4 * s)}
+    branches = [{k: _rand(g, dev, *shapes.get(k, (s, s) if k.startswith("w")
+                                              else (s,)), scale=0.1)
+                 for k in lb.BRANCH_KEYS} for _ in range(2)]
+    trunk = {"w1": _rand(g, dev, inter, h, scale=0.1),
+             "b1": _rand(g, dev, inter),
+             "w2": _rand(g, dev, h, inter, scale=0.05),
+             "b2": _rand(g, dev, h),
+             "ln_w": 1 + _rand(g, dev, h, scale=0.1),
+             "ln_b": _rand(g, dev, h, scale=0.1)}
+    mask = _mask(g, dev, b, t, True)
+    before = lb.COUNTER_MLP_LADDER.count
+    got = lb.mlp_ladder_block(hid, sides, mask, trunk, branches, 4, "mul",
+                              1e-12)
+    assert lb.COUNTER_MLP_LADDER.count == before + 1 and len(got) == 3
+    tensors, static = lb.mlp_ladder_block_args(hid, sides, mask, trunk,
+                                               branches, 4, "mul", 1e-12)
+    for x, y in zip(got, lb.mlp_ladder_block_plain(*tensors, **static)):
+        _close_int8(x, y, dtype)
+    if dtype == torch.float32:  # backward = autograd through the float step
+        x = hid.clone().requires_grad_(True)
+        out = lb.mlp_ladder_block(x, sides, mask, trunk, branches, 4, "mul",
+                                  1e-12)
+        sum(o.square().sum() for o in out).backward()
+        assert torch.isfinite(x.grad).all() and x.grad.abs().max() > 0
+
+
+@pytest.mark.parametrize("has_ln", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_block_kernel(dev, dtype, has_ln):
+    from autognothi_tpu_torch.ops import head_block as hb
+
+    g = torch.Generator().manual_seed(8)
+    b, t, h_in, inter, c = 2, 45, 32, 128, 10
+    x = _rand(g, dev, b, t, h_in).to(dtype)
+    ws = (_rand(g, dev, inter, h_in, scale=0.2), _rand(g, dev, inter),
+          _rand(g, dev, inter, inter, scale=0.1), _rand(g, dev, inter),
+          _rand(g, dev, c, inter, scale=0.1), _rand(g, dev, c))
+    ln = ((1 + _rand(g, dev, h_in, scale=0.1), _rand(g, dev, h_in, scale=0.1))
+          if has_ln else (None, None))
+    before = hb.COUNTER.count
+    got = hb.explainer_head_block(x, *ws, *ln, 1e-5)
+    assert hb.COUNTER.count == before + 1 and got.shape == (b, t, c)
+    tensors, static = hb.explainer_head_block_args(x, *ws, *ln, 1e-5)
+    _close_int8(got, hb.head_int8_plain(*tensors, **static), dtype)
