@@ -1,9 +1,13 @@
 """Command shell of the port: the same verbs and flags as
-`autognothi_tpu/cli.py`.  `serve` runs; the other verbs are not ported yet
-and raise.
+`autognothi_tpu/cli.py`.  `serve` and `train_explainer` run; the other
+verbs are not ported yet and raise.
 
     python -m autognothi_tpu_torch serve <experiment_dir> --device cuda \\
         --port 8321 --batch-size 8 --window 0.0
+    python -m autognothi_tpu_torch train_explainer <experiment_dir> \\
+        --device cuda
+
+A trainer stopped by SIGTERM at a batch boundary exits with 75.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ NOT_PORTED = (
     "preload_all", "pretrain_classifier", "estimate_train_time",
     "conv_pretrained_classifier", "train_classifier",
     "conv_classifier_surrogate", "train_surrogate",
-    "conv_surrogate_explainer", "train_explainer", "conv_explainer_final",
+    "conv_surrogate_explainer", "conv_explainer_final",
     "train_all", "measure_accuracy", "measure_faithfulness",
     "measure_cls_acc", "measure_performance", "measure_train_resources",
     "measure_branches_cka", "measure_dual_task_similarity", "measure_all",
@@ -54,18 +58,34 @@ def build_parser() -> argparse.ArgumentParser:
                                     "images_u8 payloads")
     p.add_argument("--artifact", default=None, type=pathlib.Path,
                    help="an export artifact (not ported yet)")
+
+    p = sub.add_parser("train_explainer")
+    p.add_argument("model_path", type=pathlib.Path)
+    p.add_argument("--device", default="cuda", type=str,
+                   help="cuda (the default; raises without a card) or cpu")
     return parser
 
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
-    if args.command != "serve":
+    if args.command not in ("serve", "train_explainer"):
         raise NotImplementedError(
             f"command {args.command!r} is not ported yet")
     from .pipeline.env import ExpEnv
-    from .pipeline.serve import serve
+    from .pipeline.training import INTERRUPT_EXIT_CODE, TrainingInterrupted
 
     with ExpEnv(args.model_path) as env:
+        if args.command == "train_explainer":
+            from .pipeline.train_explainer import train_explainer
+
+            try:
+                train_explainer(env, device=args.device)
+            except TrainingInterrupted as err:
+                print(f"[[[ interrupted: {err} ]]]", file=sys.stderr)
+                raise SystemExit(INTERRUPT_EXIT_CODE) from err
+            return
+        from .pipeline.serve import serve
+
         serve(env, args.host, args.port, args.batch_size,
               window_s=args.window_s,
               u8_dequant=(args.u8_scale, args.u8_offset),

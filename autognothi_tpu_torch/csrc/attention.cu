@@ -1,8 +1,15 @@
-// Masked multi-head attention core of the fused attention and ladder blocks
-// (the in-kernel attention of autognothi_tpu/ops/attention_block.py:_kernel,
-// `_heads_attention`, and of autognothi_tpu/ops/ladder_block.py:_kernel,
-// `_branch_math`).  It reads the packed Q/K/V projections <B*T, 3H> that the
-// GEMM wrote and writes the head-merged context <B*T, H>.
+// Masked multi-head attention core, the one attention kernel of the port:
+// - inside the fused attention and ladder blocks (the in-kernel attention
+//   of autognothi_tpu/ops/attention_block.py:_kernel, `_heads_attention`,
+//   and of autognothi_tpu/ops/ladder_block.py:_kernel, `_branch_math`),
+//   reading the packed Q/K/V projections <B*T, 3H> that the GEMM wrote and
+//   writing the head-merged context <B*T, H>;
+// - standalone, as the split-head masked attention of
+//   autognothi_tpu/ops/flash_attention.py:_masked_attention_impl (K9) on
+//   <N, h, T, D>, and once per branch as the ladder attention of
+//   autognothi_tpu/ops/ladder_block.py:_make_attn_fn (K10) on <B, T, S>.
+// Q, K, V and the output are separate pointers, each with its own (batch,
+// head, row) element strides; rows are contiguous.
 //
 // One block of 8 warps per (query tile of 64, head, image).  The image's K
 // and V for that head are staged in shared memory as fp32 (K rows padded to
@@ -32,11 +39,17 @@ constexpr int kAttQT = 64;  // queries per block
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
+// Where q, k, v and the output lie: element strides of the batch, head and
+// row dimensions of each <N, heads, T, D> view (rows contiguous).
+struct HeadViews {
+  long long sb[4], sh[4], st[4];  // [q, k, v, out]
+};
+
 template <typename T, bool MUL, int MAXJ, int D>
 __global__ void __launch_bounds__(kAttWarps * 32)
-    attention_kernel(const T* __restrict__ qkv, int ld,
-                     const float* __restrict__ mask, T* __restrict__ ctx,
-                     int ldc, int Tn, int H) {
+    attention_kernel(const T* __restrict__ qp, const T* __restrict__ kp,
+                     const T* __restrict__ vp, const float* __restrict__ mask,
+                     T* __restrict__ op, HeadViews views, int Tn) {
   constexpr int KS = D + 4;  // K row stride: 16-byte rows, no bank conflicts
   extern __shared__ float4 smem4[];
   const int TP = round4(Tn);  // rows padded to whole float4s of p
@@ -47,15 +60,18 @@ __global__ void __launch_bounds__(kAttWarps * 32)
 
   const int b = blockIdx.z, head = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* base = qkv + (size_t)b * Tn * ld + head * D;
+  const T* qb = qp + b * views.sb[0] + head * views.sh[0];
+  const T* kb = kp + b * views.sb[1] + head * views.sh[1];
+  const T* vb = vp + b * views.sb[2] + head * views.sh[2];
+  T* ob = op + b * views.sb[3] + head * views.sh[3];
+  const long long kst = views.st[1], vst = views.st[2];
 
   for (int idx = threadIdx.x; idx < TP * D; idx += blockDim.x) {
     const int j = idx / D, c = idx % D;
     float k = 0.f, v = 0.f;
     if (j < Tn) {
-      const T* rowp = base + (size_t)j * ld + c;
-      k = to_f(rowp[H]);
-      v = to_f(rowp[2 * H]);
+      k = to_f(kb[j * kst + c]);
+      v = to_f(vb[j * vst + c]);
     }
     Ks[j * KS + c] = k;
     Vs[j * D + c] = v;
@@ -69,7 +85,7 @@ __global__ void __launch_bounds__(kAttWarps * 32)
   const int q_end = min(Tn, (int)(blockIdx.x + 1) * kAttQT);
   for (int i = blockIdx.x * kAttQT + warp; i < q_end; i += kAttWarps) {
     float q[D];
-    const T* qrow = base + (size_t)i * ld;
+    const T* qrow = qb + i * views.st[0];
 #pragma unroll
     for (int c = 0; c < D; ++c) q[c] = to_f(qrow[c]);
 
@@ -116,7 +132,7 @@ __global__ void __launch_bounds__(kAttWarps * 32)
     }
     __syncwarp();
 
-    T* out = ctx + ((size_t)b * Tn + i) * ldc + head * D;
+    T* out = ob + i * views.st[3];
     if constexpr (D >= 32) {
       constexpr int CPL = D / 32;  // output columns per lane
       float acc[CPL];
@@ -147,41 +163,45 @@ __global__ void __launch_bounds__(kAttWarps * 32)
   }
 }
 
+struct AttnCall {
+  const void *q, *k, *v;
+  const float* mask;
+  void* out;
+  HeadViews views;
+  int N, Tn, nh;
+  size_t smem;
+  cudaStream_t stream;
+};
+
 template <typename T, bool MUL, int MAXJ, int D>
-static int launch_attention(const void* qkv, int ld, const float* mask,
-                            void* ctx, int ldc, int B, int Tn, int H, int nh,
-                            size_t smem, cudaStream_t stream) {
+static int launch_attention(const AttnCall& a) {
   auto kernel = attention_kernel<T, MUL, MAXJ, D>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Tn + kAttQT - 1) / kAttQT, nh, B);
-  kernel<<<grid, kAttWarps * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), ld, mask, static_cast<T*>(ctx), ldc, Tn, H);
+  dim3 grid((a.Tn + kAttQT - 1) / kAttQT, a.nh, a.N);
+  kernel<<<grid, kAttWarps * 32, a.smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.mask, static_cast<T*>(a.out), a.views,
+      a.Tn);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool MUL, int MAXJ>
-static int pick_d(int d, const void* qkv, int ld, const float* mask,
-                  void* ctx, int ldc, int B, int Tn, int H, int nh,
-                  size_t smem, cudaStream_t s) {
+static int pick_d(int d, const AttnCall& a) {
   switch (d) {
-    case 8: return launch_attention<T, MUL, MAXJ, 8>(qkv, ld, mask, ctx, ldc, B, Tn, H, nh, smem, s);
-    case 16: return launch_attention<T, MUL, MAXJ, 16>(qkv, ld, mask, ctx, ldc, B, Tn, H, nh, smem, s);
-    case 32: return launch_attention<T, MUL, MAXJ, 32>(qkv, ld, mask, ctx, ldc, B, Tn, H, nh, smem, s);
-    case 64: return launch_attention<T, MUL, MAXJ, 64>(qkv, ld, mask, ctx, ldc, B, Tn, H, nh, smem, s);
+    case 8: return launch_attention<T, MUL, MAXJ, 8>(a);
+    case 16: return launch_attention<T, MUL, MAXJ, 16>(a);
+    case 32: return launch_attention<T, MUL, MAXJ, 32>(a);
+    case 64: return launch_attention<T, MUL, MAXJ, 64>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename T, bool MUL>
-static int pick_maxj(int d, const void* qkv, int ld, const float* mask,
-                     void* ctx, int ldc, int B, int Tn, int H, int nh,
-                     size_t smem, cudaStream_t s) {
-  if (Tn <= 32 * 8)
-    return pick_d<T, MUL, 8>(d, qkv, ld, mask, ctx, ldc, B, Tn, H, nh, smem, s);
-  if (Tn <= 32 * 16)
-    return pick_d<T, MUL, 16>(d, qkv, ld, mask, ctx, ldc, B, Tn, H, nh, smem, s);
+static int pick_maxj(int d, const AttnCall& a) {
+  if (a.Tn <= 32 * 8) return pick_d<T, MUL, 8>(d, a);
+  if (a.Tn <= 32 * 16) return pick_d<T, MUL, 16>(d, a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -202,24 +222,34 @@ extern "C" int ag_attention_supports(int Tn, int d) {
          Tn <= 32 * 16;
 }
 
-extern "C" int ag_attention(int dtype, int mul, const void* qkv, int ld,
-                            const void* mask, void* ctx, int ldc, int B,
-                            int Tn, int H, int nh, void* stream) {
-  if (nh <= 0 || H % nh != 0) return (int)cudaErrorInvalidValue;
-  const int d = H / nh;
-  if (!ag_attention_supports(Tn, d)) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)ag_attention_smem_bytes(Tn, d);
-  const float* m = static_cast<const float*>(mask);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// q, k, v, out: <N, nh, Tn, d> views; strides[12] holds the (batch, head,
+// row) element strides of q, k, v and out, in that order.
+extern "C" int ag_attention(int dtype, int mul, const void* q, const void* k,
+                            const void* v, const long long* strides,
+                            const void* mask, void* out, int N, int Tn,
+                            int nh, int d, void* stream) {
+  if (nh <= 0 || N <= 0 || !ag_attention_supports(Tn, d))
+    return (int)cudaErrorInvalidValue;
+  AttnCall a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.mask = static_cast<const float*>(mask);
+  a.out = out;
+  for (int i = 0; i < 4; ++i) {
+    a.views.sb[i] = strides[3 * i];
+    a.views.sh[i] = strides[3 * i + 1];
+    a.views.st[i] = strides[3 * i + 2];
+  }
+  a.N = N;
+  a.Tn = Tn;
+  a.nh = nh;
+  a.smem = (size_t)ag_attention_smem_bytes(Tn, d);
+  a.stream = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return mul ? pick_maxj<float, true>(d, qkv, ld, m, ctx, ldc, B, Tn, H,
-                                        nh, smem, s)
-               : pick_maxj<float, false>(d, qkv, ld, m, ctx, ldc, B, Tn, H,
-                                         nh, smem, s);
+    return mul ? pick_maxj<float, true>(d, a) : pick_maxj<float, false>(d, a);
   if (dtype == kBF16)
-    return mul ? pick_maxj<__nv_bfloat16, true>(d, qkv, ld, m, ctx, ldc, B,
-                                                Tn, H, nh, smem, s)
-               : pick_maxj<__nv_bfloat16, false>(d, qkv, ld, m, ctx, ldc, B,
-                                                 Tn, H, nh, smem, s);
+    return mul ? pick_maxj<__nv_bfloat16, true>(d, a)
+               : pick_maxj<__nv_bfloat16, false>(d, a);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,6 +9,7 @@ error.  Nothing here synchronises.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -193,33 +194,61 @@ def gemm_i8(a: torch.Tensor, a_scale: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask_row: torch.Tensor, mode: str,
+                    out: torch.Tensor) -> torch.Tensor:
+    """The masked attention core on split-head views: q, k, v and out are
+    <N, h, T, D> CUDA tensors of one dtype with any (batch, head, row)
+    strides and contiguous rows; mask_row <N, T> is a 0/1 row ("mul") or
+    an additive bias ("add").  Writes out and returns it."""
+    if mode not in ("mul", "add"):
+        raise ValueError(f"unknown mask mode {mode!r}")
+    n, nh, t, d = q.shape
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if not x.is_cuda or x.shape != (n, nh, t, d) or x.stride(3) != 1 \
+                or x.dtype != q.dtype:
+            raise ValueError(
+                f"{name} must be a CUDA {q.dtype} <{n}, {nh}, {t}, {d}> "
+                f"view with contiguous rows, got {x.dtype} "
+                f"{tuple(x.shape)} strides {x.stride()}")
+    lib = load()
+    if not lib.ag_attention_supports(t, d):
+        raise ValueError(f"attention core is built for head dims 8/16/32/64 "
+                         f"and T <= 512, got d={d}, T={t}")
+    smem = lib.ag_attention_smem_bytes(t, d)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"attention core needs {smem} B of shared memory "
+                         f"at T={t}, d={d}; a block has {MAX_SMEM_BYTES}")
+    if n > 65535 or nh > 65535:
+        raise ValueError(f"the core's grid takes at most 65535 images and "
+                         f"heads, got {n} x {nh}")
+    mask32 = mask_row.to(device=q.device, dtype=torch.float32).contiguous()
+    if mask32.shape != (n, t):
+        raise ValueError(f"mask must be ({n}, {t}), got {tuple(mask32.shape)}")
+    strides = (ctypes.c_longlong * 12)(
+        *(s for x in (q, k, v, out) for s in x.stride()[:3]))
+    _check(lib.ag_attention(_dtype_code(q), int(mode == "mul"), q.data_ptr(),
+                            k.data_ptr(), v.data_ptr(), strides,
+                            mask32.data_ptr(), out.data_ptr(), n, t, nh, d,
+                            _stream()), "ag_attention")
+    return out
+
+
 def attention_core(qkv: torch.Tensor, mask_row: torch.Tensor, b: int, t: int,
                    h: int, n_heads: int, mode: str) -> torch.Tensor:
     """Packed projections <B*T, 3H> (q | k | v) + mask <B, T> -> the
     head-merged masked-attention context <B*T, H>."""
-    if mode not in ("mul", "add"):
-        raise ValueError(f"unknown mask mode {mode!r}")
     ld = _rows(qkv, "qkv")
     if qkv.shape != (b * t, 3 * h) or h % n_heads:
         raise ValueError(f"qkv must be ({b * t}, {3 * h}) with H divisible "
                          f"by {n_heads} heads, got {tuple(qkv.shape)}")
-    lib = load()
-    if not lib.ag_attention_supports(t, h // n_heads):
-        raise ValueError(f"attention core is built for head dims 8/16/32/64 "
-                         f"and T <= 512, got d={h // n_heads}, T={t}")
-    smem = lib.ag_attention_smem_bytes(t, h // n_heads)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"attention core needs {smem} B of shared memory "
-                         f"at T={t}, d={h // n_heads}; a block has "
-                         f"{MAX_SMEM_BYTES}")
-    mask32 = mask_row.to(device=qkv.device, dtype=torch.float32).contiguous()
-    if mask32.shape != (b, t):
-        raise ValueError(f"mask must be ({b}, {t}), got {tuple(mask32.shape)}")
+    d = h // n_heads
+    q, k, v = (qkv.as_strided((b, n_heads, t, d), (t * ld, d, ld, 1),
+                              qkv.storage_offset() + part * h)
+               for part in range(3))
     ctx = torch.empty((b * t, h), device=qkv.device, dtype=qkv.dtype)
-    _check(lib.ag_attention(_dtype_code(qkv), int(mode == "mul"),
-                            qkv.data_ptr(), ld, mask32.data_ptr(),
-                            ctx.data_ptr(), h, b, t, h, n_heads, _stream()),
-           "ag_attention")
+    attention_heads(q, k, v, mask_row, mode,
+                    ctx.view(b, t, n_heads, d).transpose(1, 2))
     return ctx
 
 
@@ -260,10 +289,16 @@ def dispatch(launch: Callable, plain: Callable, counter,
 
     `grad`, when given, is the function whose autograd is the gradient on
     both devices (the int8 ops: the unquantized math, as the JAX package's
-    custom_vjp backward; rounding would zero the gradients)."""
+    custom_vjp backward; rounding would zero the gradients).
+
+    Where no gradient is wanted (grad mode off, as in a no-grad teacher
+    sweep, or no input requiring one) the call skips the autograd
+    function, so no input is kept for a backward."""
     device = tensors[0].device
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in tensors)
     if device.type == "cpu":
-        if grad is None:
+        if grad is None or not needs_grad:
             return plain(*tensors, **static)
         return _KernelFn.apply(functools.partial(plain, **static),
                                functools.partial(grad, **static), *tensors)
@@ -275,5 +310,7 @@ def dispatch(launch: Callable, plain: Callable, counter,
         counter.add()
         return out
 
+    if not needs_grad:
+        return kernel(*tensors)
     return _KernelFn.apply(kernel, functools.partial(grad or plain, **static),
                            *tensors)

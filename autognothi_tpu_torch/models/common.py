@@ -19,9 +19,12 @@ import torch.nn.functional as F
 __all__ = [
     "dense",
     "dense_serving",
+    "pallas_mode",
     "quant_mode",
+    "quant_override",
     "layer_norm",
     "gelu",
+    "dropout",
     "split_heads",
     "merge_heads",
     "self_attention",
@@ -42,15 +45,57 @@ def dense(x: torch.Tensor, w: torch.Tensor,
     return y.to(x.dtype)
 
 
+def pallas_mode() -> str:
+    """The JAX package's AUTOGNOTHI_PALLAS, read per call: which arithmetic
+    the model runs, never which device.
+    "auto" (default) and "2": the fused block ops (attention block, MLP
+        block, ladder; their int8 versions in int8 mode);
+    "1": unfused layers whose `self_attention` runs the standalone masked
+        attention op (K9, `ops/flash_attention.py`) where there is a mask
+        and no active dropout;
+    "0": the plain math everywhere, the numerical reference.
+    Each op takes its plain version for CPU tensors and its kernel for CUDA
+    tensors, in every mode."""
+    flag = os.environ.get("AUTOGNOTHI_PALLAS", "auto")
+    if flag in ("0", "1"):
+        return flag
+    return "2"
+
+
+_QUANT_OVERRIDE: list = []
+
+
 def quant_mode() -> str:
-    """AUTOGNOTHI_INT8=1 switches the serving path to W8A8: the fused ops
-    run their int8 versions (per-output-channel int8 weights, per-token
-    int8 activations, int32 accumulation).  Read per call, as the JAX
-    package reads it.  The env var chooses the arithmetic, never the
-    device: CPU tensors take the plain int8 versions, CUDA tensors the
-    int8 kernels."""
-    return "int8" if os.environ.get("AUTOGNOTHI_INT8", "0") == "1" \
-        else "none"
+    """AUTOGNOTHI_INT8=1 switches the fused block ops to W8A8 (per-output-
+    channel int8 weights, per-token int8 activations, int32 accumulation),
+    but only in pallas mode "2", as in the JAX package: in modes "0" and
+    "1" the model computes unquantized.  Read per call.  The innermost
+    `quant_override` scope replaces the environment variable."""
+    if _QUANT_OVERRIDE:
+        mode = _QUANT_OVERRIDE[-1]
+    else:
+        mode = "int8" if os.environ.get("AUTOGNOTHI_INT8", "0") == "1" \
+            else "none"
+    return mode if mode != "int8" or pallas_mode() == "2" else "none"
+
+
+class quant_override:
+    """A scope that forces `quant_mode()` ("int8" or "none") for the code it
+    runs: the explainer train step runs its no-grad teacher sweep under
+    "int8" and its differentiated forward under "none".  "int8" still
+    takes effect only in pallas mode "2"."""
+
+    def __init__(self, mode: str):
+        if mode not in ("int8", "none"):
+            raise ValueError(f"unknown quant mode {mode!r}")
+        self.mode = mode
+
+    def __enter__(self):
+        _QUANT_OVERRIDE.append(self.mode)
+        return self
+
+    def __exit__(self, *exc):
+        _QUANT_OVERRIDE.pop()
 
 
 def dense_serving(x: torch.Tensor, w: torch.Tensor,
@@ -91,6 +136,22 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
+def dropout(generator: Optional[torch.Generator], x: torch.Tensor,
+            rate: float, deterministic: bool) -> torch.Tensor:
+    """Inverted dropout: each value is kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), else zeroed.  The keep mask is drawn from
+    `generator` on its own device; JAX's random streams cannot be
+    reproduced, so only the law is shared with the JAX package."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a generator")
+    keep = 1.0 - rate
+    noise = torch.rand(x.shape, generator=generator, device=generator.device)
+    return torch.where(noise.to(x.device) < keep, x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     """<..., T, H> -> <..., n_heads, T, head_dim>."""
     *lead, t, h = x.shape
@@ -112,17 +173,35 @@ def self_attention(
     n_heads: int,
     mask: Optional[torch.Tensor],
     mask_mode: str,
+    attn_dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
 ) -> torch.Tensor:
     """Multi-head self attention over <B, T, H>.
 
     "additive": `mask` is a <B, 1, 1, T> bias added to the scores (BERT).
     "multiplicative": `mask` is <B, T> 0/1 multiplied into the scaled
     scores before the softmax (the ViT quirk: a masked score becomes 0,
-    not -inf, so a masked key keeps weight exp(0 - max))."""
+    not -inf, so a masked key keeps weight exp(0 - max)).
+
+    In pallas mode "1", with a mask and no active attention dropout, the
+    scores, mask, softmax and P.V run as the masked attention op (K9);
+    the plain math below is mode "0"/"2"'s and the numerical reference."""
     head_dim = h.shape[-1] // n_heads
     q = split_heads(dense(h, wq, bq), n_heads)
     k = split_heads(dense(h, wk, bk), n_heads)
     v = split_heads(dense(h, wv, bv), n_heads)
+
+    no_dropout = deterministic or attn_dropout == 0.0
+    if mask is not None and no_dropout and h.dim() == 3 \
+            and pallas_mode() == "1":
+        from ..ops.flash_attention import masked_attention
+
+        if mask_mode == "additive":
+            return merge_heads(masked_attention(q, k, v, mask[:, 0, 0, :],
+                                                mode="add"))
+        return merge_heads(masked_attention(q, k, v, mask, mode="mul"))
+
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
         / math.sqrt(head_dim)
     if mask is not None:
@@ -133,6 +212,7 @@ def self_attention(
         else:
             raise ValueError(f"unknown mask_mode {mask_mode!r}")
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    probs = dropout(generator, probs, attn_dropout, deterministic)
     ctx = torch.matmul(probs.float(), v.float()).to(v.dtype)
     return merge_heads(ctx)
 

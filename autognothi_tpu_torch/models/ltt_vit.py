@@ -1,30 +1,44 @@
-"""LTT ViT final model (port of the serving path of
-`autognothi_tpu/models/ltt_vit.py`): one frozen ViT trunk with two 96-wide
-side ladders beside it (branch 0 the surrogate, branch 1 the explainer),
-one explainer side layer, the explainer MLP head and the efficiency
-normalisation, giving class probabilities and per-patch attributions in one
-forward pass.  With AUTOGNOTHI_INT8=1 (`quant_mode()`) the forward is the
-W8A8 serving path: per trunk layer the int8 attention block (K1) and the
-int8 trunk MLP fused with both ladder updates (K2); the explainer side
-layer as int8 attention and MLP blocks (K1, K4); the fused int8 head
-(K3)."""
+"""LTT ViT (port of `autognothi_tpu/models/ltt_vit.py`): one frozen ViT trunk
+with 96-wide side ladders beside it.  The surrogate carries ladder branch
+0 and its classifier; the explainer carries branch 0, one explainer side
+layer and the explainer MLP head; the final model carries both ladders
+(branch 0 the surrogate, branch 1 the explainer) and gives class
+probabilities and per-patch attributions in one forward pass.
+
+Per trunk layer the backbone takes one of three branches, as the JAX scan
+body does (`:245-339`):
+- pallas mode "2", no active dropout, int8 mode: the int8 attention block
+  (K1), then the int8 trunk MLP fused with every branch's ladder step (K2);
+- pallas mode "2", no active dropout: the fused trunk layer (K6, K7), then
+  the ladder op for every branch (K5);
+- otherwise: the unfused trunk layer and side layers, with dropout, whose
+  attention takes the masked attention op (K9) in mode "1".
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..ops.ladder_block import ladder_block, mlp_ladder_block
 from ..ops.shapley import normalize_shapley_explanation
-from .common import dense, init_embedding, init_linear, layer_norm, quant_mode
+from .common import (dense, gelu, init_embedding, init_linear, layer_norm,
+                     pallas_mode, quant_mode)
 from .vit import (VanillaViTConfig, ViTEmbeddings, ViTLayer,
                   explainer_mlp_head, explainer_mlp_head_module, fill_linear,
                   fill_norm, linear, norm, vit_embeddings)
 
 BRANCHES = (0, 1)
+# what each checkpoint section holds: its ladder branches, the surrogate's
+# side classifier, the explainer side layers + head, the null buffer
+SECTIONS = {
+    "surrogate": dict(branches=(0,), srg_head=True, explainer=False),
+    "explainer": dict(branches=(0,), srg_head=False, explainer=True),
+    "final": dict(branches=BRANCHES, srg_head=True, explainer=True),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,13 +84,19 @@ class LttViTConfig:
             intermediate_size=self.s_attn_intermediate_size)
 
 
-class LttViTFinal(nn.Module):
-    """Parameters of `init_ltt_vit_final`, under the same names.  Created
-    empty: fill with `init_ltt_vit_final` or a state dict."""
+class LttViT(nn.Module):
+    """Parameters of one checkpoint section, "surrogate", "explainer" or
+    "final" (the JAX `init_ltt_vit_{surrogate,explainer,final}`), under the
+    JAX package's names.  Created empty: fill with `init_ltt_vit` or a
+    state dict."""
 
-    def __init__(self, cfg: LttViTConfig):
+    def __init__(self, cfg: LttViTConfig, section: str = "final"):
         super().__init__()
-        self.cfg = cfg
+        if section not in SECTIONS:
+            raise ValueError(f"unknown LTT ViT section {section!r}")
+        self.cfg, self.section = cfg, section
+        parts = SECTIONS[section]
+        self.branches = parts["branches"]
         h, s = cfg.hidden_size, cfg.s_attn_hidden_size
         n_layers = cfg.num_hidden_layers
         self.vit = nn.Module()
@@ -85,30 +105,33 @@ class LttViTFinal(nn.Module):
         self.vit.encoder.layers = nn.ModuleList(
             ViTLayer(h, cfg.intermediate_size) for _ in range(n_layers))
         self.vit.encoder.s_attn_maps = nn.ModuleDict(
-            {f"{b}_{i}": linear(s, h) for b in BRANCHES
+            {f"{b}_{i}": linear(s, h) for b in self.branches
              for i in range(n_layers)})
         self.vit.encoder.s_attn_layers = nn.ModuleDict(
             {f"{b}_{i}": ViTLayer(s, cfg.s_attn_intermediate_size)
-             for b in BRANCHES for i in range(n_layers)})
+             for b in self.branches for i in range(n_layers)})
         self.vit.layernorm = norm(h)
         self.vit.s_attn_layernorm = nn.ModuleDict(
-            {str(b): norm(s) for b in BRANCHES})
+            {str(b): norm(s) for b in self.branches})
         self.classifier = linear(cfg.num_labels, h)
-        self.s_attn_classifier = linear(cfg.num_labels, s)
-        self.s_explainer_attn = nn.ModuleList(
-            ViTLayer(s, cfg.s_attn_intermediate_size, skip_ln1=(i == 0))
-            for i in range(cfg.explainer_s_attn_num_layers))
-        self.s_explainer_mlp = explainer_mlp_head_module(
-            s, cfg.explainer_s_head_hidden_size, cfg.num_labels)
-        self.register_buffer("surrogate_null",
-                             torch.empty(1, cfg.num_labels))
+        if parts["srg_head"]:
+            self.s_attn_classifier = linear(cfg.num_labels, s)
+        if parts["explainer"]:
+            self.s_explainer_attn = nn.ModuleList(
+                ViTLayer(s, cfg.s_attn_intermediate_size, skip_ln1=(i == 0))
+                for i in range(cfg.explainer_s_attn_num_layers))
+            self.s_explainer_mlp = explainer_mlp_head_module(
+                s, cfg.explainer_s_head_hidden_size, cfg.num_labels)
+        if section == "final":
+            self.register_buffer("surrogate_null",
+                                 torch.empty(1, cfg.num_labels))
 
 
-def init_ltt_vit_final(cfg: LttViTConfig,
-                       generator: torch.Generator) -> LttViTFinal:
-    """A fresh LTT ViT final on the CPU, drawn from `generator` with the
-    JAX package's distributions (its keys and shapes; not its numbers)."""
-    model = LttViTFinal(cfg)
+def init_ltt_vit(cfg: LttViTConfig, section: str,
+                 generator: torch.Generator) -> LttViT:
+    """A fresh section on the CPU, drawn from `generator` with the JAX
+    package's distributions (its keys and shapes; not its numbers)."""
+    model = LttViT(cfg, section)
     emb = model.vit.embeddings
     with torch.no_grad():
         emb.cls_token.copy_(init_embedding(generator, *emb.cls_token.shape))
@@ -120,11 +143,12 @@ def init_ltt_vit_final(cfg: LttViTConfig,
                            proj.weight[0].numel())
         proj.weight.copy_(w.reshape(proj.weight.shape))
         proj.bias.copy_(b)
-        model.surrogate_null.zero_()
+        if section == "final":
+            model.surrogate_null.zero_()
     for layer in model.vit.encoder.layers:
         layer.reset_parameters(generator)
     for i in range(cfg.num_hidden_layers):
-        for b in BRANCHES:
+        for b in model.branches:
             fill_linear(model.vit.encoder.s_attn_maps[f"{b}_{i}"], generator)
             model.vit.encoder.s_attn_layers[f"{b}_{i}"].reset_parameters(
                 generator)
@@ -132,19 +156,26 @@ def init_ltt_vit_final(cfg: LttViTConfig,
     for m in model.vit.s_attn_layernorm.values():
         fill_norm(m)
     fill_linear(model.classifier, generator)
-    fill_linear(model.s_attn_classifier, generator)
-    for layer in model.s_explainer_attn:
-        layer.reset_parameters(generator)
-    fill_norm(model.s_explainer_mlp["0"])
-    for k in ("1", "3", "5"):
-        fill_linear(model.s_explainer_mlp[k], generator)
+    if SECTIONS[section]["srg_head"]:
+        fill_linear(model.s_attn_classifier, generator)
+    if SECTIONS[section]["explainer"]:
+        for layer in model.s_explainer_attn:
+            layer.reset_parameters(generator)
+        fill_norm(model.s_explainer_mlp["0"])
+        for k in ("1", "3", "5"):
+            fill_linear(model.s_explainer_mlp[k], generator)
     return model
+
+
+def init_ltt_vit_final(cfg: LttViTConfig,
+                       generator: torch.Generator) -> LttViT:
+    return init_ltt_vit(cfg, "final", generator)
 
 
 # --------------------------------------------------------------- apply
 
 
-def _ladder_weights(model: LttViTFinal, branch: int,
+def _ladder_weights(model: LttViT, branch: int,
                     layer: int) -> Dict[str, torch.Tensor]:
     """The dict `ladder_block` takes, for one branch at one trunk layer."""
     m = model.vit.encoder.s_attn_maps[f"{branch}_{layer}"]
@@ -164,35 +195,63 @@ def _ladder_weights(model: LttViTFinal, branch: int,
     }
 
 
-def ltt_vit_backbone(model: LttViTFinal, cfg: LttViTConfig,
+def _dropout_off(cfg: LttViTConfig, deterministic: bool) -> bool:
+    return deterministic or (cfg.attention_probs_dropout_prob == 0.0
+                             and cfg.hidden_dropout_prob == 0.0)
+
+
+def ltt_vit_backbone(model: LttViT, cfg: LttViTConfig,
                      pixels: torch.Tensor, mask: torch.Tensor,
-                     branches: Sequence[int]
+                     branches: Sequence[int], *,
+                     ltt_active_layers: Optional[int] = None,
+                     deterministic: bool = True,
+                     rng: Optional[torch.Generator] = None
                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Embeddings, the trunk layers with the ladder step of every branch
-    after each, then the final LayerNorms (`:182-357`).  int8 mode: the
-    trunk layer's attention block, then one op for its MLP block and the
-    ladder step (`:251-291`)."""
+    after each, then the final LayerNorms (`:182-357`).  A branch's ladder
+    update at layer i is kept only where i < ltt_active_layers (default:
+    every layer); dropout draws from `rng` when not `deterministic`."""
     vit = model.vit
-    h = vit_embeddings(vit.embeddings, cfg.into(), pixels)
+    trunk_cfg, side_cfg = cfg.into(), cfg.side()
+    h = vit_embeddings(vit.embeddings, trunk_cfg, pixels,
+                       deterministic=deterministic, rng=rng)
     b_sz, t = h.shape[:2]
     sides = [h.new_zeros((b_sz, t, cfg.s_attn_hidden_size))
              for _ in branches]
     heads, eps = cfg.num_attention_heads, cfg.layer_norm_eps
-    int8 = quant_mode() == "int8"
+    n_layers = cfg.num_hidden_layers
+    active = n_layers if ltt_active_layers is None else int(ltt_active_layers)
+    use_ladder_kernel = (pallas_mode() == "2" and len(branches) > 0
+                         and _dropout_off(cfg, deterministic))
+    use_mlp_ladder = use_ladder_kernel and quant_mode() == "int8"
+    s_hidden = cfg.s_attn_hidden_size
     for i, layer in enumerate(vit.encoder.layers):
         ladders = [_ladder_weights(model, b, i) for b in branches]
-        if int8:
-            h, *sides = mlp_ladder_block(
+        if use_mlp_ladder:
+            h, *upds = mlp_ladder_block(
                 layer.attend(h, mask, heads, eps, "int8"), sides, mask,
                 layer.mlp_weights(), ladders, heads, "mul", eps)
-            continue
-        h = layer(h, mask, heads, eps)
-        sides = list(ladder_block(h, sides, mask, ladders, heads, "mul",
-                                  True, eps))
-    h = layer_norm(h, vit.layernorm.weight, vit.layernorm.bias,
-                   cfg.layer_norm_eps)
+        else:
+            h = layer(h, mask, trunk_cfg, deterministic, rng)
+            if use_ladder_kernel:
+                upds = list(ladder_block(h, sides, mask, ladders, heads,
+                                         "mul", True, eps))
+            else:
+                # both branch maps as one dense, h read once (`:316-324`)
+                joint = gelu(dense(
+                    h, torch.cat([w["map_w"] for w in ladders]),
+                    torch.cat([w["map_b"] for w in ladders])))
+                upds = [
+                    vit.encoder.s_attn_layers[f"{b}_{i}"](
+                        side + joint[..., slot * s_hidden:
+                                     (slot + 1) * s_hidden],
+                        mask, side_cfg, deterministic, rng)
+                    for slot, (b, side) in enumerate(zip(branches, sides))]
+        sides = [upd if i < active else side
+                 for upd, side in zip(upds, sides)]
+    h = layer_norm(h, vit.layernorm.weight, vit.layernorm.bias, eps)
     sides = [layer_norm(side, vit.s_attn_layernorm[str(b)].weight,
-                        vit.s_attn_layernorm[str(b)].bias, cfg.layer_norm_eps)
+                        vit.s_attn_layernorm[str(b)].bias, eps)
              for side, b in zip(sides, branches)]
     return h, sides
 
@@ -202,24 +261,53 @@ def _cls_head(head: nn.Module, h: torch.Tensor) -> torch.Tensor:
                                head.bias.to(h.dtype)), dim=-1)
 
 
-def ltt_vit_explainer_head(model: LttViTFinal, cfg: LttViTConfig,
+def ltt_vit_surrogate_fwd(model: LttViT, cfg: LttViTConfig,
+                          pixels: torch.Tensor, mask: torch.Tensor, **kw
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (surrogate probabilities from branch 0, classifier probabilities)
+    (`:368-373`)."""
+    h, (side,) = ltt_vit_backbone(model, cfg, pixels, mask, (0,), **kw)
+    return _cls_head(model.s_attn_classifier, side), \
+        _cls_head(model.classifier, h)
+
+
+def ltt_vit_explainer_head(model: LttViT, cfg: LttViTConfig,
                            side: torch.Tensor, mask: torch.Tensor,
-                           grand: torch.Tensor,
-                           null: torch.Tensor) -> torch.Tensor:
+                           grand: torch.Tensor, null: torch.Tensor, *,
+                           deterministic: bool = True,
+                           rng: Optional[torch.Generator] = None
+                           ) -> torch.Tensor:
     """Explainer side layers + MLP head; the efficiency normalisation runs
     over all T tokens including CLS, then CLS is dropped -> <B, C, n_players>
     (`:376-400`)."""
     side_cfg = cfg.side()
     for layer in model.s_explainer_attn:
-        side = layer(side, mask, side_cfg.num_attention_heads,
-                     side_cfg.layer_norm_eps, quant_mode())
+        side = layer(side, mask, side_cfg, deterministic, rng)
     out = explainer_mlp_head(model.s_explainer_mlp, side)
     if cfg.explainer_normalize:
         out = normalize_shapley_explanation(out, grand, null)
     return out[:, 1:, :].transpose(1, 2)
 
 
-def ltt_vit_final_fwd(model: LttViTFinal, cfg: LttViTConfig,
+def ltt_vit_explainer_fwd(model: LttViT, cfg: LttViTConfig,
+                          pixels: torch.Tensor, mask: torch.Tensor,
+                          grand: torch.Tensor, null: torch.Tensor, *,
+                          ltt_active_layers: Optional[int] = None,
+                          deterministic: bool = True,
+                          rng: Optional[torch.Generator] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (attributions <B, C, n_players>, classifier probabilities)
+    (`:403-416`)."""
+    h, (side,) = ltt_vit_backbone(model, cfg, pixels, mask, (0,),
+                                  ltt_active_layers=ltt_active_layers,
+                                  deterministic=deterministic, rng=rng)
+    logits = _cls_head(model.classifier, h)
+    attr = ltt_vit_explainer_head(model, cfg, side, mask, grand, null,
+                                  deterministic=deterministic, rng=rng)
+    return attr, logits
+
+
+def ltt_vit_final_fwd(model: LttViT, cfg: LttViTConfig,
                       pixels: torch.Tensor, mask: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (class probabilities <B, C>, attributions <B, C, n_players>)
@@ -235,3 +323,70 @@ def ltt_vit_final_fwd(model: LttViTFinal, cfg: LttViTConfig,
     attr = ltt_vit_explainer_head(model, cfg, exp_side, mask, grand,
                                   model.surrogate_null)
     return logits, attr
+
+
+def ltt_vit_surrogate_coalitions_fwd(model: LttViT, cfg: LttViTConfig,
+                                     pixels: torch.Tensor,   # <B, C, H, W>
+                                     masks: torch.Tensor,    # <B, M, 1 + P>
+                                     *, deterministic: bool = True
+                                     ) -> torch.Tensor:
+    """The surrogate (branch 0) over B*M coalitions with the embeddings
+    computed once per image and broadcast over M -> <B, M, n_classes>
+    (`:444-518`).  A no-grad teacher sweep: eval mode only."""
+    if not deterministic:
+        raise NotImplementedError(
+            "the coalition fast path is a no-grad teacher sweep and runs "
+            "eval-mode only")
+    b, m, t = masks.shape
+    vit = model.vit
+    trunk_cfg, side_cfg = cfg.into(), cfg.side()
+    emb = vit_embeddings(vit.embeddings, trunk_cfg, pixels)
+    h = emb[:, None].expand(b, m, t, emb.shape[-1]).reshape(
+        b * m, t, emb.shape[-1])
+    flat_masks = masks.reshape(b * m, t)
+    side = h.new_zeros((b * m, t, cfg.s_attn_hidden_size))
+    heads, eps = cfg.num_attention_heads, cfg.layer_norm_eps
+    use_ladder_kernel = pallas_mode() == "2"
+    for i, layer in enumerate(vit.encoder.layers):
+        h = layer(h, flat_masks, trunk_cfg)
+        if use_ladder_kernel:
+            (side,) = ladder_block(h, [side], flat_masks,
+                                   [_ladder_weights(model, 0, i)], heads,
+                                   "mul", True, eps)
+            continue
+        s_map = vit.encoder.s_attn_maps[f"0_{i}"]
+        side = side + gelu(dense(h, s_map.weight, s_map.bias))
+        side = vit.encoder.s_attn_layers[f"0_{i}"](side, flat_masks, side_cfg)
+    side = layer_norm(side, vit.s_attn_layernorm["0"].weight,
+                      vit.s_attn_layernorm["0"].bias, eps)
+    return _cls_head(model.s_attn_classifier, side).reshape(b, m, -1)
+
+
+# --------------------------------------------------------- freeze rules
+
+
+def ltt_vit_trainable(cfg: LttViTConfig,
+                      section: str) -> Callable[[str], bool]:
+    """The frozen trunk: embeddings, trunk layers, its LayerNorm and the
+    classifier receive no updates (`:521-530`)."""
+    frozen_prefixes = ("vit.embeddings.", "vit.encoder.layers.",
+                       "vit.layernorm.", "classifier.")
+
+    def trainable(name: str) -> bool:
+        return not name.startswith(frozen_prefixes)
+
+    return trainable
+
+
+def ltt_vit_progressive(cfg: LttViTConfig, section: str,
+                        unfrozen: int) -> Callable[[str], bool]:
+    """Progressive training: ladder maps and side layers train only below
+    layer `unfrozen` (`:533-542`)."""
+    def keep(name: str) -> bool:
+        for marker in ("s_attn_maps.", "s_attn_layers."):
+            if marker in name:
+                tail = name.split(marker, 1)[1]
+                return int(tail.split(".")[0].split("_")[1]) < unfrozen
+        return True
+
+    return keep

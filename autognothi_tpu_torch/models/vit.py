@@ -1,18 +1,21 @@
 """ViT building blocks (port of the parts of `autognothi_tpu/models/vit.py`
-that the LTT ViT serving path runs).
+that the LTT ViT runs: the pre-norm layer, the embeddings, the explainer
+head).
 
 Modules hold parameters under exactly the JAX flat names, e.g.
 `attention.self.query.weight` or `layernorm_before.bias`, so a JAX
-parameter dict loads with `load_state_dict(strict=True)`.  The pre-norm
-layer runs through the fused attention-block and MLP-block ops, which pick
-the CUDA kernel for CUDA tensors and the plain version for CPU tensors; in
-int8 mode (`quant_mode()`) the layer takes their W8A8 versions and the
-explainer head its fused int8 kernel.
+parameter dict loads with `load_state_dict(strict=True)`.  In pallas mode
+"2" with no active dropout the layer runs through the fused attention-block
+and MLP-block ops, which pick the CUDA kernel for CUDA tensors and the plain
+version for CPU tensors (their W8A8 versions in int8 mode, where the
+explainer head is its fused int8 op); otherwise it runs the unfused math
+with dropout, whose attention is the masked attention op in mode "1".
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
@@ -20,8 +23,9 @@ from torch import nn
 from ..ops.attention_block import attention_block
 from ..ops.head_block import explainer_head_block
 from ..ops.mlp_block import mlp_block
-from .common import (dense, dense_serving, gelu, init_layer_norm, init_linear,
-                     layer_norm, quant_mode)
+from .common import (dense, dense_serving, dropout, gelu, init_layer_norm,
+                     init_linear, layer_norm, pallas_mode, quant_mode,
+                     self_attention)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,13 +136,44 @@ class ViTLayer(nn.Module):
                 "ln_w": self.layernorm_after.weight,
                 "ln_b": self.layernorm_after.bias}
 
-    def forward(self, h: torch.Tensor, mask: torch.Tensor, n_heads: int,
-                eps: float, quant: str = "none") -> torch.Tensor:
-        h = self.attend(h, mask, n_heads, eps, quant)
-        w = self.mlp_weights()
-        return mlp_block(h, w["w1"], w["b1"], w["w2"], w["b2"],
-                         ln=(w["ln_w"], w["ln_b"], eps),
-                         ln_position="prologue", quant=quant)
+    def forward(self, h: torch.Tensor, mask: Optional[torch.Tensor],
+                cfg: VanillaViTConfig, deterministic: bool = True,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The pre-norm layer (`_vit_layer_body`): in pallas mode "2", with
+        a mask and no active dropout, the fused attention-block and
+        MLP-block ops (their int8 versions in int8 mode); otherwise the
+        unfused math with dropout, whose `self_attention` takes the masked
+        attention op in mode "1"."""
+        heads, eps = cfg.num_attention_heads, cfg.layer_norm_eps
+        dropout_off = deterministic or (
+            cfg.attention_probs_dropout_prob == 0.0
+            and cfg.hidden_dropout_prob == 0.0)
+        if pallas_mode() == "2" and dropout_off and mask is not None \
+                and h.dim() == 3:
+            quant = quant_mode()
+            h = self.attend(h, mask, heads, eps, quant)
+            w = self.mlp_weights()
+            return mlp_block(h, w["w1"], w["b1"], w["w2"], w["b2"],
+                             ln=(w["ln_w"], w["ln_b"], eps),
+                             ln_position="prologue", quant=quant)
+        sa = self.attention.get_submodule("self")
+        normed = (layer_norm(h, self.layernorm_before.weight,
+                             self.layernorm_before.bias, eps)
+                  if self.has_ln1 else h)
+        ctx = self_attention(
+            normed, sa.query.weight, sa.query.bias, sa.key.weight,
+            sa.key.bias, sa.value.weight, sa.value.bias, heads, mask,
+            "multiplicative", attn_dropout=cfg.attention_probs_dropout_prob,
+            generator=rng, deterministic=deterministic)
+        out = self.attention.output.dense
+        h = h + dropout(rng, dense(ctx, out.weight, out.bias),
+                        cfg.hidden_dropout_prob, deterministic)
+        normed = layer_norm(h, self.layernorm_after.weight,
+                            self.layernorm_after.bias, eps)
+        inter = gelu(dense(normed, self.intermediate.dense.weight,
+                           self.intermediate.dense.bias))
+        out = dense(inter, self.output.dense.weight, self.output.dense.bias)
+        return h + dropout(rng, out, cfg.hidden_dropout_prob, deterministic)
 
 
 class ViTEmbeddings(nn.Module):
@@ -186,11 +221,13 @@ def vit_patch_embed(emb: ViTEmbeddings, cfg: VanillaViTConfig,
 
 
 def vit_embeddings(emb: ViTEmbeddings, cfg: VanillaViTConfig,
-                   pixels: torch.Tensor) -> torch.Tensor:
+                   pixels: torch.Tensor, *, deterministic: bool = True,
+                   rng: Optional[torch.Generator] = None) -> torch.Tensor:
     x = vit_patch_embed(emb, cfg, pixels)
     cls = emb.cls_token.to(x.dtype).expand(x.shape[0], 1, cfg.hidden_size)
     x = torch.cat([cls, x], dim=1)
-    return x + emb.position_embeddings.to(x.dtype)
+    x = x + emb.position_embeddings.to(x.dtype)
+    return dropout(rng, x, cfg.hidden_dropout_prob, deterministic)
 
 
 def explainer_mlp_head(head: nn.ModuleDict, h: torch.Tensor) -> torch.Tensor:

@@ -23,19 +23,28 @@ branch's ladder update above reads it, unquantized.  On the H100 that is
 the K4 launches (`ops/mlp_block.py`) followed by this module's ladder
 launches on h.
 
-`ladder_block` and `mlp_ladder_block` take the plain version for CPU
-tensors and the kernel for CUDA tensors; there is no other switch.
+`ladder_attention` is the masked attention core for every branch at once
+(K10), replacing `_make_attn_fn` (body `_attn_kernel`, public
+`ladder_attention`): separate q, k, v <B, T, S> per branch.  It is a thin
+wrapper over K9's core (`csrc/attention.cu`), launched once per branch on
+the <B, T, S> tensors' own head-merged strides; no model calls it.
+
+`ladder_block`, `mlp_ladder_block` and `ladder_attention` take the plain
+version for CPU tensors and the kernel for CUDA tensors; there is no other
+switch.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels.build import LaunchCounter
-from ..kernels.primitives import EPI_BIAS_GELU_RESID, dispatch, gemm
+from ..kernels.primitives import (EPI_BIAS_GELU_RESID, attention_heads,
+                                  dispatch, gemm)
 from ..models.common import gelu
 from .attention_block import attention_block_launch, attention_block_plain
 from .mlp_block import (mlp_block_int8_launch, mlp_block_int8_plain,
@@ -43,6 +52,8 @@ from .mlp_block import (mlp_block_int8_launch, mlp_block_int8_plain,
 
 COUNTER = LaunchCounter("ladder_block")
 COUNTER_MLP_LADDER = LaunchCounter("mlp_ladder_block")
+COUNTER_ATTENTION = LaunchCounter("ladder_attention")
+
 TRUNK_MLP_KEYS = ("w1", "b1", "w2", "b2", "ln_w", "ln_b")
 
 BRANCH_KEYS = ("map_w", "map_b", "ln1_w", "ln1_b", "wq", "bq", "wk", "bk",
@@ -199,3 +210,62 @@ def mlp_ladder_block(*args, **kwargs) -> Tuple[torch.Tensor, ...]:
     return dispatch(mlp_ladder_block_launch, mlp_ladder_block_plain,
                     COUNTER_MLP_LADDER, tensors, static,
                     grad=mlp_ladder_block_float)
+
+
+# ------------------------------------------------- ladder attention (K10)
+
+
+def _heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """<B, T, S> -> the <B, heads, T, S / heads> view of its head columns."""
+    b, t, s = x.shape
+    return x.reshape(b, t, n_heads, s // n_heads).transpose(1, 2)
+
+
+def ladder_attention_plain(mask_row, *qkv_flat, n_heads: int,
+                           mode: str) -> Tuple[torch.Tensor, ...]:
+    """Reference math (port of `_xla_ctx` per branch): fp32 scores x
+    1/sqrt(d), the mask multiplied or added, fp32 softmax cast to v's
+    dtype, fp32 P.V cast to q's dtype -> per-branch <B, T, S>."""
+    outs = []
+    for s in range(len(qkv_flat) // 3):
+        q, k, v = qkv_flat[3 * s:3 * s + 3]
+        b, t, s_hidden = q.shape
+        scale = 1.0 / math.sqrt(s_hidden // n_heads)
+        scores = torch.matmul(_heads(q, n_heads).float(),
+                              _heads(k, n_heads).float().transpose(-1, -2)
+                              ) * scale
+        m = mask_row.float()[:, None, None, :]
+        scores = scores + m if mode == "add" else scores * m
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        ctx = torch.matmul(probs.float(), _heads(v, n_heads).float())
+        outs.append(ctx.transpose(1, 2).reshape(b, t, s_hidden).to(q.dtype))
+    return tuple(outs)
+
+
+def ladder_attention_launch(mask_row, *qkv_flat, n_heads: int,
+                            mode: str) -> Tuple[torch.Tensor, ...]:
+    """The CUDA version: one core launch per branch (no counting, no
+    autograd)."""
+    outs = []
+    for s in range(len(qkv_flat) // 3):
+        q, k, v = qkv_flat[3 * s:3 * s + 3]
+        out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
+        attention_heads(_heads(q, n_heads), _heads(k, n_heads),
+                        _heads(v, n_heads), mask_row, mode,
+                        _heads(out, n_heads))
+        outs.append(out)
+    return tuple(outs)
+
+
+def ladder_attention(qkvs: Sequence[Tuple[torch.Tensor, ...]],
+                     mask_row: torch.Tensor, n_heads: int,
+                     mode: str) -> Tuple[torch.Tensor, ...]:
+    """Masked multi-head attention for every ladder branch at once: `qkvs`
+    holds a (q, k, v) triple of <B, T, S> per branch -> the per-branch
+    context tuple."""
+    if mode not in ("mul", "add"):
+        raise ValueError(f"unknown mask mode {mode!r}")
+    flat = [a for triple in qkvs for a in triple]
+    return dispatch(ladder_attention_launch, ladder_attention_plain,
+                    COUNTER_ATTENTION, (mask_row, *flat),
+                    dict(n_heads=n_heads, mode=mode))

@@ -1,0 +1,141 @@
+"""The explainer train step, the hot loop of training (port of
+`autognothi_tpu/parallel/train_step.py` for one device).
+
+One step: paired-complement coalition masks drawn from a generator (or
+given by the caller), the no-grad teacher sweep over the B*M masked
+surrogate forwards (embeddings computed once per image), the grand
+coalition v_1, the differentiated explainer forward and its Shapley
+regression loss, the backward, and the AdamW update in place.
+
+- The teacher runs under `torch.no_grad()` and `quant_override` of
+  `_teacher_quant()`: W8A8 unless AUTOGNOTHI_INT8_TEACHER=0 (int8 takes
+  effect in pallas mode "2" only).  The differentiated forward runs under
+  `quant_override("none")`, so its gradients are the float math's.
+- `update_mask` (per-parameter 0 or 1) multiplies gradients and updates;
+  `ltt_active` is the recipe's `ltt_active_layers` where the recipe
+  supports progressive training.
+- Frozen parameters do not require grad, so the trunk is not
+  differentiated; the JAX step differentiates everything and zeroes the
+  frozen updates, and the trainable gradients are the same either way.
+- The spans "teacher", "forward", "backward" and "adamw" are
+  `torch.profiler.record_function` ranges, for the step's breakdown.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Callable, Dict, Optional
+
+import torch
+from torch.profiler import record_function
+
+from ..models.common import quant_override
+from ..ops.shapley import loss_shapley, mask_shapley
+from ..pipeline.training import AdamW
+from ..recipes.types import ModelRecipe, surrogate_coalition_values
+
+
+def _teacher_quant() -> str:
+    """The frozen no-grad teacher sweep runs W8A8 unless
+    AUTOGNOTHI_INT8_TEACHER=0; the differentiated forward never does."""
+    return "none" if os.environ.get("AUTOGNOTHI_INT8_TEACHER") == "0" \
+        else "int8"
+
+
+def _ltt_kwargs(recipe: ModelRecipe, ltt_active: Optional[int]) -> dict:
+    if recipe.progressive_trainable is not None:
+        return {"ltt_active_layers": ltt_active}
+    return {}
+
+
+def _teacher(recipe, m_config, srg_model, xs, masks):
+    """-> (v_s <B*M, C>, v_1 <B, C>) without a graph."""
+    mask_1 = torch.ones((masks.shape[0], masks.shape[2]), dtype=masks.dtype,
+                        device=masks.device)
+    with torch.no_grad(), quant_override(_teacher_quant()):
+        v_s = surrogate_coalition_values(recipe, m_config, srg_model, xs,
+                                         masks)
+        v_1, _ = recipe.fw_surrogate(m_config, srg_model, xs, mask_1)
+    return v_s, v_1
+
+
+def _sample_masks(generator: torch.Generator, b: int, n_mask_samples: int,
+                  n_players: int, device: torch.device) -> torch.Tensor:
+    masks = mask_shapley(generator, b * n_mask_samples, n_players)
+    return masks.reshape(b, n_mask_samples, n_players).to(device)
+
+
+def make_explainer_train_step(recipe: ModelRecipe, m_config: Any,
+                              n_players: int, n_mask_samples: int
+                              ) -> Callable:
+    """-> step(model, opt, srg_model, surrogate_null, xs, generator, lr,
+               update_mask, ltt_active, weights=None, masks=None) -> loss
+
+    `model` is trained in place: its trainable parameters require grad
+    and `opt` is the `AdamW` over them.  `generator` draws the coalition
+    masks and then the dropout masks; `masks` <B, M, P>, when given,
+    replaces the drawn coalitions (the tests and the chip smoke run hand
+    both versions the same masks).  Returns the loss, a 0-d tensor."""
+
+    def step(model: torch.nn.Module, opt: AdamW, srg_model: torch.nn.Module,
+             surrogate_null: torch.Tensor, xs: torch.Tensor,
+             generator: Optional[torch.Generator], lr: float,
+             update_mask: Dict[str, float], ltt_active: Optional[int],
+             weights: Optional[torch.Tensor] = None,
+             masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b = xs.shape[0]
+        if masks is None:
+            masks = _sample_masks(generator, b, n_mask_samples, n_players,
+                                  xs.device)
+        with record_function("teacher"):
+            v_s, v_1 = _teacher(recipe, m_config, srg_model, xs, masks)
+        params = dict(model.named_parameters())
+        trainable = {k: p for k, p in params.items() if p.requires_grad}
+        mask_1 = torch.ones((b, n_players), dtype=masks.dtype,
+                            device=xs.device)
+        with record_function("forward"), quant_override("none"):
+            phi, _ = recipe.fw_explainer(
+                m_config, model, xs, mask_1, v_1, surrogate_null,
+                deterministic=False, rng=generator,
+                **_ltt_kwargs(recipe, ltt_active))
+            loss = loss_shapley(masks, surrogate_null, v_s, v_1, phi,
+                                weights)
+        with record_function("backward"):
+            grads = torch.autograd.grad(loss, list(trainable.values()),
+                                        allow_unused=True)
+        with record_function("adamw"):
+            opt.update(params, dict(zip(trainable, grads)), lr, update_mask)
+        return loss.detach()
+
+    return step
+
+
+def make_explainer_eval_step(recipe: ModelRecipe, m_config: Any,
+                             n_players: int, n_mask_samples: int
+                             ) -> Callable:
+    """-> eval(model, srg_model, surrogate_null, xs, generator, ltt_active,
+               weights=None, masks=None) -> loss  (deterministic forward,
+    the same teacher sweep, no gradient)."""
+
+    def eval_step(model: torch.nn.Module, srg_model: torch.nn.Module,
+                  surrogate_null: torch.Tensor, xs: torch.Tensor,
+                  generator: Optional[torch.Generator],
+                  ltt_active: Optional[int],
+                  weights: Optional[torch.Tensor] = None,
+                  masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b = xs.shape[0]
+        if masks is None:
+            masks = _sample_masks(generator, b, n_mask_samples, n_players,
+                                  xs.device)
+        v_s, v_1 = _teacher(recipe, m_config, srg_model, xs, masks)
+        mask_1 = torch.ones((b, n_players), dtype=masks.dtype,
+                            device=xs.device)
+        # quant pinned off as in the train step's forward
+        with torch.no_grad(), quant_override("none"):
+            phi, _ = recipe.fw_explainer(
+                m_config, model, xs, mask_1, v_1, surrogate_null,
+                **_ltt_kwargs(recipe, ltt_active))
+            return loss_shapley(masks, surrogate_null, v_s, v_1, phi,
+                                weights)
+
+    return eval_step

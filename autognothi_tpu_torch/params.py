@@ -12,16 +12,18 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from .models.ltt_vit import LttViTConfig, LttViTFinal
+from .models.ltt_vit import LttViT, LttViTConfig
 
 
 def from_jax_params(flat: Mapping[str, np.ndarray], cfg: LttViTConfig,
                     device: torch.device,
-                    dtype: torch.dtype = torch.float32) -> LttViTFinal:
-    """A flat JAX parameter dict -> an LTT ViT final on `device`.  Strict:
-    every key must land on a parameter of the same shape, and the model
-    must have no parameter the dict lacks."""
-    model = LttViTFinal(cfg)
+                    dtype: torch.dtype = torch.float32,
+                    section: str = "final") -> LttViT:
+    """A flat JAX parameter dict of a checkpoint section ("surrogate",
+    "explainer" or "final") -> its LTT ViT model on `device`, in eval
+    mode.  Strict: every key must land on a parameter of the same shape,
+    and the model must have no parameter the dict lacks."""
+    model = LttViT(cfg, section)
     state = {k: torch.from_numpy(np.array(v, dtype=np.float32))
              for k, v in flat.items()}
     model.load_state_dict(state, strict=True)
@@ -29,7 +31,8 @@ def from_jax_params(flat: Mapping[str, np.ndarray], cfg: LttViTConfig,
 
 
 def to_flat(model: torch.nn.Module) -> Dict[str, np.ndarray]:
-    """The inverse: state dict -> flat dict of fp32 numpy arrays."""
+    """The inverse, for any section: state dict -> flat dict of fp32 numpy
+    arrays under the JAX names."""
     return {k: v.detach().float().cpu().numpy()
             for k, v in model.state_dict().items()}
 

@@ -1,0 +1,149 @@
+"""Explainer training stage (port of `autognothi_tpu/pipeline/
+train_explainer.py` for one device): Shapley regression of the explainer
+against the masked surrogate values, epoch by epoch, resuming from the
+newest explainer checkpoint and writing one per epoch in the JAX package's
+npz format.
+
+    python -m autognothi_tpu_torch train_explainer <experiment_dir> \\
+        --device cuda
+
+The step is `parallel/train_step.py:make_explainer_train_step`.  Each
+epoch draws its coalition (and dropout) masks from a generator on the
+training device seeded with `derive_seed(seed, "train_explainer[epoch=e]
+[train|test]")`.  The duo and KernelSHAP variants and pipeline-parallel
+training (AUTOGNOTHI_PP, AUTOGNOTHI_PP_TP above 1) are not ported and
+raise.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time
+
+import torch
+
+from ..params import to_flat
+from ..parallel.train_step import (make_explainer_eval_step,
+                                   make_explainer_train_step)
+from ..utils.devices import resolve_device
+from ..utils.seeding import iterative_generator, set_iterative_seed
+from .env import ExpEnv
+from .resources import (get_recipe, load_cfg_dataset, load_epoch_model,
+                        refuse_opt_ckpt, save_epoch_ckpt)
+from .training import (AdamW, LossDrain, cast_input, cosine_lr, filter_mask,
+                       graceful_training, ones_mask, pad_batch)
+
+
+@graceful_training
+def train_explainer(env: ExpEnv, device: str = "cuda") -> None:
+    env.log("[[[ train explainer ]]]")
+    config = env.config
+    recipe, m_config = get_recipe(config)
+    if not recipe.training.support_explainer:
+        env.log("[[[ skip: explainer cannot be trained ]]]")
+        return
+    if recipe.training.exp_variant_duo or \
+            recipe.training.exp_variant_kernel_shap:
+        raise NotImplementedError(
+            "the duo and KernelSHAP explainer trainers are not ported yet")
+    if any(os.environ.get(k, "").strip() not in ("", "0", "1")
+           for k in ("AUTOGNOTHI_PP", "AUTOGNOTHI_PP_TP")):
+        raise NotImplementedError(
+            "pipeline-parallel training (AUTOGNOTHI_PP, AUTOGNOTHI_PP_TP) "
+            "is not ported yet")
+    refuse_opt_ckpt()
+    t_cfg = config.train_explainer
+    if t_cfg is None:
+        raise ValueError("the experiment config has no train_explainer")
+    dev = resolve_device(device)
+    d_loader = load_cfg_dataset(config.dataset)
+    n_players = recipe.n_players(m_config)
+    gen_input = recipe.gen_input(m_config, None)
+
+    _, srg_model = load_epoch_model(env, recipe, "surrogate", dev)
+    epoch_start, model = load_epoch_model(env, recipe, "explainer", dev)
+    if epoch_start >= t_cfg.epochs:
+        env.log("[[[ explainer already trained ]]]")
+        return
+    srg_model.requires_grad_(False)
+    trainable = recipe.trainable(m_config, "explainer")
+    for name, p in model.named_parameters():
+        p.requires_grad_(trainable(name))
+    params = dict(model.named_parameters())
+    opt = AdamW(params, trainable)
+    step = make_explainer_train_step(recipe, m_config, n_players,
+                                     t_cfg.n_mask_samples)
+    eval_step = make_explainer_eval_step(recipe, m_config, n_players,
+                                         t_cfg.n_mask_samples)
+
+    # surrogate_null: the surrogate on the all-on null input, once
+    with torch.no_grad():
+        nil_xs = torch.from_numpy(recipe.gen_null(m_config, None)).to(dev)
+        surrogate_null, _ = recipe.fw_surrogate(
+            m_config, srg_model, nil_xs,
+            torch.ones((1, n_players), dtype=torch.int32, device=dev))
+
+    full_depth = getattr(m_config, "num_hidden_layers", 0)
+
+    def run_epoch(epoch: int, gen: torch.Generator, lr: float, update_mask,
+                  ltt_active: int, train: bool) -> float:
+        state = {"sum": 0.0, "total": 0}
+        tag = "train" if train else "test"
+
+        def emit(batch_idx, vals, host):
+            loss_val, (batch,) = vals[0], host
+            state["sum"] += loss_val
+            state["total"] += batch
+            env.log(f"  > epoch {epoch} :{batch_idx}:{tag} // "
+                    f"loss: shap {loss_val / batch:.6f}, "
+                    f"fin {state['total']}")
+
+        drain = LossDrain(emit)
+        items = (d_loader.train(t_cfg.batch_size) if train
+                 else d_loader.test(t_cfg.batch_size))
+        for _inputs, _targets in items:
+            xs, _zs = gen_input(_inputs, _targets)
+            batch = xs.shape[0]
+            xs, _, weights = pad_batch(xs, None, t_cfg.batch_size)
+            xs = cast_input(torch.from_numpy(xs).to(dev))
+            w = torch.from_numpy(weights).to(dev)
+            if train:
+                loss = step(model, opt, srg_model, surrogate_null, xs, gen,
+                            lr, update_mask, ltt_active, w)
+            else:
+                loss = eval_step(model, srg_model, surrogate_null, xs, gen,
+                                 ltt_active, w)
+            drain.push((loss,), (batch,))
+        drain.flush()
+        return state["sum"] / max(state["total"], 1)
+
+    for epoch in range(epoch_start + 1, t_cfg.epochs + 1):
+        key = f"train_explainer[epoch={epoch}]"
+        set_iterative_seed(config.seed, key)
+        env.log(f"### epoch {epoch}")
+        update_mask = ones_mask(params)
+        ltt_active = full_depth
+        if t_cfg.EXPERIMENTAL_progressive_training and \
+                recipe.progressive_trainable is not None:
+            unfrozen = min(math.ceil(epoch / 2), m_config.num_hidden_layers)
+            env.log(f"  > freeze side branches exc. first {unfrozen} layers")
+            update_mask = filter_mask(params, recipe.progressive_trainable(
+                m_config, "explainer", unfrozen))
+            ltt_active = unfrozen
+        lr = cosine_lr(t_cfg.lr, epoch, t_cfg.epochs)
+        ts_begin = time.time()
+        train_loss = run_epoch(
+            epoch, iterative_generator(config.seed, key + "[train]", dev),
+            lr, update_mask, ltt_active, train=True)
+        test_loss = run_epoch(
+            epoch, iterative_generator(config.seed, key + "[test]", dev),
+            lr, update_mask, ltt_active, train=False)
+        ts_delta = time.time() - ts_begin
+        env.log(f"METRICS: {{'epoch': {epoch}, 'train_reg_loss': "
+                f"{train_loss}, 'test_reg_loss': {test_loss}}}")
+        env.log(f"  > epoch {epoch} done in {ts_delta:.2f}s // "
+                f"train_loss: shap {train_loss:.6f} // "
+                f"test_loss: shap {test_loss:.6f}")
+        save_epoch_ckpt(env.model_path, "explainer", t_cfg, epoch,
+                        to_flat(model))

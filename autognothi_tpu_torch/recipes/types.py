@@ -1,13 +1,26 @@
-"""The per-architecture recipe contract (the serving subset of
-`autognothi_tpu/recipes/types.py:ModelRecipe`)."""
+"""The per-architecture recipe contract (the ported subset of
+`autognothi_tpu/recipes/types.py:ModelRecipe`): the interface the pipeline
+uses to touch models.  A model is an `nn.Module` whose state-dict keys are
+the JAX flat parameter names."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple, Type
+from typing import Any, Callable, Optional, Tuple, Type
 
 import numpy as np
 import torch
+
+Model = torch.nn.Module
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelRecipe_Training:
+    support_classifier: bool
+    support_surrogate: bool
+    support_explainer: bool
+    exp_variant_duo: bool
+    exp_variant_kernel_shap: bool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -15,13 +28,42 @@ class ModelRecipe:
     id: str
     version: str
     t_config: Type[Any]  # the model's config dataclass
-    # (cfg, generator) -> a fresh final model on the CPU
-    init_final: Callable[[Any, torch.Generator], torch.nn.Module]
-    # (cfg, model, xs) -> (class probabilities, attributions)
-    fw_final: Callable[[Any, torch.nn.Module, torch.Tensor],
-                       Tuple[torch.Tensor, torch.Tensor]]
+    n_players: Callable[[Any], int]
     # (cfg, misc) -> callable(raw_xs, raw_ys) -> (np Xs, np Ys)
     gen_input: Callable[[Any, Any], Callable[..., Tuple[np.ndarray,
                                                         np.ndarray]]]
     # (cfg, misc) -> np Xs <1, ...>, the null input
     gen_null: Callable[[Any, Any], np.ndarray]
+    training: ModelRecipe_Training
+    # (cfg, model, xs, mask <B, P>, **kw) -> (Ys, extra)
+    fw_surrogate: Callable[..., Tuple[torch.Tensor, Any]]
+    # (cfg, model, xs, mask <B, P>, grand, null, **kw) -> (shap, extra)
+    fw_explainer: Callable[..., Tuple[torch.Tensor, Any]]
+    # (cfg, model, xs) -> (class probabilities, attributions)
+    fw_final: Callable[[Any, Model, torch.Tensor],
+                       Tuple[torch.Tensor, torch.Tensor]]
+    # (cfg, model, xs, masks <B, M, P>) -> <B, M, n_classes>; None ->
+    # replicate the inputs along the coalition axis
+    fw_surrogate_coalitions: Optional[Callable[..., torch.Tensor]]
+    # (cfg, section) -> name -> bool: which parameters a section trains
+    trainable: Callable[[Any, str], Callable[[str], bool]]
+    # LTT progressive training: (cfg, section, unfrozen) -> name filter
+    progressive_trainable: Optional[
+        Callable[[Any, str, int], Callable[[str], bool]]] = None
+
+
+def surrogate_coalition_values(recipe: ModelRecipe, m_config: Any,
+                               srg_model: Model, xs: torch.Tensor,
+                               masks_bmp: torch.Tensor) -> torch.Tensor:
+    """<B, M, P> coalition masks -> <B*M, C> masked surrogate values: the
+    recipe's embed-once `fw_surrogate_coalitions` where it has one, else
+    the inputs replicated along the coalition axis (`:142-162`)."""
+    b, m, p = masks_bmp.shape
+    if recipe.fw_surrogate_coalitions is not None:
+        v_s = recipe.fw_surrogate_coalitions(m_config, srg_model, xs,
+                                             masks_bmp)
+        return v_s.reshape(b * m, -1)
+    v_s, _ = recipe.fw_surrogate(m_config, srg_model,
+                                 xs.repeat_interleave(m, dim=0),
+                                 masks_bmp.reshape(b * m, p))
+    return v_s

@@ -7,15 +7,17 @@ GPU: the quickest proof that the port still starts on the card.
 Phases, each printing its own lines:
   1. device: the card's name and power limit; build the CUDA kernels from
      `autognothi_tpu_torch/csrc/` and report the build time;
-  2. kernel vs plain: every kernel op of both serving paths at the LTT
-     ViT-B/16@224 shapes (B=4, T=197) in fp32 and bf16, with an all-ones
-     and a random 0/1 mask, against its plain PyTorch version on the same
-     card.  fp32 path: the attention block (trunk 768 with LN, side 96
-     without), the MLP block (768/3072, 96/384) and the ladder (768 -> 2 x
-     96).  int8 path (AUTOGNOTHI_INT8=1): the int8 attention block (same
-     two shapes), the int8 MLP block (96/384), the int8 trunk MLP fused
-     with both ladders (768/3072 + 2 x 96) and the int8 explainer head
-     (96 -> 3072 -> 3072 -> 10);
+  2. kernel vs plain: every kernel op at the LTT ViT-B/16@224 shapes (B=4,
+     T=197) in fp32 and bf16, with an all-ones and a random 0/1 mask,
+     against its plain PyTorch version on the same card.  fp32 path: the
+     attention block (trunk 768 with LN, side 96 without), the MLP block
+     (768/3072, 96/384) and the ladder (768 -> 2 x 96).  int8 path
+     (AUTOGNOTHI_INT8=1): the int8 attention block (same two shapes), the
+     int8 MLP block (96/384, 768/3072), the int8 trunk MLP fused with both
+     ladders (768/3072 + 2 x 96) and the int8 explainer head (96 -> 3072 ->
+     3072 -> 10).  Training: the masked attention op (K9) over 4 coalitions
+     per image, d = 64 and d = 8, "add" and "mul"; the ladder attention op
+     (K10) over two 96-wide branches, both modes;
   3. the slice through `serve`: a random LTT ViT-B/16@224 final (seeded
      torch.Generator) saved as `final-epoch-0.ckpt`, served on the card at
      batch 8, once on the fp32 path and once with AUTOGNOTHI_INT8=1; each
@@ -25,13 +27,37 @@ Phases, each printing its own lines:
      int8: 13 int8 attention, 12 trunk MLP + ladder, 1 int8 MLP, 1 head;
      none of the other path's) and agreement with the plain-version
      forward of the same module on the same path;
-  4. timing with CUDA events after warmup: explanations/s of fw_final at
+  4. the training slice through `train_explainer`: a random LTT
+     ViT-B/16@224 surrogate and explainer (seeded torch.Generator) saved
+     as the JAX package's npz checkpoints beside a `cv_samples` experiment
+     at 224 px, B = 8 images x M = 32 coalitions per step.  First single
+     steps on one batch and one set of masks, in pallas mode "2" (the
+     default: int8 teacher K1 + K4 + K5, v_1 K1 + K2, forward K6 + K7 + K5)
+     and in mode "1" (every attention through the masked attention op K9),
+     each held against the same step with every kernel op replaced by its
+     plain version (loss within 1e-4 relative with the fp32 teacher,
+     AUTOGNOTHI_INT8_TEACHER=0; 1e-2 with the int8 teacher), with the
+     kernel launches of one step checked against the expected table; then
+     one epoch (2 train steps, 1 eval step) through the CLI entry point in
+     each mode, whose launch counts must be 3 x the step's;
+  5. timing with CUDA events after warmup: explanations/s of fw_final at
      B=64 with the kernels and with the plain versions (fp32 path; int8
-     path with fp32 and with bf16 parameters and pixels), and each op
-     against its plain version at the path's shapes.
+     path with fp32 and with bf16 parameters and pixels); the train step's
+     ms/step and masked forwards/s (B x M per step) with the kernels and
+     with the plain versions in both modes, its peak device memory, its
+     split into teacher, forward, backward and AdamW (CUDA events at the
+     step's `record_function` spans: the profiler attributes no device
+     time to the backward span, whose ops the autograd engine runs on its
+     own thread), and one profiled step's kernels and device idle share;
+     and
+     each op against its plain version at the path's shapes, beside its
+     bound (bytes over 3.35 TB/s or operations over the peak the JAX
+     numerics allow, whichever is larger) and, for the masked attention op
+     in "add" mode, `F.scaled_dot_product_attention` on the same inputs
+     (timed only; the port never calls it).
 
-Any failure raises, exits non-zero and prints no result.  The last two
-lines are the kernel table (JSON) and the status line (JSON).
+Any failure raises, exits non-zero and prints no result.  The last three
+lines are the card, the kernel table (JSON) and the status line (JSON).
 """
 
 from __future__ import annotations
@@ -40,6 +66,7 @@ import contextlib
 import copy
 import functools
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -68,6 +95,32 @@ INT8_OPS = ("attention_block_int8", "mlp_block_int8", "mlp_ladder_block",
 FP32_COUNTS = {"attention_block": 13, "mlp_block": 13, "ladder_block": 12}
 INT8_COUNTS = {"attention_block_int8": 13, "mlp_ladder_block": 12,
                "mlp_block_int8": 1, "head_block": 1}
+# kernel calls of one explainer train step (B = 8, M = 32) at 12 layers,
+# by (pallas mode, teacher).  Default ("2", int8 teacher): teacher K1 + K4
+# + K5 x 12 (B*M = 256 images), v_1 K1 + K2 x 12, differentiated forward
+# K6 + K7 x 13 and K5 x 12.  The fp32 teacher (AUTOGNOTHI_INT8_TEACHER=0)
+# runs K6 + K7 + K5 in the teacher and v_1.  Mode "1": the masked
+# attention op only, 24 + 24 + 25.  The backward launches none.
+STEP_COUNTS = {("2", "int8"): {"attention_block_int8": 24,
+                               "mlp_ladder_block": 12, "mlp_block_int8": 12,
+                               "ladder_block": 24, "attention_block": 13,
+                               "mlp_block": 13},
+               ("2", "fp32"): {"attention_block": 37, "mlp_block": 37,
+                               "ladder_block": 36},
+               ("1", "fp32"): {"masked_attention": 73}}
+# the teacher the CLI run takes by default: int8 in mode "2"; mode "1"
+# never quantizes.  Besides its 3 steps, the run computes surrogate_null,
+# one fp32 surrogate forward of the null image: 12 trunk layers and 12
+# ladder steps
+CLI_TEACHER = {"2": "int8", "1": "fp32"}
+NULL_COUNTS = {"2": {"attention_block": 12, "mlp_block": 12,
+                     "ladder_block": 12},
+               "1": {"masked_attention": 24}}
+TRAIN_B, TRAIN_M = 8, 32
+STEP_TOL = {"fp32": 1e-4, "int8": 1e-2}  # relative, the step's loss
+# peak rates of one H100 SXM (NVIDIA data sheet, dense) and its memory rate
+PEAK = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+HBM_BYTES_PER_S = 3.35e12
 
 # LTT ViT-B/16@224, the flagship dims of __graft_entry__._flagship_ltt_cfg
 LTT_VIT_B16 = dict(
@@ -114,11 +167,16 @@ def plain_ops():
     reference forward and the plain timing only)."""
     from autognothi_tpu_torch.models import ltt_vit, vit
     from autognothi_tpu_torch.ops import attention_block as ab
+    from autognothi_tpu_torch.ops import flash_attention as fa
     from autognothi_tpu_torch.ops import head_block as hb
     from autognothi_tpu_torch.ops import ladder_block as lb
     from autognothi_tpu_torch.ops import mlp_block as mb
 
-    with mock.patch.object(vit, "attention_block", _plain_by_quant(
+    def masked_attention_plain(q, k, v, mask_row, mode="add"):
+        return fa.masked_attention_plain(q, k, v, mask_row, mode=mode)
+
+    with mock.patch.object(fa, "masked_attention", masked_attention_plain), \
+            mock.patch.object(vit, "attention_block", _plain_by_quant(
             ab.attention_block_args, ab.attention_block_plain,
             ab.attention_block_int8_plain)), \
             mock.patch.object(vit, "mlp_block", _plain_by_quant(
@@ -175,6 +233,7 @@ def op_cases(dev, dtype, b, random_mask):
     import torch
 
     from autognothi_tpu_torch.ops import attention_block as ab
+    from autognothi_tpu_torch.ops import flash_attention as fa
     from autognothi_tpu_torch.ops import head_block as hb
     from autognothi_tpu_torch.ops import ladder_block as lb
     from autognothi_tpu_torch.ops import mlp_block as mb
@@ -221,6 +280,10 @@ def op_cases(dev, dtype, b, random_mask):
              mb.mlp_block_plain),
             ("mlp_block_int8", 96, 384, "side 96/384",
              functools.partial(mb.mlp_block, quant="int8"),
+             mb.mlp_block_int8_plain),
+            # the teacher's trunk MLP (at B*M images on the train path)
+            ("mlp_block_int8", 768, 3072, "trunk 768/3072",
+             functools.partial(mb.mlp_block, quant="int8"),
              mb.mlp_block_int8_plain))
     for name, h, inter, tag, op, plain in mlps:
         w1, b1 = lin(inter, h)
@@ -259,18 +322,139 @@ def op_cases(dev, dtype, b, random_mask):
                   _plain(hb.explainer_head_block_args, hb.head_int8_plain),
                   (act(b, T, 96), w1, b1, w2, b2, w3, b3, lnw, lnb, 1e-5),
                   {}))
+    # the masked attention op over 4 coalitions per image (the teacher's
+    # B*M masked copies: <256, 12, 197, 64> at B=64), trunk d=64 and side
+    # d=8; "add" first: its row carries the library yardstick
+    n = 4 * b
+    row = (torch.rand(n, T, generator=g) > 0.4).float() if random_mask \
+        else torch.ones(n, T)
+    row[:, 0] = 1
+    rows = {"mul": row.to(dev),
+            "add": ((1 - row) * torch.finfo(torch.float32).min).to(dev)}
+    for d in (64, 8):
+        q, k, v = (act(n, 12, T, d) for _ in range(3))
+        for mode in ("add", "mul"):
+            cases.append(("masked_attention", f"<{n},12,{T},{d}> {mode}",
+                          functools.partial(fa.masked_attention, mode=mode),
+                          functools.partial(fa.masked_attention_plain,
+                                            mode=mode),
+                          (q, k, v, rows[mode]), {}))
+    # the ladder attention core for both 96-wide branches at once
+    qkvs = [tuple(act(b, T, 96) for _ in range(3)) for _ in range(2)]
+    for mode in ("mul", "add"):
+        mrow = rows[mode][:b]
+        cases.append(("ladder_attention", f"2 x <{b},{T},96> {mode}",
+                      lb.ladder_attention,
+                      functools.partial(_ladder_attention_plain, mode=mode),
+                      (qkvs, mrow, 12, mode), {}))
     return cases
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def op_bound(name: str, args: tuple) -> tuple:
+    """-> (bound_ms, "bytes" | "operations") of one call of an op case: the
+    larger of the bytes it must move (each input read once, each output
+    written once) over the memory rate and its operations over the peak
+    the JAX numerics allow (int8 products at the int8 rate; float products
+    at the fp32 rate for fp32 inputs, the bf16 tensor-core rate for bf16)."""
+    import torch
+
+    x = args[0] if hasattr(args[0], "dtype") else args[0][0][0]
+    fkey = "bf16" if x.dtype == torch.bfloat16 else "fp32"
+    ops = {"fp32": 0.0, "bf16": 0.0, "int8": 0.0}
+
+    def attention(b, t, h):  # Q.K^T and P.V
+        return 4.0 * b * t * t * h
+
+    if name in ("masked_attention", "ladder_attention"):
+        if name == "masked_attention":
+            q, k, v, mask = args
+            streams = [q, k, v, q]  # inputs and the output
+            n, heads, t, d = q.shape
+            ops[fkey] = attention(n, t, heads * d)
+        else:
+            qkvs, mask = args[0], args[1]
+            streams = [a for tr in qkvs for a in (*tr, tr[0])]
+            ops[fkey] = sum(attention(*tr[0].shape) for tr in qkvs)
+        moved = _nbytes(*streams, mask)
+    else:
+        b, t, h = x.shape
+        m = b * t
+
+        def leaves(a):
+            if hasattr(a, "numel"):
+                return [a]
+            if isinstance(a, dict):
+                a = list(a.values())
+            if isinstance(a, (list, tuple)):
+                return [t for item in a for t in leaves(item)]
+            return []
+
+        # weights and activations read; the outputs are added below
+        moved = _nbytes(*leaves(args))
+        wkey = "int8" if name in INT8_OPS else fkey
+        if name.startswith("attention_block"):
+            ops[wkey] += 2.0 * m * h * 4 * h
+            ops[fkey] += attention(b, t, h)
+            moved += _nbytes(x)
+        elif name.startswith("mlp_block"):
+            inter = args[1].shape[0]
+            ops[wkey] += 4.0 * m * h * inter
+            moved += _nbytes(x)
+        elif name in ("ladder_block", "mlp_ladder_block"):
+            sides = args[1]
+            branches = args[4] if name == "mlp_ladder_block" else args[3]
+            if name == "mlp_ladder_block":
+                trunk = args[3]
+                ops["int8"] += 4.0 * m * h * trunk["w1"].shape[0]
+                moved += _nbytes(x)  # h written
+            for side, w in zip(sides, branches):
+                s, si = side.shape[-1], w["w1"].shape[0]
+                ops[fkey] += (2.0 * m * h * s + 2.0 * m * s * 4 * s
+                              + attention(b, t, s) + 4.0 * m * s * si)
+                moved += _nbytes(side)  # the updated side written
+        elif name == "head_block":
+            w1, w2, w3 = args[1], args[3], args[5]
+            ops["int8"] += 2.0 * m * (w1.shape[1] * w1.shape[0]
+                                      + w2.shape[1] * w2.shape[0])
+            ops[fkey] += 2.0 * m * w3.shape[1] * w3.shape[0]
+            moved += m * w3.shape[0] * x.element_size()
+    t_ops = sum(v / PEAK[k] for k, v in ops.items())
+    t_bytes = moved / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _ladder_attention_plain(qkvs, mask_row, n_heads, _mode, *, mode):
+    from autognothi_tpu_torch.ops import ladder_block as lb
+
+    return lb.ladder_attention_plain(mask_row, *(x for tr in qkvs for x in tr),
+                                     n_heads=n_heads, mode=mode)
 
 
 def counters():
     from autognothi_tpu_torch.ops import attention_block as ab
+    from autognothi_tpu_torch.ops import flash_attention as fa
     from autognothi_tpu_torch.ops import head_block as hb
     from autognothi_tpu_torch.ops import ladder_block as lb
     from autognothi_tpu_torch.ops import mlp_block as mb
 
     return {c.name: c for c in (ab.COUNTER, mb.COUNTER, lb.COUNTER,
                                 ab.COUNTER_INT8, lb.COUNTER_MLP_LADDER,
-                                mb.COUNTER_INT8, hb.COUNTER)}
+                                mb.COUNTER_INT8, hb.COUNTER, fa.COUNTER,
+                                lb.COUNTER_ATTENTION)}
+
+
+def read_counts() -> dict:
+    return {name: c.count for name, c in counters().items()}
+
+
+def reset_counts() -> None:
+    for c in counters().values():
+        c.reset()
 
 
 def cuda_time(fn, reps: int) -> float:
@@ -452,6 +636,310 @@ def phase_serve(dev, exp: pathlib.Path, int8: bool):
     return launches, service, got
 
 
+# ------------------------------------------------------------- training
+
+
+def write_train_experiment(tmp: pathlib.Path) -> pathlib.Path:
+    """A random LTT ViT-B/16@224 surrogate (`surrogate-epoch-1.ckpt`) and
+    explainer (`explainer-epoch-0.ckpt`, the surrogate's trunk and branch-0
+    ladder with a fresh explainer head, as the JAX conversion builds it)
+    beside a `cv_samples` experiment at 224 px: 2 train batches and 1 test
+    batch of TRAIN_B images, TRAIN_M coalitions per image, one epoch."""
+    import torch
+
+    from autognothi_tpu_torch import RECIPE_VERSION
+    from autognothi_tpu_torch.models.ltt_vit import LttViTConfig, init_ltt_vit
+    from autognothi_tpu_torch.params import save_params, to_flat
+
+    hp = json.loads((REPO / "experiments" / "vit_base_imagenette_vanilla"
+                     / ".hparams.json").read_text())
+    hp["net"] = {"kind": "ltt_vit", "version": RECIPE_VERSION,
+                 "base_model": hp["net"]["base_model"],
+                 "params": dict(LTT_VIT_B16)}
+    hp["dataset"] = {"kind": "cv_samples", "train_size": 2 * TRAIN_B,
+                     "test_size": TRAIN_B, "img_px_size": 224,
+                     "num_classes": 10, "seed": SEED}
+    hp["train_surrogate"]["epochs"] = 1
+    hp["train_explainer"] = {"epochs": 1, "ckpt_when": "_:%1==0",
+                             "lr": 5e-5, "batch_size": TRAIN_B,
+                             "n_mask_samples": TRAIN_M,
+                             "lambda_efficiency": 0.0, "lambda_norm": 0.0}
+    exp = tmp / "ltt_vit_base_train"
+    exp.mkdir()
+    (exp / ".hparams.json").write_text(json.dumps(hp, indent=2))
+    cfg = LttViTConfig(**LTT_VIT_B16)
+    t0 = time.perf_counter()
+    srg = init_ltt_vit(cfg, "surrogate", torch.Generator().manual_seed(SEED))
+    explainer = init_ltt_vit(cfg, "explainer",
+                             torch.Generator().manual_seed(SEED + 1))
+    shared = {k: v for k, v in srg.state_dict().items()
+              if k in explainer.state_dict()}
+    explainer.load_state_dict(shared, strict=False)
+    save_params(exp / "surrogate-epoch-1.ckpt", to_flat(srg))
+    save_params(exp / "explainer-epoch-0.ckpt", to_flat(explainer))
+    n_train = sum(p.numel() for k, p in explainer.named_parameters()
+                  if not k.startswith(("vit.embeddings.", "vit.encoder.layers.",
+                                       "vit.layernorm.", "classifier.")))
+    print(f"[train] LTT ViT-B/16@224 surrogate "
+          f"{sum(p.numel() for p in srg.parameters())} and explainer "
+          f"{sum(p.numel() for p in explainer.parameters())} parameters "
+          f"({n_train} trainable), seed {SEED}, written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return exp
+
+
+def train_env(pallas: str, teacher: str):
+    """AUTOGNOTHI_PALLAS and AUTOGNOTHI_INT8_TEACHER ("int8" or "fp32")."""
+    return mock.patch.dict(os.environ, {
+        "AUTOGNOTHI_PALLAS": pallas, "AUTOGNOTHI_INT8": "0",
+        "AUTOGNOTHI_INT8_TEACHER": "1" if teacher == "int8" else "0"})
+
+
+class TrainCase:
+    """The models, one batch and one set of coalition masks of the train
+    experiment on the card, and fresh trainable copies of the explainer."""
+
+    def __init__(self, dev, exp: pathlib.Path):
+        import torch
+
+        from autognothi_tpu_torch.ops.shapley import mask_shapley
+        from autognothi_tpu_torch.parallel.train_step import \
+            make_explainer_train_step
+        from autognothi_tpu_torch.pipeline.env import ExpEnv
+        from autognothi_tpu_torch.pipeline.resources import (
+            get_recipe, load_cfg_dataset, load_epoch_model)
+
+        with ExpEnv(exp) as env:
+            self.recipe, self.cfg = get_recipe(env.config)
+            _, self.srg = load_epoch_model(env, self.recipe, "surrogate", dev)
+            _, self.explainer = load_epoch_model(env, self.recipe,
+                                                 "explainer", dev)
+            loader = load_cfg_dataset(env.config.dataset)
+        self.srg.requires_grad_(False)
+        self.explainer.requires_grad_(False)
+        raw_xs, raw_ys = next(iter(loader.train(TRAIN_B)))
+        xs, _ = self.recipe.gen_input(self.cfg, None)(raw_xs, raw_ys)
+        self.xs = torch.from_numpy(xs).to(dev)
+        self.n_players = self.recipe.n_players(self.cfg)
+        self.masks = mask_shapley(
+            torch.Generator(device=dev).manual_seed(SEED),
+            TRAIN_B * TRAIN_M, self.n_players).reshape(
+                TRAIN_B, TRAIN_M, self.n_players)
+        with torch.no_grad():
+            nil = torch.from_numpy(self.recipe.gen_null(self.cfg, None))
+            self.null, _ = self.recipe.fw_surrogate(
+                self.cfg, self.srg, nil.to(dev),
+                torch.ones((1, self.n_players), dtype=torch.int32,
+                           device=dev))
+        self.step = make_explainer_train_step(self.recipe, self.cfg,
+                                              self.n_players, TRAIN_M)
+        self.trainable = self.recipe.trainable(self.cfg, "explainer")
+
+    def fresh(self):
+        """-> a run() that takes one step on its own copy of the
+        explainer (returning the loss) and its AdamW."""
+        from autognothi_tpu_torch.pipeline.training import AdamW
+
+        model = copy.deepcopy(self.explainer)
+        for name, p in model.named_parameters():
+            p.requires_grad_(self.trainable(name))
+        params = dict(model.named_parameters())
+        opt = AdamW(params, self.trainable)
+        ones = {k: 1.0 for k in params}
+
+        def run():
+            return self.step(model, opt, self.srg, self.null, self.xs, None,
+                             5e-5, ones, self.cfg.num_hidden_layers,
+                             masks=self.masks)
+        return run
+
+
+def phase_train_steps(case: TrainCase) -> dict:
+    """One step per mode and teacher with the kernels, and the same step
+    with the plain versions; -> the kernel calls of one step, by (mode,
+    teacher)."""
+    import torch
+
+    per_step = {}
+    for pallas, teacher in STEP_COUNTS:
+        losses, calls = {}, {}
+        for which in ("kernels", "plain"):
+            run = case.fresh()
+            with train_env(pallas, teacher), \
+                    (plain_ops() if which == "plain"
+                     else contextlib.nullcontext()):
+                reset_counts()
+                losses[which] = run().item()
+                torch.cuda.synchronize()
+                calls[which] = {k: v for k, v in read_counts().items()
+                                if v}
+        rel = abs(losses["kernels"] - losses["plain"]) \
+            / abs(losses["plain"])
+        want = STEP_COUNTS[(pallas, teacher)]
+        print(f"[train] step pallas={pallas} teacher={teacher}: loss "
+              f"kernels {losses['kernels']:.8f}, plain "
+              f"{losses['plain']:.8f}, rel diff {rel:.3e} (limit "
+              f"{STEP_TOL[teacher]:.0e}); kernel calls {calls['kernels']}"
+              f" (expected {want})", flush=True)
+        check(calls["kernels"] == want,
+              f"pallas={pallas} teacher={teacher}: one step's kernel "
+              f"calls differ")
+        check(not calls["plain"], "the plain step launched kernels")
+        check(rel <= STEP_TOL[teacher] and
+              all(math.isfinite(v) for v in losses.values()),
+              f"pallas={pallas} teacher={teacher}: the kernel step's "
+              f"loss differs from the plain step's")
+        per_step[(pallas, teacher)] = calls["kernels"]
+    return per_step
+
+
+def phase_train_cli(exp: pathlib.Path, per_step: dict) -> dict:
+    """One epoch (2 train steps + 1 eval step) through `python -m
+    autognothi_tpu_torch train_explainer <exp> --device cuda`, per mode;
+    -> the kernel calls of both runs."""
+    import numpy as np
+
+    from autognothi_tpu_torch.cli import main as cli_main
+    from autognothi_tpu_torch.params import load_params_file
+
+    total = {}
+    for pallas, teacher in CLI_TEACHER.items():
+        (exp / "explainer-epoch-1.ckpt").unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        with train_env(pallas, teacher):
+            reset_counts()
+            cli_main(["train_explainer", str(exp), "--device", "cuda"])
+            calls = {k: v for k, v in read_counts().items() if v}
+        one = per_step[(pallas, teacher)]
+        expected = {k: 3 * one.get(k, 0) + NULL_COUNTS[pallas].get(k, 0)
+                    for k in {*one, *NULL_COUNTS[pallas]}}
+        print(f"[train cli] pallas={pallas}: one epoch in "
+              f"{time.perf_counter() - t0:.1f} s; kernel calls {calls} "
+              f"(expected 3 steps x {one} + the null forward's "
+              f"{NULL_COUNTS[pallas]})", flush=True)
+        check(calls == expected, f"pallas={pallas}: the CLI run's kernel "
+                                 f"calls differ from 3 steps'")
+        ckpt = load_params_file(exp / "explainer-epoch-1.ckpt")
+        check(all(np.isfinite(v).all() for v in ckpt.values()),
+              "the trained explainer checkpoint is not finite")
+        for k, v in calls.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+class SpanTimer:
+    """Stands in for `record_function` in the train step: CUDA events at
+    each span's ends, so each span's time on the card's stream is read."""
+
+    def __init__(self):
+        self.spans = []
+
+    def __call__(self, name: str):
+        import torch
+
+        @contextlib.contextmanager
+        def span():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            try:
+                yield
+            finally:
+                end.record()
+                self.spans.append((name, start, end))
+        return span()
+
+    def totals(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for name, start, end in self.spans:
+            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
+        return out
+
+
+SPANS = ("teacher", "forward", "backward", "adamw")
+
+
+def device_kernels(prof) -> dict:
+    """Kernel name -> device milliseconds, from a profiler's device-side
+    events (the spans' own annotations left out)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name not in SPANS:
+            out[e.name] = out.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def phase_train_timing(case: TrainCase, card: str) -> None:
+    """ms/step and masked forwards/s, kernels and plain in turns, per mode
+    (int8 teacher in mode "2"); peak memory; the step split into teacher,
+    forward, backward and AdamW; one profiled step's device time by kernel
+    and idle share (the profiler's own overhead lengthens that step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from autognothi_tpu_torch.parallel import train_step as ts
+
+    reps = 3
+    for pallas, teacher in CLI_TEACHER.items():
+        runs = {"kernels": case.fresh(), "plain": case.fresh()}
+
+        def timed(which):
+            ctx = plain_ops() if which == "plain" else contextlib.nullcontext()
+            with train_env(pallas, teacher), ctx:
+                runs[which]()  # warmup
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    runs[which]()
+                torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / reps * 1e3
+
+        ms = {"plain": [], "kernels": []}
+        for which in ("plain", "kernels", "kernels", "plain"):
+            ms[which].append(timed(which))
+        for which, vals in ms.items():
+            print(f"[train-time] pallas={pallas} B={TRAIN_B} M={TRAIN_M} "
+                  f"{which:7s}: {' '.join(f'{v:.2f}' for v in vals)} ms/step"
+                  f", {' '.join(f'{TRAIN_B * TRAIN_M / v * 1e3:.1f}' for v in vals)}"
+                  f" masked forwards/s | {card}", flush=True)
+        for which in ("kernels", "plain"):
+            ctx = plain_ops() if which == "plain" else contextlib.nullcontext()
+            timer = SpanTimer()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with train_env(pallas, teacher), ctx, \
+                    mock.patch.object(ts, "record_function", timer):
+                runs[which]()
+            spans = timer.totals()
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            print(f"[train-time] pallas={pallas} {which:7s} step split "
+                  f"(CUDA events): "
+                  f"{', '.join(f'{k} {v:.2f} ms' for k, v in spans.items())};"
+                  f" peak device memory {peak:.1f} MiB | {card}", flush=True)
+        with train_env(pallas, teacher):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                runs["kernels"]()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        kernels = device_kernels(prof)
+        kernel_ms = sum(kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+        print(f"[train-time] pallas={pallas} kernels profiled step: device "
+              f"time {kernel_ms:.2f} ms of {wall:.2f} ms wall (device idle "
+              f"{max(0.0, 1 - kernel_ms / wall) * 100:.1f}%); top: "
+              + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top)
+              + f" | {card}", flush=True)
+
+
 def time_fw_final(label: str, fw, fw_plain, dtype, int8: bool,
                   card: str) -> None:
     """Check the kernel forward against the plain one at B_TIME, then time
@@ -503,15 +991,45 @@ def phase_timing(dev, card: str, service) -> dict:
                                  torch.float32, name in INT8_OPS)
             t_plain = cuda_time(lambda: plain(*args, **kw), reps=10)
             t_kern = cuda_time(lambda: op(*args, **kw), reps=10)
-        print(f"[time] {name:20s} {tag:18s} fp32 B={B_TIME}: kernel "
-              f"{t_kern:.4f} ms, plain {t_plain:.4f} ms ({msg}) | {card}",
+            t_lib = None
+            if name == "masked_attention" and tag.endswith(" add"):
+                t_lib = time_library_attention(args, card)
+        bound_ms, bound_by = op_bound(name, args)
+        print(f"[time] {name:20s} {tag:22s} fp32 B={B_TIME}: kernel "
+              f"{t_kern:.4f} ms, plain {t_plain:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}) ({msg}) | {card}",
               flush=True)
         check(ok, f"{name} {tag} B={B_TIME}: kernel disagrees")
-        per_op.setdefault(name, (t_kern, t_plain))  # first = trunk shape
+        # the first case of each op is its row: the trunk shape (the
+        # masked attention op: "add" at the teacher's <256, 12, 197, 64>)
+        per_op.setdefault(name, dict(ms=t_kern, plain_ms=t_plain,
+                                     bound_ms=bound_ms, bound_by=bound_by,
+                                     library_ms=t_lib))
     print(f"[time] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB | {card}",
           flush=True)
     return per_op
+
+
+def time_library_attention(args, card: str) -> float:
+    """`F.scaled_dot_product_attention` with the additive mask row on the
+    masked attention op's inputs: the yardstick, timed here only."""
+    import torch
+    import torch.nn.functional as F
+
+    from autognothi_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, row = args
+    bias = row[:, None, None, :]
+    got = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+    err = (got - fa.masked_attention_plain(q, k, v, row, mode="add")
+           ).abs().max().item()
+    t_lib = cuda_time(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=bias), reps=10)
+    print(f"[time] masked_attention library yardstick "
+          f"F.scaled_dot_product_attention {tuple(q.shape)}: {t_lib:.4f} ms "
+          f"(max|sdpa - plain| = {err:.3e}) | {card}", flush=True)
+    return t_lib
 
 
 # name -> (source, the TPU kernel it replaces: its pl.pallas_call)
@@ -530,7 +1048,14 @@ KERNELS = {
                    "autognothi_tpu/ops/head_block.py:138"),
     "mlp_block_int8": ("autognothi_tpu_torch/csrc/int8.cu",
                        "autognothi_tpu/ops/mlp_block.py:163"),
+    "masked_attention": ("autognothi_tpu_torch/csrc/attention.cu",
+                         "autognothi_tpu/ops/flash_attention.py:158"),
+    "ladder_attention": ("autognothi_tpu_torch/csrc/attention.cu",
+                         "autognothi_tpu/ops/ladder_block.py:183"),
 }
+# no model calls the ladder attention op (as in the JAX package): it has no
+# launches on a main path
+NOT_ON_A_PATH = ("ladder_attention",)
 
 
 def main() -> int:
@@ -555,23 +1080,31 @@ def main() -> int:
         exp = write_experiment(pathlib.Path(tmp))
         launches, service, got_fp32 = phase_serve(dev, exp, int8=False)
         launches_int8, _, got_int8 = phase_serve(dev, exp, int8=True)
-    for kind in got_fp32:
-        for what in ("logits", "attributions"):
-            diff = np.abs(np.asarray(got_int8[kind][what], np.float32)
-                          - np.asarray(got_fp32[kind][what], np.float32))
-            print(f"[serve] {kind:9s} {what:12s} max|int8 - fp32| = "
-                  f"{diff.max():.3e} (W8A8 vs fp32 path, not held)",
-                  flush=True)
-    launches.update({k: launches_int8[k] for k in INT8_COUNTS})
-    per_op = phase_timing(dev, card, service)
+        for kind in got_fp32:
+            for what in ("logits", "attributions"):
+                diff = np.abs(np.asarray(got_int8[kind][what], np.float32)
+                              - np.asarray(got_fp32[kind][what], np.float32))
+                print(f"[serve] {kind:9s} {what:12s} max|int8 - fp32| = "
+                      f"{diff.max():.3e} (W8A8 vs fp32 path, not held)",
+                      flush=True)
+        train_exp = write_train_experiment(pathlib.Path(tmp))
+        case = TrainCase(dev, train_exp)
+        per_step = phase_train_steps(case)
+        launches_train = phase_train_cli(train_exp, per_step)
+        # every main path was driven from counts of 0: serve fp32, serve
+        # int8, train_explainer in pallas modes "2" and "1"
+        for k in launches:
+            launches[k] += launches_int8[k] + launches_train.get(k, 0)
+        per_op = phase_timing(dev, card, service)
+        phase_train_timing(case, card)
 
-    kernels = [{"name": k, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[k],
-                "max_abs_err": worst[k], "ms": per_op[k][0],
-                "plain_ms": per_op[k][1]}
+    kernels = [dict(name=k, route="cuda", source=source, replaces=replaces,
+                    launches=launches[k], max_abs_err=worst[k],
+                    **per_op[k])
                for k, (source, replaces) in KERNELS.items()]
     for k in kernels:
-        check(k["launches"] > 0, f"{k['name']}: no launch on the main path")
+        check(k["launches"] > 0 or k["name"] in NOT_ON_A_PATH,
+              f"{k['name']}: no launch on the main path")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

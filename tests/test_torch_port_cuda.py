@@ -325,3 +325,127 @@ def test_head_block_kernel(dev, dtype, has_ln):
     assert hb.COUNTER.count == before + 1 and got.shape == (b, t, c)
     tensors, static = hb.explainer_head_block_args(x, *ws, *ln, 1e-5)
     _close_int8(got, hb.head_int8_plain(*tensors, **static), dtype)
+
+
+# ----------------------------------------- masked attention (K9, K10)
+
+
+@pytest.mark.parametrize("mode", ["mul", "add"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 64])
+def test_masked_attention_kernel(dev, d, dtype, mode):
+    """K9 on the split-head views the model hands it (strided, no copy)
+    and on contiguous <N, h, T, D>, against its plain version."""
+    from autognothi_tpu_torch.models.common import split_heads
+    from autognothi_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(9)
+    n, heads, t = 3, 12, 197
+    qkv = _rand(g, dev, 3, n, t, heads * d).to(dtype)
+    views = [split_heads(x, heads) for x in qkv]  # strides (T*H, d, H, 1)
+    dense = [x.contiguous() for x in views]
+    mask = _mask(g, dev, n, t, True)
+    if mode == "add":
+        mask = (1 - mask) * torch.finfo(torch.float32).min
+    for q, k, v in (views, dense):
+        before = fa.COUNTER.count
+        got = fa.masked_attention(q, k, v, mask, mode=mode)
+        assert fa.COUNTER.count == before + 1 and got.shape == q.shape
+        _close(got, fa.masked_attention_plain(q, k, v, mask, mode=mode),
+               dtype)
+
+
+@pytest.mark.parametrize("mode", ["mul", "add"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 64])
+def test_ladder_attention_kernel(dev, d, dtype, mode):
+    from autognothi_tpu_torch.ops import ladder_block as lb
+
+    g = torch.Generator().manual_seed(10)
+    b, heads, t = 2, 12, 197
+    qkvs = [tuple(_rand(g, dev, b, t, heads * d).to(dtype) for _ in range(3))
+            for _ in range(2)]
+    mask = _mask(g, dev, b, t, True)
+    if mode == "add":
+        mask = (1 - mask) * torch.finfo(torch.float32).min
+    before = lb.COUNTER_ATTENTION.count
+    got = lb.ladder_attention(qkvs, mask, heads, mode)
+    assert lb.COUNTER_ATTENTION.count == before + 1
+    want = lb.ladder_attention_plain(mask, *(x for tr in qkvs for x in tr),
+                                     n_heads=heads, mode=mode)
+    for x, y in zip(got, want):
+        _close(x, y, dtype)
+
+
+def _step_models(dev):
+    from autognothi_tpu_torch.models.ltt_vit import LttViTConfig, init_ltt_vit
+
+    cfg = LttViTConfig(
+        attention_probs_dropout_prob=0.0, explainer_s_attn_num_layers=1,
+        explainer_s_head_hidden_size=64, explainer_normalize=True,
+        hidden_dropout_prob=0.0, hidden_size=64, intermediate_size=256,
+        layer_norm_eps=1e-12, num_attention_heads=4, num_hidden_layers=2,
+        num_labels=5, s_attn_hidden_size=32, s_attn_intermediate_size=128,
+        img_channels=3, img_px_size=32, img_patch_size=8)
+    srg = init_ltt_vit(cfg, "surrogate", torch.Generator().manual_seed(0))
+    exp = init_ltt_vit(cfg, "explainer", torch.Generator().manual_seed(1))
+    return cfg, srg.to(dev), exp.to(dev)
+
+
+@pytest.mark.parametrize("pallas", ["2", "1"])
+def test_train_step_kernels_against_plain(dev, pallas, monkeypatch):
+    """One explainer step (fp32 teacher) with the kernels against the same
+    step in pallas mode "0" (plain math everywhere), on the same masks and
+    weights: loss within 1e-4 relative, trainable gradients within 1e-4 x
+    max|g| (fp32 sums in another order); the kernel counters show which
+    kernels ran."""
+    import copy
+
+    from autognothi_tpu_torch.ops import flash_attention as fa
+    from autognothi_tpu_torch.ops import ladder_block as lb
+    from autognothi_tpu_torch.parallel.train_step import \
+        make_explainer_train_step
+    from autognothi_tpu_torch.pipeline.training import AdamW
+    from autognothi_tpu_torch.recipes.ltt_vit import ltt_vit_recipe
+
+    class Spy(AdamW):
+        def update(self, params, grads, lr, update_mask):
+            self.grads = {k: v.detach().clone() for k, v in grads.items()
+                          if v is not None}
+            super().update(params, grads, lr, update_mask)
+
+    monkeypatch.setenv("AUTOGNOTHI_INT8_TEACHER", "0")
+    recipe = ltt_vit_recipe()
+    cfg, srg, exp = _step_models(dev)
+    srg.requires_grad_(False)
+    trainable = recipe.trainable(cfg, "explainer")
+    g = torch.Generator().manual_seed(2)
+    xs = torch.randn(2, 3, 32, 32, generator=g).to(dev)
+    masks = torch.randint(0, 2, (2, 4, 16), generator=g,
+                          dtype=torch.int32).to(dev)
+    null = torch.full((1, 5), 0.2, device=dev)
+    step = make_explainer_train_step(recipe, cfg, 16, 4)
+    out = {}
+    for mode in (pallas, "0"):
+        model = copy.deepcopy(exp)
+        for name, p in model.named_parameters():
+            p.requires_grad_(trainable(name))
+        opt = Spy(dict(model.named_parameters()), trainable)
+        monkeypatch.setenv("AUTOGNOTHI_PALLAS", mode)
+        before = (fa.COUNTER.count, lb.COUNTER.count)
+        loss = step(model, opt, srg, null, xs, None, 1e-3,
+                    {k: 1.0 for k in opt.names}, 2, masks=masks)
+        torch.cuda.synchronize()
+        out[mode] = (loss.item(), opt.grads,
+                     (fa.COUNTER.count - before[0],
+                      lb.COUNTER.count - before[1]))
+    (loss, got, calls), (ref_loss, want, ref_calls) = out[pallas], out["0"]
+    assert abs(loss - ref_loss) <= 1e-4 * abs(ref_loss), (loss, ref_loss)
+    # mode "1", K9: 2 + 2 (teacher) + 2 + 2 (v_1) + 2 + 2 + 1 (forward);
+    # mode "2", K5: one per trunk layer in the teacher, v_1 and forward
+    assert calls == ((13, 0) if pallas == "1" else (0, 6)), calls
+    assert ref_calls == (0, 0)
+    g_max = max(v.abs().max().item() for v in want.values())
+    for k, v in want.items():
+        err = (got[k] - v).abs().max().item()
+        assert err <= 1e-4 * g_max, (k, err, g_max)

@@ -115,6 +115,11 @@ def test_import_graph_is_free_of_jax_and_the_jax_package():
         "import sys\n"
         "import autognothi_tpu_torch, autognothi_tpu_torch.pipeline.serve\n"
         "import autognothi_tpu_torch.cli, autognothi_tpu_torch.ops.head_block\n"
+        "import autognothi_tpu_torch.pipeline.train_explainer\n"
+        "import autognothi_tpu_torch.ops.flash_attention\n"
+        "import autognothi_tpu_torch.ops.shapley\n"
+        "import autognothi_tpu_torch.data.loader\n"
+        "import autognothi_tpu_torch.utils.seeding\n"
         "bad = [m for m in ('jax', 'jaxlib', 'optax', 'pydantic', 'orbax',\n"
         "                    'autognothi_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n")
@@ -209,11 +214,31 @@ def test_serve_artifact_is_not_ported(tmp_path):
 
 def test_port_reads_no_environment_switch():
     # the port reads no environment switch that routes work to the CPU; its
-    # one read is the JAX package's AUTOGNOTHI_INT8, which picks the
-    # arithmetic (W8A8 or not) on either device
+    # reads are the JAX package's own switches, each picking the arithmetic
+    # or a training option on either device: AUTOGNOTHI_PALLAS (fused ops,
+    # masked attention op or plain math), AUTOGNOTHI_INT8 (W8A8 or not),
+    # AUTOGNOTHI_INT8_TEACHER, AUTOGNOTHI_COMPUTE_DTYPE, AUTOGNOTHI_CKPT_OPT,
+    # and AUTOGNOTHI_PP / AUTOGNOTHI_PP_TP, which only refuse (not ported)
+    import re
+
     src = (REPO / "autognothi_tpu_torch").rglob("*.py")
-    reads = {p.relative_to(REPO).as_posix(): p.read_text().count("os.environ")
+    reads = {p.relative_to(REPO).as_posix():
+             sorted(re.findall(r'os\.environ\.get\("(\w+)"', p.read_text()))
              for p in src if "os.environ" in p.read_text()}
-    assert reads == {"autognothi_tpu_torch/models/common.py": 1}
-    common = (REPO / "autognothi_tpu_torch/models/common.py").read_text()
-    assert 'os.environ.get("AUTOGNOTHI_INT8", "0")' in common
+    assert reads == {
+        "autognothi_tpu_torch/models/common.py":
+            ["AUTOGNOTHI_INT8", "AUTOGNOTHI_PALLAS"],
+        "autognothi_tpu_torch/parallel/train_step.py":
+            ["AUTOGNOTHI_INT8_TEACHER"],
+        "autognothi_tpu_torch/pipeline/resources.py":
+            ["AUTOGNOTHI_CKPT_OPT"],
+        "autognothi_tpu_torch/pipeline/training.py":
+            ["AUTOGNOTHI_COMPUTE_DTYPE"],
+        "autognothi_tpu_torch/pipeline/train_explainer.py": [],
+    }
+    src = (REPO / "autognothi_tpu_torch/pipeline/train_explainer.py"
+           ).read_text()
+    assert '("AUTOGNOTHI_PP", "AUTOGNOTHI_PP_TP")' in src
+    total = sum(p.read_text().count("os.environ")
+                for p in (REPO / "autognothi_tpu_torch").rglob("*.py"))
+    assert total == 6
