@@ -26,9 +26,21 @@
 // so all 32 lanes work at d = 8.  The <B, heads, T, T> scores and
 // probabilities never reach device memory.
 //
+// Long sequences (BERT at T = 512, d = 64): the whole head's K and V in fp32
+// need 288,768 B, more than a block's 227 KB, so the chunked variant walks
+// the keys in chunks of kAttKC that fit, in two passes.  Each warp owns 8 of
+// the block's 64 queries (staged in shared memory) and keeps each query's
+// row state in registers.  Pass 1 takes the row max and the softmax sum
+// over the chunks (online: the sum is rescaled when the max grows); pass 2
+// recomputes each chunk's scores, rounds p = exp(s - max) / sum to the
+// activation dtype (the JAX rounding point, unchanged) and accumulates P.V
+// in fp32.  The mask rules are the same.  Shapes that fit one stage keep the
+// one-stage kernel.
+//
 // What bounds it on the H100: fp32 FMA issue and shared-memory bandwidth of
-// the Q.K and P.V loops, and re-staging K and V for every 64-query tile.
-// Flash-style mma tiles are the work of later changes.
+// the Q.K and P.V loops, and re-staging K and V for every 64-query tile (the
+// chunked variant computes Q.K twice).  Flash-style mma tiles are the work
+// of later changes.
 
 #include "common.cuh"
 
@@ -36,6 +48,9 @@ namespace ag {
 
 constexpr int kAttWarps = 8;
 constexpr int kAttQT = 64;  // queries per block
+constexpr int kAttKC = 128;  // keys per chunk (chunked variant)
+constexpr int kAttQPW = kAttQT / kAttWarps;  // queries per warp (chunked)
+constexpr long long kMaxSmem = 232448;  // dynamic shared memory of a block
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
@@ -163,6 +178,153 @@ __global__ void __launch_bounds__(kAttWarps * 32)
   }
 }
 
+// The chunked variant (d >= 32).  Shared memory (floats): Qs kAttQT x D,
+// Ks kAttKC x (D + 4), Vs kAttKC x D, Ms kAttKC, Ps kAttWarps x kAttKC.
+template <typename T, bool MUL, int D>
+__global__ void __launch_bounds__(kAttWarps * 32)
+    attention_chunked_kernel(const T* __restrict__ qp,
+                             const T* __restrict__ kp,
+                             const T* __restrict__ vp,
+                             const float* __restrict__ mask,
+                             T* __restrict__ op, HeadViews views, int Tn) {
+  static_assert(D >= 32 && D % 32 == 0, "chunked core: d >= 32");
+  constexpr int KS = D + 4;
+  constexpr int JPL = kAttKC / 32;  // keys of a chunk per lane
+  constexpr int CPL = D / 32;       // output columns per lane
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);  // kAttQT x D
+  float* Ks = Qs + kAttQT * D;                  // kAttKC x KS
+  float* Vs = Ks + kAttKC * KS;                 // kAttKC x D
+  float* Ms = Vs + kAttKC * D;                  // kAttKC
+  float* Ps = Ms + kAttKC;                      // kAttWarps x kAttKC
+
+  const int b = blockIdx.z, head = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * kAttQT;
+  const T* qb = qp + b * views.sb[0] + head * views.sh[0];
+  const T* kb = kp + b * views.sb[1] + head * views.sh[1];
+  const T* vb = vp + b * views.sb[2] + head * views.sh[2];
+  T* ob = op + b * views.sb[3] + head * views.sh[3];
+  const float scale = 1.0f / sqrtf((float)D);
+
+  for (int idx = threadIdx.x; idx < kAttQT * D; idx += blockDim.x) {
+    const int i = q0 + idx / D;
+    Qs[idx] = i < Tn ? to_f(qb[i * views.st[0] + idx % D]) : 0.f;
+  }
+
+  // stage keys [c0, c0 + kAttKC) (and their values when V is set)
+  auto stage = [&](int c0, bool with_v) {
+    __syncthreads();  // the previous chunk's readers are done
+    for (int idx = threadIdx.x; idx < kAttKC * D; idx += blockDim.x) {
+      const int j = idx / D, c = idx % D, jg = c0 + j;
+      const bool ok = jg < Tn;
+      Ks[j * KS + c] = ok ? to_f(kb[jg * views.st[1] + c]) : 0.f;
+      if (with_v) Vs[j * D + c] = ok ? to_f(vb[jg * views.st[2] + c]) : 0.f;
+    }
+    for (int j = threadIdx.x; j < kAttKC; j += blockDim.x)
+      Ms[j] = c0 + j < Tn ? mask[(size_t)b * Tn + c0 + j] : 0.f;
+    __syncthreads();
+  };
+
+  // the masked, scaled scores of query row qi against the staged chunk;
+  // keys past Tn are -inf
+  auto scores = [&](int qi, int c0, float (&s)[JPL]) {
+    float q[D];
+#pragma unroll
+    for (int c = 0; c < D; ++c) q[c] = Qs[qi * D + c];
+#pragma unroll
+    for (int jj = 0; jj < JPL; ++jj) {
+      const int j = lane + 32 * jj;
+      s[jj] = -INFINITY;
+      if (c0 + j < Tn) {
+        const float4* kr = reinterpret_cast<const float4*>(Ks + j * KS);
+        float dot = 0.f;
+#pragma unroll
+        for (int c4 = 0; c4 < D / 4; ++c4) {
+          const float4 k4 = kr[c4];
+          dot = fmaf(q[4 * c4], k4.x, dot);
+          dot = fmaf(q[4 * c4 + 1], k4.y, dot);
+          dot = fmaf(q[4 * c4 + 2], k4.z, dot);
+          dot = fmaf(q[4 * c4 + 3], k4.w, dot);
+        }
+        const float sc = dot * scale;
+        s[jj] = MUL ? sc * Ms[j] : sc + Ms[j];
+      }
+    }
+  };
+
+  // pass 1: row max and softmax sum
+  float mx[kAttQPW], sum[kAttQPW];
+#pragma unroll
+  for (int u = 0; u < kAttQPW; ++u) {
+    mx[u] = -INFINITY;
+    sum[u] = 0.f;
+  }
+  for (int c0 = 0; c0 < Tn; c0 += kAttKC) {
+    stage(c0, false);
+#pragma unroll
+    for (int u = 0; u < kAttQPW; ++u) {
+      const int qi = warp + kAttWarps * u;
+      if (q0 + qi >= Tn) continue;  // warp-uniform
+      float s[JPL];
+      scores(qi, c0, s);
+      float cm = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < JPL; ++jj) cm = fmaxf(cm, s[jj]);
+      const float m_new = fmaxf(mx[u], warp_max(cm));
+      float cs = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < JPL; ++jj)
+        if (c0 + lane + 32 * jj < Tn) cs += expf(s[jj] - m_new);
+      sum[u] = sum[u] * expf(mx[u] - m_new) + warp_sum(cs);
+      mx[u] = m_new;
+    }
+  }
+
+  // pass 2: rounded probabilities times V
+  float acc[kAttQPW][CPL];
+#pragma unroll
+  for (int u = 0; u < kAttQPW; ++u)
+#pragma unroll
+    for (int cc = 0; cc < CPL; ++cc) acc[u][cc] = 0.f;
+  float* p = Ps + warp * kAttKC;
+  for (int c0 = 0; c0 < Tn; c0 += kAttKC) {
+    stage(c0, true);
+#pragma unroll
+    for (int u = 0; u < kAttQPW; ++u) {
+      const int qi = warp + kAttWarps * u;
+      if (q0 + qi >= Tn) continue;  // warp-uniform
+      float s[JPL];
+      scores(qi, c0, s);
+#pragma unroll
+      for (int jj = 0; jj < JPL; ++jj) {
+        const int j = lane + 32 * jj;
+        p[j] = c0 + j < Tn ? round_to<T>(expf(s[jj] - mx[u]) / sum[u]) : 0.f;
+      }
+      __syncwarp();
+      for (int j = 0; j < kAttKC; j += 4) {
+        const float4 p4 = *reinterpret_cast<const float4*>(p + j);
+        const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+#pragma unroll
+          for (int cc = 0; cc < CPL; ++cc)
+            acc[u][cc] = fmaf(pj[w], Vs[(j + w) * D + lane + 32 * cc],
+                              acc[u][cc]);
+      }
+      __syncwarp();
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kAttQPW; ++u) {
+    const int i = q0 + warp + kAttWarps * u;
+    if (i >= Tn) continue;
+    T* out = ob + i * views.st[3];
+#pragma unroll
+    for (int cc = 0; cc < CPL; ++cc) out[lane + 32 * cc] = from_f<T>(acc[u][cc]);
+  }
+}
+
 struct AttnCall {
   const void *q, *k, *v;
   const float* mask;
@@ -187,6 +349,20 @@ static int launch_attention(const AttnCall& a) {
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool MUL, int D>
+static int launch_attention_chunked(const AttnCall& a) {
+  auto kernel = attention_chunked_kernel<T, MUL, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.Tn + kAttQT - 1) / kAttQT, a.nh, a.N);
+  kernel<<<grid, kAttWarps * 32, a.smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.mask, static_cast<T*>(a.out), a.views,
+      a.Tn);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool MUL, int MAXJ>
 static int pick_d(int d, const AttnCall& a) {
   switch (d) {
@@ -198,8 +374,29 @@ static int pick_d(int d, const AttnCall& a) {
   }
 }
 
+static long long one_stage_smem_bytes(int Tn, int d) {
+  const long long tp = round4(Tn);
+  return (long long)sizeof(float) *
+         (tp * (d + 4) + tp * d + tp + (long long)kAttWarps * tp);
+}
+
+static long long chunked_smem_bytes(int d) {
+  return (long long)sizeof(float) *
+         ((long long)kAttQT * d + kAttKC * (d + 4) + kAttKC * d + kAttKC +
+          kAttWarps * kAttKC);
+}
+
+// The chunked variant where one stage exceeds a block's shared memory (at
+// T <= 512 only d = 64 does).
+static bool chunked(int Tn, int d) {
+  return one_stage_smem_bytes(Tn, d) > kMaxSmem;
+}
+
 template <typename T, bool MUL>
 static int pick_maxj(int d, const AttnCall& a) {
+  if (chunked(a.Tn, d))
+    return d == 64 ? launch_attention_chunked<T, MUL, 64>(a)
+                   : (int)cudaErrorInvalidValue;
   if (a.Tn <= 32 * 8) return pick_d<T, MUL, 8>(d, a);
   if (a.Tn <= 32 * 16) return pick_d<T, MUL, 16>(d, a);
   return (int)cudaErrorInvalidValue;
@@ -209,11 +406,10 @@ static int pick_maxj(int d, const AttnCall& a) {
 
 using namespace ag;
 
-// Dynamic shared memory the attention core needs at (T, d), in bytes.
+// Dynamic shared memory the attention core needs at (T, d), in bytes: the
+// one-stage kernel's where it fits a block, else the chunked variant's.
 extern "C" long long ag_attention_smem_bytes(int Tn, int d) {
-  const long long tp = round4(Tn);
-  return (long long)sizeof(float) *
-         (tp * (d + 4) + tp * d + tp + (long long)kAttWarps * tp);
+  return chunked(Tn, d) ? chunked_smem_bytes(d) : one_stage_smem_bytes(Tn, d);
 }
 
 // Head dims the core is compiled for; others are refused.

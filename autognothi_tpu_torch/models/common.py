@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "additive_mask_bias",
     "dense",
     "dense_serving",
     "pallas_mode",
@@ -163,6 +164,15 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     x = x.transpose(-3, -2)
     *lead, t, n, d = x.shape
     return x.reshape(*lead, t, n * d)
+
+
+def additive_mask_bias(mask: torch.Tensor,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """BERT's extended attention mask: <B, T> 0/1 -> <B, 1, 1, T> bias of 0
+    (keep) or finfo(dtype).min (drop), added to the raw scores; computed in
+    `dtype`, as the JAX package does (the ops read it as fp32)."""
+    bias = (1.0 - mask.to(dtype)) * torch.finfo(dtype).min
+    return bias[:, None, None, :]
 
 
 def self_attention(

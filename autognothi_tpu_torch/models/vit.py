@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops import gates
 from ..ops.attention_block import attention_block
 from ..ops.head_block import explainer_head_block
 from ..ops.mlp_block import mlp_block
@@ -232,14 +233,18 @@ def vit_embeddings(emb: ViTEmbeddings, cfg: VanillaViTConfig,
 
 def explainer_mlp_head(head: nn.ModuleDict, h: torch.Tensor) -> torch.Tensor:
     """LN (torch default eps 1e-5) -> d1 -> GELU -> d2 -> GELU -> d3.  In
-    int8 mode, when d1 and d2 are equally wide (`models/vit.py:398-401`),
-    the whole head is the fused int8 head op (K3, `ops/head_block.py`).
+    int8 mode, when d1 and d2 are equally wide and a token tile fits the
+    JAX budget (`models/vit.py:398-401`, `gates.head_token_tile`), the
+    whole head is the fused int8 head op (K3, `ops/head_block.py`).
     Otherwise it is plain: LN and `dense_serving` denses (W8A8 in int8
     mode), as the JAX package runs them outside any Pallas kernel."""
     ln_w, ln_b = head["0"].weight, head["0"].bias
     d1, d2, d3 = head["1"], head["3"], head["5"]
     if quant_mode() == "int8" and h.dim() == 3 \
-            and d1.weight.shape[0] == d2.weight.shape[0]:
+            and d1.weight.shape[0] == d2.weight.shape[0] \
+            and gates.head_token_tile(h.shape[-2], h.shape[-1],
+                                      d1.weight.shape[0],
+                                      d3.weight.shape[0]) is not None:
         return explainer_head_block(h, d1.weight, d1.bias, d2.weight,
                                     d2.bias, d3.weight, d3.bias, ln_w, ln_b,
                                     1e-5)

@@ -38,6 +38,7 @@ from ..kernels.primitives import (EPI_BIAS, EPI_BIAS_RESID, I8_EPI_BIAS,
                                   dispatch, gemm, gemm_i8, layernorm_,
                                   quant_rows, rowstats)
 from ..models.common import dense, layer_norm
+from . import gates
 
 COUNTER = LaunchCounter("attention_block")
 COUNTER_INT8 = LaunchCounter("attention_block_int8")
@@ -182,8 +183,15 @@ def attention_block(*args, quant: str = "none", **kwargs) -> torch.Tensor:
     epilogue: LN(resid + OutProj(Attn(resid)));
     none:     resid + OutProj(Attn(resid)).
     Arguments as `attention_block_args`; quant="int8" is the W8A8 block
-    (K1), whose gradient is the unquantized math's."""
+    (K1), whose gradient is the unquantized math's.  Where the int8 block
+    does not fit the JAX budget (`gates.attention_block_fits`: fp32 at
+    BERT-base T = 512), the JAX op computes the unquantized block, and so
+    does this one."""
     tensors, static = attention_block_args(*args, **kwargs)
+    resid = tensors[0]
+    if quant == "int8" and not gates.attention_block_fits(
+            resid.shape[-2], resid.shape[-1], resid.dtype, quant):
+        quant = "none"
     if quant == "int8":
         return dispatch(attention_block_int8_launch,
                         attention_block_int8_plain, COUNTER_INT8, tensors,

@@ -98,7 +98,9 @@ def explainer_head_block_args(
 def explainer_head_block(*args, **kwargs) -> torch.Tensor:
     """-> <B, T, C>: d3(gelu(d2(gelu(d1(LN?(x)))))) with int8 d1/d2 (K3);
     the gradient is the unquantized head's.  Arguments as
-    `explainer_head_block_args`."""
+    `explainer_head_block_args`.  The models call it only where a token
+    tile of the fused head fits the JAX budget (`gates.head_token_tile`),
+    as the JAX models do."""
     tensors, static = explainer_head_block_args(*args, **kwargs)
     return dispatch(head_int8_launch, head_int8_plain, COUNTER, tensors,
                     static, grad=head_plain)

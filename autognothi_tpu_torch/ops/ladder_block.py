@@ -12,9 +12,11 @@ intermediate go to device memory.  What bounds it: launch count and the
 narrow SIMT GEMMs (K = 96 / 384), and d = 8 attention, where 8 of 32 lanes
 work in P.V.
 
-The CUDA version supports what the ViT path needs, the "mul" mask with
-pre-norm; it raises on "add" / post-norm (BERT, a later slice).  The plain
-version covers both.
+Both layer kinds run on the card: the ViT's "mul" mask with pre-norm
+(LN1 and LN2 before attention and MLP) and BERT's additive "add" bias
+with post-norm (LN1 after the attention residual, LN2 after the MLP
+residual), as `_branch_math(pre_norm=...)`.  Whether the BERT encoder
+takes this op at all is the JAX gate `gates.ladder_block_fits`.
 
 `mlp_ladder_block` is the int8 serving step (K2), replacing
 `_pallas_mlp_ladder_q` (body `_kernel_mlp_ladder_q`): the trunk's
@@ -92,13 +94,12 @@ def ladder_block_plain(h, mask_row, *flat, n_branches, n_heads, mode,
 
 def ladder_block_launch(h, mask_row, *flat, n_branches, n_heads, mode,
                         pre_norm, ln_eps) -> Tuple[torch.Tensor, ...]:
-    """The CUDA version (launches only; no counting, no autograd)."""
-    if mode != "mul" or not pre_norm:
-        raise NotImplementedError(
-            "the CUDA ladder kernel supports the 'mul' mask with pre-norm "
-            "(ViT); 'add' / post-norm (BERT) is not ported yet")
+    """The CUDA version (launches only; no counting, no autograd).  Pre-norm
+    (ViT): LN1 and LN2 are the side layer's prologues; post-norm (BERT):
+    its epilogues, after each residual add."""
     b_sz, t, hidden = h.shape
     h2 = h.contiguous().reshape(b_sz * t, hidden)
+    position = "prologue" if pre_norm else "epilogue"
     outs = []
     for s in range(n_branches):
         side = flat[s]
@@ -111,9 +112,9 @@ def ladder_block_launch(h, mask_row, *flat, n_branches, n_heads, mode,
         x = attention_block_launch(
             x.reshape(b_sz, t, s_hidden), mask_row, wq, bq, wk, bk, wv, bv,
             wo, bo, ln1_w, ln1_b, n_heads=n_heads, mode=mode,
-            ln_position="prologue", ln_eps=ln_eps)
+            ln_position=position, ln_eps=ln_eps)
         outs.append(mlp_block_launch(x, w1, b1, w2, b2, ln2_w, ln2_b,
-                                     ln_position="prologue", ln_eps=ln_eps))
+                                     ln_position=position, ln_eps=ln_eps))
     return tuple(outs)
 
 

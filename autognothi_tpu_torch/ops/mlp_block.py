@@ -22,6 +22,27 @@ epilogue (`csrc/int8.cu`).  This module also holds the two quantizers of
 the JAX package (`quant_cols`, `_quant_rows`) and the exact int8 product
 the plain versions share.
 
+Where the whole block does not fit the JAX package's on-chip budget
+(`ops/gates.py:mlp_block_tiles`: BERT-base at T = 512, ViT-L), the JAX op
+splits the intermediate dimension into 2, 4 or 8 chained tiles
+(`_tiled_mlp`), each adding its share into the running residual.  In int8
+that is another function, and the port reproduces it tile by tile: K8q,
+replacing `_pallas_mlp_sepx_q` (body `_kernel_sepx_q`).  Each tile
+quantizes x per token, its W1 rows per output channel, re-quantizes its
+own <M, tile> intermediate per token, quantizes its W2 column slice per
+output row of that slice, and adds cast(acc2 * is * s2 + b2_k) to the
+residual in the activation dtype (b2 only on the last tile); the LNs come
+before and after the chain.  On the H100 a tile is the row quantizer (x,
+the W1 rows, the intermediate, and the strided W2 column slice read in
+place through its row stride) and two int8 GEMMs with the GELU and the
+residual epilogues (`csrc/int8.cu`); each tile is one counted launch, as
+each is one `pallas_call` in JAX.  What bounds it: the fp32 <M, tile>
+intermediate's round trip through device memory and the per-tile weight
+quantization.  The float split (K8, `_pallas_mlp_sepx`) in fp32 only
+reorders an fp32 sum, so fp32 keeps the one-pass block above.  In bf16
+each JAX tile rounds its output before it is added; that chain is not
+ported yet, and the bf16 float block runs in one pass.
+
 `mlp_block` takes the plain version for CPU tensors and the kernel for
 CUDA tensors; there is no other switch.
 """
@@ -39,10 +60,12 @@ from ..kernels.primitives import (EPI_BIAS_GELU, EPI_BIAS_RESID,
                                   dispatch, gemm, gemm_i8, layernorm_,
                                   quant_rows, rowstats)
 from ..models.common import dense, gelu, layer_norm
+from . import gates
 from .attention_block import LN_POSITIONS
 
 COUNTER = LaunchCounter("mlp_block")
 COUNTER_INT8 = LaunchCounter("mlp_block_int8")
+COUNTER_INT8_TILED = LaunchCounter("mlp_block_int8_tiled")
 
 
 # ------------------------------------------------------------ quantizers
@@ -176,15 +199,98 @@ def mlp_block_args(
     return (resid, w1, b1, w2, b2, ln_w, ln_b), static
 
 
+# ------------------------------------ intermediate-dim split (K8, K8q)
+# One tile: x <B, T, H> (the possibly LN'd input, the same for every tile),
+# resid the running residual, torch-layout slices w1 <tile, H> (rows) and
+# w2 <H, tile> (columns), cast to x's dtype; b2 is zero but on the last tile.
+
+
+def mlp_tile_plain(x, resid, w1, b1, w2, b2) -> torch.Tensor:
+    """One float tile (`_xla_mlp_sepx`): resid + cast(W2 gelu(W1 x + b1)
+    + b2), the intermediate cast to x's dtype.  The gradient of a K8q tile,
+    as in the JAX package."""
+    inter = gelu(F.linear(x.float(), w1.float(), b1.float())).to(x.dtype)
+    return resid + dense(inter, w2, b2).to(resid.dtype)
+
+
+def mlp_tile_int8_plain(x, resid, w1, b1, w2, b2) -> torch.Tensor:
+    """Reference math of one K8q tile (`_kernel_sepx_q`): x quantized per
+    token, the tile's W1 rows and W2 columns per output channel of the
+    slice, the fp32 GELU intermediate re-quantized per token over the
+    slice, resid + cast(acc2 * is * s2 + b2)."""
+    inter = gelu(int8_linear(*_quant_rows(x.float()), *quant_cols(w1), b1))
+    out = int8_linear(*_quant_rows(inter), *quant_cols(w2), b2)
+    return resid + out.to(resid.dtype)
+
+
+def mlp_tile_int8_launch(x, resid, w1, b1, w2, b2) -> torch.Tensor:
+    """The CUDA version of one K8q tile (launches only; no counting, no
+    autograd).  The W2 column slice is quantized in place through its row
+    stride."""
+    b_sz, t, h = resid.shape
+    inter = gemm_i8(*quant_rows(x.contiguous().reshape(b_sz * t, h)),
+                    *quant_rows(w1.contiguous(), weight=True), b1,
+                    I8_EPI_GELU_F32, x.dtype)
+    out = gemm_i8(*quant_rows(inter), *quant_rows(w2, weight=True), b2,
+                  I8_EPI_BIAS_RESID, x.dtype,
+                  resid=resid.contiguous().reshape(b_sz * t, h))
+    return out.reshape(b_sz, t, h)
+
+
+def _tiled(tile, resid, w1, b1, w2, b2, ln_w, ln_b, *, ln_position: str,
+           ln_eps: float, n_tiles: int) -> torch.Tensor:
+    """`_tiled_mlp`: LN? -> the chain of `tile` over the intermediate
+    slices, the residual accumulating -> LN?"""
+    x = (layer_norm(resid, ln_w, ln_b, ln_eps) if ln_position == "prologue"
+         else resid)
+    w1, w2 = w1.to(resid.dtype), w2.to(resid.dtype)
+    width = w1.shape[0] // n_tiles
+    out = resid
+    for k in range(n_tiles):
+        sl = slice(k * width, (k + 1) * width)
+        b2_k = b2 if k == n_tiles - 1 else torch.zeros_like(b2)
+        out = tile(x, out, w1[sl], b1[sl], w2[:, sl], b2_k)
+    if ln_position == "epilogue":
+        out = layer_norm(out, ln_w, ln_b, ln_eps)
+    return out
+
+
+def mlp_block_int8_tiled_plain(*tensors, n_tiles: int,
+                               **static) -> torch.Tensor:
+    """The plain K8q chain (`mlp_block_args` tensors and keywords)."""
+    return _tiled(mlp_tile_int8_plain, *tensors, n_tiles=n_tiles, **static)
+
+
+def mlp_block_int8_tiled(*args, n_tiles: int, **kwargs) -> torch.Tensor:
+    """The K8q chain of `n_tiles` tiles, one op call per tile (gradient:
+    the float tile's).  Arguments as `mlp_block_args`."""
+    tensors, static = mlp_block_args(*args, **kwargs)
+
+    def tile(*ts):
+        return dispatch(mlp_tile_int8_launch, mlp_tile_int8_plain,
+                        COUNTER_INT8_TILED, ts, {}, grad=mlp_tile_plain)
+    return _tiled(tile, *tensors, n_tiles=n_tiles, **static)
+
+
 def mlp_block(*args, quant: str = "none", **kwargs) -> torch.Tensor:
     """prologue: resid + MLP(LN(resid)); epilogue: LN(resid + MLP(resid));
     none: resid + MLP(resid).  Arguments as `mlp_block_args`; quant="int8"
-    is the W8A8 block (K4), whose gradient is the unquantized math's."""
+    is the W8A8 block (K4), whose gradient is the unquantized math's.
+    Shapes past the JAX budget take its split (`gates.mlp_block_tiles`):
+    the K8q chain in int8 (the float split is the one-pass block in fp32);
+    where no split fits, the unquantized block, as the JAX op."""
+    if quant not in ("int8", "none"):
+        raise ValueError(f"unknown quant mode {quant!r}")
     tensors, static = mlp_block_args(*args, **kwargs)
+    resid, w1 = tensors[0], tensors[1]
+    n_tiles = gates.mlp_block_tiles(resid.shape[-2], resid.shape[-1],
+                                    w1.shape[0], resid.dtype, quant)
+    if n_tiles is None:
+        quant, n_tiles = "none", 1
+    if n_tiles > 1 and quant == "int8":
+        return mlp_block_int8_tiled(*args, n_tiles=n_tiles, **kwargs)
     if quant == "int8":
         return dispatch(mlp_block_int8_launch, mlp_block_int8_plain,
                         COUNTER_INT8, tensors, static, grad=mlp_block_plain)
-    if quant != "none":
-        raise ValueError(f"unknown quant mode {quant!r}")
     return dispatch(mlp_block_launch, mlp_block_plain, COUNTER, tensors,
                     static)

@@ -7,23 +7,28 @@ from __future__ import annotations
 
 import os
 import pathlib
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
 
+from .models.ltt_bert import LttBert, LttBertConfig
 from .models.ltt_vit import LttViT, LttViTConfig
 
+MODELS = {LttViTConfig: LttViT, LttBertConfig: LttBert}
 
-def from_jax_params(flat: Mapping[str, np.ndarray], cfg: LttViTConfig,
+
+def from_jax_params(flat: Mapping[str, np.ndarray],
+                    cfg: Union[LttViTConfig, LttBertConfig],
                     device: torch.device,
                     dtype: torch.dtype = torch.float32,
-                    section: str = "final") -> LttViT:
+                    section: str = "final") -> torch.nn.Module:
     """A flat JAX parameter dict of a checkpoint section ("surrogate",
-    "explainer" or "final") -> its LTT ViT model on `device`, in eval
-    mode.  Strict: every key must land on a parameter of the same shape,
-    and the model must have no parameter the dict lacks."""
-    model = LttViT(cfg, section)
+    "explainer" or "final") -> its LTT ViT or LTT BERT model (by the
+    config's type) on `device`, in eval mode.  Strict: every key must land
+    on a parameter of the same shape, and the model must have no
+    parameter the dict lacks."""
+    model = MODELS[type(cfg)](cfg, section)
     state = {k: torch.from_numpy(np.array(v, dtype=np.float32))
              for k, v in flat.items()}
     model.load_state_dict(state, strict=True)

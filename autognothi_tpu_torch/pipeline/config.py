@@ -8,7 +8,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
-PORTED_NET_KINDS = ("ltt_vit",)
+PORTED_NET_KINDS = ("ltt_vit", "ltt_bert")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,12 +23,17 @@ from .config import Config_Dataset, Config_Train, ExpConfig
 
 def get_recipe(config: ExpConfig) -> Tuple[ModelRecipe, Any]:
     """-> (recipe, the model config built from `net.params`)."""
-    if config.net.kind != "ltt_vit":
+    if config.net.kind == "ltt_vit":
+        from ..recipes.ltt_vit import ltt_vit_recipe
+
+        recipe = ltt_vit_recipe()
+    elif config.net.kind == "ltt_bert":
+        from ..recipes.ltt_bert import ltt_bert_recipe
+
+        recipe = ltt_bert_recipe()
+    else:
         raise NotImplementedError(
             f"net kind {config.net.kind!r} is not ported yet")
-    from ..recipes.ltt_vit import ltt_vit_recipe
-
-    recipe = ltt_vit_recipe()
     if config.net.version != recipe.version:
         raise ValueError(
             f"mismatch recipe version: (config) {config.net.version} != "

@@ -3,6 +3,9 @@
     python -m autognothi_tpu_torch serve <experiment_dir> --device cuda \\
         --port 8321 --batch-size 8
 
+    POST /explain {"texts": ["...", ...]}   # text models: tokenized with
+                                            # <exp>/tokenizer/vocab.txt into
+                                            # int64 rows <T>
     POST /explain {"images": [[[...]]]}     # <B, C, H, W> float rows
     POST /explain {"images_u8": [[[...]]]}  # uint8 rows, dequantized on the
                                             # device (x * scale + offset)
@@ -42,9 +45,12 @@ class ExplainService:
         self.env = env
         self.device = resolve_device(device)
         self.recipe, self.m_config = get_recipe(env.config)
-        self.gen_input = self.recipe.gen_input(self.m_config, None)
+        self.misc = (None if self.recipe.load_misc is None
+                     else self.recipe.load_misc(env.model_path,
+                                                self.m_config))
+        self.gen_input = self.recipe.gen_input(self.m_config, self.misc)
         self._row_shape = tuple(
-            self.recipe.gen_null(self.m_config, None).shape[1:])
+            self.recipe.gen_null(self.m_config, self.misc).shape[1:])
         _, self.model = load_epoch_model(env, self.recipe, "final",
                                          self.device)
         self.batch_size = batch_size
@@ -67,12 +73,14 @@ class ExplainService:
         self._batcher.close()
 
     def warmup(self) -> None:
-        """Run an f32 and a u8 slab to the end, so kernels are built and
-        loaded before the server reports ready."""
-        null = np.repeat(self.recipe.gen_null(self.m_config, None),
+        """Run the null slab (and, for float rows, its u8 form) to the end,
+        so kernels are built and loaded before the server reports ready."""
+        null = np.repeat(self.recipe.gen_null(self.m_config, self.misc),
                          self.batch_size, axis=0)
-        u8 = np.clip(null * 255.0, 0, 255).astype(np.uint8)
-        for slab in (null, u8):
+        slabs = [null]
+        if np.issubdtype(null.dtype, np.floating):
+            slabs.append(np.clip(null * 255.0, 0, 255).astype(np.uint8))
+        for slab in slabs:
             outs = self._run_slab(slab)
             for o in outs:
                 o.cpu()
@@ -103,7 +111,7 @@ class ExplainService:
             raise ValueError("payload needs 'texts', 'images' or 'images_u8'")
         if xs.shape[0] == 0:
             return {"logits": [], "attributions": []}
-        if tuple(xs.shape[1:]) != self._row_shape:
+        if "texts" not in payload and tuple(xs.shape[1:]) != self._row_shape:
             raise ValueError(
                 f"image rows must be shaped {self._row_shape} "
                 f"(<C, H, W> for this model); got rows {tuple(xs.shape[1:])} "

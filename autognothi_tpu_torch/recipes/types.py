@@ -50,6 +50,9 @@ class ModelRecipe:
     # LTT progressive training: (cfg, section, unfrozen) -> name filter
     progressive_trainable: Optional[
         Callable[[Any, str, int], Callable[[str], bool]]] = None
+    # (experiment dir, cfg) -> the `misc` the data adapters take (the BERT
+    # tokenizer); None -> misc is None
+    load_misc: Optional[Callable[[Any, Any], Any]] = None
 
 
 def surrogate_coalition_values(recipe: ModelRecipe, m_config: Any,

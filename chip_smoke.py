@@ -17,7 +17,14 @@ Phases, each printing its own lines:
      ladders (768/3072 + 2 x 96) and the int8 explainer head (96 -> 3072 ->
      3072 -> 10).  Training: the masked attention op (K9) over 4 coalitions
      per image, d = 64 and d = 8, "add" and "mul"; the ladder attention op
-     (K10) over two 96-wide branches, both modes;
+     (K10) over two 96-wide branches, both modes.  Then the LTT
+     BERT-base@512 shapes (B=4, T=512, BERT's additive bias): the float
+     attention block (K6) and, in bf16, the int8 one (K1), trunk 768 with
+     the LN epilogue; the trunk MLP 768/3072 (K7; in bf16 the 2-tile float
+     chain) and its int8 split (K8q, 2 tiles, one launch each); the ladder
+     (768 -> 2 x 96, "add", post-norm); the int8 head without LN (96 ->
+     3072 -> 3072 -> 2); the masked attention op at <4, 12, 512, 64>, both
+     modes (T = 512 at d = 64 walks the keys in chunks);
   3. the slice through `serve`: a random LTT ViT-B/16@224 final (seeded
      torch.Generator) saved as `final-epoch-0.ckpt`, served on the card at
      batch 8, once on the fp32 path and once with AUTOGNOTHI_INT8=1; each
@@ -26,7 +33,13 @@ Phases, each printing its own lines:
      kernel call counts per slab (fp32: 13 attention, 13 MLP, 12 ladder;
      int8: 13 int8 attention, 12 trunk MLP + ladder, 1 int8 MLP, 1 head;
      none of the other path's) and agreement with the plain-version
-     forward of the same module on the same path;
+     forward of the same module on the same path.  The same for a random
+     LTT BERT-base@512 final (`experiments/bert_base_tayp_ltt` dims, full
+     depth, a `build_vocab` vocabulary under `<exp>/tokenizer/`): `texts`
+     requests of 3 and 9 rows, kernel calls per slab fp32: 13 attention, 13
+     MLP, 12 ladder; int8 (fp32 parameters): 12 float attention (the int8
+     block does not fit the JAX budget), 1 int8 attention, 24 K8q tiles, 1
+     int8 MLP, 12 ladder, 1 head;
   4. the training slice through `train_explainer`: a random LTT
      ViT-B/16@224 surrogate and explainer (seeded torch.Generator) saved
      as the JAX package's npz checkpoints beside a `cv_samples` experiment
@@ -42,7 +55,10 @@ Phases, each printing its own lines:
      each mode, whose launch counts must be 3 x the step's;
   5. timing with CUDA events after warmup: explanations/s of fw_final at
      B=64 with the kernels and with the plain versions (fp32 path; int8
-     path with fp32 and with bf16 parameters and pixels); the train step's
+     path with fp32 and with bf16 parameters and pixels), and of the LTT
+     BERT-base@512 fw_final at B=8 on the same three paths (each first held
+     against its plain forward, its kernel calls against the path's table),
+     with each BERT-shape op at B=8 beside its bound; the train step's
      ms/step and masked forwards/s (B x M per step) with the kernels and
      with the plain versions in both modes, its peak device memory, its
      split into teacher, forward, backward and AdamW (CUDA events at the
@@ -91,10 +107,30 @@ TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # x max(1, max|ref|)
 TOL_INT8 = {"float32": 1e-2, "bfloat16": 3e-2}
 FLIP_SHARE = 1e-2
 INT8_OPS = ("attention_block_int8", "mlp_block_int8", "mlp_ladder_block",
-            "head_block")
+            "head_block", "mlp_block_int8_tiled")
 FP32_COUNTS = {"attention_block": 13, "mlp_block": 13, "ladder_block": 12}
 INT8_COUNTS = {"attention_block_int8": 13, "mlp_ladder_block": 12,
                "mlp_block_int8": 1, "head_block": 1}
+# LTT BERT-base@512, kernel calls per slab (12 trunk layers, 12 ladder
+# steps, one explainer side layer, the head).  fp32: the float blocks (the
+# fp32 MLP split only reorders a sum: one K7 call).  int8 with fp32
+# parameters: the int8 trunk attention does not fit the JAX budget and
+# runs float (K6); the trunk MLP is the 2-tile int8 chain (K8q, one call
+# per tile); the 96-wide side layer K1 + K4; the head K3.  int8 with bf16
+# parameters: the trunk attention is K1.
+BERT_COUNTS = {
+    "fp32": {"attention_block": 13, "mlp_block": 13, "ladder_block": 12},
+    "int8": {"attention_block": 12, "attention_block_int8": 1,
+             "mlp_block_int8_tiled": 24, "mlp_block_int8": 1,
+             "ladder_block": 12, "head_block": 1},
+    "int8 bf16": {"attention_block_int8": 13, "mlp_block_int8_tiled": 24,
+                  "mlp_block_int8": 1, "ladder_block": 12, "head_block": 1},
+}
+B_BERT_CHECK, B_BERT, T_BERT = 4, 8, 512
+# kernel calls of one BERT-shape op call where it is not one: the chain of
+# int8 tiles
+BERT_CALLS_PER_OP = {("mlp_block_int8_tiled", "float32"): 2,
+                     ("mlp_block_int8_tiled", "bfloat16"): 2}
 # kernel calls of one explainer train step (B = 8, M = 32) at 12 layers,
 # by (pallas mode, teacher).  Default ("2", int8 teacher): teacher K1 + K4
 # + K5 x 12 (B*M = 256 images), v_1 K1 + K2 x 12, differentiated forward
@@ -131,6 +167,25 @@ LTT_VIT_B16 = dict(
     num_labels=10, s_attn_hidden_size=96, s_attn_intermediate_size=384,
     img_channels=3, img_px_size=224, img_patch_size=16,
 )
+# LTT BERT-base@512: experiments/bert_base_tayp_ltt/.hparams.json, read at
+# run time.  A short corpus for the WordPiece vocabulary the served
+# `texts` are tokenized with (`build_vocab`; the trained model's 30,522-id
+# vocabulary is not in the repo).
+BERT_EXP = REPO / "experiments" / "bert_base_tayp_ltt" / ".hparams.json"
+CORPUS = [
+    "the service was outstanding and the staff made us feel at home",
+    "absolutely delicious food with generous portions at a fair price",
+    "the room was dirty, the shower was broken and nobody cared",
+    "we waited an hour for cold pasta; never again.",
+    "a wonderful little cafe with friendly baristas and great pastries",
+    "terrible customer service, rude managers and overpriced drinks",
+    "the repair crew arrived on time and fixed everything perfectly",
+    "mediocre burgers, but the fries were crisp and the beer was cold",
+    "I'd recommend the tasting menu: seven courses, each one a surprise!",
+    "parking was impossible and the line went around the block",
+    "clean rooms, quiet street, and a breakfast worth waking up for",
+    "the doctor listened carefully and explained every option to me",
+]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -153,42 +208,46 @@ def _plain(args_fn, plain_fn):
     return run
 
 
-def _plain_by_quant(args_fn, plain_fn, int8_fn):
-    """The plain stand-in of an op that takes `quant=`."""
-    def run(*args, quant="none", **kwargs):
-        return _plain(args_fn, int8_fn if quant == "int8" else plain_fn)(
-            *args, **kwargs)
-    return run
+def _dispatch_plain(launch, plain, counter, tensors, static, grad=None):
+    """`dispatch` as it routes CPU tensors: the plain version (with `grad`
+    as its gradient where one is wanted), whatever the device."""
+    import torch
+
+    from autognothi_tpu_torch.kernels.primitives import _KernelFn
+
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in tensors)
+    if grad is None or not needs_grad:
+        return plain(*tensors, **static)
+    return _KernelFn.apply(functools.partial(plain, **static),
+                           functools.partial(grad, **static), *tensors)
 
 
 @contextlib.contextmanager
 def plain_ops():
-    """Route the model's kernel ops to their plain versions (for the
-    reference forward and the plain timing only)."""
-    from autognothi_tpu_torch.models import ltt_vit, vit
+    """Route every kernel op to its plain version (for the reference
+    forward and the plain timing only): each op's `dispatch` takes the
+    plain branch on the card too, so the ops' own gates still choose the
+    arithmetic (the BERT tile split, the float fallbacks)."""
     from autognothi_tpu_torch.ops import attention_block as ab
     from autognothi_tpu_torch.ops import flash_attention as fa
     from autognothi_tpu_torch.ops import head_block as hb
     from autognothi_tpu_torch.ops import ladder_block as lb
     from autognothi_tpu_torch.ops import mlp_block as mb
 
-    def masked_attention_plain(q, k, v, mask_row, mode="add"):
-        return fa.masked_attention_plain(q, k, v, mask_row, mode=mode)
-
-    with mock.patch.object(fa, "masked_attention", masked_attention_plain), \
-            mock.patch.object(vit, "attention_block", _plain_by_quant(
-            ab.attention_block_args, ab.attention_block_plain,
-            ab.attention_block_int8_plain)), \
-            mock.patch.object(vit, "mlp_block", _plain_by_quant(
-                mb.mlp_block_args, mb.mlp_block_plain,
-                mb.mlp_block_int8_plain)), \
-            mock.patch.object(vit, "explainer_head_block", _plain(
-                hb.explainer_head_block_args, hb.head_int8_plain)), \
-            mock.patch.object(ltt_vit, "ladder_block", _plain(
-                lb.ladder_block_args, lb.ladder_block_plain)), \
-            mock.patch.object(ltt_vit, "mlp_ladder_block", _plain(
-                lb.mlp_ladder_block_args, lb.mlp_ladder_block_plain)):
+    with contextlib.ExitStack() as stack:
+        for mod in (ab, fa, hb, lb, mb):
+            stack.enter_context(mock.patch.object(mod, "dispatch",
+                                                  _dispatch_plain))
         yield
+
+
+def _under_plain(op):
+    """The op with its kernels routed to their plain versions."""
+    def run(*args, **kwargs):
+        with plain_ops():
+            return op(*args, **kwargs)
+    return run
 
 
 def int8_mode(on: bool):
@@ -350,6 +409,109 @@ def op_cases(dev, dtype, b, random_mask):
     return cases
 
 
+def bert_op_cases(dev, dtype, b, random_mask):
+    """(name, tag, op, plain version, args, kwargs) at the LTT BERT-base@512
+    shapes: the trunk attention block ("add" bias, LN epilogue; K6, and K1
+    in bf16, where it fits the JAX budget), the trunk MLP (K7) and its int8
+    split (K8q), the ladder op (768 -> 2 x 96, "add", post-norm), the head
+    without LN (96 -> 3072 -> 3072 -> 2), the masked attention op at <b,
+    12, 512, 64> and the explainer side layer's attention and MLP blocks
+    (K6/K1, K7/K4).  Each plain
+    version is the same op with its kernels routed to their plain versions
+    (the ops' gates still choose the arithmetic)."""
+    import torch
+
+    from autognothi_tpu_torch.ops import attention_block as ab
+    from autognothi_tpu_torch.ops import flash_attention as fa
+    from autognothi_tpu_torch.ops import head_block as hb
+    from autognothi_tpu_torch.ops import ladder_block as lb
+    from autognothi_tpu_torch.ops import mlp_block as mb
+
+    g = torch.Generator().manual_seed(SEED + 1)
+    t, h, inter, s = T_BERT, 768, 3072, 96
+
+    def lin(d_out, d_in):
+        bound_ = d_in ** -0.5
+        return ((torch.rand(d_out, d_in, generator=g) * 2 - 1) * bound_
+                ).to(dev), ((torch.rand(d_out, generator=g) * 2 - 1)
+                            * bound_).to(dev)
+
+    def ln(d):
+        return ((1 + 0.1 * torch.randn(d, generator=g)).to(dev),
+                (0.1 * torch.randn(d, generator=g)).to(dev), 1e-12)
+
+    def act(*shape):
+        return torch.randn(shape, generator=g).to(dev, dtype)
+
+    keep = torch.ones(b, t)
+    if random_mask:
+        keep = (torch.rand(b, t, generator=g) > 0.3).float()
+        keep[:, 0] = 1
+    bias = ((1 - keep) * torch.finfo(torch.float32).min).to(dev)
+    cases = []
+    ws = tuple(x for _ in range(4) for x in lin(h, h))
+    attn = [("attention_block", ab.attention_block)]
+    if dtype == torch.bfloat16:
+        attn.append(("attention_block_int8",
+                     functools.partial(ab.attention_block, quant="int8")))
+    for name, op in attn:
+        cases.append((name, "trunk 768 add LN-epi", op, _under_plain(op),
+                      (act(b, t, h), bias, ws, 12, "add"),
+                      dict(ln=ln(h), ln_position="epilogue")))
+    (w1, b1), (w2, b2) = lin(inter, h), lin(h, inter)
+    for name, op in (("mlp_block", mb.mlp_block),
+                     ("mlp_block_int8_tiled",
+                      functools.partial(mb.mlp_block, quant="int8"))):
+        cases.append((name, "trunk 768/3072 LN-epi", op, _under_plain(op),
+                      (act(b, t, h), w1, b1, w2, b2),
+                      dict(ln=ln(h), ln_position="epilogue")))
+    branches = []
+    for _ in range(2):
+        w = {}
+        w["map_w"], w["map_b"] = lin(s, h)
+        w["ln1_w"], w["ln1_b"], _ = ln(s)
+        for n in ("q", "k", "v", "o"):
+            w[f"w{n}"], w[f"b{n}"] = lin(s, s)
+        w["ln2_w"], w["ln2_b"], _ = ln(s)
+        w["w1"], w["b1"] = lin(4 * s, s)
+        w["w2"], w["b2"] = lin(s, 4 * s)
+        branches.append(w)
+    cases.append(("ladder_block", "768 -> 2 x 96 add post",
+                  lb.ladder_block, _under_plain(lb.ladder_block),
+                  (act(b, t, h), [act(b, t, s), act(b, t, s)], bias,
+                   branches, 12, "add", False, 1e-12), {}))
+    (w1, b1), (w2, b2), (w3, b3) = lin(3072, s), lin(3072, 3072), lin(2, 3072)
+    cases.append(("head_block", "96-3072-3072-2 no-LN",
+                  hb.explainer_head_block,
+                  _under_plain(hb.explainer_head_block),
+                  (act(b, t, s), w1, b1, w2, b2, w3, b3, None, None, 1e-5),
+                  {}))
+    rows = {"add": bias, "mul": keep.to(dev)}
+    q, k, v = (act(b, 12, t, 64) for _ in range(3))
+    for mode in ("add", "mul"):
+        op = functools.partial(fa.masked_attention, mode=mode)
+        cases.append(("masked_attention", f"<{b},12,{t},64> {mode}", op,
+                      _under_plain(op), (q, k, v, rows[mode]), {}))
+    # the explainer's 96-wide side layer as the model calls it: attention
+    # without LN (`ident_ln1`), the MLP with its LN epilogue; float (K6,
+    # K7) and int8 (K1, K4)
+    ws = tuple(x for _ in range(4) for x in lin(s, s))
+    (w1, b1), (w2, b2) = lin(4 * s, s), lin(s, 4 * s)
+    ln_s = ln(s)
+    for quant, attn_name, mlp_name in (
+            ("none", "attention_block", "mlp_block"),
+            ("int8", "attention_block_int8", "mlp_block_int8")):
+        op = functools.partial(ab.attention_block, quant=quant)
+        cases.append((attn_name, "side 96 add no-LN", op, _under_plain(op),
+                      (act(b, t, s), bias, ws, 12, "add"),
+                      dict(ln=None, ln_position="epilogue")))
+        op = functools.partial(mb.mlp_block, quant=quant)
+        cases.append((mlp_name, "side 96/384 LN-epi", op, _under_plain(op),
+                      (act(b, t, s), w1, b1, w2, b2),
+                      dict(ln=ln_s, ln_position="epilogue")))
+    return cases
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -445,7 +607,8 @@ def counters():
     return {c.name: c for c in (ab.COUNTER, mb.COUNTER, lb.COUNTER,
                                 ab.COUNTER_INT8, lb.COUNTER_MLP_LADDER,
                                 mb.COUNTER_INT8, hb.COUNTER, fa.COUNTER,
-                                lb.COUNTER_ATTENTION)}
+                                lb.COUNTER_ATTENTION,
+                                mb.COUNTER_INT8_TILED)}
 
 
 def read_counts() -> dict:
@@ -491,22 +654,30 @@ def phase_device() -> None:
           f"({', '.join(p.name for p in build.sources())})", flush=True)
 
 
-def phase_kernels(dev) -> dict:
+def phase_kernels(dev, cases_fn=None, b=B_CHECK, worst=None,
+                  calls_per_op=None) -> dict:
+    """Every case of `cases_fn` (default: the ViT shapes) in fp32 and bf16
+    under both masks against its plain version, each reaching its kernel
+    once (or as often as `calls_per_op` says); -> the worst fp32 error by
+    op, merged into `worst`."""
     import torch
 
-    worst = {}
+    worst = {} if worst is None else worst
     for dtype in (torch.float32, torch.bfloat16):
         for random_mask in (False, True):
-            for name, tag, op, plain, args, kw in op_cases(
-                    dev, dtype, B_CHECK, random_mask):
+            for name, tag, op, plain, args, kw in (cases_fn or op_cases)(
+                    dev, dtype, b, random_mask):
                 counter = counters()[name]
                 before = counter.count
+                calls = (calls_per_op or {}).get(
+                    (name, str(dtype).split(".")[-1]), 1)
                 with torch.inference_mode():
                     got = op(*args, **kw)
                     want = plain(*args, **kw)
                 torch.cuda.synchronize()
-                check(counter.count == before + 1,
-                      f"{name}: the call did not reach the kernel")
+                check(counter.count == before + calls,
+                      f"{name}: the call did not reach the kernel "
+                      f"({counter.count - before} calls, expected {calls})")
                 err, ok, msg = compare(got, want, dtype, name in INT8_OPS)
                 mask_s = "random-mask" if random_mask else "ones-mask"
                 print(f"[kernel] {name:20s} {tag:18s} {str(dtype):14s} "
@@ -562,9 +733,27 @@ def write_experiment(tmp: pathlib.Path) -> pathlib.Path:
     return exp
 
 
-def phase_serve(dev, exp: pathlib.Path, int8: bool):
+def vit_requests():
+    """(label, payload key, rows) of the ViT serve phase: 3 float rows (one
+    slab) and 9 u8 rows (two slabs of 8)."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    return [("images", "images", rng.rand(3, 3, 224, 224).astype(np.float32)),
+            ("images_u8", "images_u8",
+             rng.randint(0, 256, (9, 3, 224, 224)).astype(np.uint8))]
+
+
+def bert_requests():
+    """`texts` requests of 3 rows (one slab) and 9 rows (two slabs)."""
+    return [("texts x3", "texts", CORPUS[:3]), ("texts x9", "texts", CORPUS[:9])]
+
+
+def phase_serve(dev, exp: pathlib.Path, int8: bool, model: str = "vit"):
     """Serve the experiment on one path; -> (kernel calls, service, the
-    responses by request kind)."""
+    responses by request label).  Three slabs of 8 (1 + 2), their kernel
+    calls against the path's table, the responses against the plain
+    forward of the same module on the same path."""
     import numpy as np
     import torch
 
@@ -572,27 +761,30 @@ def phase_serve(dev, exp: pathlib.Path, int8: bool):
     from autognothi_tpu_torch.pipeline.serve import serve_in_thread
 
     path = "int8" if int8 else "fp32"
-    per_slab = INT8_COUNTS if int8 else FP32_COUNTS
+    if model == "vit":
+        per_slab = INT8_COUNTS if int8 else FP32_COUNTS
+        requests, n_labels, n_players = vit_requests(), 10, 196
+    else:
+        per_slab = BERT_COUNTS[path]
+        requests, n_labels, n_players = bert_requests(), 2, T_BERT - 1
+    tag = f"serve {model} {path}"
     env = ExpEnv(exp)
     with int8_mode(int8):
         t0 = time.perf_counter()
         server, service, thread = serve_in_thread(env, port=0, batch_size=8,
                                                   device="cuda")
         port = server.server_address[1]
-        print(f"[serve {path}] server up on the card in "
-              f"{time.perf_counter() - t0:.1f} s (warmup: f32 + u8 slabs)",
+        print(f"[{tag}] server up on the card in "
+              f"{time.perf_counter() - t0:.1f} s (warmup slabs run)",
               flush=True)
         try:
             check(_get(port, "/healthz") == {"status": "ok"}, "healthz")
             slabs0 = _get(port, "/statz")["slabs"]
-            rng = np.random.RandomState(SEED)
-            requests = {"images": rng.rand(3, 3, 224, 224).astype(np.float32),
-                        "images_u8": rng.randint(0, 256, (9, 3, 224, 224)
-                                                 ).astype(np.uint8)}
             for c in counters().values():
                 c.reset()
-            got = {kind: _post(port, {kind: rows.tolist()})
-                   for kind, rows in requests.items()}
+            got = {label: _post(port, {kind: np.asarray(rows).tolist()
+                                       if kind != "texts" else rows})
+                   for label, kind, rows in requests}
             launches = {name: c.count for name, c in counters().items()}
             slabs = _get(port, "/statz")["slabs"] - slabs0
         finally:
@@ -604,21 +796,27 @@ def phase_serve(dev, exp: pathlib.Path, int8: bool):
         env.close()
 
         expected = {name: per_slab.get(name, 0) * slabs for name in launches}
-        print(f"[serve {path}] {slabs} slabs; kernel calls {launches} "
+        print(f"[{tag}] {slabs} slabs; kernel calls {launches} "
               f"(expected {expected})", flush=True)
-        check(slabs == 3, f"expected 3 slabs (1 f32 + 2 u8), got {slabs}")
+        check(slabs == 3, f"expected 3 slabs (1 + 2), got {slabs}")
         check(launches == expected,
-              f"{path} kernel call counts differ from {per_slab} per slab")
+              f"{tag} kernel call counts differ from {per_slab} per slab")
 
-        for kind, rows in requests.items():
-            logits = np.asarray(got[kind]["logits"], np.float32)
-            attr = np.asarray(got[kind]["attributions"], np.float32)
-            n = rows.shape[0]
-            check(logits.shape == (n, 10), f"{kind}: logits {logits.shape}")
-            check(attr.shape == (n, 10, 196), f"{kind}: attr {attr.shape}")
+        for label, kind, rows in requests:
+            logits = np.asarray(got[label]["logits"], np.float32)
+            attr = np.asarray(got[label]["attributions"], np.float32)
+            n = len(rows)
+            check(logits.shape == (n, n_labels),
+                  f"{label}: logits {logits.shape}")
+            check(attr.shape == (n, n_labels, n_players),
+                  f"{label}: attr {attr.shape}")
             check(bool(np.abs(logits.sum(-1) - 1).max() < 1e-4),
-                  f"{kind}: probabilities do not sum to 1")
-            xs = torch.as_tensor(rows).to(dev)
+                  f"{label}: probabilities do not sum to 1")
+            if kind == "texts":
+                xs = torch.from_numpy(service.gen_input(rows, [0] * n)[0])
+            else:
+                xs = torch.as_tensor(rows)
+            xs = xs.to(dev)
             if xs.dtype == torch.uint8:
                 xs = xs.float() * (1.0 / 255.0)
             with plain_ops(), torch.inference_mode():
@@ -628,12 +826,107 @@ def phase_serve(dev, exp: pathlib.Path, int8: bool):
                                      ("attributions", attr, ref[1])):
                 _, ok, msg = compare(torch.from_numpy(mine), want.cpu(),
                                      torch.float32, int8, whole=True)
-                print(f"[serve {path}] {kind:9s} {what:12s} "
+                print(f"[{tag}] {label:9s} {what:12s} "
                       f"{tuple(mine.shape)} served vs plain forward: {msg}",
                       flush=True)
-                check(ok, f"{path} {kind} {what}: served response differs "
+                check(ok, f"{tag} {label} {what}: served response differs "
                           f"from the plain forward")
     return launches, service, got
+
+
+def write_bert_experiment(tmp: pathlib.Path) -> pathlib.Path:
+    """A random LTT BERT-base@512 final (bert_base_tayp_ltt dims, seeded
+    torch.Generator) with a `build_vocab` vocabulary under
+    `<exp>/tokenizer/vocab.txt`."""
+    import torch
+
+    from autognothi_tpu_torch.data.tokenizer import (WordPieceTokenizer,
+                                                     build_vocab)
+    from autognothi_tpu_torch.models.ltt_bert import (LttBertConfig,
+                                                      init_ltt_bert_final)
+    from autognothi_tpu_torch.params import save_params, to_flat
+
+    hp = json.loads(BERT_EXP.read_text())
+    exp = tmp / "ltt_bert_base"
+    exp.mkdir()
+    (exp / ".hparams.json").write_text(json.dumps(hp, indent=2))
+    WordPieceTokenizer(build_vocab(CORPUS)).save(exp / "tokenizer")
+    cfg = LttBertConfig(**hp["net"]["params"])
+    t0 = time.perf_counter()
+    model = init_ltt_bert_final(cfg, torch.Generator().manual_seed(SEED))
+    with torch.no_grad():  # a non-trivial null makes normalisation visible
+        model.surrogate_null.fill_(0.1)
+    save_params(exp / "final-epoch-0.ckpt", to_flat(model))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[serve bert] LTT BERT-base@512 final ({BERT_EXP.parent.name} "
+          f"dims): {n_params} parameters, seed {SEED}, written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return exp
+
+
+def phase_bert_timing(dev, card: str, service) -> dict:
+    """fw_final of the served BERT model at B = 8 on the three paths
+    (fp32; int8 with fp32 and with bf16 parameters): kernels against
+    plain, one forward's kernel calls against the path's table, then
+    explanations/s in turns; each T = 512 op against its plain version
+    beside its bound (and SDPA beside the masked attention op) ->
+    the K8q row of the kernel table."""
+    import torch
+
+    model, cfg, recipe = service.model, service.m_config, service.recipe
+    ids = torch.randint(1, cfg.vocab_size, (B_BERT, T_BERT),
+                        generator=torch.Generator().manual_seed(SEED)
+                        ).to(dev)
+    model_bf16 = copy.deepcopy(model).to(torch.bfloat16)
+
+    def forward(m, int8: bool, plain: bool):
+        def run():
+            with int8_mode(int8), torch.inference_mode(), \
+                    (plain_ops() if plain else contextlib.nullcontext()):
+                return recipe.fw_final(cfg, m, ids)
+        return run
+
+    for label, m, dtype, int8 in (
+            ("fp32", model, torch.float32, False),
+            ("int8", model, torch.float32, True),
+            ("int8 bf16", model_bf16, torch.bfloat16, True)):
+        fw = forward(m, int8, False)
+        reset_counts()
+        fw()
+        torch.cuda.synchronize()
+        calls = {k: v for k, v in read_counts().items() if v}
+        print(f"[bert-time] fw_final {label} B={B_BERT}: kernel calls "
+              f"{calls} (expected {BERT_COUNTS[label]})", flush=True)
+        check(calls == BERT_COUNTS[label],
+              f"BERT fw_final {label}: kernel calls differ from the table")
+        time_fw_final(f"LTT BERT-base@512 {label}", fw,
+                      forward(m, int8, True), dtype, int8, card, B_BERT)
+        profile_forward(f"LTT BERT-base@512 {label} B={B_BERT}", fw, card)
+    del model_bf16
+
+    per_op = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, tag, op, plain, args, kw in bert_op_cases(
+                dev, dtype, B_BERT, True):
+            with torch.inference_mode():
+                _, ok, msg = compare(op(*args, **kw), plain(*args, **kw),
+                                     dtype, name in INT8_OPS)
+                t_plain = cuda_time(lambda: plain(*args, **kw), reps=10)
+                t_kern = cuda_time(lambda: op(*args, **kw), reps=10)
+                t_lib = None
+                if name == "masked_attention" and tag.endswith(" add") \
+                        and dtype == torch.float32:
+                    t_lib = time_library_attention(args, card)
+            bound_ms, bound_by = op_bound(name, args)
+            print(f"[bert-time] {name:20s} {tag:24s} {str(dtype):14s} "
+                  f"B={B_BERT} T={T_BERT}: kernel {t_kern:.4f} ms, plain "
+                  f"{t_plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+                  f" ({msg}) | {card}", flush=True)
+            check(ok, f"{name} {tag} {dtype} B={B_BERT}: kernel disagrees")
+            per_op.setdefault(name, dict(ms=t_kern, plain_ms=t_plain,
+                                         bound_ms=bound_ms,
+                                         bound_by=bound_by, library_ms=t_lib))
+    return per_op
 
 
 # ------------------------------------------------------------- training
@@ -875,6 +1168,28 @@ def device_kernels(prof) -> dict:
     return out
 
 
+def profile_forward(label: str, fw, card: str) -> None:
+    """One profiled call of a warm forward: device time by kernel and the
+    device's idle share of the wall time (the profiler lengthens it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fw()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    kernel_ms = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    print(f"[profile] {label}: device time {kernel_ms:.2f} ms of {wall:.2f} "
+          f"ms wall (device idle {max(0.0, 1 - kernel_ms / wall) * 100:.1f}%)"
+          "; top: " + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top)
+          + f" | {card}", flush=True)
+
+
 def phase_train_timing(case: TrainCase, card: str) -> None:
     """ms/step and masked forwards/s, kernels and plain in turns, per mode
     (int8 teacher in mode "2"); peak memory; the step split into teacher,
@@ -941,19 +1256,19 @@ def phase_train_timing(case: TrainCase, card: str) -> None:
 
 
 def time_fw_final(label: str, fw, fw_plain, dtype, int8: bool,
-                  card: str) -> None:
-    """Check the kernel forward against the plain one at B_TIME, then time
+                  card: str, b: int = B_TIME) -> None:
+    """Check the kernel forward against the plain one at batch b, then time
     both in the order plain, kernels, kernels, plain."""
     got, want = fw(), fw_plain()
     _, ok, msg = compare(got, want, dtype, int8, whole=True)
-    print(f"[time] fw_final {label} B={B_TIME} {msg}", flush=True)
-    check(ok, f"fw_final {label} B={B_TIME}: kernels disagree with plain")
+    print(f"[time] fw_final {label} B={b} {msg}", flush=True)
+    check(ok, f"fw_final {label} B={b}: kernels disagree with plain")
     rates = {"plain": [], "kernels": []}
     for which in ("plain", "kernels", "kernels", "plain"):
         ms = cuda_time(fw_plain if which == "plain" else fw, reps=3)
-        rates[which].append(B_TIME / (ms / 1e3))
+        rates[which].append(b / (ms / 1e3))
     for which, vals in rates.items():
-        print(f"[time] fw_final LTT ViT-B/16@224 {label} B={B_TIME} "
+        print(f"[time] fw_final {label} B={b} "
               f"{which:7s}: {' '.join(f'{v:.2f}' for v in vals)} expl/s | "
               f"{card}", flush=True)
 
@@ -1048,6 +1363,8 @@ KERNELS = {
                    "autognothi_tpu/ops/head_block.py:138"),
     "mlp_block_int8": ("autognothi_tpu_torch/csrc/int8.cu",
                        "autognothi_tpu/ops/mlp_block.py:163"),
+    "mlp_block_int8_tiled": ("autognothi_tpu_torch/csrc/int8.cu",
+                             "autognothi_tpu/ops/mlp_block.py:294"),
     "masked_attention": ("autognothi_tpu_torch/csrc/attention.cu",
                          "autognothi_tpu/ops/flash_attention.py:158"),
     "ladder_attention": ("autognothi_tpu_torch/csrc/attention.cu",
@@ -1076,26 +1393,40 @@ def main() -> int:
           flush=True)
     phase_device()
     worst = phase_kernels(dev)
+    worst = phase_kernels(dev, bert_op_cases, B_BERT_CHECK, worst,
+                          BERT_CALLS_PER_OP)
     with tempfile.TemporaryDirectory() as tmp:
         exp = write_experiment(pathlib.Path(tmp))
         launches, service, got_fp32 = phase_serve(dev, exp, int8=False)
         launches_int8, _, got_int8 = phase_serve(dev, exp, int8=True)
-        for kind in got_fp32:
-            for what in ("logits", "attributions"):
-                diff = np.abs(np.asarray(got_int8[kind][what], np.float32)
-                              - np.asarray(got_fp32[kind][what], np.float32))
-                print(f"[serve] {kind:9s} {what:12s} max|int8 - fp32| = "
-                      f"{diff.max():.3e} (W8A8 vs fp32 path, not held)",
-                      flush=True)
+        bert_exp = write_bert_experiment(pathlib.Path(tmp))
+        launches_bert, bert_service, got_bert = phase_serve(
+            dev, bert_exp, int8=False, model="bert")
+        launches_bert_int8, _, got_bert_int8 = phase_serve(
+            dev, bert_exp, int8=True, model="bert")
+        for model, fp32, int8 in (("vit", got_fp32, got_int8),
+                                  ("bert", got_bert, got_bert_int8)):
+            for label in fp32:
+                for what in ("logits", "attributions"):
+                    diff = np.abs(np.asarray(int8[label][what], np.float32)
+                                  - np.asarray(fp32[label][what], np.float32))
+                    print(f"[serve {model}] {label:9s} {what:12s} "
+                          f"max|int8 - fp32| = {diff.max():.3e} (W8A8 vs "
+                          f"fp32 path, not held)", flush=True)
         train_exp = write_train_experiment(pathlib.Path(tmp))
         case = TrainCase(dev, train_exp)
         per_step = phase_train_steps(case)
         launches_train = phase_train_cli(train_exp, per_step)
-        # every main path was driven from counts of 0: serve fp32, serve
-        # int8, train_explainer in pallas modes "2" and "1"
+        # every main path was driven from counts of 0: serve fp32 and int8
+        # (ViT and BERT), train_explainer in pallas modes "2" and "1"
         for k in launches:
-            launches[k] += launches_int8[k] + launches_train.get(k, 0)
+            launches[k] += (launches_int8[k] + launches_bert[k]
+                            + launches_bert_int8[k]
+                            + launches_train.get(k, 0))
         per_op = phase_timing(dev, card, service)
+        # the ViT shapes keep their rows; K8q runs only at BERT's
+        for k, row in phase_bert_timing(dev, card, bert_service).items():
+            per_op.setdefault(k, row)
         phase_train_timing(case, card)
 
     kernels = [dict(name=k, route="cuda", source=source, replaces=replaces,

@@ -104,8 +104,15 @@ def test_ladder_block_kernel_and_backward(dev, dtype):
         n_branches=2, n_heads=4, mode="mul", pre_norm=True, ln_eps=1e-12)
     for x, y in zip(got, want):
         _close(x, y, dtype)
-    with pytest.raises(NotImplementedError):
-        lb.ladder_block(hid, sides, mask, branches, 4, "add", False, 1e-12)
+    # BERT's layer kind: the additive bias with post-norm
+    bias = (1 - mask) * torch.finfo(torch.float32).min
+    got = lb.ladder_block(hid, sides, bias, branches, 4, "add", False, 1e-12)
+    want = lb.ladder_block_plain(
+        hid, bias, *sides,
+        *(w[k].to(dtype) for w in branches for k in lb.BRANCH_KEYS),
+        n_branches=2, n_heads=4, mode="add", pre_norm=False, ln_eps=1e-12)
+    for x, y in zip(got, want):
+        _close(x, y, dtype)
     if dtype == torch.float32:  # backward = autograd through the plain math
         x = hid.clone().requires_grad_(True)
         out = lb.ladder_block(x, sides, mask, branches, 4, "mul", True, 1e-12)
@@ -449,3 +456,139 @@ def test_train_step_kernels_against_plain(dev, pallas, monkeypatch):
     for k, v in want.items():
         err = (got[k] - v).abs().max().item()
         assert err <= 1e-4 * g_max, (k, err, g_max)
+
+
+# ------------------------------------------- LTT BERT shapes (T = 512)
+
+
+@pytest.mark.parametrize("mode", ["mul", "add"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 64])
+def test_attention_core_at_512(dev, d, dtype, mode):
+    """T = 512: at d = 64 one stage of fp32 K/V exceeds a block's shared
+    memory and the core walks the keys in chunks (two passes); d = 8 keeps
+    the one-stage kernel.  K9 on split heads against its plain version."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+    from autognothi_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(11)
+    n, heads, t = 2, 12, 512
+    q, k, v = (_rand(g, dev, n, heads, t, d).to(dtype) for _ in range(3))
+    mask = _mask(g, dev, n, t, True)
+    if mode == "add":
+        mask = (1 - mask) * torch.finfo(torch.float32).min
+    assert kp.load().ag_attention_smem_bytes(t, d) <= kp.MAX_SMEM_BYTES
+    got = fa.masked_attention(q, k, v, mask, mode=mode)
+    _close(got, fa.masked_attention_plain(q, k, v, mask, mode=mode), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bert_attention_blocks_at_512(dev, dtype):
+    """K6 and K1 at <2, 512, 768>, "add" bias, LN epilogue.  In fp32 the
+    int8 block does not fit the JAX budget and runs the float block (K6);
+    in bf16 it is K1."""
+    from autognothi_tpu_torch.ops import attention_block as ab
+
+    g = torch.Generator().manual_seed(12)
+    b, t, h = 2, 512, 768
+    resid = _rand(g, dev, b, t, h).to(dtype)
+    ws = tuple(_rand(g, dev, *s, scale=h ** -0.5) for s in [(h, h), (h,)] * 4)
+    ln = (1 + _rand(g, dev, h, scale=0.1), _rand(g, dev, h, scale=0.1), 1e-12)
+    bias = (1 - _mask(g, dev, b, t, True)) * torch.finfo(torch.float32).min
+    for quant in ("none", "int8"):
+        before = (ab.COUNTER.count, ab.COUNTER_INT8.count)
+        got = ab.attention_block(resid, bias, ws, 12, "add", ln=ln,
+                                 ln_position="epilogue", quant=quant)
+        int8 = quant == "int8" and dtype == torch.bfloat16
+        assert (ab.COUNTER.count - before[0],
+                ab.COUNTER_INT8.count - before[1]) == \
+            ((0, 1) if int8 else (1, 0))
+        plain = ab.attention_block_int8_plain if int8 \
+            else ab.attention_block_plain
+        want = plain(resid, bias, *ws, ln[0], ln[1], n_heads=12, mode="add",
+                     ln_position="epilogue", ln_eps=1e-12)
+        (_close_int8 if int8 else _close)(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bert_side_layer_at_512(dev, dtype):
+    """The explainer's 96-wide side layer at <2, 512, 96> (12 heads of d =
+    8), as the model calls it: the attention block without LN, "add" bias,
+    and the MLP block with its LN epilogue, float (K6, K7) and int8 (K1,
+    K4), each one launch."""
+    from autognothi_tpu_torch.ops import attention_block as ab
+    from autognothi_tpu_torch.ops import mlp_block as mb
+
+    g = torch.Generator().manual_seed(15)
+    b, t, s = 2, 512, 96
+    x = _rand(g, dev, b, t, s).to(dtype)
+    ws = tuple(_rand(g, dev, *sh, scale=s ** -0.5) for sh in [(s, s), (s,)] * 4)
+    w1, b1 = _rand(g, dev, 4 * s, s, scale=s ** -0.5), _rand(g, dev, 4 * s)
+    w2, b2 = _rand(g, dev, s, 4 * s, scale=(4 * s) ** -0.5), _rand(g, dev, s)
+    ln = (1 + _rand(g, dev, s, scale=0.1), _rand(g, dev, s, scale=0.1), 1e-12)
+    ones, zeros = torch.ones(s, device=dev), torch.zeros(s, device=dev)
+    bias = (1 - _mask(g, dev, b, t, True)) * torch.finfo(torch.float32).min
+    for quant in ("none", "int8"):
+        int8 = quant == "int8"
+        counters = (ab.COUNTER_INT8, mb.COUNTER_INT8) if int8 \
+            else (ab.COUNTER, mb.COUNTER)
+        before = [c.count for c in counters]
+        got = ab.attention_block(x, bias, ws, 12, "add", ln=None,
+                                 ln_position="epilogue", quant=quant)
+        plain = ab.attention_block_int8_plain if int8 \
+            else ab.attention_block_plain
+        want = plain(x, bias, *ws, ones, zeros, n_heads=12, mode="add",
+                     ln_position="none", ln_eps=1e-12)
+        (_close_int8 if int8 else _close)(got, want, dtype)
+        got = mb.mlp_block(x, w1, b1, w2, b2, ln=ln, ln_position="epilogue",
+                           quant=quant)
+        plain = mb.mlp_block_int8_plain if int8 else mb.mlp_block_plain
+        want = plain(x, w1, b1, w2, b2, ln[0], ln[1], ln_position="epilogue",
+                     ln_eps=1e-12)
+        (_close_int8 if int8 else _close)(got, want, dtype)
+        assert [c.count for c in counters] == [n + 1 for n in before]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8q_chain_at_bert_base(dev, dtype):
+    """The int8 split MLP at 768/3072, T = 512: the gate picks 2 tiles, one
+    launch each, against the plain chain."""
+    from autognothi_tpu_torch.ops import mlp_block as mb
+
+    g = torch.Generator().manual_seed(13)
+    b, t, h, inter = 2, 512, 768, 3072
+    resid = _rand(g, dev, b, t, h).to(dtype)
+    w1, b1 = _rand(g, dev, inter, h, scale=h ** -0.5), _rand(g, dev, inter)
+    w2, b2 = _rand(g, dev, h, inter, scale=inter ** -0.5), _rand(g, dev, h)
+    ln = (1 + _rand(g, dev, h, scale=0.1), _rand(g, dev, h, scale=0.1), 1e-12)
+    before = mb.COUNTER_INT8_TILED.count
+    got = mb.mlp_block(resid, w1, b1, w2, b2, ln=ln, ln_position="epilogue",
+                       quant="int8")
+    assert mb.COUNTER_INT8_TILED.count == before + 2
+    tensors, static = mb.mlp_block_args(resid, w1, b1, w2, b2, ln=ln,
+                                        ln_position="epilogue")
+    _close_int8(got, mb.mlp_block_int8_tiled_plain(*tensors, n_tiles=2,
+                                                   **static), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ladder_add_post_norm_at_bert_base(dev, dtype):
+    """K5 at 768 -> 2 x 96 (12 heads of d = 8), T = 512, BERT's layers."""
+    from autognothi_tpu_torch.ops import ladder_block as lb
+
+    g = torch.Generator().manual_seed(14)
+    b, t, h, s = 2, 512, 768, 96
+    hid = _rand(g, dev, b, t, h).to(dtype)
+    sides = [_rand(g, dev, b, t, s).to(dtype) for _ in range(2)]
+    shapes = {"map_w": (s, h), "w1": (4 * s, s), "b1": (4 * s,),
+              "w2": (s, 4 * s)}
+    branches = [{k: _rand(g, dev, *shapes.get(k, (s, s) if k.startswith("w")
+                                              else (s,)), scale=0.1)
+                 for k in lb.BRANCH_KEYS} for _ in range(2)]
+    bias = (1 - _mask(g, dev, b, t, True)) * torch.finfo(torch.float32).min
+    got = lb.ladder_block(hid, sides, bias, branches, 12, "add", False,
+                          1e-12)
+    tensors, static = lb.ladder_block_args(hid, sides, bias, branches, 12,
+                                           "add", False, 1e-12)
+    for x, y in zip(got, lb.ladder_block_plain(*tensors, **static)):
+        _close(x, y, dtype)

@@ -120,6 +120,9 @@ def test_import_graph_is_free_of_jax_and_the_jax_package():
         "import autognothi_tpu_torch.ops.shapley\n"
         "import autognothi_tpu_torch.data.loader\n"
         "import autognothi_tpu_torch.utils.seeding\n"
+        "import autognothi_tpu_torch.recipes.ltt_bert\n"
+        "import autognothi_tpu_torch.data.tokenizer\n"
+        "import autognothi_tpu_torch.ops.gates\n"
         "bad = [m for m in ('jax', 'jaxlib', 'optax', 'pydantic', 'orbax',\n"
         "                    'autognothi_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n")
