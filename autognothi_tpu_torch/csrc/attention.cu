@@ -1,9 +1,10 @@
-// Masked multi-head attention core, the one attention kernel of the port:
+// Masked multi-head attention core on the tensor cores, the one attention
+// kernel of the port:
 // - inside the fused attention and ladder blocks (the in-kernel attention
-//   of autognothi_tpu/ops/attention_block.py:_kernel, `_heads_attention`,
-//   and of autognothi_tpu/ops/ladder_block.py:_kernel, `_branch_math`),
-//   reading the packed Q/K/V projections <B*T, 3H> that the GEMM wrote and
-//   writing the head-merged context <B*T, H>;
+//   of autognothi_tpu/ops/attention_block.py:_kernel, `_heads_attention`
+//   (K6, K1), of autognothi_tpu/ops/ladder_block.py:_kernel, `_branch_math`
+//   (K5, K2)), reading the packed Q/K/V projections <B*T, 3H> that the GEMM
+//   wrote and writing the head-merged context <B*T, H>;
 // - standalone, as the split-head masked attention of
 //   autognothi_tpu/ops/flash_attention.py:_masked_attention_impl (K9) on
 //   <N, h, T, D>, and once per branch as the ladder attention of
@@ -11,48 +12,53 @@
 // Q, K, V and the output are separate pointers, each with its own (batch,
 // head, row) element strides; rows are contiguous.
 //
-// One block of 8 warps per (query tile of 64, head, image).  The image's K
-// and V for that head are staged in shared memory as fp32 (K rows padded to
-// D + 4 floats so the lanes' float4 reads of different keys hit different
-// banks).  Each warp takes one query at a time, with q in registers: every
-// lane scores up to MAXJ keys (j = lane + 32 jj), scores * 1/sqrt(d) are
-// multiplied by the 0/1 mask ("mul", the ViT quirk: a masked score becomes
-// 0 and keeps weight exp(0 - max)) or added to the bias ("add", BERT), the
-// fp32 softmax reduces across the warp with shuffles, and the
-// probabilities, rounded to the activation dtype (the JAX cast to v's
-// dtype), go to a per-warp row in shared memory.  P.V accumulates in fp32:
-// for d >= 32 each lane owns d/32 output columns; for d < 32 the warp
-// splits the keys over 32/d lane groups and sums the groups with shuffles,
-// so all 32 lanes work at d = 8.  The <B, heads, T, T> scores and
-// probabilities never reach device memory.
+// Math, as the JAX kernels: s = (q . k) * 1/sqrt(d) in fp32, times the 0/1
+// mask ("mul", the ViT quirk: a masked score becomes 0 and keeps weight
+// exp(0 - max)) or plus the fp32 bias ("add", BERT's finfo.min); keys past T
+// are -inf; fp32 softmax; p rounded to v's dtype; P.V summed in fp32; rows
+// past T are not written.
 //
-// Long sequences (BERT at T = 512, d = 64): the whole head's K and V in fp32
-// need 288,768 B, more than a block's 227 KB, so the chunked variant walks
-// the keys in chunks of kAttKC that fit, in two passes.  Each warp owns 8 of
-// the block's 64 queries (staged in shared memory) and keeps each query's
-// row state in registers.  Pass 1 takes the row max and the softmax sum
-// over the chunks (online: the sum is rescaled when the max grows); pass 2
-// recomputes each chunk's scores, rounds p = exp(s - max) / sum to the
-// activation dtype (the JAX rounding point, unchanged) and accumulates P.V
-// in fp32.  The mask rules are the same.  Shapes that fit one stage keep the
-// one-stage kernel.
+// Design, flash-style: one block of 4 warps per (64 queries, head, image);
+// each warp owns 16 query rows, with its Q fragments in registers.  K and V
+// are staged in chunks of 64 keys in shared memory, in the activation dtype,
+// through a double-buffered cp.async ring (rows padded so the fragment reads
+// are bank-conflict-free), with the chunk's mask values beside them.
+// Scores come from mma.sync into fp32 accumulators: bf16 m16n8k16 (m16n8k8
+// at d = 8) with K fragments by ldmatrix, exact products summed in fp32;
+// fp32 as 3xTF32 (each operand split into hi = rna_tf32(x) and lo =
+// rna_tf32(x - hi), hi*hi + hi*lo + lo*hi accumulated in fp32, ~2^-21
+// relative: fp32-grade).  The softmax stays in registers (quad shuffles for
+// the row max and sum; exp by the fast ex2-based __expf, a few ulp), and P
+// goes from the score accumulators straight into the A fragments of P.V:
+// - bf16 keeps the JAX rounding point exactly: pass 1 over the chunks takes
+//   each row's max and sum, pass 2 recomputes the scores, rounds p =
+//   exp(s - max) * (1 / sum) to bf16 and runs P.V (V fragments by
+//   ldmatrix.trans);
+// - fp32 rounds p to fp32, the identity, so it takes one pass with an online
+//   softmax (the output rescaled when the row max grows, divided by the sum
+//   at the end): one Q.K instead of two, each three tf32 products.  P enters
+//   the tf32 A fragment with its keys permuted within each group of 8 (the
+//   accumulator holds keys 2t, 2t + 1; the fragment wants t, t + 4), and
+//   the V rows are read in the same order.
+// The <B, heads, T, T> scores and probabilities never reach device memory.
 //
-// What bounds it on the H100: fp32 FMA issue and shared-memory bandwidth of
-// the Q.K and P.V loops, and re-staging K and V for every 64-query tile (the
-// chunked variant computes Q.K twice).  Flash-style mma tiles are the work
-// of later changes.
+// What bounds it on the H100: mma.sync issue and, per score, the softmax's
+// scalar work (mask, max, exp; bf16 twice); in fp32 also the register
+// splits of K and V, which every warp of a block repeats (d = 64 fp32 holds
+// 247 registers).  At T = 197 the 64-key chunks and 64-query tiles pad the
+// work by (256 / 197)^2.  Measured on an H100 80GB HBM3 (700 W), "add"
+// (`kernel_ab.py`): <256, 12, 197, 64> fp32 1.40 ms, bf16 0.59 ms; <8, 12,
+// 512, 64> fp32 0.184-0.188 ms, bf16 0.084 ms (SDPA: fp32 1.71 / 0.238 ms,
+// bf16 0.50 / 0.058 ms).  wgmma with the softmax overlapped across warp
+// groups (as FlashAttention-3) is the next step.
 
 #include "common.cuh"
 
 namespace ag {
 
-constexpr int kAttWarps = 8;
-constexpr int kAttQT = 64;  // queries per block
-constexpr int kAttKC = 128;  // keys per chunk (chunked variant)
-constexpr int kAttQPW = kAttQT / kAttWarps;  // queries per warp (chunked)
-constexpr long long kMaxSmem = 232448;  // dynamic shared memory of a block
-
-__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+constexpr int kAttWarps = 4;
+constexpr int kAttQT = 16 * kAttWarps;  // queries per block
+constexpr int kAttKC = 64;              // keys per staged chunk
 
 // Where q, k, v and the output lie: element strides of the batch, head and
 // row dimensions of each <N, heads, T, D> view (rows contiguous).
@@ -60,268 +66,303 @@ struct HeadViews {
   long long sb[4], sh[4], st[4];  // [q, k, v, out]
 };
 
-template <typename T, bool MUL, int MAXJ, int D>
+// Shared-memory row pitch (elements) of a staged K or V chunk: fp32 d + 4
+// words (conflict-free 32-bit fragment reads of K rows and of V row pairs),
+// bf16 max(d, 16) + 8 (16-byte rows, conflict-free words and ldmatrix).
+template <typename T, int D>
+__host__ __device__ constexpr int att_pitch() {
+  return sizeof(T) == 4 ? D + 4 : (D < 16 ? 16 : D) + 8;
+}
+
+// two stages of K and V chunks and of the chunk's mask values
+template <typename T, int D>
+__host__ __device__ constexpr long long att_smem_bytes() {
+  return 2LL * 2 * kAttKC * att_pitch<T, D>() * (long long)sizeof(T) +
+         2LL * kAttKC * (long long)sizeof(float);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <typename T, bool MUL, int D>
 __global__ void __launch_bounds__(kAttWarps * 32)
-    attention_kernel(const T* __restrict__ qp, const T* __restrict__ kp,
-                     const T* __restrict__ vp, const float* __restrict__ mask,
-                     T* __restrict__ op, HeadViews views, int Tn) {
-  constexpr int KS = D + 4;  // K row stride: 16-byte rows, no bank conflicts
-  extern __shared__ float4 smem4[];
-  const int TP = round4(Tn);  // rows padded to whole float4s of p
-  float* Ks = reinterpret_cast<float*>(smem4);  // TP x KS
-  float* Vs = Ks + TP * KS;                     // TP x D (pad rows zero)
-  float* Ms = Vs + TP * D;                      // TP
-  float* Ps = Ms + TP;                          // kAttWarps x TP
+    attention_tc_kernel(const T* __restrict__ qp, const T* __restrict__ kp,
+                        const T* __restrict__ vp,
+                        const float* __restrict__ mask, T* __restrict__ op,
+                        HeadViews views, int Tn) {
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr bool TWO_PASS = !F32;  // bf16: the JAX rounding point of p
+  constexpr int P = att_pitch<T, D>();
+  constexpr int NJ = kAttKC / 8;   // score tiles (8 keys) per chunk
+  constexpr int ND = D / 8;        // output tiles (8 dims)
+  constexpr int CE = 16 / (int)sizeof(T);  // elements per 16-byte copy
+  constexpr int CPR = D / CE;      // 16-byte copies per row
+  // Q fragments per row block: fp32 k8 steps, bf16 k16 steps (one k8 at d=8)
+  constexpr int QK = F32 ? D / 8 : (D >= 16 ? D / 16 : 1);
+
+  extern __shared__ __align__(16) unsigned char att_smem[];
+  T* Ks = reinterpret_cast<T*>(att_smem);  // [2][kAttKC][P]
+  T* Vs = Ks + 2 * kAttKC * P;             // [2][kAttKC][P]
+  float* Ms = reinterpret_cast<float*>(Vs + 2 * kAttKC * P);  // [2][kAttKC]
 
   const int b = blockIdx.z, head = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const T* qb = qp + b * views.sb[0] + head * views.sh[0];
   const T* kb = kp + b * views.sb[1] + head * views.sh[1];
   const T* vb = vp + b * views.sb[2] + head * views.sh[2];
   T* ob = op + b * views.sb[3] + head * views.sh[3];
   const long long kst = views.st[1], vst = views.st[2];
-
-  for (int idx = threadIdx.x; idx < TP * D; idx += blockDim.x) {
-    const int j = idx / D, c = idx % D;
-    float k = 0.f, v = 0.f;
-    if (j < Tn) {
-      k = to_f(kb[j * kst + c]);
-      v = to_f(vb[j * vst + c]);
-    }
-    Ks[j * KS + c] = k;
-    Vs[j * D + c] = v;
-  }
-  for (int j = threadIdx.x; j < TP; j += blockDim.x)
-    Ms[j] = j < Tn ? mask[(size_t)b * Tn + j] : 0.f;
-  __syncthreads();
-
-  float* p = Ps + warp * TP;
+  const float* mrow = mask + (size_t)b * Tn;
   const float scale = 1.0f / sqrtf((float)D);
-  const int q_end = min(Tn, (int)(blockIdx.x + 1) * kAttQT);
-  for (int i = blockIdx.x * kAttQT + warp; i < q_end; i += kAttWarps) {
-    float q[D];
-    const T* qrow = qb + i * views.st[0];
-#pragma unroll
-    for (int c = 0; c < D; ++c) q[c] = to_f(qrow[c]);
+  const int r0 = blockIdx.x * kAttQT + warp * 16;  // the warp's first row
+  const int nc = (Tn + kAttKC - 1) / kAttKC;
+  const int steps = TWO_PASS ? 2 * nc : nc;
 
-    float s[MAXJ];
-    float mx = -INFINITY;
+  // step s stages chunk s % nc: K only in bf16's pass 1, K and V otherwise;
+  // keys past T are zero-filled (P.V then multiplies them by p = 0).  The
+  // chunk's mask values (any alignment) are read into a register here and
+  // stored to shared memory at the end of the step before they are used.
+  float m_next = 0.f;
+  auto load = [&](int s, int buf) {
+    const int j0 = (s < nc ? s : s - nc) * kAttKC;
+    const bool with_v = !TWO_PASS || s >= nc;
+    T* ks = Ks + buf * kAttKC * P;
+    T* vs = Vs + buf * kAttKC * P;
+    for (int idx = tid; idx < kAttKC * CPR; idx += kAttWarps * 32) {
+      const int j = idx / CPR, c = (idx % CPR) * CE;
+      const bool ok = j0 + j < Tn;
+      cp_async16(ks + j * P + c, ok ? kb + (j0 + j) * kst + c : kb, ok);
+      if (with_v)
+        cp_async16(vs + j * P + c, ok ? vb + (j0 + j) * vst + c : vb, ok);
+    }
+    cp_async_commit();
+    if (tid < kAttKC) m_next = j0 + tid < Tn ? __ldg(mrow + j0 + tid) : 0.f;
+  };
+  load(0, 0);
+  if (tid < kAttKC) Ms[tid] = m_next;
+
+  // the warp's Q fragments (rows past T are zero); fp32 keeps the raw bits
+  uint32_t qa[QK][4];
+  {
+    const int rows[2] = {r0 + g, r0 + g + 8};
 #pragma unroll
-    for (int jj = 0; jj < MAXJ; ++jj) {
-      const int j = lane + 32 * jj;
-      s[jj] = -INFINITY;
-      if (j < Tn) {
-        const float4* kr = reinterpret_cast<const float4*>(Ks + j * KS);
-        float dot = 0.f;
+    for (int kk = 0; kk < QK; ++kk)
 #pragma unroll
-        for (int c4 = 0; c4 < D / 4; ++c4) {
-          const float4 k4 = kr[c4];
-          dot = fmaf(q[4 * c4], k4.x, dot);
-          dot = fmaf(q[4 * c4 + 1], k4.y, dot);
-          dot = fmaf(q[4 * c4 + 2], k4.z, dot);
-          dot = fmaf(q[4 * c4 + 3], k4.w, dot);
+      for (int e = 0; e < 4; ++e) {
+        const int row = rows[e & 1];
+        uint32_t v = 0;
+        if (row < Tn && (F32 || D >= 16 || e < 2)) {
+          const T* q = qb + row * views.st[0];
+          if constexpr (F32) {
+            v = __float_as_uint(q[8 * kk + t + 4 * (e >> 1)]);
+          } else {
+            v = *reinterpret_cast<const uint32_t*>(q + 16 * kk + 2 * t +
+                                                    8 * (e >> 1));
+          }
         }
-        float sc = dot * scale;
-        sc = MUL ? sc * Ms[j] : sc + Ms[j];
-        s[jj] = sc;
-        mx = fmaxf(mx, sc);
+        qa[kk][e] = v;
       }
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < MAXJ; ++jj) {
-      if (lane + 32 * jj < Tn) {
-        s[jj] = expf(s[jj] - mx);
-        sum += s[jj];
-      }
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int jj = 0; jj < MAXJ; ++jj) {
-      const int j = lane + 32 * jj;
-      if (j < Tn)
-        p[j] = round_to<T>(s[jj] / sum);
-      else if (j < TP)
-        p[j] = 0.f;
-    }
-    __syncwarp();
+  }
 
-    T* out = ob + i * views.st[3];
-    if constexpr (D >= 32) {
-      constexpr int CPL = D / 32;  // output columns per lane
-      float acc[CPL];
+  float o[ND][4];
 #pragma unroll
-      for (int cc = 0; cc < CPL; ++cc) acc[cc] = 0.f;
-      for (int j = 0; j < TP; j += 4) {
-        const float4 p4 = *reinterpret_cast<const float4*>(p + j);
-        const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int cc = 0; cc < CPL; ++cc)
-            acc[cc] = fmaf(pj[u], Vs[(j + u) * D + lane + 32 * cc], acc[cc]);
-      }
-#pragma unroll
-      for (int cc = 0; cc < CPL; ++cc) out[lane + 32 * cc] = from_f<T>(acc[cc]);
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float mx[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
+  float l[2] = {0.f, 0.f};               // this thread's share of the sum
+
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) {
+      load(s + 1, (s + 1) & 1);
+      cp_async_wait<1>();
     } else {
-      constexpr int G = 32 / D;  // lane groups splitting the keys
-      const int c = lane % D, g = lane / D;
-      float acc = 0.f;
-      for (int j = g; j < Tn; j += G) acc = fmaf(p[j], Vs[j * D + c], acc);
-#pragma unroll
-      for (int off = D; off < 32; off <<= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (g == 0) out[c] = from_f<T>(acc);
+      cp_async_wait<0>();
     }
-    __syncwarp();
-  }
-}
-
-// The chunked variant (d >= 32).  Shared memory (floats): Qs kAttQT x D,
-// Ks kAttKC x (D + 4), Vs kAttKC x D, Ms kAttKC, Ps kAttWarps x kAttKC.
-template <typename T, bool MUL, int D>
-__global__ void __launch_bounds__(kAttWarps * 32)
-    attention_chunked_kernel(const T* __restrict__ qp,
-                             const T* __restrict__ kp,
-                             const T* __restrict__ vp,
-                             const float* __restrict__ mask,
-                             T* __restrict__ op, HeadViews views, int Tn) {
-  static_assert(D >= 32 && D % 32 == 0, "chunked core: d >= 32");
-  constexpr int KS = D + 4;
-  constexpr int JPL = kAttKC / 32;  // keys of a chunk per lane
-  constexpr int CPL = D / 32;       // output columns per lane
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // kAttQT x D
-  float* Ks = Qs + kAttQT * D;                  // kAttKC x KS
-  float* Vs = Ks + kAttKC * KS;                 // kAttKC x D
-  float* Ms = Vs + kAttKC * D;                  // kAttKC
-  float* Ps = Ms + kAttKC;                      // kAttWarps x kAttKC
-
-  const int b = blockIdx.z, head = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * kAttQT;
-  const T* qb = qp + b * views.sb[0] + head * views.sh[0];
-  const T* kb = kp + b * views.sb[1] + head * views.sh[1];
-  const T* vb = vp + b * views.sb[2] + head * views.sh[2];
-  T* ob = op + b * views.sb[3] + head * views.sh[3];
-  const float scale = 1.0f / sqrtf((float)D);
-
-  for (int idx = threadIdx.x; idx < kAttQT * D; idx += blockDim.x) {
-    const int i = q0 + idx / D;
-    Qs[idx] = i < Tn ? to_f(qb[i * views.st[0] + idx % D]) : 0.f;
-  }
-
-  // stage keys [c0, c0 + kAttKC) (and their values when V is set)
-  auto stage = [&](int c0, bool with_v) {
-    __syncthreads();  // the previous chunk's readers are done
-    for (int idx = threadIdx.x; idx < kAttKC * D; idx += blockDim.x) {
-      const int j = idx / D, c = idx % D, jg = c0 + j;
-      const bool ok = jg < Tn;
-      Ks[j * KS + c] = ok ? to_f(kb[jg * views.st[1] + c]) : 0.f;
-      if (with_v) Vs[j * D + c] = ok ? to_f(vb[jg * views.st[2] + c]) : 0.f;
-    }
-    for (int j = threadIdx.x; j < kAttKC; j += blockDim.x)
-      Ms[j] = c0 + j < Tn ? mask[(size_t)b * Tn + c0 + j] : 0.f;
     __syncthreads();
-  };
+    const int buf = s & 1;
+    const int j0 = (s < nc ? s : s - nc) * kAttKC;
+    const T* ks = Ks + buf * kAttKC * P;
+    const T* vs = Vs + buf * kAttKC * P;
 
-  // the masked, scaled scores of query row qi against the staged chunk;
-  // keys past Tn are -inf
-  auto scores = [&](int qi, int c0, float (&s)[JPL]) {
-    float q[D];
+    // scores of the warp's 16 rows against the chunk's 64 keys
+    float sc[NJ][4];
 #pragma unroll
-    for (int c = 0; c < D; ++c) q[c] = Qs[qi * D + c];
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-    for (int jj = 0; jj < JPL; ++jj) {
-      const int j = lane + 32 * jj;
-      s[jj] = -INFINITY;
-      if (c0 + j < Tn) {
-        const float4* kr = reinterpret_cast<const float4*>(Ks + j * KS);
-        float dot = 0.f;
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    if constexpr (F32) {
+      const float* kf = reinterpret_cast<const float*>(ks);
 #pragma unroll
-        for (int c4 = 0; c4 < D / 4; ++c4) {
-          const float4 k4 = kr[c4];
-          dot = fmaf(q[4 * c4], k4.x, dot);
-          dot = fmaf(q[4 * c4 + 1], k4.y, dot);
-          dot = fmaf(q[4 * c4 + 2], k4.z, dot);
-          dot = fmaf(q[4 * c4 + 3], k4.w, dot);
+      for (int kk = 0; kk < QK; ++kk) {
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32(__uint_as_float(qa[kk][e]), ah[e], al[e]);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float* bp = kf + (8 * j + g) * P + 8 * kk + t;
+          uint32_t bh[2], bl[2];
+          split_tf32(bp[0], bh[0], bl[0]);
+          split_tf32(bp[4], bh[1], bl[1]);
+          mma_3xtf32(sc[j], ah, al, bh, bl);
         }
-        const float sc = dot * scale;
-        s[jj] = MUL ? sc * Ms[j] : sc + Ms[j];
+      }
+    } else if constexpr (D >= 16) {
+      // K fragments by ldmatrix.x4: two key tiles x (dims 0-7, 8-15)
+#pragma unroll
+      for (int kk = 0; kk < QK; ++kk)
+#pragma unroll
+        for (int j = 0; j < NJ; j += 2) {
+          uint32_t r4[4];
+          ldmatrix_x4(r4, ks + (8 * j + (lane & 7) + 8 * (lane >> 4)) * P +
+                              16 * kk + 8 * ((lane >> 3) & 1));
+          mma_bf16_16816(sc[j], qa[kk], r4);
+          mma_bf16_16816(sc[j + 1], qa[kk], r4 + 2);
+        }
+    } else {
+      // d = 8: ldmatrix.x4 gives the fragments of four key tiles
+#pragma unroll
+      for (int j = 0; j < NJ; j += 4) {
+        uint32_t r4[4];
+        ldmatrix_x4(r4, ks + (8 * j + lane) * P);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) mma_bf16_1688(sc[j + u], qa[0], r4 + u);
       }
     }
-  };
+    float cm[2] = {-INFINITY, -INFINITY};
+    const float* ms = Ms + buf * kAttKC;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float2 m2 = *reinterpret_cast<const float2*>(ms + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = j0 + 8 * j + 2 * t + (e & 1);
+        float v = -INFINITY;
+        if (key < Tn) {
+          const float m = (e & 1) ? m2.y : m2.x;
+          v = sc[j][e] * scale;
+          v = MUL ? v * m : v + m;
+        }
+        sc[j][e] = v;
+        cm[e >> 1] = fmaxf(cm[e >> 1], v);
+      }
+    }
+    // every chunk holds a key below T, so the new max is finite
+    float m_new[2], alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(mx[h], quad_max(cm[h]));
+      alpha[h] = __expf(mx[h] - m_new[h]);  // 0 on the first chunk
+    }
 
-  // pass 1: row max and softmax sum
-  float mx[kAttQPW], sum[kAttQPW];
+    if (!TWO_PASS || s < nc) {
+      // row max and sum (fp32: the one pass; bf16: pass 1)
 #pragma unroll
-  for (int u = 0; u < kAttQPW; ++u) {
-    mx[u] = -INFINITY;
-    sum[u] = 0.f;
-  }
-  for (int c0 = 0; c0 < Tn; c0 += kAttKC) {
-    stage(c0, false);
+      for (int h = 0; h < 2; ++h) l[h] *= alpha[h];
 #pragma unroll
-    for (int u = 0; u < kAttQPW; ++u) {
-      const int qi = warp + kAttWarps * u;
-      if (q0 + qi >= Tn) continue;  // warp-uniform
-      float s[JPL];
-      scores(qi, c0, s);
-      float cm = -INFINITY;
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int jj = 0; jj < JPL; ++jj) cm = fmaxf(cm, s[jj]);
-      const float m_new = fmaxf(mx[u], warp_max(cm));
-      float cs = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < JPL; ++jj)
-        if (c0 + lane + 32 * jj < Tn) cs += expf(s[jj] - m_new);
-      sum[u] = sum[u] * expf(mx[u] - m_new) + warp_sum(cs);
-      mx[u] = m_new;
+        for (int e = 0; e < 4; ++e) {
+          const float p = __expf(sc[j][e] - m_new[e >> 1]);
+          sc[j][e] = p;
+          l[e >> 1] += p;
+        }
+      mx[0] = m_new[0];
+      mx[1] = m_new[1];
     }
+
+    if constexpr (F32) {
+      // online P.V: rescale, then add this chunk's exp(s - max) . V
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+      const float* vf = reinterpret_cast<const float*>(vs);
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        // keys 2t, 2t + 1 of the group as the fragment's k = t, t + 4
+        uint32_t ah[4], al[4];
+        split_tf32(sc[jj][0], ah[0], al[0]);
+        split_tf32(sc[jj][2], ah[1], al[1]);
+        split_tf32(sc[jj][1], ah[2], al[2]);
+        split_tf32(sc[jj][3], ah[3], al[3]);
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          const float* bp = vf + (8 * jj + 2 * t) * P + 8 * n + g;
+          uint32_t bh[2], bl[2];
+          split_tf32(bp[0], bh[0], bl[0]);
+          split_tf32(bp[P], bh[1], bl[1]);
+          mma_3xtf32(o[n], ah, al, bh, bl);
+        }
+      }
+    } else {
+      if (s == nc - 1) {  // end of pass 1: 1 / the rows' whole sums
+        l[0] = __frcp_rn(quad_sum(l[0]));
+        l[1] = __frcp_rn(quad_sum(l[1]));
+      }
+      if (s >= nc) {
+        // pass 2: p = exp(s - max) / sum rounded to bf16, then P.V
+#pragma unroll
+        for (int kb2 = 0; kb2 < NJ / 2; ++kb2) {
+          uint32_t a[4];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float* c = sc[2 * kb2 + u];
+            a[2 * u] = pack_bf16(__expf(c[0] - mx[0]) * l[0],
+                                 __expf(c[1] - mx[0]) * l[0]);
+            a[2 * u + 1] = pack_bf16(__expf(c[2] - mx[1]) * l[1],
+                                     __expf(c[3] - mx[1]) * l[1]);
+          }
+          if constexpr (ND % 2 == 0) {
+            // x4.trans: the V fragments of two dim tiles
+#pragma unroll
+            for (int n = 0; n < ND; n += 2) {
+              uint32_t r4[4];
+              ldmatrix_x4_trans(r4, vs + (16 * kb2 + (lane & 15)) * P +
+                                        8 * n + 8 * (lane >> 4));
+              mma_bf16_16816(o[n], a, r4);
+              mma_bf16_16816(o[n + 1], a, r4 + 2);
+            }
+          } else {
+            uint32_t bf[2];
+            ldmatrix_x2_trans(bf, vs + (16 * kb2 + (lane & 15)) * P);
+            mma_bf16_16816(o[0], a, bf);
+          }
+        }
+      }
+    }
+    // the next chunk's mask values, read when its load was issued
+    if (s + 1 < steps && tid < kAttKC)
+      Ms[((s + 1) & 1) * kAttKC + tid] = m_next;
+    __syncthreads();  // the buffer is refilled two steps on
   }
 
-  // pass 2: rounded probabilities times V
-  float acc[kAttQPW][CPL];
-#pragma unroll
-  for (int u = 0; u < kAttQPW; ++u)
-#pragma unroll
-    for (int cc = 0; cc < CPL; ++cc) acc[u][cc] = 0.f;
-  float* p = Ps + warp * kAttKC;
-  for (int c0 = 0; c0 < Tn; c0 += kAttKC) {
-    stage(c0, true);
-#pragma unroll
-    for (int u = 0; u < kAttQPW; ++u) {
-      const int qi = warp + kAttWarps * u;
-      if (q0 + qi >= Tn) continue;  // warp-uniform
-      float s[JPL];
-      scores(qi, c0, s);
-#pragma unroll
-      for (int jj = 0; jj < JPL; ++jj) {
-        const int j = lane + 32 * jj;
-        p[j] = c0 + j < Tn ? round_to<T>(expf(s[jj] - mx[u]) / sum[u]) : 0.f;
-      }
-      __syncwarp();
-      for (int j = 0; j < kAttKC; j += 4) {
-        const float4 p4 = *reinterpret_cast<const float4*>(p + j);
-        const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-        for (int w = 0; w < 4; ++w)
-#pragma unroll
-          for (int cc = 0; cc < CPL; ++cc)
-            acc[u][cc] = fmaf(pj[w], Vs[(j + w) * D + lane + 32 * cc],
-                              acc[u][cc]);
-      }
-      __syncwarp();
-    }
+  if constexpr (F32) {
+    l[0] = quad_sum(l[0]);
+    l[1] = quad_sum(l[1]);
   }
 #pragma unroll
-  for (int u = 0; u < kAttQPW; ++u) {
-    const int i = q0 + warp + kAttWarps * u;
-    if (i >= Tn) continue;
-    T* out = ob + i * views.st[3];
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    if (row >= Tn) continue;
+    T* out = ob + row * views.st[3];
+    const float inv = F32 ? __frcp_rn(l[h]) : 1.0f;
 #pragma unroll
-    for (int cc = 0; cc < CPL; ++cc) out[lane + 32 * cc] = from_f<T>(acc[u][cc]);
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float v = o[n][2 * h + e];
+        out[8 * n + 2 * t + e] = from_f<T>(F32 ? v * inv : v);
+      }
   }
 }
 
@@ -331,95 +372,65 @@ struct AttnCall {
   void* out;
   HeadViews views;
   int N, Tn, nh;
-  size_t smem;
   cudaStream_t stream;
 };
 
-template <typename T, bool MUL, int MAXJ, int D>
-static int launch_attention(const AttnCall& a) {
-  auto kernel = attention_kernel<T, MUL, MAXJ, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Tn + kAttQT - 1) / kAttQT, a.nh, a.N);
-  kernel<<<grid, kAttWarps * 32, a.smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.mask, static_cast<T*>(a.out), a.views,
-      a.Tn);
-  return (int)cudaGetLastError();
-}
-
 template <typename T, bool MUL, int D>
-static int launch_attention_chunked(const AttnCall& a) {
-  auto kernel = attention_chunked_kernel<T, MUL, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
-  if (err != cudaSuccess) return (int)err;
+static int launch_attention(const AttnCall& a) {
+  auto kernel = attention_tc_kernel<T, MUL, D>;
+  constexpr int smem = (int)att_smem_bytes<T, D>();
+  static bool attr_set = false;  // once per instantiation and process
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
   dim3 grid((a.Tn + kAttQT - 1) / kAttQT, a.nh, a.N);
-  kernel<<<grid, kAttWarps * 32, a.smem, a.stream>>>(
+  kernel<<<grid, kAttWarps * 32, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.mask, static_cast<T*>(a.out), a.views,
       a.Tn);
   return (int)cudaGetLastError();
-}
-
-template <typename T, bool MUL, int MAXJ>
-static int pick_d(int d, const AttnCall& a) {
-  switch (d) {
-    case 8: return launch_attention<T, MUL, MAXJ, 8>(a);
-    case 16: return launch_attention<T, MUL, MAXJ, 16>(a);
-    case 32: return launch_attention<T, MUL, MAXJ, 32>(a);
-    case 64: return launch_attention<T, MUL, MAXJ, 64>(a);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-static long long one_stage_smem_bytes(int Tn, int d) {
-  const long long tp = round4(Tn);
-  return (long long)sizeof(float) *
-         (tp * (d + 4) + tp * d + tp + (long long)kAttWarps * tp);
-}
-
-static long long chunked_smem_bytes(int d) {
-  return (long long)sizeof(float) *
-         ((long long)kAttQT * d + kAttKC * (d + 4) + kAttKC * d + kAttKC +
-          kAttWarps * kAttKC);
-}
-
-// The chunked variant where one stage exceeds a block's shared memory (at
-// T <= 512 only d = 64 does).
-static bool chunked(int Tn, int d) {
-  return one_stage_smem_bytes(Tn, d) > kMaxSmem;
 }
 
 template <typename T, bool MUL>
-static int pick_maxj(int d, const AttnCall& a) {
-  if (chunked(a.Tn, d))
-    return d == 64 ? launch_attention_chunked<T, MUL, 64>(a)
-                   : (int)cudaErrorInvalidValue;
-  if (a.Tn <= 32 * 8) return pick_d<T, MUL, 8>(d, a);
-  if (a.Tn <= 32 * 16) return pick_d<T, MUL, 16>(d, a);
-  return (int)cudaErrorInvalidValue;
+static int pick_d(int d, const AttnCall& a) {
+  switch (d) {
+    case 8: return launch_attention<T, MUL, 8>(a);
+    case 16: return launch_attention<T, MUL, 16>(a);
+    case 32: return launch_attention<T, MUL, 32>(a);
+    case 64: return launch_attention<T, MUL, 64>(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace ag
 
 using namespace ag;
 
-// Dynamic shared memory the attention core needs at (T, d), in bytes: the
-// one-stage kernel's where it fits a block, else the chunked variant's.
+// Dynamic shared memory the attention core takes at head dim d, in bytes
+// (the fp32 kernel's, the larger; it does not depend on T).
 extern "C" long long ag_attention_smem_bytes(int Tn, int d) {
-  return chunked(Tn, d) ? chunked_smem_bytes(d) : one_stage_smem_bytes(Tn, d);
+  (void)Tn;
+  switch (d) {
+    case 8: return att_smem_bytes<float, 8>();
+    case 16: return att_smem_bytes<float, 16>();
+    case 32: return att_smem_bytes<float, 32>();
+    case 64: return att_smem_bytes<float, 64>();
+    default: return 0;
+  }
 }
 
 // Head dims the core is compiled for; others are refused.
 extern "C" int ag_attention_supports(int Tn, int d) {
-  return (d == 8 || d == 16 || d == 32 || d == 64) && Tn >= 1 &&
-         Tn <= 32 * 16;
+  return (d == 8 || d == 16 || d == 32 || d == 64) && Tn >= 1 && Tn <= 512;
 }
 
 // q, k, v, out: <N, nh, Tn, d> views; strides[12] holds the (batch, head,
-// row) element strides of q, k, v and out, in that order.
+// row) element strides of q, k, v and out, in that order.  q, k and v must
+// be 16-byte aligned with strides of whole 16 bytes (cp.async and the
+// 32-bit Q fragment loads).
 extern "C" int ag_attention(int dtype, int mul, const void* q, const void* k,
                             const void* v, const long long* strides,
                             const void* mask, void* out, int N, int Tn,
@@ -440,12 +451,11 @@ extern "C" int ag_attention(int dtype, int mul, const void* q, const void* k,
   a.N = N;
   a.Tn = Tn;
   a.nh = nh;
-  a.smem = (size_t)ag_attention_smem_bytes(Tn, d);
   a.stream = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return mul ? pick_maxj<float, true>(d, a) : pick_maxj<float, false>(d, a);
+    return mul ? pick_d<float, true>(d, a) : pick_d<float, false>(d, a);
   if (dtype == kBF16)
-    return mul ? pick_maxj<__nv_bfloat16, true>(d, a)
-               : pick_maxj<__nv_bfloat16, false>(d, a);
+    return mul ? pick_d<__nv_bfloat16, true>(d, a)
+               : pick_d<__nv_bfloat16, false>(d, a);
   return (int)cudaErrorInvalidValue;
 }

@@ -118,14 +118,6 @@ constexpr int kI8BK = 64;              // k bytes per pipeline stage
 constexpr int kI8Row = kI8BK + 16;     // smem row pitch: conflict-free frags
 constexpr int kI8Threads = 256;        // 8 warps: 2 (m) x 4 (n)
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
 __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
                                        const uint32_t* b) {
   asm volatile(

@@ -34,8 +34,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> (restype, argtypes); every pointer and the stream are c_void_p
 _SIGNATURES = {
-    "ag_gemm": (_I, [_I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
-                     _I, _I, _I, _P]),
+    "ag_gemm": (_I, [_I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P,
+                     _I, _I, _I, _I, _P]),
     "ag_rowstats": (_I, [_I, _P, _I, _I, _F, _P, _P, _P]),
     "ag_layernorm": (_I, [_I, _P, _I, _I, _F, _P, _P, _P, _P]),
     "ag_attention": (_I, [_I, _I, _P, _P, _P,
@@ -116,8 +116,19 @@ def build() -> pathlib.Path:
     if failed:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{build_log}")
+    (out_dir / "build.log").write_text(build_log)
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
+
+
+def compiler_log() -> str:
+    """The compiler's output of the library this checkout loads (from the
+    build this process ran, or saved beside the library by an earlier
+    one); empty where none was kept."""
+    if build_log:
+        return build_log
+    saved = BUILD_ROOT / source_hash() / "build.log"
+    return saved.read_text() if saved.exists() else ""
 
 
 def load() -> ctypes.CDLL:

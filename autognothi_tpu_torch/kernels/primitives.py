@@ -50,6 +50,16 @@ def _rows(t: torch.Tensor, name: str) -> int:
     return t.stride(0)
 
 
+def _aligned16(t: torch.Tensor, name: str, strides: Sequence[int]) -> None:
+    """The tensor-core kernels copy 16-byte pieces (cp.async): the pointer
+    and each stride named must be whole multiples of 16 bytes."""
+    size = t.element_size()
+    if t.data_ptr() % 16 or any(s * size % 16 for s in strides):
+        raise ValueError(f"{name} must be 16-byte aligned with strides of "
+                         f"whole 16 bytes, got {t.dtype} strides {t.stride()} "
+                         f"at offset {t.data_ptr() % 16}")
+
+
 def _vec32(t: torch.Tensor, n: int, name: str) -> torch.Tensor:
     """A length-n fp32 contiguous copy (vectors are read in fp32, as the
     JAX math upcasts biases and LN weights)."""
@@ -92,13 +102,21 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: int, *,
 
     ln = (mean, rstd, ln_w, ln_b): A' = LN(a) computed while loading a.
     resid <M, N>: added after the cast (epilogues *_RESID).
-    `a`, `resid` and `out` may be column slices (rows contiguous)."""
+    `a`, `w`, `resid` and `out` may be column slices (rows contiguous);
+    `a` and `w` are read in 16-byte pieces, so their pointers and row
+    strides, and K, must be whole multiples of 16 bytes."""
     lda = _rows(a, "a")
     m, k = a.shape
     n = w.shape[0]
-    if w.shape != (n, k) or not w.is_contiguous() or w.dtype != a.dtype:
-        raise ValueError(f"w must be a contiguous {a.dtype} ({n}, {k}) "
-                         f"matrix, got {w.dtype} {tuple(w.shape)}")
+    if w.shape != (n, k) or w.dtype != a.dtype:
+        raise ValueError(f"w must be a {a.dtype} ({n}, {k}) matrix, got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    ldw = _rows(w, "w")
+    if k * a.element_size() % 16:
+        raise ValueError(f"the GEMM reads 16-byte pieces of k: K={k} "
+                         f"{a.dtype} is not a whole number of them")
+    _aligned16(a, "a", (lda,))
+    _aligned16(w, "w", (ldw,))
     b32 = _vec32(bias, n, "bias")
     if out is None:
         out = torch.empty((m, n), device=a.device, dtype=a.dtype)
@@ -121,7 +139,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: int, *,
             raise ValueError(f"resid must be {a.dtype} ({m}, {n})")
         r_ptr = resid.data_ptr()
     _check(load().ag_gemm(_dtype_code(a), epi, a.data_ptr(), lda, *ln_ptrs,
-                          w.data_ptr(), b32.data_ptr(), r_ptr, ldr,
+                          w.data_ptr(), ldw, b32.data_ptr(), r_ptr, ldr,
                           out.data_ptr(), ldc, m, n, k, _stream()), "ag_gemm")
     return out
 
@@ -200,7 +218,9 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The masked attention core on split-head views: q, k, v and out are
     <N, h, T, D> CUDA tensors of one dtype with any (batch, head, row)
     strides and contiguous rows; mask_row <N, T> is a 0/1 row ("mul") or
-    an additive bias ("add").  Writes out and returns it."""
+    an additive bias ("add").  q, k and v are read in 16-byte pieces:
+    their pointers and strides must be whole multiples of 16 bytes.
+    Writes out and returns it."""
     if mode not in ("mul", "add"):
         raise ValueError(f"unknown mask mode {mode!r}")
     n, nh, t, d = q.shape
@@ -211,14 +231,12 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"{name} must be a CUDA {q.dtype} <{n}, {nh}, {t}, {d}> "
                 f"view with contiguous rows, got {x.dtype} "
                 f"{tuple(x.shape)} strides {x.stride()}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _aligned16(x, name, x.stride()[:3])
     lib = load()
     if not lib.ag_attention_supports(t, d):
         raise ValueError(f"attention core is built for head dims 8/16/32/64 "
                          f"and T <= 512, got d={d}, T={t}")
-    smem = lib.ag_attention_smem_bytes(t, d)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"attention core needs {smem} B of shared memory "
-                         f"at T={t}, d={d}; a block has {MAX_SMEM_BYTES}")
     if n > 65535 or nh > 65535:
         raise ValueError(f"the core's grid takes at most 65535 images and "
                          f"heads, got {n} x {nh}")

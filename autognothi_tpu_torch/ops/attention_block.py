@@ -9,7 +9,8 @@ GEMM for the Q/K/V projections that reads LN(resid) on the fly and writes a
 packed <B*T, 3H> buffer, the masked attention core, and the out-projection GEMM whose
 epilogue adds bias and residual (plus an LN pass for post-norm).  The
 <B, heads, T, T> scores stay on chip; Q/K/V and the context go to device
-memory.  What bounds it: the SIMT fp32 GEMMs (see `csrc/gemm.cu`).
+memory.  What bounds it: the tensor-core GEMMs and attention core (fp32
+as 3xTF32; see `csrc/gemm.cu`, `csrc/attention.cu`).
 
 quant="int8" is the W8A8 block instead, replacing
 `_pallas_attention_block_q` (body `_kernel_q`, K1): the (LN'd) input is

@@ -13,8 +13,9 @@ with (batch, head, row) strides, so it reads q, k and v where they lie
 (the split-head views of the projections, no copy) and writes the context
 as <N, T, h, D> in memory, which `merge_heads` turns into <N, T, H>
 without a copy.  The <N, h, T, T> scores and probabilities stay on chip.
-What bounds it: the core's fp32 FMA Q.K and P.V loops and shared-memory
-reads (SIMT, no tensor cores), and K/V re-staged for every 64-query tile.
+What bounds it: the core's mma.sync issue (Q.K and P.V on the tensor
+cores; fp32 as 3xTF32, whose operand splits every warp repeats) and, in
+bf16, the second Q.K pass that keeps the JAX rounding point of p.
 
 `masked_attention` takes the plain version for CPU tensors and the kernel
 for CUDA tensors; the gradient is autograd through the plain version.

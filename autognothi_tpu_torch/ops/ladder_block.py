@@ -9,8 +9,8 @@ the attention and MLP blocks at 96 wide (12 heads of d = 8), with the
 masked attention core keeping the <B, heads, T, T> scores on chip
 (`csrc/attention.cu`).  The mapped side, Q/K/V, context and the MLP
 intermediate go to device memory.  What bounds it: launch count and the
-narrow SIMT GEMMs (K = 96 / 384), and d = 8 attention, where 8 of 32 lanes
-work in P.V.
+narrow tensor-core GEMMs (N or K = 96 / 384 fill few tiles), and d = 8
+attention, one k8 step of Q.K per key group.
 
 Both layer kinds run on the card: the ViT's "mul" mask with pre-norm
 (LN1 and LN2 before attention and MLP) and BERT's additive "add" bias

@@ -3,13 +3,13 @@ up-projection + bias, exact GELU, down-projection + bias, residual.
 
 Replaces `autognothi_tpu/ops/mlp_block.py:_pallas_mlp_block` (body
 `_kernel`) and its intermediate-dim split `_pallas_mlp_sepx` (body
-`_kernel_sepx`, chained by `_tiled_mlp`), which computes the same function
-in tiles only because the fp32 ViT-B weights exceed the TPU's VMEM budget.
-On the H100 one call is: LN statistics, the W1 GEMM reading LN(resid) on
-the fly with a bias + GELU epilogue, and the W2 GEMM with a bias + residual
-epilogue, which walks the intermediate dim in 16-deep slices inside the
-kernel (`csrc/gemm.cu`); post-norm adds an LN pass.  The <B*T, 4H>
-intermediate goes to device memory.  What bounds it: the SIMT fp32 GEMMs.
+`_kernel_sepx`, chained by `_tiled_mlp`; below).  On the H100 one call
+is: LN statistics, the W1 GEMM reading LN(resid) on the fly with a bias + GELU
+epilogue, and the W2 GEMM with a bias + residual epilogue, which walks the
+intermediate dim inside the kernel (`csrc/gemm.cu`, tensor cores: bf16
+mma, fp32 as 3xTF32); post-norm adds an LN pass.  The <B*T, 4H>
+intermediate goes to device memory.  What bounds it: the GEMMs' tensor-
+core issue.
 
 quant="int8" is the W8A8 serving block instead, replacing
 `_pallas_mlp_block_q` (body `_kernel_q`, K4): LN -> per-token int8 codes
@@ -38,10 +38,16 @@ place through its row stride) and two int8 GEMMs with the GELU and the
 residual epilogues (`csrc/int8.cu`); each tile is one counted launch, as
 each is one `pallas_call` in JAX.  What bounds it: the fp32 <M, tile>
 intermediate's round trip through device memory and the per-tile weight
-quantization.  The float split (K8, `_pallas_mlp_sepx`) in fp32 only
-reorders an fp32 sum, so fp32 keeps the one-pass block above.  In bf16
-each JAX tile rounds its output before it is added; that chain is not
-ported yet, and the bf16 float block runs in one pass.
+quantization.
+
+The float split (K8, `_pallas_mlp_sepx`, body `_kernel_sepx`) is another
+function only in bf16: each JAX tile rounds its own W2_k GELU(W1_k x +
+b1_k) + b2_k to bf16 before adding it to the running residual.  So in bf16
+the port runs the chain tile by tile: the float GEMM with the GELU
+epilogue over the tile's W1 rows, then with the residual epilogue over the
+tile's W2 column slice <H, tile>, read in place through its row stride;
+b2 joins on the last tile, each tile is one counted launch.  In fp32 the
+split only reorders an fp32 sum, so fp32 keeps the one-pass block above.
 
 `mlp_block` takes the plain version for CPU tensors and the kernel for
 CUDA tensors; there is no other switch.
@@ -65,6 +71,7 @@ from .attention_block import LN_POSITIONS
 
 COUNTER = LaunchCounter("mlp_block")
 COUNTER_INT8 = LaunchCounter("mlp_block_int8")
+COUNTER_TILED = LaunchCounter("mlp_block_tiled")
 COUNTER_INT8_TILED = LaunchCounter("mlp_block_int8_tiled")
 
 
@@ -207,10 +214,22 @@ def mlp_block_args(
 
 def mlp_tile_plain(x, resid, w1, b1, w2, b2) -> torch.Tensor:
     """One float tile (`_xla_mlp_sepx`): resid + cast(W2 gelu(W1 x + b1)
-    + b2), the intermediate cast to x's dtype.  The gradient of a K8q tile,
-    as in the JAX package."""
+    + b2), the intermediate cast to x's dtype.  The plain version of a K8
+    tile, and the gradient of a K8q tile, as in the JAX package."""
     inter = gelu(F.linear(x.float(), w1.float(), b1.float())).to(x.dtype)
     return resid + dense(inter, w2, b2).to(resid.dtype)
+
+
+def mlp_tile_launch(x, resid, w1, b1, w2, b2) -> torch.Tensor:
+    """The CUDA version of one float tile (launches only; no counting, no
+    autograd).  The W2 column slice is read in place through its row
+    stride."""
+    b_sz, t, h = resid.shape
+    inter = gemm(x.contiguous().reshape(b_sz * t, h), w1.contiguous(), b1,
+                 EPI_BIAS_GELU)
+    out = gemm(inter, w2, b2, EPI_BIAS_RESID,
+               resid=resid.contiguous().reshape(b_sz * t, h))
+    return out.reshape(b_sz, t, h)
 
 
 def mlp_tile_int8_plain(x, resid, w1, b1, w2, b2) -> torch.Tensor:
@@ -255,6 +274,22 @@ def _tiled(tile, resid, w1, b1, w2, b2, ln_w, ln_b, *, ln_position: str,
     return out
 
 
+def mlp_block_tiled_plain(*tensors, n_tiles: int, **static) -> torch.Tensor:
+    """The plain float chain (`mlp_block_args` tensors and keywords)."""
+    return _tiled(mlp_tile_plain, *tensors, n_tiles=n_tiles, **static)
+
+
+def mlp_block_tiled(*args, n_tiles: int, **kwargs) -> torch.Tensor:
+    """The float chain (K8) of `n_tiles` tiles, one op call per tile.
+    Arguments as `mlp_block_args`."""
+    tensors, static = mlp_block_args(*args, **kwargs)
+
+    def tile(*ts):
+        return dispatch(mlp_tile_launch, mlp_tile_plain, COUNTER_TILED, ts,
+                        {})
+    return _tiled(tile, *tensors, n_tiles=n_tiles, **static)
+
+
 def mlp_block_int8_tiled_plain(*tensors, n_tiles: int,
                                **static) -> torch.Tensor:
     """The plain K8q chain (`mlp_block_args` tensors and keywords)."""
@@ -277,8 +312,9 @@ def mlp_block(*args, quant: str = "none", **kwargs) -> torch.Tensor:
     none: resid + MLP(resid).  Arguments as `mlp_block_args`; quant="int8"
     is the W8A8 block (K4), whose gradient is the unquantized math's.
     Shapes past the JAX budget take its split (`gates.mlp_block_tiles`):
-    the K8q chain in int8 (the float split is the one-pass block in fp32);
-    where no split fits, the unquantized block, as the JAX op."""
+    the K8q chain in int8, the float K8 chain in bf16 (in fp32 the float
+    split is the one-pass block); where no split fits, the unquantized
+    block, as the JAX op."""
     if quant not in ("int8", "none"):
         raise ValueError(f"unknown quant mode {quant!r}")
     tensors, static = mlp_block_args(*args, **kwargs)
@@ -289,6 +325,8 @@ def mlp_block(*args, quant: str = "none", **kwargs) -> torch.Tensor:
         quant, n_tiles = "none", 1
     if n_tiles > 1 and quant == "int8":
         return mlp_block_int8_tiled(*args, n_tiles=n_tiles, **kwargs)
+    if n_tiles > 1 and resid.dtype == torch.bfloat16:
+        return mlp_block_tiled(*args, n_tiles=n_tiles, **kwargs)
     if quant == "int8":
         return dispatch(mlp_block_int8_launch, mlp_block_int8_plain,
                         COUNTER_INT8, tensors, static, grad=mlp_block_plain)

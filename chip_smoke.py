@@ -6,7 +6,9 @@ GPU: the quickest proof that the port still starts on the card.
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit; build the CUDA kernels from
-     `autognothi_tpu_torch/csrc/` and report the build time;
+     `autognothi_tpu_torch/csrc/` and report the build time and the
+     registers, shared memory and spills (`-Xptxas -v`) of the tensor-core
+     GEMM and attention core;
   2. kernel vs plain: every kernel op at the LTT ViT-B/16@224 shapes (B=4,
      T=197) in fp32 and bf16, with an all-ones and a random 0/1 mask,
      against its plain PyTorch version on the same card.  fp32 path: the
@@ -56,9 +58,15 @@ Phases, each printing its own lines:
   5. timing with CUDA events after warmup: explanations/s of fw_final at
      B=64 with the kernels and with the plain versions (fp32 path; int8
      path with fp32 and with bf16 parameters and pixels), and of the LTT
-     BERT-base@512 fw_final at B=8 on the same three paths (each first held
-     against its plain forward, its kernel calls against the path's table),
-     with each BERT-shape op at B=8 beside its bound; the train step's
+     BERT-base@512 fw_final at B=8 on the same three paths and with bf16
+     parameters without int8 (the 2-tile float chain, K8), each first held
+     against its plain forward, its kernel calls against the path's table
+     (those four counted forwards are main paths of the kernel line), with
+     each BERT-shape op at B=8 beside its bound; the float GEMM beside
+     `torch.matmul` (fp32 with TF32 off, and bf16) at K7's two products and
+     the attention core beside SDPA in fp32 and bf16 at K9's two shapes
+     (timed only); one profiled forward of each ViT and BERT path; the
+     train step's
      ms/step and masked forwards/s (B x M per step) with the kernels and
      with the plain versions in both modes, its peak device memory, its
      split into teacher, forward, backward and AdamW (CUDA events at the
@@ -68,7 +76,8 @@ Phases, each printing its own lines:
      and
      each op against its plain version at the path's shapes, beside its
      bound (bytes over 3.35 TB/s or operations over the peak the JAX
-     numerics allow, whichever is larger) and, for the masked attention op
+     numerics allow, fp32 products at the 3xTF32 rate, whichever is
+     larger) and, for the masked attention op
      in "add" mode, `F.scaled_dot_product_attention` on the same inputs
      (timed only; the port never calls it).
 
@@ -125,12 +134,17 @@ BERT_COUNTS = {
              "ladder_block": 12, "head_block": 1},
     "int8 bf16": {"attention_block_int8": 13, "mlp_block_int8_tiled": 24,
                   "mlp_block_int8": 1, "ladder_block": 12, "head_block": 1},
+    # bf16 parameters, int8 off: the trunk MLP is the 2-tile float chain
+    # (K8, one call per tile); the side layer's MLP fits one block
+    "bf16": {"attention_block": 13, "mlp_block_tiled": 24, "mlp_block": 1,
+             "ladder_block": 12},
 }
 B_BERT_CHECK, B_BERT, T_BERT = 4, 8, 512
-# kernel calls of one BERT-shape op call where it is not one: the chain of
-# int8 tiles
+# kernel calls of one BERT-shape op call where it is not one: the chains of
+# int8 tiles and of bf16 float tiles
 BERT_CALLS_PER_OP = {("mlp_block_int8_tiled", "float32"): 2,
-                     ("mlp_block_int8_tiled", "bfloat16"): 2}
+                     ("mlp_block_int8_tiled", "bfloat16"): 2,
+                     ("mlp_block_tiled", "bfloat16"): 2}
 # kernel calls of one explainer train step (B = 8, M = 32) at 12 layers,
 # by (pallas mode, teacher).  Default ("2", int8 teacher): teacher K1 + K4
 # + K5 x 12 (B*M = 256 images), v_1 K1 + K2 x 12, differentiated forward
@@ -154,8 +168,10 @@ NULL_COUNTS = {"2": {"attention_block": 12, "mlp_block": 12,
                "1": {"masked_attention": 24}}
 TRAIN_B, TRAIN_M = 8, 32
 STEP_TOL = {"fp32": 1e-4, "int8": 1e-2}  # relative, the step's loss
-# peak rates of one H100 SXM (NVIDIA data sheet, dense) and its memory rate
-PEAK = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# peak rates of one H100 SXM (NVIDIA data sheet, dense) and its memory rate.
+# fp32 float products are fp32-grade work the card does on its tensor cores
+# as 3xTF32 (three TF32 products each): 495 / 3 TFLOP/s
+PEAK = {"fp32": 495e12 / 3, "bf16": 989e12, "int8": 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 
 # LTT ViT-B/16@224, the flagship dims of __graft_entry__._flagship_ltt_cfg
@@ -459,7 +475,9 @@ def bert_op_cases(dev, dtype, b, random_mask):
                       (act(b, t, h), bias, ws, 12, "add"),
                       dict(ln=ln(h), ln_position="epilogue")))
     (w1, b1), (w2, b2) = lin(inter, h), lin(h, inter)
-    for name, op in (("mlp_block", mb.mlp_block),
+    # in bf16 the float trunk MLP is the 2-tile chain (K8)
+    float_mlp = "mlp_block_tiled" if dtype == torch.bfloat16 else "mlp_block"
+    for name, op in ((float_mlp, mb.mlp_block),
                      ("mlp_block_int8_tiled",
                       functools.partial(mb.mlp_block, quant="int8"))):
         cases.append((name, "trunk 768/3072 LN-epi", op, _under_plain(op),
@@ -521,7 +539,8 @@ def op_bound(name: str, args: tuple) -> tuple:
     larger of the bytes it must move (each input read once, each output
     written once) over the memory rate and its operations over the peak
     the JAX numerics allow (int8 products at the int8 rate; float products
-    at the fp32 rate for fp32 inputs, the bf16 tensor-core rate for bf16)."""
+    at the fp32-grade 3xTF32 rate for fp32 inputs, the bf16 tensor-core
+    rate for bf16)."""
     import torch
 
     x = args[0] if hasattr(args[0], "dtype") else args[0][0][0]
@@ -608,7 +627,7 @@ def counters():
                                 ab.COUNTER_INT8, lb.COUNTER_MLP_LADDER,
                                 mb.COUNTER_INT8, hb.COUNTER, fa.COUNTER,
                                 lb.COUNTER_ATTENTION,
-                                mb.COUNTER_INT8_TILED)}
+                                mb.COUNTER_INT8_TILED, mb.COUNTER_TILED)}
 
 
 def read_counts() -> dict:
@@ -646,20 +665,57 @@ def phase_device() -> None:
     t0 = time.perf_counter()
     build.load()
     OUT.mkdir(exist_ok=True)
-    (OUT / "chip_smoke_build.log").write_text(build.build_log)
+    log = build.compiler_log()
+    (OUT / "chip_smoke_build.log").write_text(log)
     how = (f"nvcc {build.build_seconds:.2f} s" if build.build_seconds
            else "library already built by this checkout")
     print(f"[build] kernels from {build.CSRC.relative_to(REPO)} for sm_90a: "
           f"{how}, build+load {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in build.sources())})", flush=True)
+    for line in ptxas_summary(log, ("gemm_tc_kernel", "attention_tc_kernel")):
+        print(f"[build] {line}", flush=True)
+
+
+def ptxas_summary(log: str, kernels: tuple) -> list:
+    """`-Xptxas -v` of the named kernels: one line per instantiation with
+    its registers, shared memory and spills (names demangled where
+    `c++filt` exists)."""
+    import re
+    import shutil
+
+    entries, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or not any(k in name for k in kernels):
+            continue
+        info = entries.setdefault(name, {})
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem"),
+                         ("spill stores", r"(\d+) bytes spill stores"),
+                         ("spill loads", r"(\d+) bytes spill loads")):
+            m = re.search(pat, line)
+            if m:
+                info[key] = int(m.group(1))
+    names = list(entries)
+    if names and shutil.which("c++filt"):
+        proc = subprocess.run(["c++filt"], input="\n".join(names),
+                              capture_output=True, text=True)
+        if proc.returncode == 0:
+            names = proc.stdout.splitlines()
+    return [f"{shown}: " + ", ".join(f"{k} {v}" for k, v in info.items())
+            for shown, info in zip(names, entries.values())]
 
 
 def phase_kernels(dev, cases_fn=None, b=B_CHECK, worst=None,
                   calls_per_op=None) -> dict:
     """Every case of `cases_fn` (default: the ViT shapes) in fp32 and bf16
     under both masks against its plain version, each reaching its kernel
-    once (or as often as `calls_per_op` says); -> the worst fp32 error by
-    op, merged into `worst`."""
+    once (or as often as `calls_per_op` says); -> the worst error by op
+    (fp32, or bf16 under (name, "bf16")), merged into `worst`."""
     import torch
 
     worst = {} if worst is None else worst
@@ -684,8 +740,8 @@ def phase_kernels(dev, cases_fn=None, b=B_CHECK, worst=None,
                       f"{mask_s:11s} {msg}", flush=True)
                 check(ok, f"{name} {tag} {dtype} {mask_s}: kernel disagrees "
                           f"with its plain version")
-                if dtype == torch.float32:
-                    worst[name] = max(worst.get(name, 0.0), err)
+                key = name if dtype == torch.float32 else (name, "bf16")
+                worst[key] = max(worst.get(key, 0.0), err)
     return worst
 
 
@@ -864,13 +920,14 @@ def write_bert_experiment(tmp: pathlib.Path) -> pathlib.Path:
     return exp
 
 
-def phase_bert_timing(dev, card: str, service) -> dict:
-    """fw_final of the served BERT model at B = 8 on the three paths
-    (fp32; int8 with fp32 and with bf16 parameters): kernels against
-    plain, one forward's kernel calls against the path's table, then
-    explanations/s in turns; each T = 512 op against its plain version
-    beside its bound (and SDPA beside the masked attention op) ->
-    the K8q row of the kernel table."""
+def phase_bert_timing(dev, card: str, service) -> tuple:
+    """fw_final of the served BERT model at B = 8 on the four paths
+    (fp32; int8 with fp32 and with bf16 parameters; bf16 parameters
+    without int8, the float K8 chain): kernels against plain, one
+    forward's kernel calls against the path's table, then explanations/s
+    in turns; each T = 512 op against its plain version beside its bound
+    (and SDPA beside the masked attention op) -> (the rows of the kernel
+    table, the kernel calls of the four counted forwards)."""
     import torch
 
     model, cfg, recipe = service.model, service.m_config, service.recipe
@@ -886,15 +943,19 @@ def phase_bert_timing(dev, card: str, service) -> dict:
                 return recipe.fw_final(cfg, m, ids)
         return run
 
+    path_calls = {}
     for label, m, dtype, int8 in (
             ("fp32", model, torch.float32, False),
             ("int8", model, torch.float32, True),
-            ("int8 bf16", model_bf16, torch.bfloat16, True)):
+            ("int8 bf16", model_bf16, torch.bfloat16, True),
+            ("bf16", model_bf16, torch.bfloat16, False)):
         fw = forward(m, int8, False)
         reset_counts()
         fw()
         torch.cuda.synchronize()
         calls = {k: v for k, v in read_counts().items() if v}
+        for k, v in calls.items():
+            path_calls[k] = path_calls.get(k, 0) + v
         print(f"[bert-time] fw_final {label} B={B_BERT}: kernel calls "
               f"{calls} (expected {BERT_COUNTS[label]})", flush=True)
         check(calls == BERT_COUNTS[label],
@@ -914,8 +975,7 @@ def phase_bert_timing(dev, card: str, service) -> dict:
                 t_plain = cuda_time(lambda: plain(*args, **kw), reps=10)
                 t_kern = cuda_time(lambda: op(*args, **kw), reps=10)
                 t_lib = None
-                if name == "masked_attention" and tag.endswith(" add") \
-                        and dtype == torch.float32:
+                if name == "masked_attention" and tag.endswith(" add"):
                     t_lib = time_library_attention(args, card)
             bound_ms, bound_by = op_bound(name, args)
             print(f"[bert-time] {name:20s} {tag:24s} {str(dtype):14s} "
@@ -926,7 +986,56 @@ def phase_bert_timing(dev, card: str, service) -> dict:
             per_op.setdefault(name, dict(ms=t_kern, plain_ms=t_plain,
                                          bound_ms=bound_ms,
                                          bound_by=bound_by, library_ms=t_lib))
-    return per_op
+    return per_op, path_calls
+
+
+def phase_yardsticks(dev, card: str) -> None:
+    """The float GEMM (K7's product) beside `torch.matmul` (fp32 with TF32
+    off, and bf16) at K7's two products of the ViT B=64 and BERT B=8
+    forwards, and the attention core beside SDPA in bf16 at K9's two
+    shapes.  Timed only: the port never calls either library function."""
+    import torch
+
+    from autognothi_tpu_torch.kernels import primitives as kp
+    from autognothi_tpu_torch.ops import flash_attention as fa
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off")
+    g = torch.Generator().manual_seed(SEED + 2)
+    for m in (B_TIME * T, B_BERT * T_BERT):
+        for n, k in ((3072, 768), (768, 3072)):
+            a32 = torch.randn(m, k, generator=g).to(dev)
+            w32 = (torch.randn(n, k, generator=g) * k ** -0.5).to(dev)
+            bias = torch.zeros(n, device=dev)
+            ref = a32.double() @ w32.double().T
+            for dtype in (torch.float32, torch.bfloat16):
+                a, w = a32.to(dtype), w32.to(dtype)
+                got = kp.gemm(a, w, bias, kp.EPI_BIAS)
+                lib = torch.matmul(a, w.T)
+                t_kern = cuda_time(lambda: kp.gemm(a, w, bias, kp.EPI_BIAS),
+                                   reps=10)
+                t_lib = cuda_time(lambda: torch.matmul(a, w.T), reps=10)
+                flop = 2.0 * m * n * k
+                scale = max(1.0, ref.abs().max().item())
+                err_k, err_l = ((x.double() - ref).abs().max().item() / scale
+                                for x in (got, lib))
+                print(f"[yardstick] gemm <{m},{k}> x <{n},{k}>^T "
+                      f"{str(dtype):14s}: kernel {t_kern:.4f} ms "
+                      f"({flop / t_kern / 1e9:.1f} TFLOP/s), torch.matmul "
+                      f"{t_lib:.4f} ms ({flop / t_lib / 1e9:.1f} TFLOP/s); "
+                      f"max|kernel - fp64| / max(1,|ref|) = {err_k:.3e}, "
+                      f"matmul {err_l:.3e} | {card}", flush=True)
+    for n, t in ((4 * B_TIME, T), (B_BERT, T_BERT)):
+        q, k, v = (torch.randn(n, 12, t, 64, generator=g).to(dev)
+                   for _ in range(3))
+        row = torch.zeros(n, t, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = tuple(x.to(dtype) for x in (q, k, v)) + (row,)
+            t_kern = cuda_time(lambda: fa.masked_attention(*args, mode="add"),
+                               reps=10)
+            print(f"[yardstick] masked attention <{n},12,{t},64> add "
+                  f"{str(dtype):14s}: kernel {t_kern:.4f} ms | {card}",
+                  flush=True)
+            time_library_attention(args, card)
 
 
 # ------------------------------------------------------------- training
@@ -1296,6 +1405,8 @@ def phase_timing(dev, card: str, service) -> dict:
              True)):
         time_fw_final(label, forward(m, x, int8, False),
                       forward(m, x, int8, True), dtype, int8, card)
+        profile_forward(f"LTT ViT-B/16@224 {label} B={B_TIME}",
+                        forward(m, x, int8, False), card)
     del model_bf16
 
     per_op = {}
@@ -1335,14 +1446,15 @@ def time_library_attention(args, card: str) -> float:
     from autognothi_tpu_torch.ops import flash_attention as fa
 
     q, k, v, row = args
-    bias = row[:, None, None, :]
+    bias = row[:, None, None, :].to(q.dtype)
     got = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
     err = (got - fa.masked_attention_plain(q, k, v, row, mode="add")
            ).abs().max().item()
     t_lib = cuda_time(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=bias), reps=10)
     print(f"[time] masked_attention library yardstick "
-          f"F.scaled_dot_product_attention {tuple(q.shape)}: {t_lib:.4f} ms "
+          f"F.scaled_dot_product_attention {tuple(q.shape)} {q.dtype}: "
+          f"{t_lib:.4f} ms "
           f"(max|sdpa - plain| = {err:.3e}) | {card}", flush=True)
     return t_lib
 
@@ -1365,6 +1477,8 @@ KERNELS = {
                        "autognothi_tpu/ops/mlp_block.py:163"),
     "mlp_block_int8_tiled": ("autognothi_tpu_torch/csrc/int8.cu",
                              "autognothi_tpu/ops/mlp_block.py:294"),
+    "mlp_block_tiled": ("autognothi_tpu_torch/csrc/gemm.cu",
+                        "autognothi_tpu/ops/mlp_block.py:318"),
     "masked_attention": ("autognothi_tpu_torch/csrc/attention.cu",
                          "autognothi_tpu/ops/flash_attention.py:158"),
     "ladder_attention": ("autognothi_tpu_torch/csrc/attention.cu",
@@ -1424,13 +1538,21 @@ def main() -> int:
                             + launches_bert_int8[k]
                             + launches_train.get(k, 0))
         per_op = phase_timing(dev, card, service)
-        # the ViT shapes keep their rows; K8q runs only at BERT's
-        for k, row in phase_bert_timing(dev, card, bert_service).items():
+        # the ViT shapes keep their rows; K8q and the bf16 float chain run
+        # only at BERT's.  The four BERT forwards counted there are main
+        # paths too (bf16 parameters drive the float chain)
+        bert_rows, bert_calls = phase_bert_timing(dev, card, bert_service)
+        for k, row in bert_rows.items():
             per_op.setdefault(k, row)
+        for k, v in bert_calls.items():
+            launches[k] += v
+        phase_yardsticks(dev, card)
         phase_train_timing(case, card)
 
+    # fp32's worst error; the bf16-only float chain its bf16 worst
     kernels = [dict(name=k, route="cuda", source=source, replaces=replaces,
-                    launches=launches[k], max_abs_err=worst[k],
+                    launches=launches[k],
+                    max_abs_err=worst.get(k, worst.get((k, "bf16"))),
                     **per_op[k])
                for k, (source, replaces) in KERNELS.items()]
     for k in kernels:

@@ -592,3 +592,136 @@ def test_ladder_add_post_norm_at_bert_base(dev, dtype):
                                            "add", False, 1e-12)
     for x, y in zip(got, lb.ladder_block_plain(*tensors, **static)):
         _close(x, y, dtype)
+
+
+# ------------------------------- tensor-core core and GEMM (K9, K7, K8)
+
+
+def _attention_views(g, dev, n, heads, t, d, dtype, packed):
+    """q, k, v as the fused blocks hand them (split-head views of packed
+    <N*T, 3H> projections) or as contiguous <N, h, T, D>."""
+    if packed:
+        qkv = _rand(g, dev, n * t, 3 * heads * d).to(dtype)
+        ld = qkv.stride(0)
+        return [qkv.as_strided((n, heads, t, d), (t * ld, d, ld, 1),
+                               part * heads * d) for part in range(3)]
+    return [_rand(g, dev, n, heads, t, d).to(dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("mode", ["mul", "add"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 197, 512])
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+def test_tensor_core_attention_grid(dev, d, t, dtype, mode):
+    """The core over every head dim it is built for and T at and around
+    its 64-key chunks and 64-query tiles, on packed and split-head strides,
+    against the plain version (out written as the merged-head view)."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+    from autognothi_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(16)
+    n, heads = 2, 3
+    mask = _mask(g, dev, n, t, True)
+    if mode == "add":
+        mask = (1 - mask) * torch.finfo(torch.float32).min
+    for packed in (True, False):
+        q, k, v = _attention_views(g, dev, n, heads, t, d, dtype, packed)
+        out = torch.full((n, t, heads, d), float("nan"), device=dev,
+                         dtype=dtype).transpose(1, 2)
+        kp.attention_heads(q, k, v, mask, mode, out)
+        _close(out, fa.masked_attention_plain(q, k, v, mask, mode=mode),
+               dtype)
+
+
+_GEMM_SHAPES = [(96, 768), (384, 96), (2304, 768), (3072, 768), (768, 3072),
+                (2, 3072)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k", _GEMM_SHAPES)
+def test_tensor_core_gemm_grid(dev, n, k, dtype):
+    """Odd M on both tile sizes, every epilogue, with and without the LN
+    prologue; A, out and resid as column slices of wider tensors and W as
+    a column slice read through its row stride.  fp32 (3xTF32) is also
+    held within 1e-5 x max(1, |ref|) of a float64 product."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+
+    g = torch.Generator().manual_seed(17)
+    for m in (1, 37, 4099):
+        a_wide = _rand(g, dev, m, k + 16).to(dtype)
+        a = a_wide[:, 8:8 + k]
+        w_wide = _rand(g, dev, n, 2 * k, scale=k ** -0.5).to(dtype)
+        w = w_wide[:, k:]
+        bias = _rand(g, dev, n)
+        r_wide = _rand(g, dev, m, n + 5).to(dtype)
+        resid = r_wide[:, 5:]
+        lnw, lnb = 1 + _rand(g, dev, k, scale=0.1), _rand(g, dev, k,
+                                                          scale=0.1)
+        for use_ln in (False, True):
+            x = a.double()
+            ln = None
+            if use_ln:
+                mean, rstd = kp.rowstats(a.contiguous(), 1e-12)
+                ln = (mean, rstd, lnw, lnb)
+                x = (((a.float() - mean[:, None]) * rstd[:, None]) * lnw
+                     + lnb).to(dtype).double()
+            y = x @ w.double().T + bias.double()
+            for epi in range(4):
+                want = y
+                if epi in (kp.EPI_BIAS_GELU, kp.EPI_BIAS_GELU_RESID):
+                    want = torch.nn.functional.gelu(want)
+                if dtype == torch.float32 and epi == kp.EPI_BIAS:
+                    got = kp.gemm(a, w, bias, epi, ln=ln)
+                    err = (got.double() - want).abs().max().item()
+                    assert err <= 1e-5 * max(1.0, want.abs().max().item()), \
+                        (m, use_ln, err)
+                want = want.to(dtype)
+                if epi in (kp.EPI_BIAS_RESID, kp.EPI_BIAS_GELU_RESID):
+                    want = resid + want
+                out_wide = torch.zeros(m, n + 3, device=dev, dtype=dtype)
+                got = kp.gemm(a, w, bias, epi, ln=ln, out=out_wide[:, 3:],
+                              resid=resid if epi >= kp.EPI_BIAS_RESID
+                              else None)
+                assert got.data_ptr() == out_wide[:, 3:].data_ptr()
+                assert not out_wide[:, :3].any()
+                _close(got, want, dtype)
+
+
+def test_gemm_refuses_unaligned_operands(dev):
+    from autognothi_tpu_torch.kernels import primitives as kp
+
+    a = torch.zeros(4, 20, device=dev)
+    w = torch.zeros(8, 20, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        kp.gemm(a[:, 1:19], w[:, :18], torch.zeros(8, device=dev),
+                kp.EPI_BIAS)
+
+
+@pytest.mark.parametrize("budget", [None, 9 * 2 ** 20])
+def test_bf16_float_chain_at_bert_base(dev, budget, monkeypatch):
+    """bf16 without int8 at 768/3072, T = 512: the gate splits the MLP and
+    each float tile (K8) is one launch, the W2 column slice read in place;
+    against the plain chain.  A lowered budget gives 4 tiles."""
+    from autognothi_tpu_torch.ops import gates
+    from autognothi_tpu_torch.ops import mlp_block as mb
+
+    if budget is not None:
+        monkeypatch.setattr(gates, "VMEM_BUDGET_BYTES", budget)
+    g = torch.Generator().manual_seed(18)
+    b, t, h, inter = 2, 512, 768, 3072
+    dtype = torch.bfloat16
+    resid = _rand(g, dev, b, t, h).to(dtype)
+    w1, b1 = _rand(g, dev, inter, h, scale=h ** -0.5), _rand(g, dev, inter)
+    w2, b2 = _rand(g, dev, h, inter, scale=inter ** -0.5), _rand(g, dev, h)
+    ln = (1 + _rand(g, dev, h, scale=0.1), _rand(g, dev, h, scale=0.1), 1e-12)
+    n_tiles = gates.mlp_block_tiles(t, h, inter, dtype)
+    assert n_tiles == (2 if budget is None else 4)
+    for position in ("prologue", "epilogue"):
+        before = mb.COUNTER_TILED.count
+        got = mb.mlp_block(resid, w1, b1, w2, b2, ln=ln,
+                           ln_position=position)
+        assert mb.COUNTER_TILED.count == before + n_tiles
+        tensors, static = mb.mlp_block_args(resid, w1, b1, w2, b2, ln=ln,
+                                            ln_position=position)
+        _close(got, mb.mlp_block_tiled_plain(*tensors, n_tiles=n_tiles,
+                                             **static), dtype)
