@@ -45,12 +45,15 @@
 // What bounds it on the H100: mma.sync issue and, per score, the softmax's
 // scalar work (mask, max, exp; bf16 twice); in fp32 also the register
 // splits of K and V, which every warp of a block repeats (d = 64 fp32 holds
-// 247 registers).  At T = 197 the 64-key chunks and 64-query tiles pad the
-// work by (256 / 197)^2.  Measured on an H100 80GB HBM3 (700 W), "add"
-// (`kernel_ab.py`): <256, 12, 197, 64> fp32 1.40 ms, bf16 0.59 ms; <8, 12,
-// 512, 64> fp32 0.184-0.188 ms, bf16 0.084 ms (SDPA: fp32 1.71 / 0.238 ms,
-// bf16 0.50 / 0.058 ms).  wgmma with the softmax overlapped across warp
-// groups (as FlashAttention-3) is the next step.
+// 208 registers).  At T = 197 the 64-key chunks pad the keys to 256; the
+// warps whose 16 query rows all lie past T skip their work (13 of the 16
+// warps of a head's four blocks work).  Measured on an H100 80GB HBM3
+// (700 W), "add", device time (`kernel_ab.py`): <256, 12, 197, 64> fp32
+// 1.10 ms, bf16 0.55 ms; <8, 12, 512, 64> fp32 0.144 ms, bf16 0.077 ms
+// (SDPA, CUDA events in `chip_smoke.py`: fp32 1.71 / 0.238 ms, bf16 0.50 /
+// 0.057-0.064 ms).  bf16 is slower than SDPA because it takes Q.K and exp
+// twice per score to round p where JAX does.  wgmma with the softmax
+// overlapped across warp groups (as FlashAttention-3) is the next step.
 
 #include "common.cuh"
 
@@ -193,149 +196,153 @@ __global__ void __launch_bounds__(kAttWarps * 32)
     const T* ks = Ks + buf * kAttKC * P;
     const T* vs = Vs + buf * kAttKC * P;
 
-    // scores of the warp's 16 rows against the chunk's 64 keys
-    float sc[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-    if constexpr (F32) {
-      const float* kf = reinterpret_cast<const float*>(ks);
-#pragma unroll
-      for (int kk = 0; kk < QK; ++kk) {
-        uint32_t ah[4], al[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          split_tf32(__uint_as_float(qa[kk][e]), ah[e], al[e]);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float* bp = kf + (8 * j + g) * P + 8 * kk + t;
-          uint32_t bh[2], bl[2];
-          split_tf32(bp[0], bh[0], bl[0]);
-          split_tf32(bp[4], bh[1], bl[1]);
-          mma_3xtf32(sc[j], ah, al, bh, bl);
-        }
-      }
-    } else if constexpr (D >= 16) {
-      // K fragments by ldmatrix.x4: two key tiles x (dims 0-7, 8-15)
-#pragma unroll
-      for (int kk = 0; kk < QK; ++kk)
-#pragma unroll
-        for (int j = 0; j < NJ; j += 2) {
-          uint32_t r4[4];
-          ldmatrix_x4(r4, ks + (8 * j + (lane & 7) + 8 * (lane >> 4)) * P +
-                              16 * kk + 8 * ((lane >> 3) & 1));
-          mma_bf16_16816(sc[j], qa[kk], r4);
-          mma_bf16_16816(sc[j + 1], qa[kk], r4 + 2);
-        }
-    } else {
-      // d = 8: ldmatrix.x4 gives the fragments of four key tiles
-#pragma unroll
-      for (int j = 0; j < NJ; j += 4) {
-        uint32_t r4[4];
-        ldmatrix_x4(r4, ks + (8 * j + lane) * P);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) mma_bf16_1688(sc[j + u], qa[0], r4 + u);
-      }
-    }
-    float cm[2] = {-INFINITY, -INFINITY};
-    const float* ms = Ms + buf * kAttKC;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float2 m2 = *reinterpret_cast<const float2*>(ms + 8 * j + 2 * t);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j0 + 8 * j + 2 * t + (e & 1);
-        float v = -INFINITY;
-        if (key < Tn) {
-          const float m = (e & 1) ? m2.y : m2.x;
-          v = sc[j][e] * scale;
-          v = MUL ? v * m : v + m;
-        }
-        sc[j][e] = v;
-        cm[e >> 1] = fmaxf(cm[e >> 1], v);
-      }
-    }
-    // every chunk holds a key below T, so the new max is finite
-    float m_new[2], alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      m_new[h] = fmaxf(mx[h], quad_max(cm[h]));
-      alpha[h] = __expf(mx[h] - m_new[h]);  // 0 on the first chunk
-    }
-
-    if (!TWO_PASS || s < nc) {
-      // row max and sum (fp32: the one pass; bf16: pass 1)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) l[h] *= alpha[h];
+    // a warp whose 16 rows all lie past T (in the last query tile)
+    // computes nothing; it still stages chunks and meets the barriers
+    if (r0 < Tn) {
+      // scores of the warp's 16 rows against the chunk's 64 keys
+      float sc[NJ][4];
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = __expf(sc[j][e] - m_new[e >> 1]);
-          sc[j][e] = p;
-          l[e >> 1] += p;
-        }
-      mx[0] = m_new[0];
-      mx[1] = m_new[1];
-    }
-
-    if constexpr (F32) {
-      // online P.V: rescale, then add this chunk's exp(s - max) . V
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+      if constexpr (F32) {
+        const float* kf = reinterpret_cast<const float*>(ks);
 #pragma unroll
-      for (int n = 0; n < ND; ++n)
+        for (int kk = 0; kk < QK; ++kk) {
+          uint32_t ah[4], al[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
-      const float* vf = reinterpret_cast<const float*>(vs);
+          for (int e = 0; e < 4; ++e)
+            split_tf32(__uint_as_float(qa[kk][e]), ah[e], al[e]);
 #pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        // keys 2t, 2t + 1 of the group as the fragment's k = t, t + 4
-        uint32_t ah[4], al[4];
-        split_tf32(sc[jj][0], ah[0], al[0]);
-        split_tf32(sc[jj][2], ah[1], al[1]);
-        split_tf32(sc[jj][1], ah[2], al[2]);
-        split_tf32(sc[jj][3], ah[3], al[3]);
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          const float* bp = vf + (8 * jj + 2 * t) * P + 8 * n + g;
-          uint32_t bh[2], bl[2];
-          split_tf32(bp[0], bh[0], bl[0]);
-          split_tf32(bp[P], bh[1], bl[1]);
-          mma_3xtf32(o[n], ah, al, bh, bl);
-        }
-      }
-    } else {
-      if (s == nc - 1) {  // end of pass 1: 1 / the rows' whole sums
-        l[0] = __frcp_rn(quad_sum(l[0]));
-        l[1] = __frcp_rn(quad_sum(l[1]));
-      }
-      if (s >= nc) {
-        // pass 2: p = exp(s - max) / sum rounded to bf16, then P.V
-#pragma unroll
-        for (int kb2 = 0; kb2 < NJ / 2; ++kb2) {
-          uint32_t a[4];
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const float* c = sc[2 * kb2 + u];
-            a[2 * u] = pack_bf16(__expf(c[0] - mx[0]) * l[0],
-                                 __expf(c[1] - mx[0]) * l[0]);
-            a[2 * u + 1] = pack_bf16(__expf(c[2] - mx[1]) * l[1],
-                                     __expf(c[3] - mx[1]) * l[1]);
+          for (int j = 0; j < NJ; ++j) {
+            const float* bp = kf + (8 * j + g) * P + 8 * kk + t;
+            uint32_t bh[2], bl[2];
+            split_tf32(bp[0], bh[0], bl[0]);
+            split_tf32(bp[4], bh[1], bl[1]);
+            mma_3xtf32(sc[j], ah, al, bh, bl);
           }
-          if constexpr (ND % 2 == 0) {
-            // x4.trans: the V fragments of two dim tiles
+        }
+      } else if constexpr (D >= 16) {
+        // K fragments by ldmatrix.x4: two key tiles x (dims 0-7, 8-15)
 #pragma unroll
-            for (int n = 0; n < ND; n += 2) {
-              uint32_t r4[4];
-              ldmatrix_x4_trans(r4, vs + (16 * kb2 + (lane & 15)) * P +
-                                        8 * n + 8 * (lane >> 4));
-              mma_bf16_16816(o[n], a, r4);
-              mma_bf16_16816(o[n + 1], a, r4 + 2);
+        for (int kk = 0; kk < QK; ++kk)
+#pragma unroll
+          for (int j = 0; j < NJ; j += 2) {
+            uint32_t r4[4];
+            ldmatrix_x4(r4, ks + (8 * j + (lane & 7) + 8 * (lane >> 4)) * P +
+                                16 * kk + 8 * ((lane >> 3) & 1));
+            mma_bf16_16816(sc[j], qa[kk], r4);
+            mma_bf16_16816(sc[j + 1], qa[kk], r4 + 2);
+          }
+      } else {
+        // d = 8: ldmatrix.x4 gives the fragments of four key tiles
+#pragma unroll
+        for (int j = 0; j < NJ; j += 4) {
+          uint32_t r4[4];
+          ldmatrix_x4(r4, ks + (8 * j + lane) * P);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) mma_bf16_1688(sc[j + u], qa[0], r4 + u);
+        }
+      }
+      float cm[2] = {-INFINITY, -INFINITY};
+      const float* ms = Ms + buf * kAttKC;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float2 m2 = *reinterpret_cast<const float2*>(ms + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = j0 + 8 * j + 2 * t + (e & 1);
+          float v = -INFINITY;
+          if (key < Tn) {
+            const float m = (e & 1) ? m2.y : m2.x;
+            v = sc[j][e] * scale;
+            v = MUL ? v * m : v + m;
+          }
+          sc[j][e] = v;
+          cm[e >> 1] = fmaxf(cm[e >> 1], v);
+        }
+      }
+      // every chunk holds a key below T, so the new max is finite
+      float m_new[2], alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m_new[h] = fmaxf(mx[h], quad_max(cm[h]));
+        alpha[h] = __expf(mx[h] - m_new[h]);  // 0 on the first chunk
+      }
+
+      if (!TWO_PASS || s < nc) {
+        // row max and sum (fp32: the one pass; bf16: pass 1)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) l[h] *= alpha[h];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = __expf(sc[j][e] - m_new[e >> 1]);
+            sc[j][e] = p;
+            l[e >> 1] += p;
+          }
+        mx[0] = m_new[0];
+        mx[1] = m_new[1];
+      }
+
+      if constexpr (F32) {
+        // online P.V: rescale, then add this chunk's exp(s - max) . V
+#pragma unroll
+        for (int n = 0; n < ND; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+        const float* vf = reinterpret_cast<const float*>(vs);
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+          // keys 2t, 2t + 1 of the group as the fragment's k = t, t + 4
+          uint32_t ah[4], al[4];
+          split_tf32(sc[jj][0], ah[0], al[0]);
+          split_tf32(sc[jj][2], ah[1], al[1]);
+          split_tf32(sc[jj][1], ah[2], al[2]);
+          split_tf32(sc[jj][3], ah[3], al[3]);
+#pragma unroll
+          for (int n = 0; n < ND; ++n) {
+            const float* bp = vf + (8 * jj + 2 * t) * P + 8 * n + g;
+            uint32_t bh[2], bl[2];
+            split_tf32(bp[0], bh[0], bl[0]);
+            split_tf32(bp[P], bh[1], bl[1]);
+            mma_3xtf32(o[n], ah, al, bh, bl);
+          }
+        }
+      } else {
+        if (s == nc - 1) {  // end of pass 1: 1 / the rows' whole sums
+          l[0] = __frcp_rn(quad_sum(l[0]));
+          l[1] = __frcp_rn(quad_sum(l[1]));
+        }
+        if (s >= nc) {
+          // pass 2: p = exp(s - max) / sum rounded to bf16, then P.V
+#pragma unroll
+          for (int kb2 = 0; kb2 < NJ / 2; ++kb2) {
+            uint32_t a[4];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const float* c = sc[2 * kb2 + u];
+              a[2 * u] = pack_bf16(__expf(c[0] - mx[0]) * l[0],
+                                   __expf(c[1] - mx[0]) * l[0]);
+              a[2 * u + 1] = pack_bf16(__expf(c[2] - mx[1]) * l[1],
+                                       __expf(c[3] - mx[1]) * l[1]);
             }
-          } else {
-            uint32_t bf[2];
-            ldmatrix_x2_trans(bf, vs + (16 * kb2 + (lane & 15)) * P);
-            mma_bf16_16816(o[0], a, bf);
+            if constexpr (ND % 2 == 0) {
+              // x4.trans: the V fragments of two dim tiles
+#pragma unroll
+              for (int n = 0; n < ND; n += 2) {
+                uint32_t r4[4];
+                ldmatrix_x4_trans(r4, vs + (16 * kb2 + (lane & 15)) * P +
+                                          8 * n + 8 * (lane >> 4));
+                mma_bf16_16816(o[n], a, r4);
+                mma_bf16_16816(o[n + 1], a, r4 + 2);
+              }
+            } else {
+              uint32_t bf[2];
+              ldmatrix_x2_trans(bf, vs + (16 * kb2 + (lane & 15)) * P);
+              mma_bf16_16816(o[0], a, bf);
+            }
           }
         }
       }
@@ -408,19 +415,6 @@ static int pick_d(int d, const AttnCall& a) {
 }  // namespace ag
 
 using namespace ag;
-
-// Dynamic shared memory the attention core takes at head dim d, in bytes
-// (the fp32 kernel's, the larger; it does not depend on T).
-extern "C" long long ag_attention_smem_bytes(int Tn, int d) {
-  (void)Tn;
-  switch (d) {
-    case 8: return att_smem_bytes<float, 8>();
-    case 16: return att_smem_bytes<float, 16>();
-    case 32: return att_smem_bytes<float, 32>();
-    case 64: return att_smem_bytes<float, 64>();
-    default: return 0;
-  }
-}
 
 // Head dims the core is compiled for; others are refused.
 extern "C" int ag_attention_supports(int Tn, int d) {

@@ -116,11 +116,14 @@ __device__ __forceinline__ void mma_tf32_1688(float* c, const uint32_t* a,
 // The 3xTF32 split of an fp32 x: hi = rna_tf32(x), lo = rna_tf32(x - hi).
 // hi + lo carries 22 of x's 24 significand bits; hi*hi + hi*lo + lo*hi is
 // x*y to about 2^-21 relative, fp32-grade (the dropped lo*lo is ~2^-22).
+// rna_tf32 is cvt.rna.tf32.f32 written as integer ops on the bits (round
+// the magnitude half away from zero to 10 significand bits): the same
+// result at the full ALU rate, where the conversion instruction is not.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
   const float r = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+  lo = (__float_as_uint(r) + 0x1000u) & 0xFFFFE000u;
 }
 
 // D += A B in fp32 grade from fp32 operands: three tf32 products, the small

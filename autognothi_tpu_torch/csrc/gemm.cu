@@ -37,18 +37,25 @@
 // conflict-free); fp32 fragments from 64-bit reads (rows padded to 288
 // bytes), each group of 8 k read as the fragment's k = t, t + 4 from the
 // adjacent columns 2t, 2t + 1 in A and W alike, and split in registers as
-// they are read.  The fp32 128 x 128 tile holds 229 registers (two
+// they are read.  The fp32 128 x 128 tile holds 232-234 registers (two
 // accumulators) and a 221 KB ring: one block per SM; the others two.
 //
-// What bounds it on the H100: tensor-core issue of mma.sync.  At K7's
-// shapes the work is operations-bound (counted against 495/3 = 165
+// What bounds it on the H100 is not settled (it has not been profiled with
+// hardware counters): mma.sync issued from registers, the ring's barrier
+// per 64-deep slice and, in fp32, the register splits are the candidates.
+// At K7's shapes the work is operations-bound (counted against 495/3 = 165
 // TFLOP/s of fp32-grade work, bf16 against 989).  Measured on an H100 80GB
 // HBM3 (700 W) at the ViT B=64 products <12608, 768> x <3072, 768>^T and
-// <12608, 3072> x <768, 3072>^T (`kernel_ab.py`): fp32 1.24-1.29 ms (46-48
-// TFLOP/s of fp32-grade work, 29% of the bound's rate; cuBLAS fp32 without
-// TF32 takes 1.18-1.48 ms), bf16 0.26-0.33 ms (180-225 TFLOP/s; cuBLAS
-// 0.08-0.09 ms).  mma.sync from registers reaches a fraction of the tensor
-// cores' rate, which only wgmma fed by TMA reaches: the next step.
+// <12608, 3072> x <768, 3072>^T (`kernel_ab.py`): fp32 1.11-1.13 ms (~53
+// TFLOP/s of fp32-grade work, a third of the bound's rate; cuBLAS fp32
+// without TF32 takes 1.16-1.47 ms), bf16 0.26-0.33 ms (180-225 TFLOP/s;
+// cuBLAS 0.08-0.09 ms).  Tried and not kept: fp32 on wgmma (A split in
+// registers, B's hi and lo split into swizzled shared memory, the split of
+// the next slice overlapped with the products) ran no faster than this
+// kernel, so the fp32 limit is not the mma.sync path alone; bf16 on
+// wgmma from swizzled cp.async tiles was faster at K = 3072 but slower at
+// K = 768 with the LN prologue.  A warp-specialised TMA pipeline is the
+// next step.
 //
 // Device-memory intermediates of this design (kept on chip by the TPU
 // kernels): the Q/K/V projections, the attention context, the MLP

@@ -19,8 +19,6 @@ from .build import load
 
 EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESID, EPI_BIAS_GELU_RESID = 0, 1, 2, 3
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# shared memory one block may hold on Hopper (227 KB)
-MAX_SMEM_BYTES = 232448
 
 
 def _dtype_code(t: torch.Tensor) -> int:

@@ -465,10 +465,9 @@ def test_train_step_kernels_against_plain(dev, pallas, monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [8, 64])
 def test_attention_core_at_512(dev, d, dtype, mode):
-    """T = 512: at d = 64 one stage of fp32 K/V exceeds a block's shared
-    memory and the core walks the keys in chunks (two passes); d = 8 keeps
-    the one-stage kernel.  K9 on split heads against its plain version."""
-    from autognothi_tpu_torch.kernels import primitives as kp
+    """T = 512, BERT's length: the core walks its eight 64-key chunks (bf16
+    twice, to round p where JAX does).  K9 on split heads against its plain
+    version."""
     from autognothi_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator().manual_seed(11)
@@ -477,7 +476,6 @@ def test_attention_core_at_512(dev, d, dtype, mode):
     mask = _mask(g, dev, n, t, True)
     if mode == "add":
         mask = (1 - mask) * torch.finfo(torch.float32).min
-    assert kp.load().ag_attention_smem_bytes(t, d) <= kp.MAX_SMEM_BYTES
     got = fa.masked_attention(q, k, v, mask, mode=mode)
     _close(got, fa.masked_attention_plain(q, k, v, mask, mode=mode), dtype)
 
