@@ -24,16 +24,36 @@
 // residual after that cast; GELU kept in fp32 (the intermediate the next
 // quantizer reads); GELU then cast (K3's d2, the input of the float d3).
 //
-// What bounds it on the H100: this first design issues mma.sync m16n8k32
-// (the Ampere-style tensor-core path, well below wgmma's int8 rate) from a
-// two-stage cp.async pipeline over 64-deep k slices, with 32-bit shared-
-// memory fragment loads; each block computes a 128x128 (or 64x64 for small
-// problems) output tile with 8 warps.  Measured at the LTT ViT-B/16 trunk
-// shapes (B=64): ~230-260 TOP/s, an eighth of the card's int8 peak.  The
-// <M, K> int8 activations and the fp32 MLP intermediate go to device
-// memory, where the TPU kernels kept them on chip.  wgmma + TMA tiles,
-// ldmatrix fragments and a fused quantize-in-epilogue are later work.
+// Design (Hopper): a persistent, warp-specialised TMA + wgmma kernel
+// (`gemm_i8_wgmma_kernel`).  Both operands are K-major, as 8-bit wgmma
+// requires, and A <M, K> and the torch-layout W <N, K> already are: no
+// repacking.  TMA (cp.async.bulk.tensor, tensor maps encoded on the host
+// per call) loads 128 x 128-byte A boxes and BN x 128-byte W boxes,
+// 128-byte swizzled, into a 5-6 stage ring guarded by mbarrier full/empty
+// pairs; one producer warp issues them, two consumer warpgroups run
+// wgmma.mma_async m64nBNk32 .s32.s8.s8 from shared memory on the arrived
+// stages (setmaxnreg moves registers from the producer to them) and the
+// float epilogue straight from the accumulator registers.  Tiles are 128
+// x 192 for the trunk products (N a multiple of 192, at least 768: 3, 9,
+// 12 full waves of the 132 SMs at the ViT B=64 products) and 128 x 96
+// otherwise; TMA zero-fills rows past M and N and k past K, so any M, N
+// and any K that is a multiple of 16 runs here.  The old mma.sync m16n8k32
+// kernel (~230-260 TOP/s at the ViT trunk shapes) is gone: no shape needs
+// it.
+//
+// What bounds it: by the bytes it must move, the epilogue's output (above
+// all K2's <M, 3072> fp32 GELU intermediate) and residual.  On an H100
+// 80GB HBM3 it runs at 41-66% of that bound at the trunk products
+// (PERF.md), held back by the epilogue itself: eight warps per SM compute
+// and store the whole tile, GELU's erff included.  Each 64-column chunk of the epilogue loads its
+// scales, biases and residuals together before its stores.  The producer
+// loads the next tile's stages during the epilogue.  Ping-pong consumers
+// (each warpgroup on its own tile, one's epilogue under the other's
+// products) were measured and ran no faster.  The <M, K> int8 activations
+// and the fp32 MLP intermediate go to device memory, where the TPU
+// kernels kept them on chip.
 
+#include <cuda.h>  // CUtensorMap and its enums (no libcuda is linked)
 #include <stdint.h>
 
 #include "common.cuh"
@@ -101,10 +121,7 @@ enum EpiI8 {
 };
 
 struct GemmI8Args {
-  const int8_t* A;  // <M, K>, row stride lda
-  int lda;
   const float* a_scale;  // <M>
-  const int8_t* W;       // <N, K>, row stride K
   const float* w_scale;  // <N>
   const float* bias;     // <N>
   const void* R;         // residual (kI8BiasResid), row stride ldr
@@ -114,147 +131,477 @@ struct GemmI8Args {
   int M, N, K;
 };
 
-constexpr int kI8BK = 64;              // k bytes per pipeline stage
-constexpr int kI8Row = kI8BK + 16;     // smem row pitch: conflict-free frags
-constexpr int kI8Threads = 256;        // 8 warps: 2 (m) x 4 (n)
+constexpr int kI8BM = 128;       // tile rows: one 64-row wgmma per consumer
+constexpr int kI8BK = 128;       // k bytes per stage: one 128-byte swizzle row
+constexpr int kI8Threads = 384;  // consumer warpgroups 0, 1; producer 2
 
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// Tile widths: 192 for the trunk products (N = 768 ... 3072, multiples of
+// 192: at M = 12608 that is 3, 9 and 12 full waves of the 132 SMs), else
+// 96 (the 96-, 288- and 384-wide side products, which need the narrower
+// tiles to spread over the SMs; any other N).
+template <int BN>
+struct I8Tile {
+  static constexpr int kStages = BN == 192 ? 5 : 6;
+  static constexpr int kABytes = kI8BM * kI8BK;
+  static constexpr int kBBytes = BN * kI8BK;
+  // the ring, its full/empty barriers, and slack to align the ring to the
+  // 1024 bytes of the 128-byte swizzle pattern
+  static constexpr int kSmem =
+      kStages * (kABytes + kBBytes) + 2 * kStages * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T, int EPI, int BM, int BN>
-__global__ void __launch_bounds__(kI8Threads)
-    gemm_i8_kernel(GemmI8Args p) {
-  constexpr int WTM = BM / 2, WTN = BN / 4;  // warp tile
-  constexpr int MT = WTM / 16, NT = WTN / 8;  // mma tiles per warp
-  __shared__ __align__(16) int8_t As[2][BM][kI8Row];
-  __shared__ __align__(16) int8_t Ws[2][BN][kI8Row];
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+// arrive once and add `bytes` to the transaction count the phase awaits
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
 
-  // 16-byte chunks: BM (BN) rows x 4 chunks of the 64-byte k slice
-  auto load = [&](int k0, int buf) {
-    for (int c = tid; c < BM * 4; c += kI8Threads) {
-      const int r = c >> 2, kc = (c & 3) * 16;
-      const bool ok = row0 + r < p.M && k0 + kc < p.K;
-      cp_async16(&As[buf][r][kc],
-                 ok ? p.A + (size_t)(row0 + r) * p.lda + k0 + kc : p.A, ok);
-    }
-    for (int c = tid; c < BN * 4; c += kI8Threads) {
-      const int r = c >> 2, kc = (c & 3) * 16;
-      const bool ok = col0 + r < p.N && k0 + kc < p.K;
-      cp_async16(&Ws[buf][r][kc],
-                 ok ? p.W + (size_t)(col0 + r) * p.K + k0 + kc : p.W, ok);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
 
-  int acc[MT][NT][4];
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (c0 = k byte, c1 = row) of the tensor map into shared
+// memory, completing `bytes` of the barrier's transaction count
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// wgmma operand descriptor of a K-major tile stored by TMA with the
+// 128-byte swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (the
+// stride byte offset); the leading byte offset is unused for this layout.
+// A k step of 32 bytes inside the row moves the start address.
+__device__ __forceinline__ uint64_t sw128_desc(const void* smem) {
+  return static_cast<uint64_t>((smem_u32(smem) & 0x3FFFF) >> 4) |
+         (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accumulator registers across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(int* r) {
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
-  const int nk = (p.K + kI8BK - 1) / kI8BK;
-  load(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) {
-      load((kt + 1) * kI8BK, buf ^ 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
+// D[64 x 192] (+)= A[64 x 32] B[192 x 32]^T, s8 x s8 -> s32, both from
+// shared memory (K-major, 128-byte swizzle); scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_s8_n192(int* d, uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 96] (+)= A[64 x 32] B[96 x 32]^T, s8 x s8 -> s32, both from
+// shared memory (K-major, 128-byte swizzle); scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_s8_n96(int* d, uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int* d, uint64_t a, uint64_t b) {
+  if constexpr (BN == 192)
+    wgmma_s8_n192(d, a, b, 1);
+  else
+    wgmma_s8_n96(d, a, b, 1);
+}
+
+// A pair of T from row r, columns c and c + 1 (c + 1 only where `two`), as
+// floats; one 4- or 8-byte load where `vec`.
+template <typename T>
+__device__ __forceinline__ void load_pair(const T* row, int c, bool two,
+                                          bool vec, float& x0, float& x1) {
+  if (vec) {
+    if constexpr (sizeof(T) == 4) {
+      const float2 v = *reinterpret_cast<const float2*>(row + c);
+      x0 = v.x;
+      x1 = v.y;
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+      const __nv_bfloat162 v =
+          *reinterpret_cast<const __nv_bfloat162*>(row + c);
+      x0 = __low2float(v);
+      x1 = __high2float(v);
     }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kI8BK; ks += 32) {
-      uint32_t a[MT][4], b[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int r = wm * WTM + i * 16 + g;
-        const int8_t* base = &As[buf][r][ks + t * 4];
-        a[i][0] = *reinterpret_cast<const uint32_t*>(base);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kI8Row);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(base + 16);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kI8Row + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int8_t* base = &Ws[buf][wn * WTN + j * 8 + g][ks + t * 4];
-        b[j][0] = *reinterpret_cast<const uint32_t*>(base);
-        b[j][1] = *reinterpret_cast<const uint32_t*>(base + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();  // the next iteration's load overwrites this buffer
+  } else {
+    x0 = to_f(row[c]);
+    x1 = two ? to_f(row[c + 1]) : 0.f;
   }
+}
 
+// C tile rows [m0, m0 + 64) of one consumer warpgroup, columns [n0, n0 +
+// BN).  Accumulator fragment of wgmma m64nNk32 (s32): warp w, lane l hold,
+// for each 8-column group j, d[4j + 2h + e] = D[16w + l/4 + 8h][8j + 2(l%4)
+// + e].  The arithmetic of every value is the mma.sync design's: two _rn
+// multiplies and an _rn add, exact-erf GELU, the residual added after the
+// cast.  Columns go in chunks of 64 (48 for BN = 96): each chunk's scales,
+// biases and residuals are loaded together before its stores, so their
+// latencies overlap instead of queueing behind each other.
+template <typename T, int EPI, int BN>
+__device__ __forceinline__ void epilogue(const GemmI8Args& p, const int* acc,
+                                         int m0, int n0, bool vec_ok) {
+  constexpr int kJ = (BN / 8) % 8 == 0 ? 8 : 6;  // 8-column groups a chunk
+  static_assert((BN / 8) % kJ == 0, "chunks must tile the columns");
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int rows[2] = {m0 + 16 * warp + (lane >> 2),
+                       m0 + 16 * warp + (lane >> 2) + 8};
+  const bool row_ok[2] = {rows[0] < p.M, rows[1] < p.M};
+  const float sa[2] = {row_ok[0] ? p.a_scale[rows[0]] : 0.f,
+                       row_ok[1] ? p.a_scale[rows[1]] : 0.f};
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
+  for (int j0 = 0; j0 < BN / 8; j0 += kJ) {
+    float ws[kJ][2], bs[kJ][2], res[kJ][2][2];
 #pragma unroll
-    for (int e2 = 0; e2 < 2; ++e2) {
-      const int r = row0 + wm * WTM + i * 16 + g + e2 * 8;
-      if (r >= p.M) continue;
-      const float sa = p.a_scale[r];
+    for (int jj = 0; jj < kJ; ++jj) {
+      const int c = n0 + 8 * (j0 + jj) + 2 * (lane & 3);
+      const bool one = c < p.N, two = c + 1 < p.N;
+      ws[jj][0] = one ? p.w_scale[c] : 0.f;
+      bs[jj][0] = one ? p.bias[c] : 0.f;
+      ws[jj][1] = two ? p.w_scale[c + 1] : 0.f;
+      bs[jj][1] = two ? p.bias[c + 1] : 0.f;
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
+      for (int h = 0; h < 2; ++h) {
+        res[jj][h][0] = res[jj][h][1] = 0.f;
+        if (EPI == kI8BiasResid && one && row_ok[h])
+          load_pair<T>(static_cast<const T*>(p.R) + (size_t)rows[h] * p.ldr,
+                       c, two, two && vec_ok, res[jj][h][0], res[jj][h][1]);
+      }
+    }
 #pragma unroll
-        for (int e1 = 0; e1 < 2; ++e1) {
-          const int c = col0 + wn * WTN + j * 8 + t * 2 + e1;
-          if (c >= p.N) continue;
-          float v = __fadd_rn(
-              __fmul_rn(__fmul_rn((float)acc[i][j][e2 * 2 + e1], sa),
-                        p.w_scale[c]),
-              p.bias[c]);
-          if (EPI == kI8GeluF32 || EPI == kI8Gelu) v = gelu_erf(v);
-          if (EPI == kI8GeluF32) {
-            static_cast<float*>(p.C)[(size_t)r * p.ldc + c] = v;
-            continue;
+    for (int jj = 0; jj < kJ; ++jj) {
+      const int j = j0 + jj;
+      const int c = n0 + 8 * j + 2 * (lane & 3);
+      if (c >= p.N) continue;
+      const bool two = c + 1 < p.N, vec = two && vec_ok;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!row_ok[h]) continue;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[e] = __fadd_rn(
+              __fmul_rn(__fmul_rn((float)acc[4 * j + 2 * h + e], sa[h]),
+                        ws[jj][e]),
+              bs[jj][e]);
+          if (EPI == kI8GeluF32 || EPI == kI8Gelu) v[e] = gelu_erf(v[e]);
+        }
+        if (EPI == kI8GeluF32) {
+          float* out = static_cast<float*>(p.C) + (size_t)rows[h] * p.ldc + c;
+          if (vec) {
+            *reinterpret_cast<float2*>(out) = make_float2(v[0], v[1]);
+          } else {
+            out[0] = v[0];
+            if (two) out[1] = v[1];
           }
-          if (EPI == kI8BiasResid)
-            v = to_f(static_cast<const T*>(p.R)[(size_t)r * p.ldr + c]) +
-                round_to<T>(v);
-          static_cast<T*>(p.C)[(size_t)r * p.ldc + c] = from_f<T>(v);
+          continue;
+        }
+        T o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (EPI == kI8BiasResid) v[e] = res[jj][h][e] + round_to<T>(v[e]);
+          o[e] = from_f<T>(v[e]);
+        }
+        T* out = static_cast<T*>(p.C) + (size_t)rows[h] * p.ldc + c;
+        if (vec) {
+          if constexpr (sizeof(T) == 4)
+            *reinterpret_cast<float2*>(out) =
+                make_float2(to_f(o[0]), to_f(o[1]));
+          else
+            *reinterpret_cast<__nv_bfloat162*>(out) =
+                __halves2bfloat162(o[0], o[1]);
+        } else {
+          out[0] = o[0];
+          if (two) out[1] = o[1];
         }
       }
     }
   }
 }
 
-// 128x128 tiles when they fill one wave of the card's SMs, else 64x64.
-template <typename T, int EPI>
-static int launch_gemm_i8(const GemmI8Args& p, cudaStream_t s) {
-  const long long big = (long long)((p.M + 127) / 128) * ((p.N + 127) / 128);
-  if (big >= sm_count()) {
-    dim3 grid((p.N + 127) / 128, (p.M + 127) / 128);
-    gemm_i8_kernel<T, EPI, 128, 128><<<grid, kI8Threads, 0, s>>>(p);
-  } else {
-    dim3 grid((p.N + 63) / 64, (p.M + 63) / 64);
-    gemm_i8_kernel<T, EPI, 64, 64><<<grid, kI8Threads, 0, s>>>(p);
+// Persistent, warp-specialised int8 GEMM: gridDim.x blocks (at most one per
+// SM) walk the 128 x BN output tiles in row-major order, tile t, t +
+// gridDim.x, ...  Warpgroup 2 is the producer: one thread keeps a ring of
+// kStages stages (the A and W boxes of one 128-byte k slice) filled by TMA,
+// each stage guarded by a full barrier (its bytes arrived) and an empty
+// barrier (its eight consumer warps are done reading).  Warpgroups 0 and 1
+// each multiply 64 rows of the tile by all BN columns from the arrived
+// stages (four m64nBNk32 wgmmas per stage) into an int32 accumulator in
+// registers, then run the float epilogue from registers while the
+// producer already fills the ring with the next tile's slices.
+template <typename T, int EPI, int BN>
+__global__ void __launch_bounds__(kI8Threads, 1)
+    gemm_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                         const __grid_constant__ CUtensorMap map_w,
+                         GemmI8Args p) {
+  using Tile = I8Tile<BN>;
+  constexpr int S = Tile::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sA = smem;
+  uint8_t* sB = smem + S * Tile::kABytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sB + S * Tile::kBBytes);
+  uint64_t* empty = full + S;
+
+  const int tiles_n = (p.N + BN - 1) / BN;
+  const int tiles = ((p.M + kI8BM - 1) / kI8BM) * tiles_n;
+  const int nk = (p.K + kI8BK - 1) / kI8BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      int stage = 0, phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / tiles_n) * kI8BM, n0 = (tile % tiles_n) * BN;
+        for (int kb = 0; kb < nk; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], Tile::kABytes + Tile::kBBytes);
+          tma_load_2d(sA + stage * Tile::kABytes, &map_a, &full[stage],
+                      kb * kI8BK, m0);
+          tma_load_2d(sB + stage * Tile::kBBytes, &map_w, &full[stage],
+                      kb * kI8BK, n0);
+          if (++stage == S) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const bool vec_ok =
+        p.ldc % 2 == 0 &&
+        reinterpret_cast<uintptr_t>(p.C) %
+                (2 * (EPI == kI8GeluF32 ? sizeof(float) : sizeof(T))) ==
+            0 &&
+        (EPI != kI8BiasResid ||
+         (p.ldr % 2 == 0 &&
+          reinterpret_cast<uintptr_t>(p.R) % (2 * sizeof(T)) == 0));
+    int stage = 0, phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile / tiles_n) * kI8BM, n0 = (tile % tiles_n) * BN;
+      int acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(&full[stage], phase);
+        const uint8_t* a = sA + stage * Tile::kABytes + wg * 64 * kI8BK;
+        const uint8_t* b = sB + stage * Tile::kBBytes;
+        fence_regs<BN / 2>(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kI8BK / 32; ++kk)
+          wgmma_s8<BN>(acc, sw128_desc(a + kk * 32), sw128_desc(b + kk * 32));
+        wgmma_commit();
+        fence_regs<BN / 2>(acc);
+        wgmma_wait_all();
+        fence_regs<BN / 2>(acc);
+        if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[stage]);
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      epilogue<T, EPI, BN>(p, acc, m0 + wg * 64, n0, vec_ok);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query: the library links no libcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)f;
+  }
+  return fn;
+}
+
+// The tensor map of an int8 <rows, cols> matrix with row stride ld bytes,
+// read in boxes of box_rows rows x 128 bytes, 128-byte swizzled; boxes past
+// the matrix's edge are zero-filled.
+static bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols,
+                       int ld, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld};
+  const cuuint32_t box[2] = {(cuuint32_t)kI8BK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int EPI, int BN>
+static int launch_gemm_i8_tile(const CUtensorMap& ma, const CUtensorMap& mw,
+                               const GemmI8Args& p, cudaStream_t s) {
+  using Tile = I8Tile<BN>;
+  auto kernel = gemm_i8_wgmma_kernel<T, EPI, BN>;
+  static bool smem_set = false;  // once per instantiation
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  const long long tiles = (long long)((p.M + kI8BM - 1) / kI8BM) *
+                          ((p.N + BN - 1) / BN);
+  const int grid = (int)(tiles < sm_count() ? tiles : sm_count());
+  kernel<<<grid, kI8Threads, Tile::kSmem, s>>>(ma, mw, p);
   return (int)cudaGetLastError();
 }
 
+// The shape rule: 192-wide tiles where N is a multiple of 192 and at least
+// 768, else 96.
+template <typename T, int EPI>
+static int launch_gemm_i8(const CUtensorMap& ma, const void* W,
+                          const GemmI8Args& p, cudaStream_t s) {
+  const int bn = p.N % 192 == 0 && p.N >= 768 ? 192 : 96;
+  CUtensorMap mw;
+  if (!tensor_map(&mw, W, p.N, p.K, p.K, bn)) return (int)cudaErrorInvalidValue;
+  if (bn == 192) return launch_gemm_i8_tile<T, EPI, 192>(ma, mw, p, s);
+  return launch_gemm_i8_tile<T, EPI, 96>(ma, mw, p, s);
+}
+
 template <typename T>
-static int dispatch_gemm_i8(int epi, const GemmI8Args& p, cudaStream_t s) {
+static int dispatch_gemm_i8(int epi, const CUtensorMap& ma, const void* W,
+                            const GemmI8Args& p, cudaStream_t s) {
   switch (epi) {
-    case kI8Bias: return launch_gemm_i8<T, kI8Bias>(p, s);
-    case kI8BiasResid: return launch_gemm_i8<T, kI8BiasResid>(p, s);
-    case kI8GeluF32: return launch_gemm_i8<T, kI8GeluF32>(p, s);
-    case kI8Gelu: return launch_gemm_i8<T, kI8Gelu>(p, s);
+    case kI8Bias: return launch_gemm_i8<T, kI8Bias>(ma, W, p, s);
+    case kI8BiasResid: return launch_gemm_i8<T, kI8BiasResid>(ma, W, p, s);
+    case kI8GeluF32: return launch_gemm_i8<T, kI8GeluF32>(ma, W, p, s);
+    case kI8Gelu: return launch_gemm_i8<T, kI8Gelu>(ma, W, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -303,18 +650,19 @@ extern "C" int ag_quant_rows(int dtype, const void* x, int ldx, int M, int N,
 }
 
 // int8 GEMM; dtype is the activation type of R and C (C is fp32 for the
-// kI8GeluF32 epilogue).  K, lda and both base pointers must be multiples
-// of 16 bytes.
+// kI8GeluF32 epilogue).  A and W are read by TMA: K, lda and both base
+// pointers must be multiples of 16 bytes.
 extern "C" int ag_gemm_i8(int dtype, int epi, const void* A, int lda,
                           const void* a_scale, const void* W,
                           const void* w_scale, const void* bias, const void* R,
                           int ldr, void* C, int ldc, int M, int N, int K,
                           void* stream) {
-  if (K % 16 != 0 || lda % 16 != 0) return (int)cudaErrorInvalidValue;
-  GemmI8Args p{static_cast<const int8_t*>(A),
-               lda,
-               static_cast<const float*>(a_scale),
-               static_cast<const int8_t*>(W),
+  if (K <= 0 || K % 16 != 0 || lda % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(A) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(W) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return 0;
+  GemmI8Args p{static_cast<const float*>(a_scale),
                static_cast<const float*>(w_scale),
                static_cast<const float*>(bias),
                R,
@@ -324,8 +672,11 @@ extern "C" int ag_gemm_i8(int dtype, int epi, const void* A, int lda,
                M,
                N,
                K};
+  CUtensorMap ma;
+  if (!tensor_map(&ma, A, M, K, lda, kI8BM)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return dispatch_gemm_i8<float>(epi, p, s);
-  if (dtype == kBF16) return dispatch_gemm_i8<__nv_bfloat16>(epi, p, s);
+  if (dtype == kF32) return dispatch_gemm_i8<float>(epi, ma, W, p, s);
+  if (dtype == kBF16)
+    return dispatch_gemm_i8<__nv_bfloat16>(epi, ma, W, p, s);
   return (int)cudaErrorInvalidValue;
 }

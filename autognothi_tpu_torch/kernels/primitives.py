@@ -188,9 +188,9 @@ def gemm_i8(a: torch.Tensor, a_scale: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"w must be a contiguous int8 ({n}, {k}) matrix, "
                          f"got {tuple(w.shape)}")
     if k % 16 or lda % 16 or a.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError(f"the int8 GEMM reads 16-byte chunks: K and the "
-                         f"row stride must be multiples of 16, got K={k}, "
-                         f"stride {lda}")
+        raise ValueError(f"the int8 GEMM reads a and w by TMA: the pointers, "
+                         f"K and the row stride must be multiples of 16, "
+                         f"got K={k}, stride {lda}")
     sa = _vec32(a_scale, m, "a_scale")
     sw, b32 = _vec32(w_scale, n, "w_scale"), _vec32(bias, n, "bias")
     out = torch.empty((m, n), device=a.device, dtype=torch.float32

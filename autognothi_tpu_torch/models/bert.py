@@ -6,12 +6,14 @@ Modules hold parameters under exactly the JAX flat names (e.g.
 `attention.self.query.weight`, `attention.output.LayerNorm.bias`), so a
 JAX parameter dict loads with `load_state_dict(strict=True)`.  The mask
 enters as BERT's additive bias (`models/common.py:additive_mask_bias`).
-In pallas mode "2" with no active dropout the layer runs through the
+In pallas mode "2" with no active dropout, at a width no narrower than
+the fused floor (`fused_dims_ok`), the layer runs through the
 attention-block op with the "add" mask and the LN epilogue (no LN where
 `ident_ln1`, the first explainer side layer) and the MLP-block op with
 the LN epilogue, int8 in int8 mode: each op consults the JAX budget
-gates itself (`ops/gates.py`).  Otherwise the unfused post-norm math
-with dropout, whose attention takes the masked attention op in mode "1".
+gates itself (`ops/gates.py`).  Otherwise the unfused, unquantized
+post-norm math with dropout, whose attention takes the masked attention
+op in mode "1".
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ from torch import nn
 
 from ..ops.attention_block import attention_block
 from ..ops.mlp_block import mlp_block
-from .common import (dense, dropout, gelu, init_embedding, layer_norm,
-                     pallas_mode, quant_mode, self_attention)
+from .common import (dense, dropout, fused_dims_ok, gelu, init_embedding,
+                     layer_norm, pallas_mode, quant_mode, self_attention)
 from .vit import fill_linear, fill_norm, linear, norm
 
 
@@ -137,7 +139,7 @@ class BertLayer(nn.Module):
             cfg.attention_probs_dropout_prob == 0.0
             and cfg.hidden_dropout_prob == 0.0)
         if pallas_mode() == "2" and dropout_off and mask_bias is not None \
-                and h.dim() == 3:
+                and h.dim() == 3 and fused_dims_ok(cfg.hidden_size):
             quant = quant_mode()
             h = attention_block(
                 h, mask_bias[:, 0, 0, :],

@@ -20,6 +20,7 @@ __all__ = [
     "additive_mask_bias",
     "dense",
     "dense_serving",
+    "fused_dims_ok",
     "pallas_mode",
     "quant_mode",
     "quant_override",
@@ -61,6 +62,15 @@ def pallas_mode() -> str:
     if flag in ("0", "1"):
         return flag
     return "2"
+
+
+def fused_dims_ok(hidden: int) -> bool:
+    """The JAX package's width floor for the fused block ops and the ladder
+    op (`autognothi_tpu/models/common.py:fused_dims_ok`), read per call:
+    AUTOGNOTHI_FUSED_MIN_HIDDEN (default 0: every width).  A layer
+    narrower than the floor runs the unfused math, which is unquantized
+    even in int8 mode, as in the JAX package."""
+    return hidden >= int(os.environ.get("AUTOGNOTHI_FUSED_MIN_HIDDEN", "0"))
 
 
 _QUANT_OVERRIDE: list = []

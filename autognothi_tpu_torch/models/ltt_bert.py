@@ -9,7 +9,8 @@ in one forward pass.
 
 Per trunk layer the encoder takes one of two ladder branches, as the JAX
 scan body does (`:236-284`): in pallas mode "2" with no active dropout,
-where the ladder op fits the JAX budget (`gates.ladder_block_fits`, on
+where the side width is at the fused floor (`fused_dims_ok`) and the
+ladder op fits the JAX budget (`gates.ladder_block_fits`, on
 `max_position_embeddings`), the ladder op for every branch ("add" mask,
 post-norm: K5); otherwise both branch maps as one dense and each branch's
 side layer (`BertLayer`, whose own ops are fused and int8 as the mode
@@ -29,8 +30,8 @@ from ..ops.head_block import explainer_head_block
 from ..ops.ladder_block import ladder_block
 from ..ops.shapley import normalize_shapley_explanation
 from .bert import BertEmbeddings, BertLayer, VanillaBertConfig, bert_embeddings
-from .common import (additive_mask_bias, dense, dense_serving, dropout, gelu,
-                     pallas_mode, quant_mode)
+from .common import (additive_mask_bias, dense, dense_serving, dropout,
+                     fused_dims_ok, gelu, pallas_mode, quant_mode)
 from .vit import fill_linear, linear
 
 BRANCHES = (0, 1)
@@ -216,6 +217,7 @@ def ltt_bert_encoder(model: LttBert, cfg: LttBertConfig, emb: torch.Tensor,
                                     and cfg.hidden_dropout_prob == 0.0)
     use_ladder_kernel = (
         pallas_mode() == "2" and dropout_off and len(branches) > 0
+        and fused_dims_ok(s_hidden)
         and gates.ladder_block_fits(cfg.hidden_size,
                                     cfg.max_position_embeddings, s_hidden,
                                     heads, len(branches)))

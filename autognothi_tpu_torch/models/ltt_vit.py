@@ -6,12 +6,20 @@ layer and the explainer MLP head; the final model carries both ladders
 probabilities and per-patch attributions in one forward pass.
 
 Per trunk layer the backbone takes one of three branches, as the JAX scan
-body does (`:245-339`):
-- pallas mode "2", no active dropout, int8 mode: the int8 attention block
-  (K1), then the int8 trunk MLP fused with every branch's ladder step (K2);
-- pallas mode "2", no active dropout: the fused trunk layer (K6, K7), then
-  the ladder op for every branch (K5);
-- otherwise: the unfused trunk layer and side layers, with dropout, whose
+body does (`:245-339`), under the same gates (`:216-243`): the ladder op
+only where the side width is at the fused floor (`fused_dims_ok`) and the
+step fits the JAX budget (`gates.ladder_block_fits`), and the fused int8
+trunk-MLP + ladder step only where it fits as well
+(`gates.mlp_ladder_fits`):
+- pallas mode "2", no active dropout, int8 mode, both gates: the int8
+  attention block (K1), then the int8 trunk MLP fused with every branch's
+  ladder step (K2);
+- pallas mode "2", no active dropout, the ladder gate: the trunk layer
+  (its fused ops, int8 in int8 mode, each under its own gate: K1/K6, and
+  K4, the K8q chain or K7), then the ladder op for every branch (K5);
+- otherwise: the trunk layer as above and per-branch side layers, whose
+  ops are fused (int8 in int8 mode) at or above the fused floor and the
+  unfused math with dropout below it or with dropout active; their
   attention takes the masked attention op (K9) in mode "1".
 """
 
@@ -23,10 +31,11 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops import gates
 from ..ops.ladder_block import ladder_block, mlp_ladder_block
 from ..ops.shapley import normalize_shapley_explanation
-from .common import (dense, gelu, init_embedding, init_linear, layer_norm,
-                     pallas_mode, quant_mode)
+from .common import (dense, fused_dims_ok, gelu, init_embedding,
+                     init_linear, layer_norm, pallas_mode, quant_mode)
 from .vit import (VanillaViTConfig, ViTEmbeddings, ViTLayer,
                   explainer_mlp_head, explainer_mlp_head_module, fill_linear,
                   fill_norm, linear, norm, vit_embeddings)
@@ -221,10 +230,19 @@ def ltt_vit_backbone(model: LttViT, cfg: LttViTConfig,
     heads, eps = cfg.num_attention_heads, cfg.layer_norm_eps
     n_layers = cfg.num_hidden_layers
     active = n_layers if ltt_active_layers is None else int(ltt_active_layers)
-    use_ladder_kernel = (pallas_mode() == "2" and len(branches) > 0
-                         and _dropout_off(cfg, deterministic))
-    use_mlp_ladder = use_ladder_kernel and quant_mode() == "int8"
     s_hidden = cfg.s_attn_hidden_size
+    # the JAX gates (`:216-243`), on the configured token count
+    t_cfg = cfg.into().n_patches + 1
+    use_ladder_kernel = (
+        pallas_mode() == "2" and len(branches) > 0
+        and _dropout_off(cfg, deterministic) and fused_dims_ok(s_hidden)
+        and gates.ladder_block_fits(cfg.hidden_size, t_cfg, s_hidden, heads,
+                                    len(branches)))
+    use_mlp_ladder = (
+        use_ladder_kernel and quant_mode() == "int8"
+        and gates.mlp_ladder_fits(cfg.hidden_size, cfg.intermediate_size,
+                                  t_cfg, s_hidden, max(len(branches), 1),
+                                  heads))
     for i, layer in enumerate(vit.encoder.layers):
         ladders = [_ladder_weights(model, b, i) for b in branches]
         if use_mlp_ladder:
@@ -346,7 +364,12 @@ def ltt_vit_surrogate_coalitions_fwd(model: LttViT, cfg: LttViTConfig,
     flat_masks = masks.reshape(b * m, t)
     side = h.new_zeros((b * m, t, cfg.s_attn_hidden_size))
     heads, eps = cfg.num_attention_heads, cfg.layer_norm_eps
-    use_ladder_kernel = pallas_mode() == "2"
+    s_hidden = cfg.s_attn_hidden_size
+    use_ladder_kernel = (
+        pallas_mode() == "2" and fused_dims_ok(s_hidden)
+        and gates.ladder_block_fits(cfg.hidden_size,
+                                    cfg.into().n_patches + 1, s_hidden,
+                                    heads, 1))
     for i, layer in enumerate(vit.encoder.layers):
         h = layer(h, flat_masks, trunk_cfg)
         if use_ladder_kernel:

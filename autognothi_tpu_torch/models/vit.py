@@ -5,7 +5,8 @@ head).
 Modules hold parameters under exactly the JAX flat names, e.g.
 `attention.self.query.weight` or `layernorm_before.bias`, so a JAX
 parameter dict loads with `load_state_dict(strict=True)`.  In pallas mode
-"2" with no active dropout the layer runs through the fused attention-block
+"2" with no active dropout, at a width no narrower than the fused floor
+(`fused_dims_ok`), the layer runs through the fused attention-block
 and MLP-block ops, which pick the CUDA kernel for CUDA tensors and the plain
 version for CPU tensors (their W8A8 versions in int8 mode, where the
 explainer head is its fused int8 op); otherwise it runs the unfused math
@@ -24,9 +25,9 @@ from ..ops import gates
 from ..ops.attention_block import attention_block
 from ..ops.head_block import explainer_head_block
 from ..ops.mlp_block import mlp_block
-from .common import (dense, dense_serving, dropout, gelu, init_layer_norm,
-                     init_linear, layer_norm, pallas_mode, quant_mode,
-                     self_attention)
+from .common import (dense, dense_serving, dropout, fused_dims_ok, gelu,
+                     init_layer_norm, init_linear, layer_norm, pallas_mode,
+                     quant_mode, self_attention)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,16 +142,17 @@ class ViTLayer(nn.Module):
                 cfg: VanillaViTConfig, deterministic: bool = True,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """The pre-norm layer (`_vit_layer_body`): in pallas mode "2", with
-        a mask and no active dropout, the fused attention-block and
-        MLP-block ops (their int8 versions in int8 mode); otherwise the
-        unfused math with dropout, whose `self_attention` takes the masked
-        attention op in mode "1"."""
+        a mask, no active dropout and a width at the fused floor
+        (`fused_dims_ok`), the fused attention-block and MLP-block ops
+        (their int8 versions in int8 mode); otherwise the unfused,
+        unquantized math with dropout, whose `self_attention` takes the
+        masked attention op in mode "1"."""
         heads, eps = cfg.num_attention_heads, cfg.layer_norm_eps
         dropout_off = deterministic or (
             cfg.attention_probs_dropout_prob == 0.0
             and cfg.hidden_dropout_prob == 0.0)
         if pallas_mode() == "2" and dropout_off and mask is not None \
-                and h.dim() == 3:
+                and h.dim() == 3 and fused_dims_ok(cfg.hidden_size):
             quant = quant_mode()
             h = self.attend(h, mask, heads, eps, quant)
             w = self.mlp_weights()

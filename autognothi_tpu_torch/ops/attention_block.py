@@ -15,12 +15,15 @@ as 3xTF32; see `csrc/gemm.cu`, `csrc/attention.cu`).
 quant="int8" is the W8A8 block instead, replacing
 `_pallas_attention_block_q` (body `_kernel_q`, K1): the (LN'd) input is
 quantized per token, Q/K/V run as int8 products with per-output-channel
-weight codes (of the live weights, at each call), the masked attention
-itself stays in the activation dtype, and the context is re-quantized per
-token for the int8 output projection.  On the H100: the row quantizer
-with the LN prologue, one int8 GEMM for the packed Q/K/V, the same
-attention core, the row quantizer on the context and the int8 GEMM with
-the residual epilogue (`csrc/int8.cu`, `csrc/attention.cu`).
+weight codes (of the live weights), the masked attention itself stays in
+the activation dtype, and the context is re-quantized per token for the
+int8 output projection.  On the H100: the row quantizer with the LN
+prologue, one int8 GEMM for the packed Q/K/V, the same attention core,
+the row quantizer on the context and the int8 GEMM with the residual
+epilogue (`csrc/int8.cu`: TMA + wgmma; `csrc/attention.cu`).  The weight
+codes and the packed Q/K/V bias are made once per weight version
+(`ops/weight_codes.py`): after the first call, a call launches no weight
+quantizer and no concatenation.
 
 `attention_block` takes the plain version for CPU tensors and the kernel
 for CUDA tensors; there is no other switch.
@@ -40,6 +43,7 @@ from ..kernels.primitives import (EPI_BIAS, EPI_BIAS_RESID, I8_EPI_BIAS,
                                   quant_rows, rowstats)
 from ..models.common import dense, layer_norm
 from . import gates
+from .weight_codes import packed_bias, weight_codes
 
 COUNTER = LaunchCounter("attention_block")
 COUNTER_INT8 = LaunchCounter("attention_block_int8")
@@ -138,14 +142,13 @@ def attention_block_int8_launch(resid, mask_row, wq, bq, wk, bk, wv, bv, wo,
     b_sz, t, h = resid.shape
     x = resid.contiguous().reshape(b_sz * t, h)
     ln = (ln_w, ln_b, ln_eps) if ln_position == "prologue" else None
-    # per-output-channel codes: quantizing the stacked rows is quantizing
-    # each projection's own
-    w_qkv = torch.cat([wq, wk, wv]).to(x.dtype)
-    qkv = gemm_i8(*quant_rows(x, ln=ln), *quant_rows(w_qkv, weight=True),
-                  torch.cat([bq, bk, bv]), I8_EPI_BIAS, x.dtype)
+    # per-output-channel codes of the stacked rows are each projection's
+    # own; made once per weight version
+    qkv = gemm_i8(*quant_rows(x, ln=ln),
+                  *weight_codes((wq, wk, wv), x.dtype),
+                  packed_bias((bq, bk, bv)), I8_EPI_BIAS, x.dtype)
     ctx = attention_core(qkv, mask_row, b_sz, t, h, n_heads, mode)
-    out = gemm_i8(*quant_rows(ctx),
-                  *quant_rows(wo.to(x.dtype).contiguous(), weight=True), bo,
+    out = gemm_i8(*quant_rows(ctx), *weight_codes((wo,), x.dtype), bo,
                   I8_EPI_BIAS_RESID, x.dtype, resid=x)
     if ln_position == "epilogue":
         layernorm_(out, ln_w, ln_b, ln_eps)

@@ -16,7 +16,10 @@ At BERT-base T = 512 (hidden 768, MLP 3072, 96-wide ladders, 12 heads):
 fp32 + int8 attention does not fit (float attention), bf16 + int8 does;
 the int8 MLP takes 2 tiles in fp32 and bf16, the float fp32 MLP 4; the
 ladder op and the int8 head fit.  At ViT-B T = 197 everything fits but
-the float fp32 MLP (2 tiles).
+the float fp32 MLP (2 tiles).  At ViT-B@384 (T = 577) and ViT-L (T =
+197) the ladder op fits but the fused int8 trunk-MLP + ladder step (K2)
+does not (`mlp_ladder_fits`): the LTT ViT then runs the int8 trunk MLP as
+its own op, split into int8 tiles where its gate says so.
 """
 
 from __future__ import annotations
@@ -68,15 +71,37 @@ def mlp_block_tiles(t: int, h: int, inter: int, dtype: torch.dtype,
     return None
 
 
+def _score_stack_ok(t: int, n_heads: int) -> bool:
+    """`ladder_block.py:_score_stack_ok`: the cap on the stacked <n_heads *
+    T, T> fp32 scores."""
+    return n_heads * t * t * 4 <= 16 * 1024 * 1024
+
+
+def _ladder_weight_bytes(hidden: int, s_hidden: int, n_branches: int) -> int:
+    return n_branches * 2 * (hidden * s_hidden + 4 * s_hidden * s_hidden
+                             + 2 * s_hidden * 4 * s_hidden)
+
+
 def ladder_block_fits(hidden: int, t: int, s_hidden: int, n_heads: int,
                       n_branches: int) -> bool:
-    """`ladder_block.py:ladder_fits_vmem` with `_score_stack_ok`: False
-    sends the BERT encoder's ladder step to per-branch side layers."""
-    weights = n_branches * 2 * (hidden * s_hidden + 4 * s_hidden * s_hidden
-                                + 2 * s_hidden * 4 * s_hidden)
+    """`ladder_block.py:ladder_fits_vmem`: False sends the encoders' ladder
+    step to per-branch side layers."""
     acts = t * hidden * (2 + 4) + n_branches * 4 * t * s_hidden * 4
-    return (weights + acts < VMEM_BUDGET_BYTES
-            and n_heads * t * t * 4 <= 16 * 1024 * 1024)
+    return (_ladder_weight_bytes(hidden, s_hidden, n_branches) + acts
+            < VMEM_BUDGET_BYTES and _score_stack_ok(t, n_heads))
+
+
+def mlp_ladder_fits(hidden: int, inter: int, t: int, s_hidden: int,
+                    n_branches: int, n_heads: int = 12) -> bool:
+    """`ladder_block.py:mlp_ladder_fits_vmem`: False keeps the LTT ViT's int8
+    trunk MLP out of the fused trunk-MLP + ladder step (K2); the trunk MLP
+    then runs as the int8 MLP op (whose own split may apply) and the
+    ladder as its own op."""
+    weights = 2 * hidden * inter + _ladder_weight_bytes(hidden, s_hidden,
+                                                        n_branches)
+    acts = (t * inter * (4 + 4 + 1) + 4 * t * hidden * 2 + t * hidden * 4
+            + n_branches * 4 * t * s_hidden * 4 + t * t * 4)
+    return weights + acts < VMEM_BUDGET_BYTES and _score_stack_ok(t, n_heads)
 
 
 def _head_chunks(inter: int) -> int:

@@ -12,9 +12,10 @@ prologue, the int8 GEMM with a GELU epilogue writing the fp32 <M, 3072>
 intermediate, the row quantizer, the int8 GEMM with a GELU + cast
 epilogue (`csrc/int8.cu`), and the port's float GEMM for d3
 (`csrc/gemm.cu`).  The d1 and d2 weights are quantized from the live
-weights at each call, without a cast (as the JAX op); d3's weight is cast
-to the activation dtype.  What bounds it: the 3072x3072 d2 product and
-the fp32 intermediate's round trip through device memory.
+weights without a cast (as the JAX op), once per weight version
+(`ops/weight_codes.py`); d3's weight is cast to the activation dtype.
+What bounds it: the 3072x3072 d2 product and the fp32 intermediate's
+round trip through device memory.
 
 `explainer_head_block` takes the plain version for CPU tensors and the
 kernel for CUDA tensors; there is no other switch.
@@ -32,6 +33,7 @@ from ..kernels.primitives import (EPI_BIAS, I8_EPI_GELU, I8_EPI_GELU_F32,
                                   dispatch, gemm, gemm_i8, quant_rows)
 from ..models.common import dense, gelu, layer_norm
 from .mlp_block import _quant_rows, int8_linear, quant_cols
+from .weight_codes import weight_codes
 
 COUNTER = LaunchCounter("head_block")
 
@@ -65,10 +67,9 @@ def head_int8_launch(x, w1, b1, w2, b2, w3, b3, ln_w, ln_b, *, has_ln: bool,
     b_sz, t, h_in = x.shape
     x2 = x.contiguous().reshape(b_sz * t, h_in)
     h = gemm_i8(*quant_rows(x2, ln=(ln_w, ln_b, ln_eps) if has_ln else None),
-                *quant_rows(w1.contiguous(), weight=True), b1,
-                I8_EPI_GELU_F32, x.dtype)
-    h2 = gemm_i8(*quant_rows(h), *quant_rows(w2.contiguous(), weight=True),
-                 b2, I8_EPI_GELU, x.dtype)
+                *weight_codes((w1,), w1.dtype), b1, I8_EPI_GELU_F32, x.dtype)
+    h2 = gemm_i8(*quant_rows(h), *weight_codes((w2,), w2.dtype), b2,
+                 I8_EPI_GELU, x.dtype)
     out = gemm(h2, w3.to(x.dtype).contiguous(), b3, EPI_BIAS)
     return out.reshape(b_sz, t, -1)
 

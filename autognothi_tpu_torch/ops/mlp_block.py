@@ -13,14 +13,15 @@ core issue.
 
 quant="int8" is the W8A8 serving block instead, replacing
 `_pallas_mlp_block_q` (body `_kernel_q`, K4): LN -> per-token int8 codes
--> int8 W1 (per-output-channel codes of the live weights, quantized at
-each call) -> bias + GELU in fp32 -> re-quantized per token -> int8 W2 ->
-bias -> cast -> + resid.  On the H100: the row quantizer with the LN
-prologue, the int8 GEMM with a GELU epilogue writing the fp32
-intermediate, the row quantizer again and the int8 GEMM with the residual
-epilogue (`csrc/int8.cu`).  This module also holds the two quantizers of
-the JAX package (`quant_cols`, `_quant_rows`) and the exact int8 product
-the plain versions share.
+-> int8 W1 (per-output-channel codes of the live weights) -> bias + GELU
+in fp32 -> re-quantized per token -> int8 W2 -> bias -> cast -> + resid.
+On the H100: the row quantizer with the LN prologue, the int8 GEMM with a
+GELU epilogue writing the fp32 intermediate, the row quantizer again and
+the int8 GEMM with the residual epilogue (`csrc/int8.cu`: TMA + wgmma).
+The weight codes are made once per weight version (`ops/weight_codes.py`).
+This module also holds the two quantizers of the JAX package
+(`quant_cols`, `_quant_rows`) and the exact int8 product the plain
+versions share.
 
 Where the whole block does not fit the JAX package's on-chip budget
 (`ops/gates.py:mlp_block_tiles`: BERT-base at T = 512, ViT-L), the JAX op
@@ -32,13 +33,14 @@ quantizes x per token, its W1 rows per output channel, re-quantizes its
 own <M, tile> intermediate per token, quantizes its W2 column slice per
 output row of that slice, and adds cast(acc2 * is * s2 + b2_k) to the
 residual in the activation dtype (b2 only on the last tile); the LNs come
-before and after the chain.  On the H100 a tile is the row quantizer (x,
-the W1 rows, the intermediate, and the strided W2 column slice read in
-place through its row stride) and two int8 GEMMs with the GELU and the
-residual epilogues (`csrc/int8.cu`); each tile is one counted launch, as
-each is one `pallas_call` in JAX.  What bounds it: the fp32 <M, tile>
-intermediate's round trip through device memory and the per-tile weight
-quantization.
+before and after the chain.  On the H100 a tile is the row quantizer (x
+and the intermediate) and two int8 GEMMs with the GELU and the residual
+epilogues (`csrc/int8.cu`); the codes of the tile's W1 rows and of its W2
+column slice (quantized in place through its row stride) are made once
+per weight version (`ops/weight_codes.py`).  Each tile is one counted
+launch, as each is one `pallas_call` in JAX.  What bounds it: the fp32
+<M, tile> intermediate's round trip through device memory and the
+per-tile quantizers of x and the intermediate.
 
 The float split (K8, `_pallas_mlp_sepx`, body `_kernel_sepx`) is another
 function only in bf16: each JAX tile rounds its own W2_k GELU(W1_k x +
@@ -68,6 +70,7 @@ from ..kernels.primitives import (EPI_BIAS_GELU, EPI_BIAS_RESID,
 from ..models.common import dense, gelu, layer_norm
 from . import gates
 from .attention_block import LN_POSITIONS
+from .weight_codes import weight_codes
 
 COUNTER = LaunchCounter("mlp_block")
 COUNTER_INT8 = LaunchCounter("mlp_block_int8")
@@ -171,12 +174,10 @@ def mlp_block_int8_launch(resid, w1, b1, w2, b2, ln_w, ln_b, *,
     b_sz, t, h = resid.shape
     x = resid.contiguous().reshape(b_sz * t, h)
     ln = (ln_w, ln_b, ln_eps) if ln_position == "prologue" else None
-    inter = gemm_i8(*quant_rows(x, ln=ln),
-                    *quant_rows(w1.to(x.dtype).contiguous(), weight=True),
+    inter = gemm_i8(*quant_rows(x, ln=ln), *weight_codes((w1,), x.dtype),
                     b1, I8_EPI_GELU_F32, x.dtype)
-    out = gemm_i8(*quant_rows(inter),
-                  *quant_rows(w2.to(x.dtype).contiguous(), weight=True),
-                  b2, I8_EPI_BIAS_RESID, x.dtype, resid=x)
+    out = gemm_i8(*quant_rows(inter), *weight_codes((w2,), x.dtype), b2,
+                  I8_EPI_BIAS_RESID, x.dtype, resid=x)
     if ln_position == "epilogue":
         layernorm_(out, ln_w, ln_b, ln_eps)
     return out.reshape(b_sz, t, h)
@@ -244,13 +245,13 @@ def mlp_tile_int8_plain(x, resid, w1, b1, w2, b2) -> torch.Tensor:
 
 def mlp_tile_int8_launch(x, resid, w1, b1, w2, b2) -> torch.Tensor:
     """The CUDA version of one K8q tile (launches only; no counting, no
-    autograd).  The W2 column slice is quantized in place through its row
-    stride."""
+    autograd).  The tile's weight codes are made once per weight version,
+    the W2 column slice quantized in place through its row stride."""
     b_sz, t, h = resid.shape
     inter = gemm_i8(*quant_rows(x.contiguous().reshape(b_sz * t, h)),
-                    *quant_rows(w1.contiguous(), weight=True), b1,
-                    I8_EPI_GELU_F32, x.dtype)
-    out = gemm_i8(*quant_rows(inter), *quant_rows(w2, weight=True), b2,
+                    *weight_codes((w1,), w1.dtype), b1, I8_EPI_GELU_F32,
+                    x.dtype)
+    out = gemm_i8(*quant_rows(inter), *weight_codes((w2,), w2.dtype), b2,
                   I8_EPI_BIAS_RESID, x.dtype,
                   resid=resid.contiguous().reshape(b_sz * t, h))
     return out.reshape(b_sz, t, h)

@@ -8,7 +8,7 @@ Phases, each printing its own lines:
   1. device: the card's name and power limit; build the CUDA kernels from
      `autognothi_tpu_torch/csrc/` and report the build time and the
      registers, shared memory and spills (`-Xptxas -v`) of the tensor-core
-     GEMM and attention core;
+     GEMM, the attention core and the int8 wgmma GEMM;
   2. kernel vs plain: every kernel op at the LTT ViT-B/16@224 shapes (B=4,
      T=197) in fp32 and bf16, with an all-ones and a random 0/1 mask,
      against its plain PyTorch version on the same card.  fp32 path: the
@@ -79,7 +79,14 @@ Phases, each printing its own lines:
      numerics allow, fp32 products at the 3xTF32 rate, whichever is
      larger) and, for the masked attention op
      in "add" mode, `F.scaled_dot_product_attention` on the same inputs
-     (timed only; the port never calls it).
+     (timed only; the port never calls it); the int8 GEMM (TMA + wgmma)
+     alone beside `torch._int_mm` at K1's and K2's four products (Q|K|V
+     2304x768, out 768x768, W1 3072x768, W2 768x3072) at M = 12608 (ViT
+     B=64) and M = 50432 (the train step's teacher), CUDA events and
+     profiler device time, beside the bound, the bias and residual
+     epilogues held bit-identical to the same steps on `torch._int_mm`'s
+     sum; every profile line gives the int8 GEMMs' and the quantizer's
+     share of the kernel time.
 
 Any failure raises, exits non-zero and prints no result.  The last three
 lines are the card, the kernel table (JSON) and the status line (JSON).
@@ -672,7 +679,8 @@ def phase_device() -> None:
     print(f"[build] kernels from {build.CSRC.relative_to(REPO)} for sm_90a: "
           f"{how}, build+load {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in build.sources())})", flush=True)
-    for line in ptxas_summary(log, ("gemm_tc_kernel", "attention_tc_kernel")):
+    for line in ptxas_summary(log, ("gemm_tc_kernel", "attention_tc_kernel",
+                                    "gemm_i8_wgmma_kernel")):
         print(f"[build] {line}", flush=True)
 
 
@@ -989,6 +997,122 @@ def phase_bert_timing(dev, card: str, service) -> tuple:
     return per_op, path_calls
 
 
+# The int8 GEMM alone (K1's and K2's products) at the ViT B=64 trunk (M =
+# 12608 tokens) and the train step's teacher sweep (M = 50432), (N, K,
+# the epilogue the path runs): K1's Q|K|V and out-projection, K2's W1 and W2
+I8_GEMM_M = (B_TIME * T, 4 * B_TIME * T)
+I8_GEMM_PRODUCTS = (("K1 qkv", 2304, 768, "bias"),
+                    ("K1 out", 768, 768, "resid"),
+                    ("K2 w1", 3072, 768, "gelu_f32"),
+                    ("K2 w2", 768, 3072, "resid"))
+
+
+def device_time(fn, reps: int, tries: int = 3) -> float:
+    """Milliseconds of device time per call: the profiler's device-side
+    events of `reps` calls after one warmup call.  Now and then the
+    profiler hands back a window with device events missing; such a window
+    is profiled again, and `tries` of them raise."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        # every call launches the same kernels: a count that is not a
+        # whole multiple of the calls means events were lost
+        if kernels and len(kernels) % reps == 0:
+            return sum(e.time_range.elapsed_us()
+                       for e in kernels) / 1e3 / reps
+    raise RuntimeError(f"the profiler lost device events in {tries} "
+                       f"windows")
+
+
+def i8_gemm_case(dev, g, m: int, n: int, k: int, epi: str):
+    """Inputs of one int8 GEMM case (fp32 activations) -> (the kernel's
+    call, its epilogue in torch on `torch._int_mm`'s int32 sum, the
+    library call, the bound in ms, what bounds it)."""
+    import torch
+
+    from autognothi_tpu_torch.kernels import primitives as kp
+
+    a = torch.randint(-127, 128, (m, k), generator=g,
+                      dtype=torch.int8).to(dev)
+    w = torch.randint(-127, 128, (n, k), generator=g,
+                      dtype=torch.int8).to(dev)
+    sa = (torch.rand(m, generator=g) * 1e-2).to(dev)
+    sw = (torch.rand(n, generator=g) * 1e-3).to(dev)
+    bias = torch.randn(n, generator=g).to(dev)
+    resid = torch.randn(m, n, generator=g).to(dev) if epi == "resid" \
+        else None
+    code = {"bias": kp.I8_EPI_BIAS, "resid": kp.I8_EPI_BIAS_RESID,
+            "gelu_f32": kp.I8_EPI_GELU_F32}[epi]
+
+    def kernel():
+        return kp.gemm_i8(a, sa, w, sw, bias, code, torch.float32,
+                          resid=resid)
+
+    def reference():
+        v = (torch._int_mm(a, w.T).float() * sa[:, None]) * sw + bias
+        if epi == "gelu_f32":
+            return torch.nn.functional.gelu(v)
+        return v if resid is None else resid + v
+
+    moved = _nbytes(a, w, sa, sw, bias) + m * n * 4 * (1 if resid is None
+                                                       else 2)
+    t_ops, t_bytes = 2.0 * m * n * k / PEAK["int8"], moved / HBM_BYTES_PER_S
+    return (kernel, reference, lambda: torch._int_mm(a, w.T),
+            max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_int8_gemm(dev, card: str) -> None:
+    """The int8 GEMM (TMA + wgmma) beside `torch._int_mm` (the one PyTorch
+    call that computes the int32 product; timed only, never on the path)
+    at K1's and K2's products, CUDA events and profiler device time each,
+    beside the bound; the bias and residual epilogues held bit-identical
+    to the same steps in torch on `torch._int_mm`'s sum."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED + 3)
+    for m in I8_GEMM_M:
+        for label, n, k, epi in I8_GEMM_PRODUCTS:
+            kernel, reference, library, bound_ms, bound_by = i8_gemm_case(
+                dev, g, m, n, k, epi)
+            got, want = kernel(), reference()
+            if epi == "gelu_f32":
+                err = (got - want).abs().max().item()
+                ok = err <= TOL["float32"] * max(
+                    1.0, want.abs().max().item())
+                how = f"max|kernel - torch| = {err:.3e}"
+            else:
+                ok = torch.equal(got, want)
+                how = "bit-identical to torch" if ok else "DIFFERS"
+            ms = {which: (cuda_time(fn, reps=10), device_time(fn, reps=10))
+                  for which, fn in (("kernel", kernel),
+                                    ("_int_mm", library))}
+            tops = 2.0 * m * n * k / 1e9
+            print(f"[int8-gemm] {label:6s} <{m},{k}> x <{n},{k}>^T {epi:8s}"
+                  f": kernel {ms['kernel'][0]:.4f} ms (device "
+                  f"{ms['kernel'][1]:.4f}, {tops / ms['kernel'][1]:.1f} "
+                  f"TOP/s), torch._int_mm {ms['_int_mm'][0]:.4f} ms "
+                  f"(device {ms['_int_mm'][1]:.4f}, "
+                  f"{tops / ms['_int_mm'][1]:.1f} TOP/s), bound "
+                  f"{bound_ms:.4f} ms ({bound_by}); {how} | {card}",
+                  flush=True)
+            check(ok, f"int8 GEMM {label} M={m}: kernel disagrees with the "
+                      f"epilogue on torch._int_mm's sum")
+            del kernel, reference, library, got, want
+    torch.cuda.empty_cache()
+
+
 def phase_yardsticks(dev, card: str) -> None:
     """The float GEMM (K7's product) beside `torch.matmul` (fp32 with TF32
     off, and bf16) at K7's two products of the ViT B=64 and BERT B=8
@@ -1277,6 +1401,17 @@ def device_kernels(prof) -> dict:
     return out
 
 
+def int8_share(kernels: dict) -> str:
+    """The int8 GEMM's and the row quantizer's device time and share of a
+    profiled window's kernel time."""
+    total = sum(kernels.values()) or 1.0
+    parts = []
+    for what, key in (("int8 GEMMs", "gemm_i8"), ("quantizer", "quant_rows")):
+        ms = sum(v for k, v in kernels.items() if key in k)
+        parts.append(f"{what} {ms:.2f} ms ({ms / total * 100:.1f}%)")
+    return ", ".join(parts)
+
+
 def profile_forward(label: str, fw, card: str) -> None:
     """One profiled call of a warm forward: device time by kernel and the
     device's idle share of the wall time (the profiler lengthens it)."""
@@ -1295,7 +1430,8 @@ def profile_forward(label: str, fw, card: str) -> None:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     print(f"[profile] {label}: device time {kernel_ms:.2f} ms of {wall:.2f} "
           f"ms wall (device idle {max(0.0, 1 - kernel_ms / wall) * 100:.1f}%)"
-          "; top: " + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top)
+          f"; {int8_share(kernels)}; top: "
+          + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top)
           + f" | {card}", flush=True)
 
 
@@ -1359,7 +1495,8 @@ def phase_train_timing(case: TrainCase, card: str) -> None:
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
         print(f"[train-time] pallas={pallas} kernels profiled step: device "
               f"time {kernel_ms:.2f} ms of {wall:.2f} ms wall (device idle "
-              f"{max(0.0, 1 - kernel_ms / wall) * 100:.1f}%); top: "
+              f"{max(0.0, 1 - kernel_ms / wall) * 100:.1f}%); "
+              f"{int8_share(kernels)}; top: "
               + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top)
               + f" | {card}", flush=True)
 
@@ -1547,6 +1684,7 @@ def main() -> int:
         for k, v in bert_calls.items():
             launches[k] += v
         phase_yardsticks(dev, card)
+        phase_int8_gemm(dev, card)
         phase_train_timing(case, card)
 
     # fp32's worst error; the bf16-only float chain its bf16 worst

@@ -2,9 +2,11 @@
 """Times every kernel op of `chip_smoke.py`'s timing phase (`op_cases` at
 the LTT ViT-B/16@224 shapes, B=64, and `bert_op_cases` at the LTT
 BERT-base@512 shapes, B=8; fp32 and bf16) and the float GEMM alone at
-K7's two products of both models (beside `torch.matmul`) on one NVIDIA
-GPU, for the `autognothi_tpu_torch` and `chip_smoke.py` of the checkout
-named, so two checkouts can be compared on one card, in turns:
+K7's two products of both models (beside `torch.matmul`) and the int8
+GEMM alone at K1's and K2's four products at M = 12608 and 50432 (beside
+`torch._int_mm`: `int_mm_device_ms`) on one NVIDIA GPU, for the
+`autognothi_tpu_torch` and `chip_smoke.py` of the checkout named, so two
+checkouts can be compared on one card, in turns:
 
     python3 kernel_ab.py A <checkout A>
     python3 kernel_ab.py B <checkout B>
@@ -29,23 +31,35 @@ import pathlib
 import sys
 
 REPS = 20
+# K1's and K2's int8 products: (label, N, K, the epilogue the path runs)
+I8_PRODUCTS = (("K1 qkv", 2304, 768, 0), ("K1 out", 768, 768, 1),
+               ("K2 W1 GELU", 3072, 768, 2), ("K2 W2", 768, 3072, 1))
 
 
-def device_ms(fn) -> float:
+def device_ms(fn, tries: int = 3) -> float:
     """Device time of the kernels of REPS calls of `fn`, per call, from
-    the profiler's device-side events."""
+    the profiler's device-side events (a window the profiler hands back
+    with events missing is profiled again; `tries` of them raise)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / REPS
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        # every call launches the same kernels: a count that is not a
+        # whole multiple of the calls means events were lost
+        if kernels and len(kernels) % REPS == 0:
+            return sum(e.time_range.elapsed_us()
+                       for e in kernels) / 1e3 / REPS
+    raise RuntimeError(f"the profiler lost device events in {tries} "
+                       f"windows")
 
 
 def main() -> int:
@@ -90,10 +104,44 @@ def main() -> int:
                               lambda a=a, w=w, b=bias: kp.gemm(
                                   a, w, b, kp.EPI_BIAS),
                               lambda a=a, w=w: torch.matmul(a, w.T)))
+    # the int8 GEMM alone at K1's and K2's products (ViT B=64 and the train
+    # step's teacher, M = 12608 and 50432), fp32 epilogues as on the path,
+    # beside torch._int_mm (the int32 product alone); checked against the
+    # same epilogue steps in torch on _int_mm's sum (exact for the bias and
+    # residual epilogues, the float tolerance for GELU)
+    library = {}
+    for m in (smoke.B_TIME * smoke.T, 4 * smoke.B_TIME * smoke.T):
+        for product, n, k, epi in I8_PRODUCTS:
+            a = torch.randint(-127, 128, (m, k), generator=g,
+                              dtype=torch.int8).to(dev)
+            w = torch.randint(-127, 128, (n, k), generator=g,
+                              dtype=torch.int8).to(dev)
+            sa = (torch.rand(m, generator=g) * 1e-2).to(dev)
+            sw = (torch.rand(n, generator=g) * 1e-3).to(dev)
+            bias = torch.randn(n, generator=g).to(dev)
+            resid = (torch.randn(m, n, generator=g).to(dev)
+                     if epi == kp.I8_EPI_BIAS_RESID else None)
+
+            def ref(a=a, w=w, sa=sa, sw=sw, bias=bias, resid=resid,
+                    epi=epi):
+                v = (torch._int_mm(a, w.T).float() * sa[:, None]) * sw + bias
+                if epi == kp.I8_EPI_GELU_F32:
+                    return torch.nn.functional.gelu(v)
+                return v if resid is None else resid + v
+
+            shape = f"{product} <{m},{k}>x<{n},{k}>^T"
+            cases.append(("gemm_i8", shape, torch.float32,
+                          lambda a=a, w=w, sa=sa, sw=sw, bias=bias,
+                          resid=resid, epi=epi: kp.gemm_i8(
+                              a, sa, w, sw, bias, epi, torch.float32,
+                              resid=resid), ref))
+            library[shape] = lambda a=a, w=w: torch._int_mm(a, w.T)
     for op, shape, dtype, kern, plain in cases:
         with torch.inference_mode():
             err, ok, msg = smoke.compare(kern(), plain(), dtype,
                                          op in smoke.INT8_OPS)
+            if op == "gemm_i8" and "GELU" not in shape:
+                ok = err == 0.0
             if not ok:
                 raise RuntimeError(f"{op} {shape} {dtype}: {msg}")
             torch.cuda.synchronize()
@@ -105,10 +153,13 @@ def main() -> int:
             end.record()
             torch.cuda.synchronize()
             dev_ms = device_ms(kern)
+            extra = {}
+            if shape in library:
+                extra = dict(int_mm_device_ms=device_ms(library[shape]))
         print(json.dumps(dict(label=label, op=op, shape=shape,
                               dtype=str(dtype).split(".")[-1],
                               ms=start.elapsed_time(end) / REPS,
-                              device_ms=dev_ms, err=err)),
+                              device_ms=dev_ms, err=err, **extra)),
               flush=True)
     return 0
 

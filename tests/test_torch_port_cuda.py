@@ -723,3 +723,127 @@ def test_bf16_float_chain_at_bert_base(dev, budget, monkeypatch):
                                             ln_position=position)
         _close(got, mb.mlp_block_tiled_plain(*tensors, n_tiles=n_tiles,
                                              **static), dtype)
+
+
+# ------------------------------------- the TMA + wgmma int8 GEMM (K1-K4)
+
+
+def _int32_sum(a, w):
+    """The exact int32 product: `torch._int_mm` where its shape rules allow
+    (more than 16 rows), else float64, which holds every partial sum here
+    (|acc| <= 127^2 K < 2^53)."""
+    if a.shape[0] > 16:
+        return torch._int_mm(a, w.T)
+    return (a.double() @ w.double().T).to(torch.int32)
+
+
+@pytest.mark.parametrize("k", [96, 384, 768, 3072])
+@pytest.mark.parametrize("n", [96, 384, 768, 2304, 3072])
+@pytest.mark.parametrize("m", [1, 63, 64, 197, 4097, 12608])
+def test_gemm_i8_wgmma_grid(dev, m, n, k):
+    """Every (M, N, K) of the main paths' int8 products and their edges
+    (a partial row tile, one row, both tile widths), every epilogue, fp32
+    and bf16.  The bias and residual epilogues are bit-identical to the
+    same epilogue steps in torch on `torch._int_mm`'s int32 sum (each
+    multiply and add rounded on its own, as the kernel's _rn intrinsics);
+    the GELU epilogues within `_close_int8` (erf's last bits)."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+
+    g = torch.Generator().manual_seed(19)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    a[0], w[0] = 127, 127  # |acc| past 2^24 at K = 3072
+    a, w = a.to(dev), w.to(dev)
+    sa, sw = _rand(g, dev, m).abs() * 1e-2, _rand(g, dev, n).abs() * 1e-3
+    bias = _rand(g, dev, n)
+    v = (_int32_sum(a, w).float() * sa[:, None]) * sw + bias
+    for dtype in (torch.float32, torch.bfloat16):
+        resid = _rand(g, dev, m, n).to(dtype)
+        got = kp.gemm_i8(a, sa, w, sw, bias, kp.I8_EPI_BIAS, dtype)
+        assert torch.equal(got, v.to(dtype)), (m, n, k, dtype)
+        got = kp.gemm_i8(a, sa, w, sw, bias, kp.I8_EPI_BIAS_RESID, dtype,
+                         resid=resid)
+        want = (resid.float() + v.to(dtype).float()).to(dtype)
+        assert torch.equal(got, want), (m, n, k, dtype)
+        gelu = torch.nn.functional.gelu(v)
+        got = kp.gemm_i8(a, sa, w, sw, bias, kp.I8_EPI_GELU_F32, dtype)
+        assert got.dtype == torch.float32
+        _close_int8(got, gelu, torch.float32)
+        got = kp.gemm_i8(a, sa, w, sw, bias, kp.I8_EPI_GELU, dtype)
+        _close_int8(got, gelu.to(dtype), dtype)
+
+
+def _launched(fn):
+    """Kernel names of the device launches of one call of `fn`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def _weight_quantizers(names):
+    # quant_rows_kernel<T, LN = false, WEIGHT = true>, demangled or not
+    return sum("quant_rows_kernel" in s and ("false, true>" in s
+                                             or "Lb0ELb1E" in s)
+               for s in names)
+
+
+def test_int8_blocks_quantize_weights_once_per_version(dev):
+    """After its first call a K1 call launches no weight quantizer and no
+    concatenation, and neither does K4's trunk MLP (K2's) nor a K8q chain
+    (whose weight slices are new views at each call); an in-place
+    update of a weight (an optimizer step, `copy_`) makes the next call
+    quantize that weight again, and the result follows the new weight."""
+    from autognothi_tpu_torch.ops import attention_block as ab
+    from autognothi_tpu_torch.ops import mlp_block as mb
+
+    g = torch.Generator().manual_seed(20)
+    b, t, h, inter = 2, 37, 64, 256
+    resid = _rand(g, dev, b, t, h)
+    ws = tuple(_rand(g, dev, *s, scale=0.1) for s in [(h, h), (h,)] * 4)
+    ln = (1 + _rand(g, dev, h, scale=0.1), _rand(g, dev, h, scale=0.1), 1e-12)
+    mask = _mask(g, dev, b, t, True)
+    w1, b1 = _rand(g, dev, inter, h, scale=0.1), _rand(g, dev, inter)
+    w2, b2 = _rand(g, dev, h, inter, scale=0.05), _rand(g, dev, h)
+
+    def k1():
+        return ab.attention_block(resid, mask, ws, 4, "mul", ln=ln,
+                                  ln_position="prologue", quant="int8")
+
+    def k4():
+        return mb.mlp_block(resid, w1, b1, w2, b2, ln=ln,
+                            ln_position="prologue", quant="int8")
+
+    def k8q():  # two tiles: slices of w1 and w2, new views at each call
+        return mb.mlp_block_int8_tiled(resid, w1, b1, w2, b2, ln=ln,
+                                       ln_position="prologue", n_tiles=2)
+
+    def plain_k1():
+        return ab.attention_block_int8_plain(
+            resid, mask, *ws, ln[0], ln[1], n_heads=4, mode="mul",
+            ln_position="prologue", ln_eps=1e-12)
+
+    for op, activations in ((k1, 2), (k4, 2), (k8q, 4)):
+        op()  # warmup: the codes are made here
+        names = _launched(op)
+        assert _weight_quantizers(names) == 0, names
+        assert not any("cat" in s.lower() for s in names), names
+        assert sum("quant_rows_kernel" in s for s in names) == activations
+    with torch.no_grad():
+        ws[0].add_(0.05)       # wq: an optimizer-style step
+        ws[6].copy_(ws[6] * -1)  # wo: a checkpoint loaded in place
+        w2.mul_(2)
+    names = _launched(k1)
+    assert _weight_quantizers(names) == 2, names  # Q|K|V once, wo once
+    assert _weight_quantizers(_launched(k1)) == 0
+    _close_int8(k1(), plain_k1(), torch.float32)
+    assert _weight_quantizers(_launched(k4)) == 1
+    _close_int8(k4(), mb.mlp_block_int8_plain(
+        resid, w1, b1, w2, b2, ln[0], ln[1], ln_position="prologue",
+        ln_eps=1e-12), torch.float32)

@@ -220,6 +220,8 @@ def test_port_reads_no_environment_switch():
     # reads are the JAX package's own switches, each picking the arithmetic
     # or a training option on either device: AUTOGNOTHI_PALLAS (fused ops,
     # masked attention op or plain math), AUTOGNOTHI_INT8 (W8A8 or not),
+    # AUTOGNOTHI_FUSED_MIN_HIDDEN (layers and ladders narrower than it run
+    # the unfused, unquantized math instead of the fused ops),
     # AUTOGNOTHI_INT8_TEACHER, AUTOGNOTHI_COMPUTE_DTYPE, AUTOGNOTHI_CKPT_OPT,
     # and AUTOGNOTHI_PP / AUTOGNOTHI_PP_TP, which only refuse (not ported)
     import re
@@ -230,7 +232,8 @@ def test_port_reads_no_environment_switch():
              for p in src if "os.environ" in p.read_text()}
     assert reads == {
         "autognothi_tpu_torch/models/common.py":
-            ["AUTOGNOTHI_INT8", "AUTOGNOTHI_PALLAS"],
+            ["AUTOGNOTHI_FUSED_MIN_HIDDEN", "AUTOGNOTHI_INT8",
+             "AUTOGNOTHI_PALLAS"],
         "autognothi_tpu_torch/parallel/train_step.py":
             ["AUTOGNOTHI_INT8_TEACHER"],
         "autognothi_tpu_torch/pipeline/resources.py":
@@ -244,4 +247,4 @@ def test_port_reads_no_environment_switch():
     assert '("AUTOGNOTHI_PP", "AUTOGNOTHI_PP_TP")' in src
     total = sum(p.read_text().count("os.environ")
                 for p in (REPO / "autognothi_tpu_torch").rglob("*.py"))
-    assert total == 6
+    assert total == 7
