@@ -1,10 +1,10 @@
 // Masked multi-head attention core on the tensor cores, the one attention
 // kernel of the port:
-// - inside the fused attention and ladder blocks (the in-kernel attention
-//   of autognothi_tpu/ops/attention_block.py:_kernel, `_heads_attention`
-//   (K6, K1), of autognothi_tpu/ops/ladder_block.py:_kernel, `_branch_math`
-//   (K5, K2)), reading the packed Q/K/V projections <B*T, 3H> that the GEMM
-//   wrote and writing the head-merged context <B*T, H>;
+// - inside the fused attention blocks (the in-kernel attention of
+//   autognothi_tpu/ops/attention_block.py:_kernel, `_heads_attention`, K6
+//   and K1), reading the packed Q/K/V projections <B*T, 3H> that the GEMM
+//   wrote and writing the head-merged context <B*T, H> (the ladder's side
+//   attention, K5 and K2, has its own kernel in `ladder.cu`);
 // - standalone, as the split-head masked attention of
 //   autognothi_tpu/ops/flash_attention.py:_masked_attention_impl (K9) on
 //   <N, h, T, D>, and once per branch as the ladder attention of
@@ -84,21 +84,11 @@ __host__ __device__ constexpr long long att_smem_bytes() {
          2LL * kAttKC * (long long)sizeof(float);
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-template <typename T, bool MUL, int D>
+template <typename T, bool MUL, int D, bool MBF16>
 __global__ void __launch_bounds__(kAttWarps * 32)
     attention_tc_kernel(const T* __restrict__ qp, const T* __restrict__ kp,
                         const T* __restrict__ vp,
-                        const float* __restrict__ mask, T* __restrict__ op,
+                        const void* __restrict__ mask, T* __restrict__ op,
                         HeadViews views, int Tn) {
   constexpr bool F32 = sizeof(T) == 4;
   constexpr bool TWO_PASS = !F32;  // bf16: the JAX rounding point of p
@@ -123,7 +113,7 @@ __global__ void __launch_bounds__(kAttWarps * 32)
   const T* vb = vp + b * views.sb[2] + head * views.sh[2];
   T* ob = op + b * views.sb[3] + head * views.sh[3];
   const long long kst = views.st[1], vst = views.st[2];
-  const float* mrow = mask + (size_t)b * Tn;
+  const size_t m0 = (size_t)b * Tn;  // the image's first mask value
   const float scale = 1.0f / sqrtf((float)D);
   const int r0 = blockIdx.x * kAttQT + warp * 16;  // the warp's first row
   const int nc = (Tn + kAttKC - 1) / kAttKC;
@@ -147,7 +137,8 @@ __global__ void __launch_bounds__(kAttWarps * 32)
         cp_async16(vs + j * P + c, ok ? vb + (j0 + j) * vst + c : vb, ok);
     }
     cp_async_commit();
-    if (tid < kAttKC) m_next = j0 + tid < Tn ? __ldg(mrow + j0 + tid) : 0.f;
+    if (tid < kAttKC)
+      m_next = j0 + tid < Tn ? mask_at<MBF16>(mask, m0 + j0 + tid) : 0.f;
   };
   load(0, 0);
   if (tid < kAttKC) Ms[tid] = m_next;
@@ -375,16 +366,17 @@ __global__ void __launch_bounds__(kAttWarps * 32)
 
 struct AttnCall {
   const void *q, *k, *v;
-  const float* mask;
+  const void* mask;
+  bool mask_bf16;
   void* out;
   HeadViews views;
   int N, Tn, nh;
   cudaStream_t stream;
 };
 
-template <typename T, bool MUL, int D>
+template <typename T, bool MUL, int D, bool MBF16>
 static int launch_attention(const AttnCall& a) {
-  auto kernel = attention_tc_kernel<T, MUL, D>;
+  auto kernel = attention_tc_kernel<T, MUL, D, MBF16>;
   constexpr int smem = (int)att_smem_bytes<T, D>();
   static bool attr_set = false;  // once per instantiation and process
   if (!attr_set) {
@@ -401,15 +393,24 @@ static int launch_attention(const AttnCall& a) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool MUL>
+template <typename T, bool MUL, bool MBF16>
 static int pick_d(int d, const AttnCall& a) {
   switch (d) {
-    case 8: return launch_attention<T, MUL, 8>(a);
-    case 16: return launch_attention<T, MUL, 16>(a);
-    case 32: return launch_attention<T, MUL, 32>(a);
-    case 64: return launch_attention<T, MUL, 64>(a);
+    case 8: return launch_attention<T, MUL, 8, MBF16>(a);
+    case 16: return launch_attention<T, MUL, 16, MBF16>(a);
+    case 32: return launch_attention<T, MUL, 32, MBF16>(a);
+    case 64: return launch_attention<T, MUL, 64, MBF16>(a);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// the mask's dtype: fp32, or bf16 with bf16 activations
+template <typename T, bool MUL>
+static int pick_mask(int d, const AttnCall& a) {
+  if constexpr (sizeof(T) == 2)
+    if (a.mask_bf16) return pick_d<T, MUL, true>(d, a);
+  if (a.mask_bf16) return (int)cudaErrorInvalidValue;
+  return pick_d<T, MUL, false>(d, a);
 }
 
 }  // namespace ag
@@ -424,18 +425,20 @@ extern "C" int ag_attention_supports(int Tn, int d) {
 // q, k, v, out: <N, nh, Tn, d> views; strides[12] holds the (batch, head,
 // row) element strides of q, k, v and out, in that order.  q, k and v must
 // be 16-byte aligned with strides of whole 16 bytes (cp.async and the
-// 32-bit Q fragment loads).
+// 32-bit Q fragment loads).  mask <N, Tn>: fp32, or bf16 (mask_bf16) with
+// bf16 activations.
 extern "C" int ag_attention(int dtype, int mul, const void* q, const void* k,
                             const void* v, const long long* strides,
-                            const void* mask, void* out, int N, int Tn,
-                            int nh, int d, void* stream) {
+                            const void* mask, int mask_bf16, void* out,
+                            int N, int Tn, int nh, int d, void* stream) {
   if (nh <= 0 || N <= 0 || !ag_attention_supports(Tn, d))
     return (int)cudaErrorInvalidValue;
   AttnCall a;
   a.q = q;
   a.k = k;
   a.v = v;
-  a.mask = static_cast<const float*>(mask);
+  a.mask = mask;
+  a.mask_bf16 = mask_bf16 != 0;
   a.out = out;
   for (int i = 0; i < 4; ++i) {
     a.views.sb[i] = strides[3 * i];
@@ -447,9 +450,9 @@ extern "C" int ag_attention(int dtype, int mul, const void* q, const void* k,
   a.nh = nh;
   a.stream = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return mul ? pick_d<float, true>(d, a) : pick_d<float, false>(d, a);
+    return mul ? pick_mask<float, true>(d, a) : pick_mask<float, false>(d, a);
   if (dtype == kBF16)
-    return mul ? pick_d<__nv_bfloat16, true>(d, a)
-               : pick_d<__nv_bfloat16, false>(d, a);
+    return mul ? pick_mask<__nv_bfloat16, true>(d, a)
+               : pick_mask<__nv_bfloat16, false>(d, a);
   return (int)cudaErrorInvalidValue;
 }

@@ -36,6 +36,18 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
+// element i of an attention mask row held as fp32 or, with bf16
+// activations, as bf16 (BERT's additive bias comes in the activation
+// dtype): read as it is, no copy
+template <bool BF16>
+__device__ __forceinline__ float mask_at(const void* mask, size_t i) {
+  if constexpr (BF16)
+    return __bfloat162float(
+        __ldg(static_cast<const __nv_bfloat16*>(mask) + i));
+  else
+    return __ldg(static_cast<const float*>(mask) + i);
+}
+
 // exact GELU, 0.5 x (1 + erf(x / sqrt(2))), with CUDA's erff
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752440f));
@@ -52,6 +64,18 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// reductions over the 4 lanes of a quad (the lanes holding one row of an
+// mma accumulator)
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // 16 bytes global -> shared, asynchronous; valid = false zero-fills the

@@ -2,12 +2,8 @@
 // plus the LayerNorm row statistics it reads.  K7, the float MLP block
 // (autognothi_tpu/ops/mlp_block.py:_pallas_mlp_block, and the bf16 split
 // chain _pallas_mlp_sepx, K8, one tile per call), runs on it alone; it is
-// also every float product of the other fused blocks:
-//   K6 autognothi_tpu/ops/attention_block.py:_pallas_attention_block:
-//     LN -> Q/K/V projections, and out-proj + bias + residual;
-//   K5 autognothi_tpu/ops/ladder_block.py:_pallas_ladder: the map dense
-//     side + GELU(h Wmap + b), then the 96-wide side layer as above;
-//   K2 and K3 (int8 blocks): their float ladder layers and the head's d3.
+// also K3's float product (the head's d3).  K6's products and K5's side-in
+// product run on `gemm_wgmma.cu`, K5's side layer in `ladder.cu`.
 //
 // C[m, n] = epilogue(sum_k A'[m, k] * W[n, k]) with W in torch (out, in)
 // layout and any row stride (a column slice of a wider weight is read in
@@ -58,8 +54,7 @@
 // next step.
 //
 // Device-memory intermediates of this design (kept on chip by the TPU
-// kernels): the Q/K/V projections, the attention context, the MLP
-// intermediate <M, 4H> and the ladder's mapped side.
+// kernels): the MLP intermediate <M, 4H>.
 
 #include "common.cuh"
 
@@ -68,8 +63,7 @@ namespace ag {
 enum Epi {
   kEpiBias = 0,          // C = cast(acc + b)
   kEpiBiasGelu = 1,      // C = cast(gelu(acc + b))
-  kEpiBiasResid = 2,     // C = R + cast(acc + b)
-  kEpiBiasGeluResid = 3  // C = R + cast(gelu(acc + b))
+  kEpiBiasResid = 2      // C = R + cast(acc + b)
 };
 
 constexpr int kGemmThreads = 256;  // 8 warps: 2 (m) x 4 (n)
@@ -100,7 +94,7 @@ struct GemmArgs {
   const void* W;  // [N, K], row stride ldw
   int ldw;
   const float* bias;
-  const void* R;  // residual (epilogues 2, 3)
+  const void* R;  // residual (epilogue 2)
   int ldr;
   void* C;
   int ldc;
@@ -308,8 +302,8 @@ __global__ void __launch_bounds__(kGemmThreads,
           const int c = col0 + wn * WTN + j * 8 + 2 * t + e;
           if (c >= p.N) continue;
           float v = acc[i][j][2 * h + e] + p.bias[c];
-          if (EPI == kEpiBiasGelu || EPI == kEpiBiasGeluResid) v = gelu_erf(v);
-          if (EPI == kEpiBiasResid || EPI == kEpiBiasGeluResid)
+          if (EPI == kEpiBiasGelu) v = gelu_erf(v);
+          if (EPI == kEpiBiasResid)
             v = to_f(R[(size_t)r * p.ldr + c]) + round_to<T>(v);
           C[(size_t)r * p.ldc + c] = from_f<T>(v);
         }
@@ -355,7 +349,6 @@ static int dispatch_gemm(int epi, const GemmArgs& p, cudaStream_t stream) {
     case kEpiBias: return launch_gemm<T, kEpiBias>(p, stream);
     case kEpiBiasGelu: return launch_gemm<T, kEpiBiasGelu>(p, stream);
     case kEpiBiasResid: return launch_gemm<T, kEpiBiasResid>(p, stream);
-    case kEpiBiasGeluResid: return launch_gemm<T, kEpiBiasGeluResid>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -53,10 +53,10 @@
 // and the fp32 MLP intermediate go to device memory, where the TPU
 // kernels kept them on chip.
 
-#include <cuda.h>  // CUtensorMap and its enums (no libcuda is linked)
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace ag {
 
@@ -149,88 +149,6 @@ struct I8Tile {
   static constexpr int kSmem =
       kStages * (kABytes + kBBytes) + 2 * kStages * 8 + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// arrive once and add `bytes` to the transaction count the phase awaits
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// TMA: the box at (c0 = k byte, c1 = row) of the tensor map into shared
-// memory, completing `bytes` of the barrier's transaction count
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-// wgmma operand descriptor of a K-major tile stored by TMA with the
-// 128-byte swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (the
-// stride byte offset); the leading byte offset is unused for this layout.
-// A k step of 32 bytes inside the row moves the start address.
-__device__ __forceinline__ uint64_t sw128_desc(const void* smem) {
-  return static_cast<uint64_t>((smem_u32(smem) & 0x3FFFF) >> 4) |
-         (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving accumulator registers across the
-// asynchronous products
-template <int N>
-__device__ __forceinline__ void fence_regs(int* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
 
 // D[64 x 192] (+)= A[64 x 32] B[192 x 32]^T, s8 x s8 -> s32, both from
 // shared memory (K-major, 128-byte swizzle); scale_d = 0 overwrites D
@@ -518,49 +436,6 @@ __global__ void __launch_bounds__(kI8Threads, 1)
       epilogue<T, EPI, BN>(p, acc, m0 + wg * 64, n0, vec_ok);
     }
   }
-}
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
-// query: the library links no libcuda.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)f;
-  }
-  return fn;
-}
-
-// The tensor map of an int8 <rows, cols> matrix with row stride ld bytes,
-// read in boxes of box_rows rows x 128 bytes, 128-byte swizzled; boxes past
-// the matrix's edge are zero-filled.
-static bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols,
-                       int ld, int box_rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld};
-  const cuuint32_t box[2] = {(cuuint32_t)kI8BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T, int EPI, int BN>

@@ -17,7 +17,9 @@ import torch
 
 from .build import load
 
-EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESID, EPI_BIAS_GELU_RESID = 0, 1, 2, 3
+_P = ctypes.c_void_p
+
+EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESID = 0, 1, 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -99,7 +101,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: int, *,
     """out <M, N> = epilogue(A' @ w.T + bias); w in torch (out, in) layout.
 
     ln = (mean, rstd, ln_w, ln_b): A' = LN(a) computed while loading a.
-    resid <M, N>: added after the cast (epilogues *_RESID).
+    resid <M, N>: added after the cast (EPI_BIAS_RESID).
     `a`, `w`, `resid` and `out` may be column slices (rows contiguous);
     `a` and `w` are read in 16-byte pieces, so their pointers and row
     strides, and K, must be whole multiples of 16 bytes."""
@@ -127,9 +129,9 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: int, *,
         ln_w32, ln_b32 = _vec32(ln_w, k, "ln weight"), _vec32(ln_b, k, "ln bias")
         keep = (mean, rstd, ln_w32, ln_b32)  # alive across the launch
         ln_ptrs = [t.data_ptr() for t in keep]
-    wants_resid = epi in (EPI_BIAS_RESID, EPI_BIAS_GELU_RESID)
+    wants_resid = epi == EPI_BIAS_RESID
     if wants_resid != (resid is not None):
-        raise ValueError("resid is required exactly by the *_RESID epilogues")
+        raise ValueError("resid is required exactly by EPI_BIAS_RESID")
     ldr, r_ptr = 0, None
     if resid is not None:
         ldr = _rows(resid, "resid")
@@ -210,6 +212,224 @@ def gemm_i8(a: torch.Tensor, a_scale: torch.Tensor, w: torch.Tensor,
     return out
 
 
+# ------------------------------------------- float GEMM on TMA + wgmma
+
+EPI_WG_BIAS, EPI_WG_BIAS_RESID, EPI_WG_GELU_RESID_SPLIT = 0, 1, 2
+WG_MAX_BRANCHES = 4
+
+
+def _tma_operand(t: torch.Tensor, name: str) -> int:
+    """Row stride of a 2-D CUDA operand read by TMA: rows contiguous, the
+    pointer and the row stride whole multiples of 16 bytes."""
+    ld = _rows(t, name)
+    _aligned16(t, name, (ld,))
+    return ld
+
+
+def _fp32_vector(t: torch.Tensor, n: int, name: str) -> torch.Tensor:
+    """A length-n fp32 contiguous vector, taken as it is: the ops that call
+    the new kernels hand over vectors made once per weight version
+    (`ops/weight_codes.py:vec32`), so nothing is copied at a launch."""
+    if t.shape != (n,) or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous fp32 ({n},) vector, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+    return t
+
+
+def gemm_wg(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: int,
+            *, w_lo: Optional[torch.Tensor] = None,
+            resids: Sequence[torch.Tensor] = (),
+            out: Optional[torch.Tensor] = None, split: int = 0
+            ) -> torch.Tensor:
+    """The float GEMM on TMA + wgmma (`csrc/gemm_wgmma.cu`): epilogue(A @
+    W.T + bias) with W in torch (out, in) layout.
+
+    bf16: a and w bf16.  fp32 (3xTF32): a fp32, split in the kernel's
+    registers; w and w_lo the weight's tf32 hi and lo planes
+    (`ops/weight_codes.py:tf32_planes`).  bias: fp32 <N>.
+    EPI_WG_BIAS: out <M, N>.  EPI_WG_BIAS_RESID: out = resids[0] +
+    cast(...), resids[0] <M, N>.  EPI_WG_GELU_RESID_SPLIT: column n belongs
+    to branch n // split; out <N // split, M, split> gets resids[branch] +
+    cast(gelu(...)), each resid <M, split>."""
+    lda = _tma_operand(a, "a")
+    m, k = a.shape
+    n = w.shape[0]
+    if a.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gemm_wg takes fp32 or bf16, got {a.dtype}")
+    if w.shape != (n, k) or w.dtype != a.dtype:
+        raise ValueError(f"w must be a {a.dtype} ({n}, {k}) matrix, got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    ldw = _tma_operand(w, "w")
+    if (a.dtype == torch.float32) != (w_lo is not None):
+        raise ValueError("w_lo (the weight's lo plane) is given exactly for "
+                         "fp32")
+    if w_lo is not None and (w_lo.shape != w.shape or w_lo.dtype != w.dtype
+                             or _tma_operand(w_lo, "w_lo") != ldw):
+        raise ValueError("w_lo must match its hi plane")
+    if k * a.element_size() % 16:
+        raise ValueError(f"TMA reads 16-byte pieces of k: K={k} {a.dtype}")
+    b32 = _fp32_vector(bias, n, "bias")
+    split_epi = epi == EPI_WG_GELU_RESID_SPLIT
+    if epi == EPI_WG_BIAS and resids:
+        raise ValueError("EPI_WG_BIAS takes no residual")
+    if epi == EPI_WG_BIAS_RESID and len(resids) != 1:
+        raise ValueError("EPI_WG_BIAS_RESID takes one residual")
+    if split_epi:
+        if split <= 0 or split % 8 or n % split or \
+                n // split != len(resids) or len(resids) > WG_MAX_BRANCHES:
+            raise ValueError(f"the split epilogue needs N = branches x split "
+                             f"(split a multiple of 8, at most "
+                             f"{WG_MAX_BRANCHES} branches) and one residual "
+                             f"per branch, got N={n}, split={split}, "
+                             f"{len(resids)} residuals")
+        shape, width = (n // split, m, split), split
+    elif epi in (EPI_WG_BIAS, EPI_WG_BIAS_RESID):
+        shape, width = (m, n), n
+    else:
+        raise ValueError(f"unknown epilogue {epi}")
+    if out is None:
+        out = torch.empty(shape, device=a.device, dtype=a.dtype)
+    if out.shape != shape or out.dtype != a.dtype or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous {a.dtype} {shape}")
+    r_ptrs = (_P * WG_MAX_BRANCHES)()
+    ldr = 0
+    for i, r in enumerate(resids):
+        ldr_i = _rows(r, "resid")
+        if r.shape != (m, width) or r.dtype != a.dtype or \
+                (i and ldr_i != ldr):
+            raise ValueError(f"each resid must be {a.dtype} ({m}, {width}) "
+                             f"with one row stride")
+        ldr = ldr_i
+        r_ptrs[i] = r.data_ptr()
+    _check(load().ag_gemm_wg(
+        _dtype_code(a), epi, a.data_ptr(), lda, w.data_ptr(),
+        None if w_lo is None else w_lo.data_ptr(), ldw, b32.data_ptr(),
+        r_ptrs, ldr, out.data_ptr(), width, m * split if split_epi else 0,
+        split if split_epi else 0, m, n, k, _stream()), "ag_gemm_wg")
+    return out
+
+
+def rows_prep(x: torch.Tensor, ln: Tuple[torch.Tensor, torch.Tensor, float]
+              ) -> torch.Tensor:
+    """The LayerNorm row pass before the float GEMM, one warp per row of x
+    <M, K>: -> cast(LN(x)) as a new contiguous <M, K> tensor of x's dtype
+    (ln = (fp32 w, fp32 b, eps))."""
+    ldx = _rows(x, "x")
+    m, k = x.shape
+    w32 = _fp32_vector(ln[0], k, "ln weight")
+    b32 = _fp32_vector(ln[1], k, "ln bias")
+    out = torch.empty((m, k), device=x.device, dtype=x.dtype)
+    _check(load().ag_rows_prep(_dtype_code(x), x.data_ptr(), ldx, m, k,
+                               float(ln[2]), w32.data_ptr(), b32.data_ptr(),
+                               out.data_ptr(), _stream()), "ag_rows_prep")
+    return out
+
+
+def _mask_rows(mask: torch.Tensor, shape: tuple,
+               dtype: torch.dtype) -> Tuple[torch.Tensor, int]:
+    """An attention mask <N, T> as the kernels read it -> (mask, 1 if bf16).
+    fp32, and the activation dtype `dtype`, are read as they come: BERT's
+    additive bias is made in the activation dtype, so a bf16 step copies
+    nothing; another dtype is converted to fp32."""
+    if mask.dtype not in (torch.float32, dtype):
+        mask = mask.float()
+    mask = mask.contiguous()
+    if mask.shape != shape:
+        raise ValueError(f"mask must be {shape}, got {tuple(mask.shape)}")
+    return mask, int(mask.dtype == torch.bfloat16)
+
+
+# ------------------------------------------------------ the ladder stages
+
+LADDER_QKV, LADDER_ATTENTION, LADDER_MLP = 0, 1, 2
+
+
+def _ladder_tensor(t: torch.Tensor, shape: tuple, dtype, name: str) -> int:
+    if t.shape != shape or t.dtype != dtype or not t.is_contiguous() \
+            or not t.is_cuda:
+        raise ValueError(f"{name} must be a contiguous CUDA {dtype} {shape}, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+    _aligned16(t, name, ())
+    return t.data_ptr()
+
+
+def ladder_stage(stage: int, x: torch.Tensor, *, w: torch.Tensor,
+                 b: torch.Tensor, lnw: Optional[torch.Tensor] = None,
+                 lnb: Optional[torch.Tensor] = None, eps: float = 0.0,
+                 post: bool = False, qkv: Optional[torch.Tensor] = None,
+                 mask: Optional[torch.Tensor] = None, mul: bool = False,
+                 w2: Optional[torch.Tensor] = None,
+                 b2: Optional[torch.Tensor] = None,
+                 batch: int = 0) -> torch.Tensor:
+    """One launch of a ladder stage (`csrc/ladder.cu`) on branch-major
+    tensors; -> the stage's new output.
+    LADDER_QKV: x <nb, M, S> -> Q|K|V <nb, M, 3S> (w <nb, 3S, S>, b
+      <nb, 3S>; LN1 of x first where lnw/lnb are given);
+    LADDER_ATTENTION: x (the residual) and qkv -> x1 <nb, M, S> (w = wo
+      <nb, S, S>, b = bo; mask <batch, M / batch>, `_mask_rows`; mul: the
+      "mul" mask; post: LN1 after the residual);
+    LADDER_MLP: x1 -> out <nb, M, S> (w = w1 <nb, I, S>, b = b1, w2 <nb,
+      S, I>, b2, I a multiple of 8; lnw/lnb = LN2, before W1 or, with
+      post, after the residual).
+    Weights in the activation dtype; vectors fp32 <nb, n>.  S: a multiple
+    of 8 up to 128, read as S / 8 heads of d = 8."""
+    nb, m, s = x.shape
+    dtype = x.dtype
+    lib = load()
+    if not lib.ag_ladder_supports(s):
+        raise ValueError(f"the ladder kernels take side widths that are "
+                         f"multiples of 8 up to 128 (heads of d = 8), got "
+                         f"{s}")
+    ptr = functools.partial(_ladder_tensor, dtype=dtype)
+    vec = functools.partial(_ladder_tensor, dtype=torch.float32)
+    xp = ptr(x, (nb, m, s), name="x")
+    ln = [None, None]
+    if lnw is not None:
+        ln = [vec(lnw, (nb, s), name="ln weight"),
+              vec(lnb, (nb, s), name="ln bias")]
+    qp = mp = w2p = b2p = None
+    tn = inter = 0
+    if stage == LADDER_QKV:
+        wp, bp = ptr(w, (nb, 3 * s, s), name="wqkv"), vec(b, (nb, 3 * s),
+                                                            name="bqkv")
+        flags = int(lnw is not None)
+        out_shape = (nb, m, 3 * s)
+    elif stage == LADDER_ATTENTION:
+        if batch <= 0 or m % batch:
+            raise ValueError(f"M={m} is not a whole number of {batch} images")
+        tn = m // batch
+        qp = ptr(qkv, (nb, m, 3 * s), name="qkv")
+        mask, mask_bf16 = _mask_rows(mask.to(device=x.device), (batch, tn),
+                                     dtype)
+        mp = mask.data_ptr()
+        wp, bp = ptr(w, (nb, s, s), name="wo"), vec(b, (nb, s), name="bo")
+        if post and lnw is None:
+            raise ValueError("post-norm needs LN1")
+        flags = int(post) | (2 if mul else 0) | 4 * mask_bf16
+        out_shape = (nb, m, s)
+    elif stage == LADDER_MLP:
+        inter = w.shape[1]
+        if inter <= 0 or inter % 8:
+            raise ValueError(f"the MLP stage takes widths that are multiples "
+                             f"of 8, got {inter}")
+        wp, bp = ptr(w, (nb, inter, s), name="w1"), vec(b, (nb, inter),
+                                                          name="b1")
+        w2p, b2p = ptr(w2, (nb, s, inter), name="w2"), vec(b2, (nb, s),
+                                                             name="b2")
+        if lnw is None:
+            raise ValueError("the MLP stage needs LN2")
+        flags = int(post)
+        out_shape = (nb, m, s)
+    else:
+        raise ValueError(f"unknown ladder stage {stage}")
+    out = torch.empty(out_shape, device=x.device, dtype=dtype)
+    _check(lib.ag_ladder_stage(_dtype_code(x), stage, flags, s, inter, xp,
+                               qp, mp, wp, bp, w2p, b2p, *ln, eps,
+                               out.data_ptr(), m, nb, batch, tn, _stream()),
+           "ag_ladder_stage")
+    return out
+
+
 def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask_row: torch.Tensor, mode: str,
                     out: torch.Tensor) -> torch.Tensor:
@@ -238,15 +458,14 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if n > 65535 or nh > 65535:
         raise ValueError(f"the core's grid takes at most 65535 images and "
                          f"heads, got {n} x {nh}")
-    mask32 = mask_row.to(device=q.device, dtype=torch.float32).contiguous()
-    if mask32.shape != (n, t):
-        raise ValueError(f"mask must be ({n}, {t}), got {tuple(mask32.shape)}")
+    mask, mask_bf16 = _mask_rows(mask_row.to(device=q.device), (n, t),
+                                 q.dtype)
     strides = (ctypes.c_longlong * 12)(
         *(s for x in (q, k, v, out) for s in x.stride()[:3]))
     _check(lib.ag_attention(_dtype_code(q), int(mode == "mul"), q.data_ptr(),
                             k.data_ptr(), v.data_ptr(), strides,
-                            mask32.data_ptr(), out.data_ptr(), n, t, nh, d,
-                            _stream()), "ag_attention")
+                            mask.data_ptr(), mask_bf16, out.data_ptr(), n, t,
+                            nh, d, _stream()), "ag_attention")
     return out
 
 

@@ -3,14 +3,18 @@ epilogue: post-norm), Q/K/V projections, per-head masked attention, output
 projection, bias and residual.
 
 Replaces `autognothi_tpu/ops/attention_block.py:_pallas_attention_block`
-(body `_kernel`).  On the H100 one call is a few launches of the CUDA
-building blocks (`csrc/gemm.cu`, `csrc/attention.cu`): LN statistics, one
-GEMM for the Q/K/V projections that reads LN(resid) on the fly and writes a
-packed <B*T, 3H> buffer, the masked attention core, and the out-projection GEMM whose
-epilogue adds bias and residual (plus an LN pass for post-norm).  The
-<B, heads, T, T> scores stay on chip; Q/K/V and the context go to device
-memory.  What bounds it: the tensor-core GEMMs and attention core (fp32
-as 3xTF32; see `csrc/gemm.cu`, `csrc/attention.cu`).
+(body `_kernel`).  On the H100 one call is a few launches: for pre-norm a
+row pass that writes LN(resid) rounded to the activation dtype, the Q/K/V
+projections as one TMA + wgmma GEMM (`csrc/gemm_wgmma.cu`, fp32 A split
+into tf32 planes in its registers) writing a packed <B*T, 3H> buffer, the
+masked attention core (`csrc/attention.cu`), and the out-projection on the
+same GEMM, whose epilogue adds bias and residual (plus an LN pass for
+post-norm).  The packed Q|K|V weight and bias, the weights' tf32 planes
+(fp32) and the fp32 vectors are made once per weight version
+(`ops/weight_codes.py`): after the first call, a call launches no
+concatenation and no copy.  The <B, heads, T, T> scores stay on chip;
+Q/K/V and the context go to device memory.  What bounds it: the
+projections' tensor-core work (fp32 as 3xTF32) and the attention core.
 
 quant="int8" is the W8A8 block instead, replacing
 `_pallas_attention_block_q` (body `_kernel_q`, K1): the (LN'd) input is
@@ -37,13 +41,13 @@ from typing import Optional, Tuple
 import torch
 
 from ..kernels.build import LaunchCounter
-from ..kernels.primitives import (EPI_BIAS, EPI_BIAS_RESID, I8_EPI_BIAS,
-                                  I8_EPI_BIAS_RESID, attention_core,
-                                  dispatch, gemm, gemm_i8, layernorm_,
-                                  quant_rows, rowstats)
+from ..kernels.primitives import (EPI_WG_BIAS, EPI_WG_BIAS_RESID,
+                                  I8_EPI_BIAS, I8_EPI_BIAS_RESID,
+                                  attention_core, dispatch, gemm_i8, gemm_wg,
+                                  layernorm_, quant_rows, rows_prep)
 from ..models.common import dense, layer_norm
 from . import gates
-from .weight_codes import packed_bias, weight_codes
+from .weight_codes import float_weight, packed_bias, vec32, weight_codes
 
 COUNTER = LaunchCounter("attention_block")
 COUNTER_INT8 = LaunchCounter("attention_block_int8")
@@ -115,22 +119,30 @@ def attention_block_int8_plain(resid, mask_row, wq, bq, wk, bk, wv, bv, wo,
     return out
 
 
+def float_product(a: torch.Tensor, w: tuple, bias: torch.Tensor, epi: int,
+                  **kw) -> torch.Tensor:
+    """`gemm_wg` on a weight from `weight_codes.float_weight` ((bf16,) or
+    fp32 (hi, lo) planes)."""
+    return gemm_wg(a, w[0], bias, epi, w_lo=w[1] if len(w) > 1 else None,
+                   **kw)
+
+
 def attention_block_launch(resid, mask_row, wq, bq, wk, bk, wv, bv, wo, bo,
                            ln_w, ln_b, *, n_heads: int, mode: str,
                            ln_position: str, ln_eps: float) -> torch.Tensor:
     """The CUDA version (launches only; no counting, no autograd)."""
     b_sz, t, h = resid.shape
     x = resid.contiguous().reshape(b_sz * t, h)
-    ln = None
-    if ln_position == "prologue":
-        ln = (*rowstats(x, ln_eps), ln_w, ln_b)
+    ln = (vec32(ln_w), vec32(ln_b), ln_eps)
     # one GEMM for the three projections: packed (q | k | v) columns
-    w_qkv = torch.cat([wq, wk, wv]).to(x.dtype)
-    qkv = gemm(x, w_qkv, torch.cat([bq, bk, bv]), EPI_BIAS, ln=ln)
+    a = rows_prep(x, ln) if ln_position == "prologue" else x
+    qkv = float_product(a, float_weight((wq, wk, wv), x.dtype),
+                        packed_bias((bq, bk, bv)), EPI_WG_BIAS)
     ctx = attention_core(qkv, mask_row, b_sz, t, h, n_heads, mode)
-    out = gemm(ctx, wo.to(x.dtype).contiguous(), bo, EPI_BIAS_RESID, resid=x)
+    out = float_product(ctx, float_weight((wo,), x.dtype), vec32(bo),
+                        EPI_WG_BIAS_RESID, resids=(x,))
     if ln_position == "epilogue":
-        layernorm_(out, ln_w, ln_b, ln_eps)
+        layernorm_(out, *ln)
     return out.reshape(b_sz, t, h)
 
 

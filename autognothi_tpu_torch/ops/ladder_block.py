@@ -2,15 +2,26 @@
 GELU(h Wmap + b)), with SideLayer a complete narrow transformer layer.
 
 Replaces `autognothi_tpu/ops/ladder_block.py:_pallas_ladder` (body
-`_kernel`, math `_branch_math`).  On the H100, per branch: the map GEMM
-reads the trunk hidden h and fuses bias + GELU + cast + side add in its
-epilogue (`csrc/gemm.cu`), then the side layer runs the same launches as
-the attention and MLP blocks at 96 wide (12 heads of d = 8), with the
-masked attention core keeping the <B, heads, T, T> scores on chip
-(`csrc/attention.cu`).  The mapped side, Q/K/V, context and the MLP
-intermediate go to device memory.  What bounds it: launch count and the
-narrow tensor-core GEMMs (N or K = 96 / 384 fill few tiles), and d = 8
-attention, one k8 step of Q.K per key group.
+`_kernel`, math `_branch_math`).  On the H100 one ladder step is four
+launches, whatever the number of branches (`csrc/ladder.cu` says why and
+what goes to device memory):
+1. side-in: h times every branch's map weight at once (one TMA + wgmma
+   GEMM, `csrc/gemm_wgmma.cu`: h read once), bias, GELU, cast and the
+   side added in its epilogue -> x <branches, M, S>;
+2. side QKV: LN1 (pre-norm) and the Q|K|V projection of every branch;
+3. side attention: all heads of every branch, the context kept on chip,
+   out-projection, bias, residual and (post-norm) LN1;
+4. side MLP: LN2, W1, GELU, W2, bias, residual and LN2, the intermediate
+   kept on chip.
+Each stage has a plain version of its own (`side_in_plain`,
+`side_qkv_plain`, `side_attention_plain`, `side_mlp_plain`), on the same
+branch-major tensors as its launch; chained they compute
+`ladder_block_plain`.  The branches' weights are packed per kind once per
+weight version (`ops/weight_codes.py:cached`), so a step launches no
+concatenation and no copy.  The kernels take any side width that is a
+multiple of 8 up to 128, in heads of d = 8 (`ag_ladder_supports`), and any
+MLP width that is a multiple of 8; more than four branches take one
+side-in launch per four.
 
 Both layer kinds run on the card: the ViT's "mul" mask with pre-norm
 (LN1 and LN2 before attention and MLP) and BERT's additive "add" bias
@@ -45,12 +56,15 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.build import LaunchCounter
-from ..kernels.primitives import (EPI_BIAS_GELU_RESID, attention_heads,
-                                  dispatch, gemm)
-from ..models.common import gelu
-from .attention_block import attention_block_launch, attention_block_plain
+from ..kernels.primitives import (EPI_WG_GELU_RESID_SPLIT, LADDER_ATTENTION,
+                                  LADDER_MLP, LADDER_QKV, WG_MAX_BRANCHES,
+                                  attention_heads, dispatch, gemm_wg,
+                                  ladder_stage)
+from ..models.common import dense, gelu, layer_norm
+from .attention_block import _attend, attention_block_plain
 from .mlp_block import (mlp_block_int8_launch, mlp_block_int8_plain,
-                        mlp_block_launch, mlp_block_plain)
+                        mlp_block_plain)
+from .weight_codes import cached, float_weight, tf32_planes
 
 COUNTER = LaunchCounter("ladder_block")
 COUNTER_MLP_LADDER = LaunchCounter("mlp_ladder_block")
@@ -81,41 +95,188 @@ def _branch_plain(h, side, mask_row, args, *, n_heads, mode, pre_norm,
 
 def ladder_block_plain(h, mask_row, *flat, n_branches, n_heads, mode,
                        pre_norm, ln_eps) -> Tuple[torch.Tensor, ...]:
-    """flat = sides + per-branch args (BRANCH_KEYS order, torch layout)."""
+    """flat = sides + per-branch args (BRANCH_KEYS order, torch layout).
+    Every branch weight is cast to h's dtype first, as the JAX op does."""
     sides = flat[:n_branches]
+    weights = [w.to(h.dtype) for w in flat[n_branches:]]
     return tuple(
         _branch_plain(h, sides[s], mask_row,
-                      flat[n_branches + s * N_BRANCH_ARGS:
-                           n_branches + (s + 1) * N_BRANCH_ARGS],
+                      weights[s * N_BRANCH_ARGS:(s + 1) * N_BRANCH_ARGS],
                       n_heads=n_heads, mode=mode, pre_norm=pre_norm,
                       ln_eps=ln_eps)
         for s in range(n_branches))
 
 
+# --------------------------------------------------- the four stages
+
+
+def ladder_pack(flat, n_branches: int, dtype: torch.dtype,
+                planes: bool = False) -> dict:
+    """The branches' weights (`flat` past the sides, BRANCH_KEYS order) as
+    the stages read them: map_w <branches * S, H> and map_b the rows of
+    every branch's map; per kind, the branches stacked on a first axis:
+    wqkv <nb, 3S, S>, bqkv, wo, bo, w1 <nb, I, S>, b1, w2 <nb, S, I>, b2,
+    the LN vectors.  Every weight is cast to `dtype`, as the JAX op casts
+    it; matrices stay in `dtype`, vectors are widened to fp32.  planes
+    (fp32): also map_w's tf32 planes as `map_planes`, the side-in GEMM's
+    weight."""
+    args = flat[n_branches:]
+    branches = [dict(zip(BRANCH_KEYS, args[s * N_BRANCH_ARGS:
+                                           (s + 1) * N_BRANCH_ARGS]))
+                for s in range(n_branches)]
+    with torch.no_grad():
+        def stack(make):
+            return torch.stack([make(w) for w in branches]).contiguous()
+
+        def mat(k):
+            return stack(lambda w: w[k].to(dtype))
+
+        def vec(k):
+            return stack(lambda w: w[k].to(dtype).float())
+
+        pack = {k: mat(k) for k in ("wo", "w1", "w2")}
+        pack.update({k: vec(k) for k in ("bo", "b1", "b2", "ln1_w", "ln1_b",
+                                         "ln2_w", "ln2_b")})
+        pack["map_w"] = torch.cat([w["map_w"].to(dtype) for w in branches])
+        pack["map_b"] = torch.cat([w["map_b"].to(dtype).float()
+                                   for w in branches])
+        pack["wqkv"] = stack(lambda w: torch.cat(
+            [w["wq"], w["wk"], w["wv"]]).to(dtype))
+        pack["bqkv"] = stack(lambda w: torch.cat(
+            [w["bq"], w["bk"], w["bv"]]).to(dtype).float())
+        if planes and dtype == torch.float32:
+            pack["map_planes"] = tf32_planes(pack["map_w"])
+    return pack
+
+
+def side_in_plain(h2, sides, map_w, map_b):
+    """x_b = side_b + cast(gelu(h Wmap_b^T + bmap_b)) for every branch:
+    h2 <M, H>, sides <M, S> each, map_w <branches * S, H> -> <nb, M, S>."""
+    mapped = gelu(F.linear(h2.float(), map_w.float(), map_b.float()))
+    s = sides[0].shape[-1]
+    return torch.stack([side + mapped[:, i * s:(i + 1) * s].to(side.dtype)
+                        for i, side in enumerate(sides)])
+
+
+def side_in_launch(h2, sides, map_w, map_b, *planes):
+    """`side_in_plain` as one TMA + wgmma GEMM per four branches (fp32: A
+    split in registers; the map weight's tf32 planes as given, or once per
+    version of map_w)."""
+    hi, *lo = planes or float_weight((map_w,), map_w.dtype)
+    s = sides[0].shape[-1]
+    x = torch.empty((len(sides), h2.shape[0], s), device=h2.device,
+                    dtype=h2.dtype)
+    for b0 in range(0, len(sides), WG_MAX_BRANCHES):
+        b1 = min(b0 + WG_MAX_BRANCHES, len(sides))
+        rows = slice(b0 * s, b1 * s)
+        gemm_wg(h2, hi[rows], map_b[rows], EPI_WG_GELU_RESID_SPLIT,
+                w_lo=lo[0][rows] if lo else None, resids=sides[b0:b1],
+                out=x[b0:b1], split=s)
+    return x
+
+
+def side_qkv_plain(x, wqkv, bqkv, ln1_w, ln1_b, eps, pre_norm):
+    """Q|K|V <nb, M, 3S> = cast(LN1?(x_b) Wqkv_b^T + b) of x <nb, M, S>."""
+    return torch.stack([
+        dense(layer_norm(x[i], ln1_w[i], ln1_b[i], eps) if pre_norm
+              else x[i], wqkv[i], bqkv[i]) for i in range(x.shape[0])])
+
+
+def side_qkv_launch(x, wqkv, bqkv, ln1_w, ln1_b, eps, pre_norm):
+    ln = dict(lnw=ln1_w, lnb=ln1_b, eps=eps) if pre_norm else {}
+    return ladder_stage(LADDER_QKV, x, w=wqkv, b=bqkv, **ln)
+
+
+def side_attention_plain(x, qkv, mask_row, wo, bo, ln1_w, ln1_b, eps,
+                         n_heads, mode, pre_norm):
+    """x1 <nb, M, S> = x_b + cast(Attn_b Wo_b^T + bo_b) (then LN1 for
+    post-norm), Attn the masked multi-head attention of Q|K|V <nb, M, 3S>
+    over the images of mask_row <B, T>, its context cast to x's dtype."""
+    nb, m, s = x.shape
+    b_sz, t = mask_row.shape
+    outs = []
+    for i in range(nb):
+        q, k, v = (y.reshape(b_sz, t, s) for y in qkv[i].split(s, dim=-1))
+        ctx = _attend(q, k, v, mask_row, n_heads, mode).reshape(m, s)
+        out = x[i] + dense(ctx, wo[i], bo[i]).to(x.dtype)
+        outs.append(out if pre_norm
+                    else layer_norm(out, ln1_w[i], ln1_b[i], eps))
+    return torch.stack(outs)
+
+
+def side_attention_launch(x, qkv, mask_row, wo, bo, ln1_w, ln1_b, eps,
+                          n_heads, mode, pre_norm):
+    if n_heads * 8 != x.shape[-1]:
+        raise ValueError(f"the ladder kernels take heads of d = 8, got "
+                         f"{n_heads} heads of {x.shape[-1]}")
+    return ladder_stage(LADDER_ATTENTION, x, qkv=qkv, mask=mask_row, w=wo,
+                        b=bo, lnw=ln1_w, lnb=ln1_b, eps=eps,
+                        post=not pre_norm, mul=mode == "mul",
+                        batch=mask_row.shape[0])
+
+
+def side_mlp_plain(x1, w1, b1, w2, b2, ln2_w, ln2_b, eps, pre_norm):
+    """The MLP half of every branch's side layer: x1 + cast(cast(gelu(
+    LN2?(x1) W1^T + b1)) W2^T + b2), then LN2 for post-norm."""
+    position = "prologue" if pre_norm else "epilogue"
+    return torch.stack([
+        mlp_block_plain(x1[i], w1[i], b1[i], w2[i], b2[i], ln2_w[i],
+                        ln2_b[i], ln_position=position, ln_eps=eps)
+        for i in range(x1.shape[0])])
+
+
+def side_mlp_launch(x1, w1, b1, w2, b2, ln2_w, ln2_b, eps, pre_norm):
+    return ladder_stage(LADDER_MLP, x1, w=w1, b=b1, w2=w2, b2=b2, lnw=ln2_w,
+                        lnb=ln2_b, eps=eps, post=not pre_norm)
+
+
+def _ladder_stages(stages, pack, h, mask_row, sides, *, n_heads, mode,
+                   pre_norm, ln_eps):
+    b_sz, t, hidden = h.shape
+    m, s = b_sz * t, sides[0].shape[-1]
+    side_in, qkv_fn, attention, mlp = stages
+    x = side_in(h.contiguous().reshape(m, hidden),
+                [side.contiguous().reshape(m, s) for side in sides],
+                pack["map_w"], pack["map_b"], *pack.get("map_planes", ()))
+    qkv = qkv_fn(x, pack["wqkv"], pack["bqkv"], pack["ln1_w"],
+                 pack["ln1_b"], ln_eps, pre_norm)
+    x1 = attention(x, qkv, mask_row, pack["wo"], pack["bo"], pack["ln1_w"],
+                   pack["ln1_b"], ln_eps, n_heads, mode, pre_norm)
+    out = mlp(x1, pack["w1"], pack["b1"], pack["w2"], pack["b2"],
+              pack["ln2_w"], pack["ln2_b"], ln_eps, pre_norm)
+    return tuple(out[i].view(b_sz, t, s) for i in range(len(sides)))
+
+
+PLAIN_STAGES = (side_in_plain, side_qkv_plain, side_attention_plain,
+                side_mlp_plain)
+LAUNCH_STAGES = (side_in_launch, side_qkv_launch, side_attention_launch,
+                 side_mlp_launch)
+
+
+def ladder_stages_plain(h, mask_row, *flat, n_branches, n_heads, mode,
+                        pre_norm, ln_eps) -> Tuple[torch.Tensor, ...]:
+    """The four stages' plain versions chained: the function of
+    `ladder_block_plain`, in the kernel's decomposition."""
+    return _ladder_stages(PLAIN_STAGES, ladder_pack(flat, n_branches,
+                                                    h.dtype),
+                          h, mask_row, flat[:n_branches], n_heads=n_heads,
+                          mode=mode, pre_norm=pre_norm, ln_eps=ln_eps)
+
+
+def ladder_pack_cached(flat, n_branches: int, dtype: torch.dtype) -> dict:
+    """`ladder_pack`, made once per version of the branches' weights."""
+    return cached(flat[n_branches:], ("ladder", n_branches, dtype),
+                  lambda: ladder_pack(flat, n_branches, dtype, planes=True))
+
+
 def ladder_block_launch(h, mask_row, *flat, n_branches, n_heads, mode,
                         pre_norm, ln_eps) -> Tuple[torch.Tensor, ...]:
-    """The CUDA version (launches only; no counting, no autograd).  Pre-norm
-    (ViT): LN1 and LN2 are the side layer's prologues; post-norm (BERT):
-    its epilogues, after each residual add."""
-    b_sz, t, hidden = h.shape
-    h2 = h.contiguous().reshape(b_sz * t, hidden)
-    position = "prologue" if pre_norm else "epilogue"
-    outs = []
-    for s in range(n_branches):
-        side = flat[s]
-        (map_w, map_b, ln1_w, ln1_b, wq, bq, wk, bk, wv, bv, wo, bo,
-         ln2_w, ln2_b, w1, b1, w2, b2) = flat[
-            n_branches + s * N_BRANCH_ARGS:n_branches + (s + 1) * N_BRANCH_ARGS]
-        s_hidden = side.shape[-1]
-        x = gemm(h2, map_w.contiguous(), map_b, EPI_BIAS_GELU_RESID,
-                 resid=side.contiguous().reshape(b_sz * t, s_hidden))
-        x = attention_block_launch(
-            x.reshape(b_sz, t, s_hidden), mask_row, wq, bq, wk, bk, wv, bv,
-            wo, bo, ln1_w, ln1_b, n_heads=n_heads, mode=mode,
-            ln_position=position, ln_eps=ln_eps)
-        outs.append(mlp_block_launch(x, w1, b1, w2, b2, ln2_w, ln2_b,
-                                     ln_position=position, ln_eps=ln_eps))
-    return tuple(outs)
+    """The CUDA version (launches only; no counting, no autograd): the four
+    stage launches on the branches' weights packed once per version."""
+    pack = ladder_pack_cached(flat, n_branches, h.dtype)
+    return _ladder_stages(LAUNCH_STAGES, pack, h, mask_row,
+                          flat[:n_branches], n_heads=n_heads, mode=mode,
+                          pre_norm=pre_norm, ln_eps=ln_eps)
 
 
 def ladder_block_args(
@@ -129,13 +290,14 @@ def ladder_block_args(
     ln_eps: float,
 ):
     """`ladder_block`'s arguments -> (tensors, static keywords) of its plain
-    version and its kernel.  Every branch weight is cast to h's dtype, as
-    the JAX op does."""
+    version and its kernel.  The branch weights go as given: the plain
+    version casts them to h's dtype, and the kernel's pack, made once per
+    version of these weights, does the same."""
     if mode not in ("mul", "add"):
         raise ValueError(f"unknown mask mode {mode!r}")
     flat = [*sides]
     for w in branch_weights:
-        flat.extend(w[k].to(h.dtype) for k in BRANCH_KEYS)
+        flat.extend(w[k] for k in BRANCH_KEYS)
     static = dict(n_branches=len(sides), n_heads=n_heads, mode=mode,
                   pre_norm=pre_norm, ln_eps=float(ln_eps))
     return (h, mask_row, *flat), static
@@ -193,8 +355,9 @@ def mlp_ladder_block_args(
     ln_eps: float,
 ):
     """`mlp_ladder_block`'s arguments -> (tensors, static keywords) of its
-    plain version and its kernel.  The branch weights are cast to h's
-    dtype as the JAX op casts them (the MLP ops cast the trunk's w1/w2)."""
+    plain version and its kernel.  The weights go as given: the ladder's
+    plain version and pack cast the branch weights to h's dtype, the MLP
+    ops the trunk's w1/w2, as the JAX op casts them."""
     (h, mask_row, *flat), static = ladder_block_args(
         h_attn, sides, mask_row, branch_weights, n_heads, mode, True, ln_eps)
     static.pop("pre_norm")

@@ -1,4 +1,6 @@
-"""Per-output-channel int8 weight codes, made once per weight version.
+"""What the kernels read of the weights, made once per weight version: the
+int8 ops' per-output-channel weight codes, and the float ops' packed
+weights, fp32 vectors and tf32 planes.
 
 The int8 ops' weight codes are a pure function of the live weights (the
 JAX ops compute them with `quant_cols` at every call,
@@ -10,10 +12,16 @@ view, such as the K8q chain's column slice of W2, made anew at each call,
 the identity of the tensor it views and where it lies in it), held
 through a `weakref` (the cache keeps no weight alive and forgets an entry
 when one of its weights dies), and its `_version` (which a view shares
-with its base), `data_ptr`, dtype and device.  Any in-place update bumps
+with its base) and `data_ptr`.  Any in-place update bumps
 `_version` (AdamW's step, `copy_`, a checkpoint loaded in place), so the
 next call recomputes.  The weights stay runtime arguments: this is not
 the constant fold of an export, whose codes drift from the live weights.
+
+The float kernels (K6's products, K5's ladder step) take the same cache
+for what they would otherwise make at every call: the packed Q|K|V weight
+and bias, the fp32 copies of bias and LN vectors, every ladder branch's
+weights stacked per kind, and the tf32 hi and lo planes of the fp32
+weights (`tf32_planes`, a plain torch function on the bits).
 
 A write that bypasses the version counter (through `.data`) is not seen;
 nothing in the port writes weights that way.  Inference tensors have no
@@ -30,21 +38,32 @@ import torch
 
 from ..kernels.primitives import quant_rows
 
-_lock = threading.Lock()
+# reentrant: a weight's weakref callback (`forget`) may run in this thread
+# while it holds the lock, when the garbage collector frees a dead weight
+# in the middle of a cache update
+_lock = threading.RLock()
 _entries: Dict[tuple, tuple] = {}
 
 
-def _owner(w: torch.Tensor) -> torch.Tensor:
-    """The tensor whose identity keys `w`: itself, or the tensor it views."""
-    return w if w._base is None else w._base
-
-
-def _where(w: torch.Tensor) -> tuple:
-    return (id(_owner(w)), w.storage_offset(), tuple(w.shape), w.stride())
-
-
-def _state(w: torch.Tensor) -> tuple:
-    return (w._version, w.data_ptr(), w.dtype, w.device)
+def _key_state(sources: Sequence[torch.Tensor]):
+    """-> (the tensors whose identity keys the sources, the key's part for
+    the sources, their state).  A source is keyed on its own identity, or
+    a view on the identity of the tensor it views and where it lies in it;
+    its state is its version and data pointer (a dtype, device or shape
+    change through `.data` moves the pointer)."""
+    owners, where, state = [], [], []
+    for w in sources:
+        base = w._base
+        if base is None:
+            owners.append(w)
+            where.append(id(w))
+        else:
+            owners.append(base)
+            where.append((id(base), w.storage_offset(), tuple(w.shape),
+                          w.stride()))
+        state.append(w._version)
+        state.append(w.data_ptr())
+    return owners, tuple(where), tuple(state)
 
 
 def cached(sources: Sequence[torch.Tensor], tag: tuple,
@@ -53,9 +72,8 @@ def cached(sources: Sequence[torch.Tensor], tag: tuple,
     `tag`, the rest of what the result depends on)."""
     if any(w.is_inference() for w in sources):
         return make()  # no version counter to key on
-    owners = [_owner(w) for w in sources]
-    key = (tag, *(_where(w) for w in sources))
-    state = tuple(_state(w) for w in sources)
+    owners, where, state = _key_state(sources)
+    key = (tag, where)
     with _lock:
         hit = _entries.get(key)
     if hit is not None:
@@ -68,9 +86,9 @@ def cached(sources: Sequence[torch.Tensor], tag: tuple,
         with _lock:
             _entries.pop(key, None)
 
-    refs = tuple(weakref.ref(o, forget) for o in owners)
+    entry = (tuple(weakref.ref(o, forget) for o in owners), state, value)
     with _lock:
-        _entries[key] = (refs, state, value)
+        _entries[key] = entry
     return value
 
 
@@ -112,3 +130,51 @@ def size() -> int:
     """The number of cached results."""
     with _lock:
         return len(_entries)
+
+
+def tf32_planes(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 3xTF32 split of an fp32 tensor, as the kernels make it (`csrc/
+    common.cuh:split_tf32`): hi = rna_tf32(x) and lo = rna_tf32(x - hi),
+    each rounded half away from zero to 10 significand bits by integer ops
+    on the bits; -> (hi, lo), fp32 tensors whose low 13 bits are zero."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32 planes are made from fp32, got {x.dtype}")
+
+    def rna(v: torch.Tensor) -> torch.Tensor:
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def vec32(v: torch.Tensor) -> torch.Tensor:
+    """v as a contiguous fp32 vector: v itself where it is one, else its
+    fp32 copy, once per version of v."""
+    if v.dtype == torch.float32 and v.is_contiguous():
+        return v
+
+    def make():
+        with torch.no_grad():
+            return v.float().contiguous()
+
+    return cached((v,), ("vec32",), make)
+
+
+def float_weight(weights: Sequence[torch.Tensor], dtype: torch.dtype
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Torch-layout weights with their rows stacked (Q | K | V), as the
+    float GEMM reads them: bf16 -> (the packed bf16 matrix,); fp32 -> its
+    tf32 (hi, lo) planes."""
+    if dtype != torch.float32 and len(weights) == 1 and \
+            weights[0].dtype == dtype and weights[0].is_contiguous():
+        return (weights[0],)  # nothing to make (and none to keep alive)
+
+    def make():
+        with torch.no_grad():
+            ws = [w.to(dtype) for w in weights]
+            packed = torch.cat(ws) if len(ws) > 1 else ws[0].contiguous()
+            return tf32_planes(packed) if dtype == torch.float32 \
+                else (packed,)
+
+    return cached(weights, ("float", dtype), make)

@@ -8,12 +8,14 @@ Phases, each printing its own lines:
   1. device: the card's name and power limit; build the CUDA kernels from
      `autognothi_tpu_torch/csrc/` and report the build time and the
      registers, shared memory and spills (`-Xptxas -v`) of the tensor-core
-     GEMM, the attention core and the int8 wgmma GEMM;
+     GEMM, the attention core, the int8 and the float wgmma GEMMs, the
+     float GEMM's row pass and the three ladder stage kernels;
   2. kernel vs plain: every kernel op at the LTT ViT-B/16@224 shapes (B=4,
      T=197) in fp32 and bf16, with an all-ones and a random 0/1 mask,
      against its plain PyTorch version on the same card.  fp32 path: the
      attention block (trunk 768 with LN, side 96 without), the MLP block
-     (768/3072, 96/384) and the ladder (768 -> 2 x 96).  int8 path
+     (768/3072, 96/384) and the ladder (768 -> 2 x 96 and 1 x 96).  int8
+     path
      (AUTOGNOTHI_INT8=1): the int8 attention block (same two shapes), the
      int8 MLP block (96/384, 768/3072), the int8 trunk MLP fused with both
      ladders (768/3072 + 2 x 96) and the int8 explainer head (96 -> 3072 ->
@@ -86,7 +88,14 @@ Phases, each printing its own lines:
      profiler device time, beside the bound, the bias and residual
      epilogues held bit-identical to the same steps on `torch._int_mm`'s
      sum; every profile line gives the int8 GEMMs' and the quantizer's
-     share of the kernel time.
+     share of the kernel time; the float TMA + wgmma GEMM alone at K6's
+     two products (Q|K|V 2304x768 with bias, out 768x768 with the
+     residual) at M = 12608 and 4096, fp32 and bf16, beside `torch.matmul`
+     and the bound and held against the float64 product; the kernels of
+     one K5 and one K6 call at both trunk
+     shapes with their device times (one ladder step at most four
+     launches); K5 and K6 (and K2) held against their plain versions in
+     bf16 at B=64 too.
 
 Any failure raises, exits non-zero and prints no result.  The last three
 lines are the card, the kernel table (JSON) and the status line (JSON).
@@ -384,10 +393,13 @@ def op_cases(dev, dtype, b, random_mask):
         w["w1"], w["b1"] = lin(384, 96)
         w["w2"], w["b2"] = lin(96, 384)
         branches.append(w)
-    cases.append(("ladder_block", "768 -> 2 x 96", lb.ladder_block,
-                  _plain(lb.ladder_block_args, lb.ladder_block_plain),
-                  (act(b, T, 768), [act(b, T, 96), act(b, T, 96)], mask,
-                   branches, 12, "mul", True, 1e-12), {}))
+    for n_branches in (2, 1):  # the final forward; the teacher sweep
+        cases.append(("ladder_block", f"768 -> {n_branches} x 96",
+                      lb.ladder_block,
+                      _plain(lb.ladder_block_args, lb.ladder_block_plain),
+                      (act(b, T, 768),
+                       [act(b, T, 96) for _ in range(n_branches)], mask,
+                       branches[:n_branches], 12, "mul", True, 1e-12), {}))
     trunk = {}
     trunk["w1"], trunk["b1"] = lin(3072, 768)
     trunk["w2"], trunk["b2"] = lin(768, 3072)
@@ -470,7 +482,9 @@ def bert_op_cases(dev, dtype, b, random_mask):
     if random_mask:
         keep = (torch.rand(b, t, generator=g) > 0.3).float()
         keep[:, 0] = 1
-    bias = ((1 - keep) * torch.finfo(torch.float32).min).to(dev)
+    # the additive bias in the activation dtype, as `additive_mask_bias`
+    # makes it for the model
+    bias = ((1 - keep.to(dtype)) * torch.finfo(dtype).min).to(dev)
     cases = []
     ws = tuple(x for _ in range(4) for x in lin(h, h))
     attn = [("attention_block", ab.attention_block)]
@@ -680,7 +694,10 @@ def phase_device() -> None:
           f"{how}, build+load {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in build.sources())})", flush=True)
     for line in ptxas_summary(log, ("gemm_tc_kernel", "attention_tc_kernel",
-                                    "gemm_i8_wgmma_kernel")):
+                                    "gemm_i8_wgmma_kernel", "gemm_wg_kernel",
+                                    "rows_prep_kernel", "ladder_qkv_kernel",
+                                    "ladder_attn_kernel",
+                                    "ladder_mlp_kernel")):
         print(f"[build] {line}", flush=True)
 
 
@@ -1007,32 +1024,66 @@ I8_GEMM_PRODUCTS = (("K1 qkv", 2304, 768, "bias"),
                     ("K2 w2", 768, 3072, "resid"))
 
 
-def device_time(fn, reps: int, tries: int = 3) -> float:
-    """Milliseconds of device time per call: the profiler's device-side
-    events of `reps` calls after one warmup call.  Now and then the
-    profiler hands back a window with device events missing; such a window
-    is profiled again, and `tries` of them raise."""
+def profiled_kernels(fn, reps: int, tries: int = 5) -> list:
+    """The device kernels of `reps` calls of `fn` after one warmup call, as
+    (name, device ms) in launch order.  The profiler runs a warmup window
+    before the one it keeps, and the kept window's calls are bracketed by
+    two fills (`torch.zeros`), dropped where they stand first and last: the
+    first or last event of a window is now and then lost.  Every call
+    launches the same kernels, so a window where a kernel is seen a number
+    of times that is not a whole multiple of the calls (or no kernel at
+    all) lost events: it is profiled again, and after `tries` such
+    windows this raises."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def window():
+        torch.zeros(1, device="cuda")
+        for _ in range(reps):
+            fn()
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
 
     fn()
+    counts: dict = {}
     for _ in range(tries):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
-        # every call launches the same kernels: a count that is not a
-        # whole multiple of the calls means events were lost
-        if kernels and len(kernels) % reps == 0:
-            return sum(e.time_range.elapsed_us()
-                       for e in kernels) / 1e3 / reps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                window()
+                prof.step()
+        # the step's own annotation ("ProfilerStep#") is no kernel
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and e.name not in SPANS
+                         and not e.name.startswith("ProfilerStep")),
+                        key=lambda e: e.time_range.start)
+        for end in (0, -1):
+            if events and "FillFunctor" in events[end].name:
+                events.pop(end)
+        counts = {}
+        for e in events:
+            counts[e.name] = counts.get(e.name, 0) + 1
+        if counts and all(n % reps == 0 for n in counts.values()):
+            return [(e.name, e.time_range.elapsed_us() / 1e3)
+                    for e in events]
+        print(f"[profile] device events per kernel in a window of {reps} "
+              f"calls: {counts}", file=sys.stderr, flush=True)
     raise RuntimeError(f"the profiler lost device events in {tries} "
-                       f"windows")
+                       f"windows; the last: {counts}")
+
+
+def device_time(fn, reps: int) -> float:
+    """Milliseconds of device time per call (`profiled_kernels`)."""
+    return sum(ms for _, ms in profiled_kernels(fn, reps)) / reps
+
+
+def device_str(ms: float, work: float, unit: str) -> str:
+    """'device <ms>, <work / ms> <unit>' of a device time per call."""
+    return f"device {ms:.4f}, {work / ms:.1f} {unit}"
 
 
 def i8_gemm_case(dev, g, m: int, n: int, k: int, epi: str):
@@ -1100,11 +1151,10 @@ def phase_int8_gemm(dev, card: str) -> None:
                                     ("_int_mm", library))}
             tops = 2.0 * m * n * k / 1e9
             print(f"[int8-gemm] {label:6s} <{m},{k}> x <{n},{k}>^T {epi:8s}"
-                  f": kernel {ms['kernel'][0]:.4f} ms (device "
-                  f"{ms['kernel'][1]:.4f}, {tops / ms['kernel'][1]:.1f} "
-                  f"TOP/s), torch._int_mm {ms['_int_mm'][0]:.4f} ms "
-                  f"(device {ms['_int_mm'][1]:.4f}, "
-                  f"{tops / ms['_int_mm'][1]:.1f} TOP/s), bound "
+                  f": kernel {ms['kernel'][0]:.4f} ms ("
+                  f"{device_str(ms['kernel'][1], tops, 'TOP/s')}), "
+                  f"torch._int_mm {ms['_int_mm'][0]:.4f} ms ("
+                  f"{device_str(ms['_int_mm'][1], tops, 'TOP/s')}), bound "
                   f"{bound_ms:.4f} ms ({bound_by}); {how} | {card}",
                   flush=True)
             check(ok, f"int8 GEMM {label} M={m}: kernel disagrees with the "
@@ -1160,6 +1210,123 @@ def phase_yardsticks(dev, card: str) -> None:
                   f"{str(dtype):14s}: kernel {t_kern:.4f} ms | {card}",
                   flush=True)
             time_library_attention(args, card)
+
+
+# K6's two products on the float wgmma GEMM, at the ViT B=64 trunk (M =
+# 12608) and the BERT B=8 trunk (M = 4096): (label, N, K, epilogue)
+WG_GEMM_M = (B_TIME * T, B_BERT * T_BERT)
+WG_GEMM_PRODUCTS = (("K6 qkv", 2304, 768, "bias"),
+                    ("K6 out", 768, 768, "resid"))
+
+
+def phase_float_gemm(dev, card: str) -> None:
+    """The float TMA + wgmma GEMM (`csrc/gemm_wgmma.cu`) at K6's products,
+    fp32 and bf16: CUDA events and profiler device time, TFLOP/s, beside the
+    bound and `torch.matmul` (fp32 with TF32 off, and bf16; the yardstick,
+    never on the path).  Each result is held against the float64 product
+    (fp32 1e-5, bf16 1e-2 x max(1, |ref|))."""
+    import torch
+
+    from autognothi_tpu_torch.kernels import primitives as kp
+    from autognothi_tpu_torch.ops.weight_codes import tf32_planes
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off")
+    g = torch.Generator().manual_seed(SEED + 4)
+    for m in WG_GEMM_M:
+        for label, n, k, epi in WG_GEMM_PRODUCTS:
+            a32 = torch.randn(m, k, generator=g).to(dev)
+            w32 = (torch.randn(n, k, generator=g) * k ** -0.5).to(dev)
+            bias = torch.randn(n, generator=g).to(dev)
+            resid = torch.randn(m, n, generator=g).to(dev)
+            code = kp.EPI_WG_BIAS if epi == "bias" else kp.EPI_WG_BIAS_RESID
+            w_hi, w_lo = tf32_planes(w32)
+            for mode in ("fp32", "bf16"):
+                dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+                a, w = a32.to(dtype), w32.to(dtype)
+                r = (resid.to(dtype),) if epi == "resid" else ()
+                kw = dict(resids=r)
+                if mode == "fp32":
+                    args = (a32, w_hi, bias, code)
+                    kw.update(w_lo=w_lo)
+                else:
+                    args = (a, w, bias, code)
+
+                def kernel(args=args, kw=kw):
+                    return kp.gemm_wg(*args, **kw)
+
+                def library(a=a, w=w):
+                    return torch.matmul(a, w.T)
+
+                ref = a.double() @ w.double().T + bias.double()
+                if r:
+                    ref = r[0].double() + ref.to(dtype).double()
+                scale = max(1.0, ref.abs().max().item())
+                err = (kernel().double() - ref).abs().max().item() / scale
+                del ref
+                # cuBLAS launches a varying number of kernels per call:
+                # torch.matmul is timed with CUDA events only
+                ms = {"kernel": (cuda_time(kernel, reps=10),
+                                 device_time(kernel, 10)),
+                      "matmul": (cuda_time(library, reps=10), None)}
+                flop = 2.0 * m * n * k
+                es = a.element_size()
+                moved = (m * k + n * k + m * n * (2 if r else 1)) * es \
+                    + n * 4
+                peak = PEAK["bf16" if mode == "bf16" else "fp32"]
+                t_ops, t_bytes = flop / peak, moved / HBM_BYTES_PER_S
+                bound_ms = max(t_ops, t_bytes) * 1e3
+                bound_by = "operations" if t_ops >= t_bytes else "bytes"
+                print(f"[wg-gemm] {label} <{m},{k}> x <{n},{k}>^T {epi:5s} "
+                      f"{mode}: kernel {ms['kernel'][0]:.4f} ms ("
+                      f"{device_str(ms['kernel'][1], flop / 1e9, 'TFLOP/s')}"
+                      f"), "
+                      f"torch.matmul {ms['matmul'][0]:.4f} ms "
+                      f"({flop / ms['matmul'][0] / 1e9:.1f} TFLOP/s), bound "
+                      f"{bound_ms:.4f} ms ({bound_by}); max|kernel - fp64|"
+                      f" / max(1,|ref|) = {err:.3e} | {card}", flush=True)
+                check(err <= (1e-2 if mode == "bf16" else 1e-5),
+                      f"wgmma GEMM {label} M={m} {mode}: disagrees with "
+                      f"the float64 product")
+            del a32, w32, resid, w_hi, w_lo
+    torch.cuda.empty_cache()
+
+
+def phase_block_launches(dev, card: str) -> None:
+    """K5's and K6's launches at the main paths' trunk shapes (ViT B=64,
+    BERT-base@512 B=8, its additive mask in the activation dtype as the
+    model makes it), fp32 and bf16: the kernels of one call with each one's
+    device time per call (10 profiled calls); one ladder step is at most
+    four launches for every branch together."""
+    import torch
+
+    reps = 10
+    for cases_fn, b in ((op_cases, B_TIME), (bert_op_cases, B_BERT)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, tag, op, _, args, kw in cases_fn(dev, dtype, b, False):
+                if name not in ("ladder_block", "attention_block") \
+                        or "side" in tag:
+                    continue
+                with torch.inference_mode():
+                    events = profiled_kernels(lambda: op(*args, **kw), reps)
+                kernels: dict = {}
+                for k, ms in events:
+                    kernels[k] = kernels.get(k, 0.0) + ms
+                launches = len(events) / reps
+                print(f"[launches] {name} {tag} {str(dtype):14s} B={b}: "
+                      f"{launches:g} launches per call, device "
+                      f"{sum(kernels.values()) / reps:.4f} ms; "
+                      + "; ".join(f"{k[:48]} {v / reps:.4f}" for k, v in
+                                  sorted(kernels.items(),
+                                         key=lambda kv: -kv[1]))
+                      + f" | {card}", flush=True)
+                if name == "ladder_block":
+                    check(launches <= 4, f"{name} {tag}: {launches} "
+                                         f"launches per ladder step")
+                check(not any(w in k.lower() for k in kernels
+                              for w in ("copy", "cat", "fill")),
+                      f"{name} {tag} {dtype}: a copy, concatenation or fill "
+                      f"among its kernels: {sorted(kernels)}")
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------- training
@@ -1568,6 +1735,19 @@ def phase_timing(dev, card: str, service) -> dict:
         per_op.setdefault(name, dict(ms=t_kern, plain_ms=t_plain,
                                      bound_ms=bound_ms, bound_by=bound_by,
                                      library_ms=t_lib))
+    # the redesigned float blocks (K6, K5 with 2 and 1 branches, and K5
+    # inside K2) in bf16 at the same shapes: checked, not timed
+    for name, tag, op, plain, args, kw in op_cases(dev, torch.bfloat16,
+                                                   B_TIME, False):
+        if name not in ("attention_block", "ladder_block",
+                        "mlp_ladder_block"):
+            continue
+        with torch.inference_mode():
+            _, ok, msg = compare(op(*args, **kw), plain(*args, **kw),
+                                 torch.bfloat16, name in INT8_OPS)
+        print(f"[time] {name:20s} {tag:22s} bf16 B={B_TIME}: checked "
+              f"({msg})", flush=True)
+        check(ok, f"{name} {tag} bf16 B={B_TIME}: kernel disagrees")
     print(f"[time] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB | {card}",
           flush=True)
@@ -1598,11 +1778,11 @@ def time_library_attention(args, card: str) -> float:
 
 # name -> (source, the TPU kernel it replaces: its pl.pallas_call)
 KERNELS = {
-    "attention_block": ("autognothi_tpu_torch/csrc/attention.cu",
+    "attention_block": ("autognothi_tpu_torch/csrc/gemm_wgmma.cu",
                         "autognothi_tpu/ops/attention_block.py:283"),
     "mlp_block": ("autognothi_tpu_torch/csrc/gemm.cu",
                   "autognothi_tpu/ops/mlp_block.py:191"),
-    "ladder_block": ("autognothi_tpu_torch/csrc/gemm.cu",
+    "ladder_block": ("autognothi_tpu_torch/csrc/ladder.cu",
                      "autognothi_tpu/ops/ladder_block.py:390"),
     "attention_block_int8": ("autognothi_tpu_torch/csrc/int8.cu",
                              "autognothi_tpu/ops/attention_block.py:245"),
@@ -1684,6 +1864,8 @@ def main() -> int:
         for k, v in bert_calls.items():
             launches[k] += v
         phase_yardsticks(dev, card)
+        phase_float_gemm(dev, card)
+        phase_block_launches(dev, card)
         phase_int8_gemm(dev, card)
         phase_train_timing(case, card)
 

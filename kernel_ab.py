@@ -4,7 +4,10 @@ the LTT ViT-B/16@224 shapes, B=64, and `bert_op_cases` at the LTT
 BERT-base@512 shapes, B=8; fp32 and bf16) and the float GEMM alone at
 K7's two products of both models (beside `torch.matmul`) and the int8
 GEMM alone at K1's and K2's four products at M = 12608 and 50432 (beside
-`torch._int_mm`: `int_mm_device_ms`) on one NVIDIA GPU, for the
+`torch._int_mm`: `int_mm_device_ms`), the float TMA + wgmma GEMM alone
+at K6's two products at M = 12608 and 4096 where the checkout has it
+(beside `torch.matmul`: `matmul_ms`, CUDA events), and K5 with one branch at
+the train step's teacher shape (256 images) on one NVIDIA GPU, for the
 `autognothi_tpu_torch` and `chip_smoke.py` of the checkout named, so two
 checkouts can be compared on one card, in turns:
 
@@ -36,30 +39,55 @@ I8_PRODUCTS = (("K1 qkv", 2304, 768, 0), ("K1 out", 768, 768, 1),
                ("K2 W1 GELU", 3072, 768, 2), ("K2 W2", 768, 3072, 1))
 
 
-def device_ms(fn, tries: int = 3) -> float:
+def device_ms(fn, tries: int = 5) -> float:
     """Device time of the kernels of REPS calls of `fn`, per call, from
-    the profiler's device-side events (a window the profiler hands back
-    with events missing is profiled again; `tries` of them raise)."""
+    the profiler's device-side events of the second of two windows (the
+    profiler now and then loses the first events of a window it starts
+    with); a window with events missing (a kernel seen a number of times
+    that is not a whole multiple of the calls) is profiled again, and
+    `tries` of them raise."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(tries):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPS):
-                fn()
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(REPS):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # the step's own annotation ("ProfilerStep#") is no kernel
         kernels = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
-        # every call launches the same kernels: a count that is not a
-        # whole multiple of the calls means events were lost
-        if kernels and len(kernels) % REPS == 0:
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith("ProfilerStep")]
+        counts: dict = {}
+        for e in kernels:
+            counts[e.name] = counts.get(e.name, 0) + 1
+        if counts and all(n % REPS == 0 for n in counts.values()):
             return sum(e.time_range.elapsed_us()
                        for e in kernels) / 1e3 / REPS
     raise RuntimeError(f"the profiler lost device events in {tries} "
                        f"windows")
+
+
+def events_ms(fn) -> float:
+    """CUDA-event time of REPS calls of `fn` after one warmup, per call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / REPS
 
 
 def main() -> int:
@@ -135,7 +163,71 @@ def main() -> int:
                           resid=resid, epi=epi: kp.gemm_i8(
                               a, sa, w, sw, bias, epi, torch.float32,
                               resid=resid), ref))
-            library[shape] = lambda a=a, w=w: torch._int_mm(a, w.T)
+            library[shape] = ("int_mm_device_ms",
+                              lambda a=a, w=w: torch._int_mm(a, w.T))
+    # the float TMA + wgmma GEMM alone at K6's products (ViT B=64, BERT
+    # B=8), fp32 and bf16, beside torch.matmul (`matmul_ms`); only where
+    # the checkout has it
+    if hasattr(kp, "gemm_wg"):
+        from autognothi_tpu_torch.ops.weight_codes import tf32_planes
+
+        for m in (smoke.B_TIME * smoke.T, smoke.B_BERT * smoke.T_BERT):
+            for product, n, k, with_resid in (("K6 qkv", 2304, 768, False),
+                                              ("K6 out", 768, 768, True)):
+                a32 = torch.randn(m, k, generator=g).to(dev)
+                w32 = (torch.randn(n, k, generator=g) * k ** -0.5).to(dev)
+                bias = torch.randn(n, generator=g).to(dev)
+                r32 = torch.randn(m, n, generator=g).to(dev)
+                w_hi, w_lo = tf32_planes(w32)
+                epi = kp.EPI_WG_BIAS_RESID if with_resid else kp.EPI_WG_BIAS
+                for mode in ("fp32", "bf16"):
+                    dtype = torch.bfloat16 if mode == "bf16" \
+                        else torch.float32
+                    a, w, r = a32.to(dtype), w32.to(dtype), r32.to(dtype)
+                    kw = dict(resids=(r,) if with_resid else ())
+                    if mode == "bf16":
+                        args = (a, w, bias, epi)
+                    else:
+                        kw.update(w_lo=w_lo)
+                        args = (a32, w_hi, bias, epi)
+
+                    def ref(a=a, w=w, r=r, bias=bias,
+                            with_resid=with_resid):
+                        v = (torch.matmul(a.float(), w.float().T)
+                             + bias).to(a.dtype)
+                        return r + v if with_resid else v
+
+                    shape = f"{product} {mode} <{m},{k}>x<{n},{k}>^T"
+                    cases.append(("gemm_wg", shape, dtype,
+                                  lambda args=args, kw=kw: kp.gemm_wg(
+                                      *args, **kw), ref))
+                    library[shape] = ("matmul_ms",
+                                      lambda a=a, w=w: torch.matmul(a, w.T))
+    # K5 with one branch at the train step's teacher sweep (B*M = 256
+    # images of 197 tokens), fp32 and bf16
+    from autognothi_tpu_torch.ops import ladder_block as lb
+
+    for dtype in (torch.float32, torch.bfloat16):
+        b, t, h, s = 4 * smoke.B_TIME, smoke.T, 768, 96
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(shape, generator=g) * scale).to(dev, dtype)
+
+        shapes = {"map_w": (s, h), "w1": (4 * s, s), "b1": (4 * s,),
+                  "w2": (s, 4 * s)}
+        branch = {k: rnd(*shapes.get(k, (s, s) if k.startswith("w")
+                                     else (s,)), scale=0.1)
+                  for k in lb.BRANCH_KEYS}
+        branch["ln1_w"] += 1
+        branch["ln2_w"] += 1
+        args = (rnd(b, t, h), [rnd(b, t, s)],
+                (torch.rand(b, t, generator=g) > 0.4).float().to(dev),
+                [branch], 12, "mul", True, 1e-12)
+        cases.append(("ladder_block", f"768 -> 1 x 96 B={b} (teacher)",
+                      dtype, lambda a=args: lb.ladder_block(*a),
+                      lambda a=args: lb.ladder_block_plain(
+                          *lb.ladder_block_args(*a)[0],
+                          **lb.ladder_block_args(*a)[1])))
     for op, shape, dtype, kern, plain in cases:
         with torch.inference_mode():
             err, ok, msg = smoke.compare(kern(), plain(), dtype,
@@ -155,7 +247,11 @@ def main() -> int:
             dev_ms = device_ms(kern)
             extra = {}
             if shape in library:
-                extra = dict(int_mm_device_ms=device_ms(library[shape]))
+                # cuBLAS launches a varying number of kernels per call:
+                # torch.matmul is timed with CUDA events only
+                key, fn = library[shape]
+                extra = {key: device_ms(fn) if key == "int_mm_device_ms"
+                         else events_ms(fn)}
         print(json.dumps(dict(label=label, op=op, shape=shape,
                               dtype=str(dtype).split(".")[-1],
                               ms=start.elapsed_time(end) / REPS,

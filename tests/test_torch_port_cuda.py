@@ -141,12 +141,12 @@ def test_gemm_tiles_and_epilogues(dev, m, n, dtype):
             ln = (mean, rstd, lnw, lnb)
             x = (((x - mean[:, None]) * rstd[:, None]) * lnw + lnb).to(dtype)
         y = x.float() @ w.float().T + bias
-        for epi in range(4):
+        for epi in (kp.EPI_BIAS, kp.EPI_BIAS_GELU, kp.EPI_BIAS_RESID):
             want = y
-            if epi in (kp.EPI_BIAS_GELU, kp.EPI_BIAS_GELU_RESID):
+            if epi == kp.EPI_BIAS_GELU:
                 want = torch.nn.functional.gelu(want)
             want = want.to(dtype)
-            if epi in (kp.EPI_BIAS_RESID, kp.EPI_BIAS_GELU_RESID):
+            if epi == kp.EPI_BIAS_RESID:
                 want = resid + want
             got = kp.gemm(a, w, bias, epi, ln=ln,
                           resid=resid if epi >= kp.EPI_BIAS_RESID else None)
@@ -664,9 +664,9 @@ def test_tensor_core_gemm_grid(dev, n, k, dtype):
                 x = (((a.float() - mean[:, None]) * rstd[:, None]) * lnw
                      + lnb).to(dtype).double()
             y = x @ w.double().T + bias.double()
-            for epi in range(4):
+            for epi in (kp.EPI_BIAS, kp.EPI_BIAS_GELU, kp.EPI_BIAS_RESID):
                 want = y
-                if epi in (kp.EPI_BIAS_GELU, kp.EPI_BIAS_GELU_RESID):
+                if epi == kp.EPI_BIAS_GELU:
                     want = torch.nn.functional.gelu(want)
                 if dtype == torch.float32 and epi == kp.EPI_BIAS:
                     got = kp.gemm(a, w, bias, epi, ln=ln)
@@ -674,7 +674,7 @@ def test_tensor_core_gemm_grid(dev, n, k, dtype):
                     assert err <= 1e-5 * max(1.0, want.abs().max().item()), \
                         (m, use_ln, err)
                 want = want.to(dtype)
-                if epi in (kp.EPI_BIAS_RESID, kp.EPI_BIAS_GELU_RESID):
+                if epi == kp.EPI_BIAS_RESID:
                     want = resid + want
                 out_wide = torch.zeros(m, n + 3, device=dev, dtype=dtype)
                 got = kp.gemm(a, w, bias, epi, ln=ln, out=out_wide[:, 3:],
@@ -774,17 +774,24 @@ def test_gemm_i8_wgmma_grid(dev, m, n, k):
 
 
 def _launched(fn):
-    """Kernel names of the device launches of one call of `fn`."""
+    """Kernel names of the device launches of one call of `fn`.  The
+    profiler warms up on a fill first (it now and then loses the first
+    events of a window it starts with) and keeps the second window, the
+    call's; the step's own annotation ("ProfilerStep#") is no launch."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for step in (lambda: torch.zeros(1, device="cuda"), fn):
+            step()
+            torch.cuda.synchronize()
+            prof.step()
     return [e.name for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep")]
 
 
 def _weight_quantizers(names):
@@ -847,3 +854,269 @@ def test_int8_blocks_quantize_weights_once_per_version(dev):
     _close_int8(k4(), mb.mlp_block_int8_plain(
         resid, w1, b1, w2, b2, ln[0], ln[1], ln_position="prologue",
         ln_eps=1e-12), torch.float32)
+
+
+# ------------------- the float GEMM on TMA + wgmma; the ladder's stages (K6, K5)
+
+
+def _wg_operands(a, w, mode):
+    """gemm_wg's operands of fp32 a <M, K>, w <N, K>: mode "bf16", or
+    "fp32" (A split in the kernel's registers, w's tf32 planes)."""
+    from autognothi_tpu_torch.ops.weight_codes import tf32_planes
+
+    if mode == "bf16":
+        return dict(a=a.bfloat16(), w=w.bfloat16())
+    w_hi, w_lo = tf32_planes(w)
+    return dict(a=a, w=w_hi, w_lo=w_lo)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("k", [96, 768, 3072])
+@pytest.mark.parametrize("n", [96, 288, 768, 2304])
+def test_gemm_wg_grid(dev, n, k, mode):
+    """The TMA + wgmma float GEMM over odd M x N x K, with the bias and the
+    bias + residual epilogues, against the float64 product of the same
+    operands: fp32 (3xTF32) within 1e-5 x max(1, |ref|), bf16 within one
+    bf16 rounding (1e-2 x max(1, |ref|))."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+
+    g = torch.Generator().manual_seed(30 + n + k)
+    dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+    tol = 1e-2 if mode == "bf16" else 1e-5
+    for m in (1, 197, 4097):
+        a = _rand(g, dev, m, k)
+        w = _rand(g, dev, n, k, scale=k ** -0.5)
+        bias = _rand(g, dev, n)
+        resid = _rand(g, dev, m, n).to(dtype)
+        ops = _wg_operands(a, w, mode)
+        ref = ops["a"].double() @ w.to(dtype).double().T + bias.double()
+        got = kp.gemm_wg(ops["a"], ops["w"], bias, kp.EPI_WG_BIAS,
+                         w_lo=ops.get("w_lo"))
+        scale = max(1.0, ref.abs().max().item())
+        err = (got.double() - ref).abs().max().item()
+        assert err <= tol * scale, (m, err, scale)
+        got = kp.gemm_wg(ops["a"], ops["w"], bias, kp.EPI_WG_BIAS_RESID,
+                         w_lo=ops.get("w_lo"), resids=(resid,))
+        want = resid.double() + ref.to(dtype).double()
+        err = (got.double() - want).abs().max().item()
+        assert err <= tol * max(1.0, want.abs().max().item()), (m, err)
+
+
+@pytest.mark.parametrize("s,n_branches", [(96, 1), (96, 2), (32, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_wg_side_in_epilogue(dev, dtype, s, n_branches):
+    """The split epilogue of the ladder's side-in product: every branch's
+    map at once, bias, GELU, cast, its side added, into <nb, M, S>."""
+    from autognothi_tpu_torch.ops import ladder_block as lb
+
+    g = torch.Generator().manual_seed(40 + s + n_branches)
+    m, h = 4097, 768
+    h2 = _rand(g, dev, m, h).to(dtype)
+    sides = [_rand(g, dev, m, s).to(dtype) for _ in range(n_branches)]
+    map_w = _rand(g, dev, n_branches * s, h, scale=h ** -0.5).to(dtype)
+    map_b = _rand(g, dev, n_branches * s)
+    _close(lb.side_in_launch(h2, sides, map_w, map_b),
+           lb.side_in_plain(h2, sides, map_w, map_b), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_prep_ln_and_the_planes_on_the_card(dev, dtype):
+    """The LN row pass rounded to the activation dtype as the plain
+    LayerNorm; the weights' tf32 planes, made on the card by the torch plane
+    function, bit for bit the CPU's (which tests/test_torch_port_planes.py
+    holds against a numpy rounding, ties included)."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+    from autognothi_tpu_torch.models.common import layer_norm
+    from autognothi_tpu_torch.ops.weight_codes import tf32_planes
+
+    g = torch.Generator().manual_seed(50)
+    x = _rand(g, dev, 301, 768).to(dtype)
+    w, b = 1 + _rand(g, dev, 768, scale=0.1), _rand(g, dev, 768, scale=0.1)
+    _close(kp.rows_prep(x, (w, b, 1e-12)), layer_norm(x, w, b, 1e-12), dtype)
+    if dtype == torch.float32:
+        # ties: values whose 13 low bits are exactly 0x1000
+        x[0, :64] = (torch.arange(64, device=dev, dtype=torch.int32)
+                     * 0x2000 + 0x3F801000).view(torch.float32)
+        for got, want in zip(tf32_planes(x), tf32_planes(x.cpu())):
+            assert torch.equal(got.cpu().view(torch.int32),
+                               want.view(torch.int32))
+
+
+def _ladder_case(g, dev, dtype, n_branches, t, s=96, h=768, b=2,
+                 inter=None):
+    from autognothi_tpu_torch.ops import ladder_block as lb
+
+    inter = inter or 4 * s
+    hid = _rand(g, dev, b, t, h).to(dtype)
+    sides = [_rand(g, dev, b, t, s).to(dtype) for _ in range(n_branches)]
+    shapes = {"map_w": (s, h), "w1": (inter, s), "b1": (inter,),
+              "w2": (s, inter)}
+    branches = [{k: _rand(g, dev, *shapes.get(k, (s, s) if k.startswith("w")
+                                              else (s,)),
+                          scale=0.1 if not k.startswith("ln") else 0.3)
+                 for k in lb.BRANCH_KEYS} for _ in range(n_branches)]
+    for w in branches:  # the model's weights are in its activation dtype
+        w["ln1_w"] += 1
+        w["ln2_w"] += 1
+        w.update({k: v.to(dtype) for k, v in w.items()})
+    return hid, sides, branches
+
+
+def _check_ladder_stages(dev, dtype, n_branches, kind, t, seed, s=96,
+                         inter=None):
+    """Each of K5's launches against its stage's plain version on the same
+    inputs (the plain chain's own intermediates), then the whole op against
+    `ladder_block_plain`.  Side s in s / 8 heads of d = 8; "add" takes its
+    bias in the activation dtype, as the BERT model makes it."""
+    from autognothi_tpu_torch.ops import ladder_block as lb
+
+    g = torch.Generator().manual_seed(seed)
+    heads = s // 8
+    mode, pre_norm = ("mul", True) if kind == "mul pre" else ("add", False)
+    hid, sides, branches = _ladder_case(g, dev, dtype, n_branches, t, s=s,
+                                        inter=inter)
+    mask = _mask(g, dev, 2, t, True)
+    if mode == "add":
+        mask = (1 - mask.to(dtype)) * torch.finfo(dtype).min
+    tensors, static = lb.ladder_block_args(hid, sides, mask, branches, heads,
+                                           mode, pre_norm, 1e-12)
+    pk = lb.ladder_pack(tensors[2:], n_branches, dtype)
+    m = 2 * t
+    h2 = hid.reshape(m, -1)
+    sides2 = [x.reshape(m, -1) for x in sides]
+    x = lb.side_in_plain(h2, sides2, pk["map_w"], pk["map_b"])
+    _close(lb.side_in_launch(h2, sides2, pk["map_w"], pk["map_b"]), x, dtype)
+    qkv_args = (pk["wqkv"], pk["bqkv"], pk["ln1_w"], pk["ln1_b"], 1e-12,
+                pre_norm)
+    qkv = lb.side_qkv_plain(x, *qkv_args)
+    _close(lb.side_qkv_launch(x, *qkv_args), qkv, dtype)
+    att_args = (mask, pk["wo"], pk["bo"], pk["ln1_w"], pk["ln1_b"], 1e-12,
+                heads, mode, pre_norm)
+    x1 = lb.side_attention_plain(x, qkv, *att_args)
+    _close(lb.side_attention_launch(x, qkv, *att_args), x1, dtype)
+    mlp_args = (pk["w1"], pk["b1"], pk["w2"], pk["b2"], pk["ln2_w"],
+                pk["ln2_b"], 1e-12, pre_norm)
+    _close(lb.side_mlp_launch(x1, *mlp_args),
+           lb.side_mlp_plain(x1, *mlp_args), dtype)
+    before = lb.COUNTER.count
+    got = lb.ladder_block(hid, sides, mask, branches, heads, mode, pre_norm,
+                          1e-12)
+    assert lb.COUNTER.count == before + 1
+    for y, want in zip(got, lb.ladder_block_plain(*tensors, **static)):
+        _close(y, want, dtype)
+
+
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 197, 512])
+@pytest.mark.parametrize("kind", ["mul pre", "add post"])
+@pytest.mark.parametrize("n_branches", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ladder_stage_launches(dev, dtype, n_branches, kind, t):
+    """K5 at the ViT-B / BERT-base side (96 wide, MLP 384): each launch
+    against its stage's plain version, then the whole op."""
+    _check_ladder_stages(dev, dtype, n_branches, kind, t, 60 + t + n_branches)
+
+
+@pytest.mark.parametrize("s,inter", [(8, 16), (24, 40), (32, 64), (48, 192),
+                                     (64, 136), (120, 96), (128, 512)])
+@pytest.mark.parametrize("kind", ["mul pre", "add post"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ladder_stage_launches_at_other_widths(dev, dtype, kind, s, inter):
+    """K5 at every width class (side widths that are multiples of 8 up to
+    128: odd multiples of 8, ViT-S 48, ViT-L 128) and MLP widths other than
+    4S (the BERT test config's 32 / 64), T = 65 over 2 branches."""
+    _check_ladder_stages(dev, dtype, 2, kind, 65, 90 + s + inter, s=s,
+                         inter=inter)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ladder_with_more_branches_than_one_side_in_takes(dev, dtype):
+    """Six branches: two side-in launches (four branches, then two)."""
+    _check_ladder_stages(dev, dtype, 6, "mul pre", 17, 95, s=32)
+
+
+def test_ladder_refuses_widths_it_has_no_kernel_for(dev):
+    """Side widths past 128 or heads other than d = 8 raise on the card."""
+    from autognothi_tpu_torch.ops import ladder_block as lb
+
+    g = torch.Generator().manual_seed(96)
+    for s, heads in ((136, 17), (96, 6)):
+        hid, sides, branches = _ladder_case(g, dev, torch.float32, 1, 9, s=s)
+        with pytest.raises(ValueError):
+            lb.ladder_block(hid, sides, _mask(g, dev, 2, 9, True), branches,
+                            heads, "mul", True, 1e-12)
+
+
+def _copies(names):
+    return [s for s in names
+            if any(w in s.lower() for w in ("copy", "cat", "fill"))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ladder_and_attention_block_launch_counts(dev, dtype):
+    """After warmup one ladder step launches four kernels for every branch
+    together (1 and 2 branches, the ViT's "mul" mask and BERT's additive
+    bias in the activation dtype), and K6 launches no concatenation, copy
+    or fill under either mask: the packed weights, planes and fp32 vectors
+    are made once per weight version, the mask is read as it comes; an
+    in-place update makes the packs again."""
+    from autognothi_tpu_torch.ops import attention_block as ab
+    from autognothi_tpu_torch.ops import ladder_block as lb
+
+    g = torch.Generator().manual_seed(70)
+    keep = _mask(g, dev, 2, 197, True)
+    # the ViT's 0/1 mask, and BERT's additive bias in the activation dtype
+    # (as `additive_mask_bias` makes it): neither is copied
+    masks = {"mul": keep, "add": (1 - keep.to(dtype)) * torch.finfo(dtype).min}
+    for n_branches, mode in ((1, "mul"), (2, "mul"), (2, "add")):
+        hid, sides, branches = _ladder_case(g, dev, dtype, n_branches, 197)
+
+        def step():
+            return lb.ladder_block(hid, sides, masks[mode], branches, 12,
+                                   mode, mode == "mul", 1e-12)
+
+        step()
+        names = _launched(step)
+        assert len(names) == 4 and not _copies(names), names
+        assert sum("ladder_" in s for s in names) == 3, names
+        assert sum("gemm_wg_kernel" in s for s in names) == 1, names
+    h = 768
+    resid = _rand(g, dev, 2, 197, h).to(dtype)
+    ws = tuple(_rand(g, dev, *s, scale=0.05) for s in [(h, h), (h,)] * 4)
+    ws = tuple(w.to(dtype) for w in ws)
+    ln = (1 + _rand(g, dev, h, scale=0.1).to(dtype),
+          _rand(g, dev, h, scale=0.1).to(dtype), 1e-12)
+    for position, mode in (("prologue", "mul"), ("epilogue", "add")):
+        def k6():
+            return ab.attention_block(resid, masks[mode], ws, 12, mode,
+                                      ln=ln, ln_position=position)
+
+        k6()
+        names = _launched(k6)
+        assert not _copies(names), names
+        assert sum("gemm_wg_kernel" in s for s in names) == 2, names
+    with torch.no_grad():
+        ws[0].add_(0.01)
+    _close(k6(), ab.attention_block_plain(
+        resid, masks["add"], *ws, ln[0], ln[1], n_heads=12, mode="add",
+        ln_position="epilogue", ln_eps=1e-12), dtype)
+
+
+def test_attention_block_at_vit_width(dev):
+    """K6 in fp32 at the ViT trunk's width (768, 12 heads, T = 197),
+    pre-norm (the LN pass writes A), post-norm and without LN, against the
+    plain block."""
+    from autognothi_tpu_torch.ops import attention_block as ab
+
+    g = torch.Generator().manual_seed(80)
+    h = 768
+    resid = _rand(g, dev, 3, 197, h)
+    ws = tuple(_rand(g, dev, *s, scale=h ** -0.5) for s in [(h, h), (h,)] * 4)
+    ln = (1 + _rand(g, dev, h, scale=0.1), _rand(g, dev, h, scale=0.1), 1e-12)
+    mask = _mask(g, dev, 3, 197, True)
+    for position in ("prologue", "epilogue", "none"):
+        got = ab.attention_block(resid, mask, ws, 12, "mul", ln=ln,
+                                 ln_position=position)
+        want = ab.attention_block_plain(
+            resid, mask, *ws, ln[0], ln[1], n_heads=12, mode="mul",
+            ln_position=position, ln_eps=1e-12)
+        _close(got, want, torch.float32)
