@@ -7,6 +7,12 @@
 // its side-in product here: h times every branch's map weight at once,
 // with bias, exact GELU, the cast and the side added in the epilogue, each
 // branch's columns written to its own output (`ladder.cu` has the rest).
+// K8, a bf16 tile of the float intermediate-dim split
+// (autognothi_tpu/ops/mlp_block.py:_pallas_mlp_sepx, body `_kernel_sepx`),
+// runs its two products here: the tile's W1 rows with bias, exact GELU and
+// the cast, then the tile's W2 column slice, read in place by TMA through
+// its row stride, with bias, cast and the residual; 192-wide tiles at
+// BERT-base B=8 (M = 4096: 256 tiles for W1, 128 for W2 on 132 SMs).
 //
 // C[m, n] = epilogue(sum_k A[m, k] W[n, k]) with A <M, K> and the torch
 // (out, in) W <N, K>: both K-major, as tf32 wgmma requires and bf16 allows.
@@ -118,6 +124,46 @@ __device__ __forceinline__ void wgmma_bf16_n128(float* d, uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_bf16_n192(float* d, uint64_t desc_a,
+                                               uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_tf32_rs_n96(float* d, const uint32_t* a,
                                                   uint64_t desc_b,
                                                   int scale_d) {
@@ -200,6 +246,8 @@ __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t a, uint64_t b,
                                            int scale_d) {
   if constexpr (BN == 256)
     wgmma_bf16_n256(d, a, b, scale_d);
+  else if constexpr (BN == 192)
+    wgmma_bf16_n192(d, a, b, scale_d);
   else if constexpr (BN == 128)
     wgmma_bf16_n128(d, a, b, scale_d);
   else
@@ -209,10 +257,16 @@ __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t a, uint64_t b,
 // ------------------------------------------------------------------ GEMM
 
 enum EpiWg {
-  kWgBias = 0,           // C = cast(acc + b)
-  kWgBiasResid = 1,      // C = R + cast(acc + b)
-  kWgGeluResidSplit = 2  // C_br = R_br + cast(gelu(acc + b)), br = n / split
+  kWgBias = 0,            // C = cast(acc + b)
+  kWgBiasResid = 1,       // C = R + cast(acc + b)
+  kWgGeluResidSplit = 2,  // C_br = R_br + cast(gelu(acc + b)), br = n / split
+  kWgBiasGelu = 3         // C = cast(gelu(acc + b))
 };
+
+template <int EPI>
+__host__ __device__ constexpr bool wg_resid() {
+  return EPI == kWgBiasResid || EPI == kWgGeluResidSplit;
+}
 
 constexpr int kWgBM = 128;       // tile rows: one 64-row wgmma per consumer
 constexpr int kWgThreads = 384;  // consumer warpgroups 0, 1; producer 2
@@ -311,7 +365,7 @@ __device__ __forceinline__ void wg_epilogue(const GemmWgArgs& p,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         res[jj][h][0] = res[jj][h][1] = 0.f;
-        if (EPI != kWgBias && one && row_ok[h])
+        if (wg_resid<EPI>() && one && row_ok[h])
           ld2<T>(static_cast<const T*>(p.R[br]) + (size_t)rows[h] * p.ldr +
                      cc,
                  two && vec_ok, two, res[jj][h][0], res[jj][h][1]);
@@ -328,11 +382,11 @@ __device__ __forceinline__ void wg_epilogue(const GemmWgArgs& p,
         if (!row_ok[h]) continue;
         float v0 = acc[4 * j + 2 * h] + bs[jj][0];
         float v1 = acc[4 * j + 2 * h + 1] + bs[jj][1];
-        if (EPI == kWgGeluResidSplit) {
+        if (EPI == kWgGeluResidSplit || EPI == kWgBiasGelu) {
           v0 = gelu_erf(v0);
           v1 = gelu_erf(v1);
         }
-        if (EPI != kWgBias) {
+        if (wg_resid<EPI>()) {
           v0 = res[jj][h][0] + round_to<T>(v0);
           v1 = res[jj][h][1] + round_to<T>(v1);
         }
@@ -406,7 +460,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     // aligned to two elements
     bool vec_ok = p.ldc % 2 == 0 && p.c_split % 2 == 0 &&
                   reinterpret_cast<uintptr_t>(p.C) % (2 * sizeof(T)) == 0;
-    if (EPI != kWgBias) {
+    if (wg_resid<EPI>()) {
       vec_ok = vec_ok && p.ldr % 2 == 0;
       for (int i = 0; i < kWgMaxBranches; ++i)
         vec_ok = vec_ok &&
@@ -509,6 +563,7 @@ static int launch_wg(const CUtensorMap* maps, int bn, const GemmWgArgs& p,
                      cudaStream_t s) {
   if constexpr (sizeof(T) == 2) {
     if (bn == 256) return launch_wg_tile<T, EPI, 256>(maps, p, s);
+    if (bn == 192) return launch_wg_tile<T, EPI, 192>(maps, p, s);
     if (bn == 128) return launch_wg_tile<T, EPI, 128>(maps, p, s);
   }
   return launch_wg_tile<T, EPI, 96>(maps, p, s);
@@ -522,6 +577,7 @@ static int dispatch_wg(int epi, const CUtensorMap* maps, int bn,
     case kWgBiasResid: return launch_wg<T, kWgBiasResid>(maps, bn, p, s);
     case kWgGeluResidSplit:
       return launch_wg<T, kWgGeluResidSplit>(maps, bn, p, s);
+    case kWgBiasGelu: return launch_wg<T, kWgBiasGelu>(maps, bn, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -574,12 +630,13 @@ using namespace ag;
 // with row stride ldw.  R: kWgMaxBranches residual pointers (the first, or
 // one per branch for the split epilogue).  A and W are read by TMA: the
 // pointers and the row strides in bytes must be multiples of 16, and so
-// must K's bytes.
+// must K's bytes.  bn: the tile width (bf16 96, 128, 192 or 256; fp32 96),
+// or 0 for the shape rule below.
 extern "C" int ag_gemm_wg(int dtype, int epi, const void* A, int lda,
                           const void* W, const void* W_lo, int ldw,
                           const void* bias, const void* const* R, int ldr,
                           void* C, int ldc, long long c_split, int split,
-                          int M, int N, int K, void* stream) {
+                          int M, int N, int K, int bn, void* stream) {
   if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
   const int es = dtype == kF32 ? 4 : 2;
   if (K <= 0 || K * es % 16 || lda * es % 16 || ldw * es % 16)
@@ -590,10 +647,14 @@ extern "C" int ag_gemm_wg(int dtype, int epi, const void* A, int lda,
   if (M == 0 || N == 0) return 0;
   // bf16: 256-wide tiles where they still make six or more column tiles
   // (the Q|K|V product), else 128 or 96
-  const int bn = dtype != kBF16                 ? 96
-                 : N % 256 == 0 && N >= 6 * 256 ? 256
-                 : N % 128 == 0                 ? 128
-                                                : 96;
+  if (bn == 0)
+    bn = dtype != kBF16                 ? 96
+         : N % 256 == 0 && N >= 6 * 256 ? 256
+         : N % 128 == 0                 ? 128
+                                        : 96;
+  else if (dtype == kBF16 ? bn != 96 && bn != 128 && bn != 192 && bn != 256
+                          : bn != 96)
+    return (int)cudaErrorInvalidValue;
   CUtensorMap maps[3];
   const void* w_lo = dtype == kF32 ? W_lo : W;
   if (!tensor_map(&maps[0], A, M, K * es, lda * es, kWgBM) ||

@@ -4,7 +4,9 @@
 //   autognothi_tpu/ops/attention_block.py:_pallas_attention_block_q (K1),
 //   autognothi_tpu/ops/ladder_block.py:_pallas_mlp_ladder_q (K2, its trunk MLP),
 //   autognothi_tpu/ops/head_block.py:_pallas_head_q (K3, d1 and d2),
-//   autognothi_tpu/ops/mlp_block.py:_pallas_mlp_block_q (K4).
+//   autognothi_tpu/ops/mlp_block.py:_pallas_mlp_block_q (K4),
+//   autognothi_tpu/ops/mlp_block.py:_pallas_mlp_sepx_q (K8q, one tile of
+//     the intermediate-dim split).
 //
 // Quantization (autognothi_tpu/ops/mlp_block.py:quant_cols, _quant_rows):
 //   activations, per row: amax = max|x| + 1e-12, inv = 127 / amax,
@@ -52,6 +54,19 @@
 // products) were measured and ran no faster.  The <M, K> int8 activations
 // and the fp32 MLP intermediate go to device memory, where the TPU
 // kernels kept them on chip.
+//
+// K8q's tiles re-quantize their own fp32 GELU intermediate per token.  No
+// pass reduces it: the W1 product's kI8GeluF32Amax epilogue raises each
+// row's max |GELU| (fp32 bits, atomicMax: exact in any order) into a
+// buffer the chain's x quantizer zeroed in its own launch; the W2 product
+// (QA) loads the fp32 intermediate by TMA and each consumer thread makes
+// its wgmma A fragments' codes in registers from those maxima, with the
+// quantizer's arithmetic (amax + 1e-12, a true division 127 / amax, codes
+// rounded half to even, scale = amax * (1/127)).  Measured on an H100
+// (PERF.md): an elementwise pass writing the codes from the maxima before
+// a GEMM on codes took as long on the device and one launch more; 64-k
+// stages (five, 64-byte-swizzled W boxes) 3% longer; the A boxes shared by
+// TMA multicast in clusters of the four column tiles five times longer.
 
 #include <stdint.h>
 
@@ -64,13 +79,20 @@ namespace ag {
 
 // One warp per row.  LN: mean and rsqrt(var + eps) with fp32 math, then
 // round_to<T>((x - mean) * rstd * w + b).  WEIGHT: the divide recipe.
+// zero <nzero> (may be null): fp32 buffers this launch zeroes on the side
+// (a K8q chain's per-row amax buffers, zeroed by the launch that makes x's
+// codes instead of a fill of their own).
 template <typename T, bool LN, bool WEIGHT>
 __global__ void quant_rows_kernel(const T* __restrict__ x, int ldx, int M,
                                   int N, float eps,
                                   const float* __restrict__ lnw,
                                   const float* __restrict__ lnb,
                                   int8_t* __restrict__ q,
-                                  float* __restrict__ scale) {
+                                  float* __restrict__ scale,
+                                  float* __restrict__ zero, int nzero) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < nzero;
+       i += gridDim.x * blockDim.x)
+    zero[i] = 0.f;
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= M) return;  // whole warps leave together
@@ -114,10 +136,11 @@ __global__ void quant_rows_kernel(const T* __restrict__ x, int ldx, int M,
 // ----------------------------------------------------------------- GEMM
 
 enum EpiI8 {
-  kI8Bias = 0,       // C = cast(v)
-  kI8BiasResid = 1,  // C = R + cast(v)
-  kI8GeluF32 = 2,    // C (fp32) = gelu(v)
-  kI8Gelu = 3        // C = cast(gelu(v))
+  kI8Bias = 0,        // C = cast(v)
+  kI8BiasResid = 1,   // C = R + cast(v)
+  kI8GeluF32 = 2,     // C (fp32) = gelu(v)
+  kI8Gelu = 3,        // C = cast(gelu(v))
+  kI8GeluF32Amax = 4  // kI8GeluF32, and amax[m] = max over the row of |C|
 };
 
 struct GemmI8Args {
@@ -126,8 +149,11 @@ struct GemmI8Args {
   const float* bias;     // <N>
   const void* R;         // residual (kI8BiasResid), row stride ldr
   int ldr;
-  void* C;  // row stride ldc; fp32 for kI8GeluF32, else the activation type
+  void* C;  // row stride ldc; fp32 for kI8GeluF32*, else the activation type
   int ldc;
+  // <M>: kI8GeluF32Amax raises it to each row's max |C| (zeroed before
+  // the launch); with A quantized on load, each row's max |A|
+  float* amax;
   int M, N, K;
 };
 
@@ -138,11 +164,12 @@ constexpr int kI8Threads = 384;  // consumer warpgroups 0, 1; producer 2
 // Tile widths: 192 for the trunk products (N = 768 ... 3072, multiples of
 // 192: at M = 12608 that is 3, 9 and 12 full waves of the 132 SMs), else
 // 96 (the 96-, 288- and 384-wide side products, which need the narrower
-// tiles to spread over the SMs; any other N).
-template <int BN>
+// tiles to spread over the SMs; any other N).  QA (A quantized on load): a
+// stage holds 128 k of fp32 A, four 128 x 128-byte boxes, so two stages.
+template <int BN, bool QA = false>
 struct I8Tile {
-  static constexpr int kStages = BN == 192 ? 5 : 6;
-  static constexpr int kABytes = kI8BM * kI8BK;
+  static constexpr int kStages = QA ? 2 : BN == 192 ? 5 : 6;
+  static constexpr int kABytes = kI8BM * kI8BK * (QA ? 4 : 1);
   static constexpr int kBBytes = BN * kI8BK;
   // the ring, its full/empty barriers, and slack to align the ring to the
   // 1024 bytes of the 128-byte swizzle pattern
@@ -228,6 +255,91 @@ __device__ __forceinline__ void wgmma_s8(int* d, uint64_t a, uint64_t b) {
     wgmma_s8_n96(d, a, b, 1);
 }
 
+// D[64 x 192] (+)= A[64 x 32] B[192 x 32]^T, s8 x s8 -> s32, A from
+// registers (the m16n8k32 s8 fragment of each warp's 16 rows), B from
+// shared memory (K-major, 128-byte swizzle); scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_s8_rs_n192(int* d, const uint32_t* a,
+                                                 uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// D[64 x 96] (+)= A[64 x 32] B[96 x 32]^T, s8 x s8 -> s32, A from
+// registers (the m16n8k32 s8 fragment of each warp's 16 rows), B from
+// shared memory (K-major, 128-byte swizzle); scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_s8_rs_n96(int* d, const uint32_t* a,
+                                                 uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_s8_rs(int* d, const uint32_t* a,
+                                            uint64_t b) {
+  if constexpr (BN == 192)
+    wgmma_s8_rs_n192(d, a, b, 1);
+  else
+    wgmma_s8_rs_n96(d, a, b, 1);
+}
+
 // A pair of T from row r, columns c and c + 1 (c + 1 only where `two`), as
 // floats; one 4- or 8-byte load where `vec`.
 template <typename T>
@@ -250,6 +362,12 @@ __device__ __forceinline__ void load_pair(const T* row, int c, bool two,
   }
 }
 
+// The scale of A's row m quantized on load from its max |x|: amax + 1e-12,
+// times 1/127, as `quant_rows_kernel` writes it
+__device__ __forceinline__ float scale_of_amax(float amax) {
+  return __fmul_rn(__fadd_rn(amax, 1e-12f), 1.0f / 127.0f);
+}
+
 // C tile rows [m0, m0 + 64) of one consumer warpgroup, columns [n0, n0 +
 // BN).  Accumulator fragment of wgmma m64nNk32 (s32): warp w, lane l hold,
 // for each 8-column group j, d[4j + 2h + e] = D[16w + l/4 + 8h][8j + 2(l%4)
@@ -257,18 +375,29 @@ __device__ __forceinline__ void load_pair(const T* row, int c, bool two,
 // multiplies and an _rn add, exact-erf GELU, the residual added after the
 // cast.  Columns go in chunks of 64 (48 for BN = 96): each chunk's scales,
 // biases and residuals are loaded together before its stores, so their
-// latencies overlap instead of queueing behind each other.
-template <typename T, int EPI, int BN>
+// latencies overlap instead of queueing behind each other.  QA: A's row
+// scales come from its row maxima (A was quantized on load).
+// kI8GeluF32Amax: the four lanes that hold a row reduce their max |gelu|
+// and one of them raises amax[row] by atomicMax on the fp32 bits, which
+// orders non-negative floats as integers: exact, whatever the order in
+// which the blocks arrive.
+template <typename T, int EPI, int BN, bool QA>
 __device__ __forceinline__ void epilogue(const GemmI8Args& p, const int* acc,
                                          int m0, int n0, bool vec_ok) {
   constexpr int kJ = (BN / 8) % 8 == 0 ? 8 : 6;  // 8-column groups a chunk
+  constexpr bool kF32Out = EPI == kI8GeluF32 || EPI == kI8GeluF32Amax;
   static_assert((BN / 8) % kJ == 0, "chunks must tile the columns");
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int rows[2] = {m0 + 16 * warp + (lane >> 2),
                        m0 + 16 * warp + (lane >> 2) + 8};
   const bool row_ok[2] = {rows[0] < p.M, rows[1] < p.M};
-  const float sa[2] = {row_ok[0] ? p.a_scale[rows[0]] : 0.f,
-                       row_ok[1] ? p.a_scale[rows[1]] : 0.f};
+  float sa[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    sa[h] = !row_ok[h] ? 0.f
+            : QA       ? scale_of_amax(p.amax[rows[h]])
+                       : p.a_scale[rows[h]];
+  float rmax[2] = {0.f, 0.f};
 #pragma unroll
   for (int j0 = 0; j0 < BN / 8; j0 += kJ) {
     float ws[kJ][2], bs[kJ][2], res[kJ][2][2];
@@ -304,9 +433,12 @@ __device__ __forceinline__ void epilogue(const GemmI8Args& p, const int* acc,
               __fmul_rn(__fmul_rn((float)acc[4 * j + 2 * h + e], sa[h]),
                         ws[jj][e]),
               bs[jj][e]);
-          if (EPI == kI8GeluF32 || EPI == kI8Gelu) v[e] = gelu_erf(v[e]);
+          if (EPI != kI8Bias && EPI != kI8BiasResid) v[e] = gelu_erf(v[e]);
         }
-        if (EPI == kI8GeluF32) {
+        if (EPI == kI8GeluF32Amax)
+          rmax[h] = fmaxf(rmax[h], two ? fmaxf(fabsf(v[0]), fabsf(v[1]))
+                                       : fabsf(v[0]));
+        if (kF32Out) {
           float* out = static_cast<float*>(p.C) + (size_t)rows[h] * p.ldc + c;
           if (vec) {
             *reinterpret_cast<float2*>(out) = make_float2(v[0], v[1]);
@@ -337,6 +469,14 @@ __device__ __forceinline__ void epilogue(const GemmI8Args& p, const int* acc,
       }
     }
   }
+  if constexpr (EPI == kI8GeluF32Amax) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m = quad_max(rmax[h]);
+      if ((lane & 3) == 0 && row_ok[h])
+        atomicMax(reinterpret_cast<int*>(p.amax) + rows[h], __float_as_int(m));
+    }
+  }
 }
 
 // Persistent, warp-specialised int8 GEMM: gridDim.x blocks (at most one per
@@ -349,13 +489,22 @@ __device__ __forceinline__ void epilogue(const GemmI8Args& p, const int* acc,
 // stages (four m64nBNk32 wgmmas per stage) into an int32 accumulator in
 // registers, then run the float epilogue from registers while the
 // producer already fills the ring with the next tile's slices.
-template <typename T, int EPI, int BN>
+//
+// QA (a K8q tile's W2 product): A is the fp32 GELU intermediate itself,
+// loaded by TMA as four 128 x 128-byte boxes per 128 k, and each consumer
+// thread quantizes its own wgmma A fragments in registers, code =
+// rint(x * (127 / (amax[m] + 1e-12))) with the row maxima the W1 product's
+// epilogue took: the codes `quant_rows_kernel` would write, with no pass
+// and no codes in device memory.  The fp32 A is read once per column tile
+// (from L2 after the first), which is what bounds this product (PERF.md).
+template <typename T, int EPI, int BN, bool QA>
 __global__ void __launch_bounds__(kI8Threads, 1)
     gemm_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                          const __grid_constant__ CUtensorMap map_w,
                          GemmI8Args p) {
-  using Tile = I8Tile<BN>;
+  using Tile = I8Tile<BN, QA>;
   constexpr int S = Tile::kStages;
+  constexpr int kBox = kI8BM * 128;  // one TMA box of A: 128 rows x 128 bytes
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sA = smem;
@@ -387,8 +536,15 @@ __global__ void __launch_bounds__(kI8Threads, 1)
         for (int kb = 0; kb < nk; ++kb) {
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_expect_tx(&full[stage], Tile::kABytes + Tile::kBBytes);
-          tma_load_2d(sA + stage * Tile::kABytes, &map_a, &full[stage],
-                      kb * kI8BK, m0);
+          uint8_t* a = sA + stage * Tile::kABytes;
+          if constexpr (QA) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)  // fp32 k 128 kb + 32 j ...
+              tma_load_2d(a + j * kBox, &map_a, &full[stage],
+                          (kb * kI8BK + 32 * j) * 4, m0);
+          } else {
+            tma_load_2d(a, &map_a, &full[stage], kb * kI8BK, m0);
+          }
           tma_load_2d(sB + stage * Tile::kBBytes, &map_w, &full[stage],
                       kb * kI8BK, n0);
           if (++stage == S) {
@@ -403,46 +559,92 @@ __global__ void __launch_bounds__(kI8Threads, 1)
     const bool vec_ok =
         p.ldc % 2 == 0 &&
         reinterpret_cast<uintptr_t>(p.C) %
-                (2 * (EPI == kI8GeluF32 ? sizeof(float) : sizeof(T))) ==
+                (2 * (EPI == kI8GeluF32 || EPI == kI8GeluF32Amax
+                          ? sizeof(float)
+                          : sizeof(T))) ==
             0 &&
         (EPI != kI8BiasResid ||
          (p.ldr % 2 == 0 &&
           reinterpret_cast<uintptr_t>(p.R) % (2 * sizeof(T)) == 0));
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
     int stage = 0, phase = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m0 = (tile / tiles_n) * kI8BM, n0 = (tile % tiles_n) * BN;
+      // QA: 127 / (amax + 1e-12) of this thread's two fragment rows, 16
+      // warp + g and + 8 of the warpgroup's 64 (rows past M: zeros by TMA)
+      float inv[2] = {0.f, 0.f};
+      if constexpr (QA) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = m0 + wg * 64 + 16 * warp + g + 8 * r;
+          if (row < p.M)
+            inv[r] = __fdiv_rn(127.0f, __fadd_rn(p.amax[row], 1e-12f));
+        }
+      }
       int acc[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
       for (int kb = 0; kb < nk; ++kb) {
         mbar_wait(&full[stage], phase);
-        const uint8_t* a = sA + stage * Tile::kABytes + wg * 64 * kI8BK;
         const uint8_t* b = sB + stage * Tile::kBBytes;
-        fence_regs<BN / 2>(acc);
-        wgmma_fence();
+        if constexpr (QA) {
+          // the s8 A fragment of k step kk (m16n8k32 per warp): register
+          // 2 half + r holds row g + 8 r, k 16 half + 4 t ... + 3, which is
+          // the 16-byte chunk 4 half + t of the fp32 row in box kk, moved
+          // by the 128-byte swizzle to chunk ^ (row % 8) = chunk ^ g
+          const uint8_t* a = sA + stage * Tile::kABytes + wg * 64 * 128;
+          uint32_t af[4][4];
 #pragma unroll
-        for (int kk = 0; kk < kI8BK / 32; ++kk)
-          wgmma_s8<BN>(acc, sw128_desc(a + kk * 32), sw128_desc(b + kk * 32));
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int half = 0; half < 2; ++half)
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const int row = 16 * warp + g + 8 * r;
+                const float4 v = *reinterpret_cast<const float4*>(
+                    a + kk * kBox + row * 128 + (((4 * half + t) ^ g) << 4));
+                const uint32_t q0 = __float2int_rn(__fmul_rn(v.x, inv[r]));
+                const uint32_t q1 = __float2int_rn(__fmul_rn(v.y, inv[r]));
+                const uint32_t q2 = __float2int_rn(__fmul_rn(v.z, inv[r]));
+                const uint32_t q3 = __float2int_rn(__fmul_rn(v.w, inv[r]));
+                af[kk][2 * half + r] = (q0 & 0xFFu) | (q1 & 0xFFu) << 8 |
+                                       (q2 & 0xFFu) << 16 | q3 << 24;
+              }
+          fence_regs<BN / 2>(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_s8_rs<BN>(acc, af[kk], sw128_desc(b + kk * 32));
+        } else {
+          const uint8_t* a = sA + stage * Tile::kABytes + wg * 64 * kI8BK;
+          fence_regs<BN / 2>(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kI8BK / 32; ++kk)
+            wgmma_s8<BN>(acc, sw128_desc(a + kk * 32),
+                         sw128_desc(b + kk * 32));
+        }
         wgmma_commit();
         fence_regs<BN / 2>(acc);
         wgmma_wait_all();
         fence_regs<BN / 2>(acc);
-        if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[stage]);
+        if (lane == 0) mbar_arrive(&empty[stage]);
         if (++stage == S) {
           stage = 0;
           phase ^= 1;
         }
       }
-      epilogue<T, EPI, BN>(p, acc, m0 + wg * 64, n0, vec_ok);
+      epilogue<T, EPI, BN, QA>(p, acc, m0 + wg * 64, n0, vec_ok);
     }
   }
 }
 
-template <typename T, int EPI, int BN>
+template <typename T, int EPI, int BN, bool QA>
 static int launch_gemm_i8_tile(const CUtensorMap& ma, const CUtensorMap& mw,
                                const GemmI8Args& p, cudaStream_t s) {
-  using Tile = I8Tile<BN>;
-  auto kernel = gemm_i8_wgmma_kernel<T, EPI, BN>;
+  using Tile = I8Tile<BN, QA>;
+  auto kernel = gemm_i8_wgmma_kernel<T, EPI, BN, QA>;
   static bool smem_set = false;  // once per instantiation
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -459,14 +661,14 @@ static int launch_gemm_i8_tile(const CUtensorMap& ma, const CUtensorMap& mw,
 
 // The shape rule: 192-wide tiles where N is a multiple of 192 and at least
 // 768, else 96.
-template <typename T, int EPI>
+template <typename T, int EPI, bool QA = false>
 static int launch_gemm_i8(const CUtensorMap& ma, const void* W,
                           const GemmI8Args& p, cudaStream_t s) {
   const int bn = p.N % 192 == 0 && p.N >= 768 ? 192 : 96;
   CUtensorMap mw;
   if (!tensor_map(&mw, W, p.N, p.K, p.K, bn)) return (int)cudaErrorInvalidValue;
-  if (bn == 192) return launch_gemm_i8_tile<T, EPI, 192>(ma, mw, p, s);
-  return launch_gemm_i8_tile<T, EPI, 96>(ma, mw, p, s);
+  if (bn == 192) return launch_gemm_i8_tile<T, EPI, 192, QA>(ma, mw, p, s);
+  return launch_gemm_i8_tile<T, EPI, 96, QA>(ma, mw, p, s);
 }
 
 template <typename T>
@@ -477,6 +679,9 @@ static int dispatch_gemm_i8(int epi, const CUtensorMap& ma, const void* W,
     case kI8BiasResid: return launch_gemm_i8<T, kI8BiasResid>(ma, W, p, s);
     case kI8GeluF32: return launch_gemm_i8<T, kI8GeluF32>(ma, W, p, s);
     case kI8Gelu: return launch_gemm_i8<T, kI8Gelu>(ma, W, p, s);
+    case kI8GeluF32Amax:
+      return p.amax ? launch_gemm_i8<T, kI8GeluF32Amax>(ma, W, p, s)
+                    : (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -484,20 +689,21 @@ static int dispatch_gemm_i8(int epi, const CUtensorMap& ma, const void* W,
 template <typename T>
 static int launch_quant_rows(const void* x, int ldx, int M, int N, float eps,
                              const float* lnw, const float* lnb, int weight,
-                             int8_t* q, float* scale, cudaStream_t s) {
+                             int8_t* q, float* scale, float* zero, int nzero,
+                             cudaStream_t s) {
   constexpr int threads = 256;  // 8 rows per block
   const int blocks = (M * 32 + threads - 1) / threads;
   const T* xt = static_cast<const T*>(x);
   if (weight && lnw) return (int)cudaErrorInvalidValue;
   if (weight)
     quant_rows_kernel<T, false, true><<<blocks, threads, 0, s>>>(
-        xt, ldx, M, N, eps, lnw, lnb, q, scale);
+        xt, ldx, M, N, eps, lnw, lnb, q, scale, zero, nzero);
   else if (lnw)
     quant_rows_kernel<T, true, false><<<blocks, threads, 0, s>>>(
-        xt, ldx, M, N, eps, lnw, lnb, q, scale);
+        xt, ldx, M, N, eps, lnw, lnb, q, scale, zero, nzero);
   else
     quant_rows_kernel<T, false, false><<<blocks, threads, 0, s>>>(
-        xt, ldx, M, N, eps, lnw, lnb, q, scale);
+        xt, ldx, M, N, eps, lnw, lnb, q, scale, zero, nzero);
   return (int)cudaGetLastError();
 }
 
@@ -507,31 +713,38 @@ using namespace ag;
 
 // Row quantizer.  weight = 1: the per-output-channel weight recipe;
 // weight = 0: the per-token activation recipe, with the LN prologue when
-// lnw / lnb are given.  q <M, N> is contiguous.
+// lnw / lnb are given.  q <M, N> is contiguous.  zero <nzero> fp32 (may be
+// null): zeroed by the same launch.
 extern "C" int ag_quant_rows(int dtype, const void* x, int ldx, int M, int N,
                              float eps, const void* lnw, const void* lnb,
-                             int weight, void* q, void* scale, void* stream) {
+                             int weight, void* q, void* scale, void* zero,
+                             int nzero, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* w = static_cast<const float*>(lnw);
   const float* b = static_cast<const float*>(lnb);
   int8_t* qq = static_cast<int8_t*>(q);
   float* sc = static_cast<float*>(scale);
+  float* z = static_cast<float*>(zero);
+  if (nzero < 0 || (nzero > 0 && z == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (dtype == kF32)
-    return launch_quant_rows<float>(x, ldx, M, N, eps, w, b, weight, qq, sc, s);
+    return launch_quant_rows<float>(x, ldx, M, N, eps, w, b, weight, qq, sc,
+                                    z, nzero, s);
   if (dtype == kBF16)
     return launch_quant_rows<__nv_bfloat16>(x, ldx, M, N, eps, w, b, weight,
-                                            qq, sc, s);
+                                            qq, sc, z, nzero, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // int8 GEMM; dtype is the activation type of R and C (C is fp32 for the
-// kI8GeluF32 epilogue).  A and W are read by TMA: K, lda and both base
-// pointers must be multiples of 16 bytes.
+// kI8GeluF32 and kI8GeluF32Amax epilogues; amax <M>, zeroed before, is
+// raised to each row's max |C| by the latter).  A and W are read by TMA: K,
+// lda and both base pointers must be multiples of 16 bytes.
 extern "C" int ag_gemm_i8(int dtype, int epi, const void* A, int lda,
                           const void* a_scale, const void* W,
                           const void* w_scale, const void* bias, const void* R,
-                          int ldr, void* C, int ldc, int M, int N, int K,
-                          void* stream) {
+                          int ldr, void* C, int ldc, void* amax, int M, int N,
+                          int K, void* stream) {
   if (K <= 0 || K % 16 != 0 || lda % 16 != 0 ||
       reinterpret_cast<uintptr_t>(A) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(W) % 16 != 0)
@@ -544,6 +757,7 @@ extern "C" int ag_gemm_i8(int dtype, int epi, const void* A, int lda,
                ldr,
                C,
                ldc,
+               static_cast<float*>(amax),
                M,
                N,
                K};
@@ -553,5 +767,41 @@ extern "C" int ag_gemm_i8(int dtype, int epi, const void* A, int lda,
   if (dtype == kF32) return dispatch_gemm_i8<float>(epi, ma, W, p, s);
   if (dtype == kBF16)
     return dispatch_gemm_i8<__nv_bfloat16>(epi, ma, W, p, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The int8 GEMM with A quantized on load (the residual epilogue, a K8q
+// tile's W2 product): A fp32 <M, K> (row stride lda elements) and its
+// per-row max |A| (amax <M>); the rest as `ag_gemm_i8`.  A is read by TMA:
+// its pointer and row stride must be multiples of 16 bytes, K of 16.
+extern "C" int ag_gemm_i8_qa(int dtype, const void* A, int lda,
+                             const void* amax, const void* W,
+                             const void* w_scale, const void* bias,
+                             const void* R, int ldr, void* C, int ldc, int M,
+                             int N, int K, void* stream) {
+  if (K <= 0 || K % 16 != 0 || lda % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(A) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(W) % 16 != 0 || amax == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return 0;
+  GemmI8Args p{nullptr,
+               static_cast<const float*>(w_scale),
+               static_cast<const float*>(bias),
+               R,
+               ldr,
+               C,
+               ldc,
+               const_cast<float*>(static_cast<const float*>(amax)),
+               M,
+               N,
+               K};
+  CUtensorMap ma;
+  if (!tensor_map(&ma, A, M, K * 4, lda * 4, kI8BM))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return launch_gemm_i8<float, kI8BiasResid, true>(ma, W, p, s);
+  if (dtype == kBF16)
+    return launch_gemm_i8<__nv_bfloat16, kI8BiasResid, true>(ma, W, p, s);
   return (int)cudaErrorInvalidValue;
 }

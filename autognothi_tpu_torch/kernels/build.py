@@ -42,11 +42,15 @@ _SIGNATURES = {
                           ctypes.POINTER(ctypes.c_longlong), _P, _I, _P, _I,
                           _I, _I, _I, _P]),
     "ag_attention_supports": (_I, [_I, _I]),
-    "ag_quant_rows": (_I, [_I, _P, _I, _I, _I, _F, _P, _P, _I, _P, _P, _P]),
-    "ag_gemm_i8": (_I, [_I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I,
-                        _I, _I, _P]),
+    "ag_quant_rows": (_I, [_I, _P, _I, _I, _I, _F, _P, _P, _I, _P, _P, _P,
+                           _I, _P]),
+    "ag_gemm_i8": (_I, [_I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P,
+                        _I, _I, _I, _P]),
+    "ag_gemm_i8_qa": (_I, [_I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I,
+                           _I, _I, _P]),
     "ag_gemm_wg": (_I, [_I, _I, _P, _I, _P, _P, _I, _P, ctypes.POINTER(_P),
-                        _I, _P, _I, ctypes.c_longlong, _I, _I, _I, _I, _P]),
+                        _I, _P, _I, ctypes.c_longlong, _I, _I, _I, _I, _I,
+                        _P]),
     "ag_rows_prep": (_I, [_I, _P, _I, _I, _I, _F, _P, _P, _P, _P]),
     "ag_ladder_supports": (_I, [_I]),
     "ag_ladder_stage": (_I, [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,

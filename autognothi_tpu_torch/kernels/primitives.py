@@ -145,17 +145,21 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: int, *,
 
 
 I8_EPI_BIAS, I8_EPI_BIAS_RESID, I8_EPI_GELU_F32, I8_EPI_GELU = 0, 1, 2, 3
+I8_EPI_GELU_F32_AMAX = 4
 
 
 def quant_rows(x: torch.Tensor, *, weight: bool = False,
-               ln: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None
+               ln: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None,
+               zero: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """<M, N> fp32/bf16 -> (int8 codes <M, N> contiguous, fp32 scales <M>).
 
     weight=False: the per-token activation recipe (`_quant_rows`), of
     LN(x) rounded to x's dtype when ln = (w, b, eps) is given;
     weight=True: the per-output-channel recipe (`quant_cols`) of a torch
-    (out, in) weight, whose rows are the output channels."""
+    (out, in) weight, whose rows are the output channels.
+    zero: a contiguous fp32 CUDA tensor the same launch fills with zeros
+    (a K8q chain's per-row amax buffers)."""
     ldx = _rows(x, "x")
     m, n = x.shape
     if weight and ln is not None:
@@ -166,55 +170,120 @@ def quant_rows(x: torch.Tensor, *, weight: bool = False,
     if ln is not None:
         keep = (_vec32(ln[0], n, "ln weight"), _vec32(ln[1], n, "ln bias"))
         ptrs, eps = [t.data_ptr() for t in keep], float(ln[2])
+    z_ptr, nzero = None, 0
+    if zero is not None:
+        if zero.dtype != torch.float32 or not zero.is_contiguous() \
+                or zero.device != x.device:
+            raise ValueError("zero must be a contiguous fp32 tensor on x's "
+                             "device")
+        z_ptr, nzero = zero.data_ptr(), zero.numel()
     _check(load().ag_quant_rows(_dtype_code(x), x.data_ptr(), ldx, m, n, eps,
                                 *ptrs, int(weight), q.data_ptr(),
-                                scale.data_ptr(), _stream()), "ag_quant_rows")
+                                scale.data_ptr(), z_ptr, nzero, _stream()),
+           "ag_quant_rows")
     return q, scale
+
+
+def _amax_rows(amax: torch.Tensor, m: int) -> int:
+    if amax.shape != (m,) or amax.dtype != torch.float32 \
+            or not amax.is_contiguous() or not amax.is_cuda:
+        raise ValueError(f"amax must be a contiguous fp32 CUDA ({m},) "
+                         f"vector, got {amax.dtype} {tuple(amax.shape)}")
+    return amax.data_ptr()
+
+
+def _i8_weight(w: torch.Tensor, k: int) -> int:
+    n = w.shape[0]
+    if w.dtype != torch.int8 or w.shape != (n, k) or not w.is_contiguous() \
+            or w.data_ptr() % 16:
+        raise ValueError(f"w must be a contiguous, 16-byte aligned int8 "
+                         f"({n}, {k}) matrix, got {w.dtype} "
+                         f"{tuple(w.shape)}")
+    return n
+
+
+def _i8_resid(resid: Optional[torch.Tensor], m: int, n: int,
+              dtype: torch.dtype) -> Tuple[int, Optional[int]]:
+    if resid is None:
+        return 0, None
+    ldr = _rows(resid, "resid")
+    if resid.shape != (m, n) or resid.dtype != dtype:
+        raise ValueError(f"resid must be {dtype} ({m}, {n})")
+    return ldr, resid.data_ptr()
 
 
 def gemm_i8(a: torch.Tensor, a_scale: torch.Tensor, w: torch.Tensor,
             w_scale: torch.Tensor, bias: torch.Tensor, epi: int,
-            dtype: torch.dtype, *, resid: Optional[torch.Tensor] = None
-            ) -> torch.Tensor:
+            dtype: torch.dtype, *, resid: Optional[torch.Tensor] = None,
+            amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out <M, N> = epilogue((a @ w.T) * a_scale[:, None] * w_scale + bias)
     with int8 a <M, K>, int8 w <N, K> (torch layout) and an exact int32
     accumulator.  `dtype` is the activation dtype; the output is fp32 for
-    I8_EPI_GELU_F32 and `dtype` otherwise; resid (`dtype` <M, N>, rows
-    contiguous) is added after the cast by I8_EPI_BIAS_RESID."""
+    I8_EPI_GELU_F32(_AMAX) and `dtype` otherwise; resid (`dtype` <M, N>,
+    rows contiguous) is added after the cast by I8_EPI_BIAS_RESID.
+    I8_EPI_GELU_F32_AMAX also raises amax (fp32 <M>, zeroed before) to each
+    row's max |out|."""
     lda = _rows(a, "a")
     m, k = a.shape
-    n = w.shape[0]
-    if a.dtype != torch.int8 or w.dtype != torch.int8:
+    if a.dtype != torch.int8:
         raise TypeError("gemm_i8 takes int8 operands")
-    if w.shape != (n, k) or not w.is_contiguous():
-        raise ValueError(f"w must be a contiguous int8 ({n}, {k}) matrix, "
-                         f"got {tuple(w.shape)}")
-    if k % 16 or lda % 16 or a.data_ptr() % 16 or w.data_ptr() % 16:
+    n = _i8_weight(w, k)
+    if k % 16 or lda % 16 or a.data_ptr() % 16:
         raise ValueError(f"the int8 GEMM reads a and w by TMA: the pointers, "
                          f"K and the row stride must be multiples of 16, "
                          f"got K={k}, stride {lda}")
     sa = _vec32(a_scale, m, "a_scale")
     sw, b32 = _vec32(w_scale, n, "w_scale"), _vec32(bias, n, "bias")
-    out = torch.empty((m, n), device=a.device, dtype=torch.float32
-                      if epi == I8_EPI_GELU_F32 else dtype)
+    f32_out = epi in (I8_EPI_GELU_F32, I8_EPI_GELU_F32_AMAX)
+    out = torch.empty((m, n), device=a.device,
+                      dtype=torch.float32 if f32_out else dtype)
     if (epi == I8_EPI_BIAS_RESID) != (resid is not None):
         raise ValueError("resid is required exactly by I8_EPI_BIAS_RESID")
-    ldr, r_ptr = 0, None
-    if resid is not None:
-        ldr = _rows(resid, "resid")
-        if resid.shape != (m, n) or resid.dtype != dtype:
-            raise ValueError(f"resid must be {dtype} ({m}, {n})")
-        r_ptr = resid.data_ptr()
+    if (epi == I8_EPI_GELU_F32_AMAX) != (amax is not None):
+        raise ValueError("amax is required exactly by I8_EPI_GELU_F32_AMAX")
+    ldr, r_ptr = _i8_resid(resid, m, n, dtype)
+    amax_ptr = None if amax is None else _amax_rows(amax, m)
     _check(load().ag_gemm_i8(_code(dtype), epi, a.data_ptr(), lda,
                              sa.data_ptr(), w.data_ptr(), sw.data_ptr(),
                              b32.data_ptr(), r_ptr, ldr, out.data_ptr(), n,
-                             m, n, k, _stream()), "ag_gemm_i8")
+                             amax_ptr, m, n, k, _stream()), "ag_gemm_i8")
+    return out
+
+
+def gemm_i8_qa(a: torch.Tensor, amax: torch.Tensor, w: torch.Tensor,
+               w_scale: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype,
+               *, resid: torch.Tensor) -> torch.Tensor:
+    """`gemm_i8` with the residual epilogue, A quantized on load: a is the
+    fp32 <M, K> the codes are made of and amax <M> its per-row max |a| (as
+    `I8_EPI_GELU_F32_AMAX` leaves it); each consumer thread makes its own
+    fragments' codes, the codes and scales `quant_rows` would give.
+    out <M, N> = resid + cast(acc * a_scale * w_scale + bias).  w_scale
+    and bias: contiguous fp32 <N>, handed over as they are."""
+    lda = _rows(a, "a")
+    m, k = a.shape
+    if a.dtype != torch.float32:
+        raise TypeError(f"gemm_i8_qa takes an fp32 a, got {a.dtype}")
+    n = _i8_weight(w, k)
+    if k % 16:
+        raise ValueError(f"the int8 GEMM takes K a multiple of 16, got {k}")
+    _aligned16(a, "a", (lda,))
+    sw = _fp32_vector(w_scale, n, "w_scale")
+    b32 = _fp32_vector(bias, n, "bias")
+    ldr, r_ptr = _i8_resid(resid, m, n, dtype)
+    out = torch.empty((m, n), device=a.device, dtype=dtype)
+    _check(load().ag_gemm_i8_qa(_code(dtype), a.data_ptr(), lda,
+                                _amax_rows(amax, m), w.data_ptr(),
+                                sw.data_ptr(), b32.data_ptr(), r_ptr, ldr,
+                                out.data_ptr(), n, m, n, k, _stream()),
+           "ag_gemm_i8_qa")
     return out
 
 
 # ------------------------------------------- float GEMM on TMA + wgmma
 
 EPI_WG_BIAS, EPI_WG_BIAS_RESID, EPI_WG_GELU_RESID_SPLIT = 0, 1, 2
+EPI_WG_BIAS_GELU = 3
+WG_TILE_WIDTHS = {torch.bfloat16: (96, 128, 192, 256), torch.float32: (96,)}
 WG_MAX_BRANCHES = 4
 
 
@@ -239,7 +308,7 @@ def _fp32_vector(t: torch.Tensor, n: int, name: str) -> torch.Tensor:
 def gemm_wg(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: int,
             *, w_lo: Optional[torch.Tensor] = None,
             resids: Sequence[torch.Tensor] = (),
-            out: Optional[torch.Tensor] = None, split: int = 0
+            out: Optional[torch.Tensor] = None, split: int = 0, bn: int = 0
             ) -> torch.Tensor:
     """The float GEMM on TMA + wgmma (`csrc/gemm_wgmma.cu`): epilogue(A @
     W.T + bias) with W in torch (out, in) layout.
@@ -247,10 +316,12 @@ def gemm_wg(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: int,
     bf16: a and w bf16.  fp32 (3xTF32): a fp32, split in the kernel's
     registers; w and w_lo the weight's tf32 hi and lo planes
     (`ops/weight_codes.py:tf32_planes`).  bias: fp32 <N>.
-    EPI_WG_BIAS: out <M, N>.  EPI_WG_BIAS_RESID: out = resids[0] +
-    cast(...), resids[0] <M, N>.  EPI_WG_GELU_RESID_SPLIT: column n belongs
-    to branch n // split; out <N // split, M, split> gets resids[branch] +
-    cast(gelu(...)), each resid <M, split>."""
+    EPI_WG_BIAS: out <M, N>.  EPI_WG_BIAS_GELU: out = cast(gelu(...)).
+    EPI_WG_BIAS_RESID: out = resids[0] + cast(...), resids[0] <M, N>.
+    EPI_WG_GELU_RESID_SPLIT: column n belongs to branch n // split; out
+    <N // split, M, split> gets resids[branch] + cast(gelu(...)), each
+    resid <M, split>.  bn: the tile width (`WG_TILE_WIDTHS`), 0 for the
+    kernel's own shape rule."""
     lda = _tma_operand(a, "a")
     m, k = a.shape
     n = w.shape[0]
@@ -270,8 +341,10 @@ def gemm_wg(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: int,
         raise ValueError(f"TMA reads 16-byte pieces of k: K={k} {a.dtype}")
     b32 = _fp32_vector(bias, n, "bias")
     split_epi = epi == EPI_WG_GELU_RESID_SPLIT
-    if epi == EPI_WG_BIAS and resids:
-        raise ValueError("EPI_WG_BIAS takes no residual")
+    if bn and bn not in WG_TILE_WIDTHS[a.dtype]:
+        raise ValueError(f"no {bn}-wide {a.dtype} tile")
+    if epi in (EPI_WG_BIAS, EPI_WG_BIAS_GELU) and resids:
+        raise ValueError("EPI_WG_BIAS and EPI_WG_BIAS_GELU take no residual")
     if epi == EPI_WG_BIAS_RESID and len(resids) != 1:
         raise ValueError("EPI_WG_BIAS_RESID takes one residual")
     if split_epi:
@@ -283,7 +356,7 @@ def gemm_wg(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: int,
                              f"per branch, got N={n}, split={split}, "
                              f"{len(resids)} residuals")
         shape, width = (n // split, m, split), split
-    elif epi in (EPI_WG_BIAS, EPI_WG_BIAS_RESID):
+    elif epi in (EPI_WG_BIAS, EPI_WG_BIAS_RESID, EPI_WG_BIAS_GELU):
         shape, width = (m, n), n
     else:
         raise ValueError(f"unknown epilogue {epi}")
@@ -305,7 +378,7 @@ def gemm_wg(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: int,
         _dtype_code(a), epi, a.data_ptr(), lda, w.data_ptr(),
         None if w_lo is None else w_lo.data_ptr(), ldw, b32.data_ptr(),
         r_ptrs, ldr, out.data_ptr(), width, m * split if split_epi else 0,
-        split if split_epi else 0, m, n, k, _stream()), "ag_gemm_wg")
+        split if split_epi else 0, m, n, k, bn, _stream()), "ag_gemm_wg")
     return out
 
 

@@ -33,23 +33,37 @@ quantizes x per token, its W1 rows per output channel, re-quantizes its
 own <M, tile> intermediate per token, quantizes its W2 column slice per
 output row of that slice, and adds cast(acc2 * is * s2 + b2_k) to the
 residual in the activation dtype (b2 only on the last tile); the LNs come
-before and after the chain.  On the H100 a tile is the row quantizer (x
-and the intermediate) and two int8 GEMMs with the GELU and the residual
-epilogues (`csrc/int8.cu`); the codes of the tile's W1 rows and of its W2
-column slice (quantized in place through its row stride) are made once
-per weight version (`ops/weight_codes.py`).  Each tile is one counted
-launch, as each is one `pallas_call` in JAX.  What bounds it: the fp32
-<M, tile> intermediate's round trip through device memory and the
-per-tile quantizers of x and the intermediate.
+before and after the chain.  On the H100 the tiles of a chain share what
+is the same for all of them (`_Int8Chain`): x's codes, made once by the
+first tile's row quantizer, whose launch also zeroes one fp32 <M> row-max
+buffer per tile, and every tile's weight codes and fp32 vectors, made once
+per weight version and fetched in one lookup per chain
+(`weight_codes.split_codes`).  A tile is then two int8 GEMMs
+(`csrc/int8.cu`, TMA + wgmma): W1 with an epilogue that writes the fp32
+GELU intermediate and raises its rows' max |.| by atomics, and W2, which
+loads that fp32 intermediate by TMA and quantizes it in its consumers'
+registers from those row maxima (the codes `quant_rows` would make), with
+the residual epilogue.  So no pass reads the intermediate to reduce or
+quantize it, and its codes never reach device memory.  Each tile is one
+counted launch, as each is one `pallas_call` in JAX.  What bounds it: the
+bytes of the fp32 <M, tile> intermediate, written once and read once
+(25.2 MB at BERT-base B=8), and the W2 product's quantize-on-load, which
+reads it once per 192-wide column tile (from L2 after the first).
 
 The float split (K8, `_pallas_mlp_sepx`, body `_kernel_sepx`) is another
 function only in bf16: each JAX tile rounds its own W2_k GELU(W1_k x +
 b1_k) + b2_k to bf16 before adding it to the running residual.  So in bf16
-the port runs the chain tile by tile: the float GEMM with the GELU
-epilogue over the tile's W1 rows, then with the residual epilogue over the
-tile's W2 column slice <H, tile>, read in place through its row stride;
-b2 joins on the last tile, each tile is one counted launch.  In fp32 the
-split only reorders an fp32 sum, so fp32 keeps the one-pass block above.
+the port runs the chain tile by tile on the TMA + wgmma GEMM
+(`csrc/gemm_wgmma.cu`, bf16 wgmma, fp32 sums): the tile's W1 rows with
+the bias + GELU epilogue (rounded to bf16 where `_kernel_sepx` casts),
+then the tile's W2 column slice <H, tile>, read in place by TMA through
+its row stride, with the bias + residual epilogue; b2 joins on the last
+tile, the fp32 vectors are made once per weight version, each tile is one
+counted launch.  The bf16 intermediate goes through device memory: a
+block's share of it does not fit in shared memory beside its operands at
+wgmma's 64-row minimum.  What bounds it: the tensor cores (38.7 GFLOP per
+chain at BERT-base B=8).  In fp32 the split only reorders an fp32 sum, so
+fp32 keeps the one-pass block above.
 
 `mlp_block` takes the plain version for CPU tensors and the kernel for
 CUDA tensors; there is no other switch.
@@ -57,6 +71,7 @@ CUDA tensors; there is no other switch.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -64,18 +79,24 @@ import torch.nn.functional as F
 
 from ..kernels.build import LaunchCounter
 from ..kernels.primitives import (EPI_BIAS_GELU, EPI_BIAS_RESID,
+                                  EPI_WG_BIAS_GELU, EPI_WG_BIAS_RESID,
                                   I8_EPI_BIAS_RESID, I8_EPI_GELU_F32,
-                                  dispatch, gemm, gemm_i8, layernorm_,
-                                  quant_rows, rowstats)
+                                  I8_EPI_GELU_F32_AMAX, dispatch, gemm,
+                                  gemm_i8, gemm_i8_qa, layernorm_,
+                                  quant_rows, rows_prep, rowstats)
 from ..models.common import dense, gelu, layer_norm
 from . import gates
-from .attention_block import LN_POSITIONS
-from .weight_codes import weight_codes
+from .attention_block import LN_POSITIONS, float_product
+from .weight_codes import (float_weight, split_codes, vec32, weight_codes,
+                           zero_bias)
 
 COUNTER = LaunchCounter("mlp_block")
 COUNTER_INT8 = LaunchCounter("mlp_block_int8")
 COUNTER_TILED = LaunchCounter("mlp_block_tiled")
 COUNTER_INT8_TILED = LaunchCounter("mlp_block_int8_tiled")
+# the split chains' LayerNorm row pass (the JAX chain's XLA LayerNorm, not a
+# TPU kernel)
+COUNTER_CHAIN_LN = LaunchCounter("chain_layer_norm")
 
 
 # ------------------------------------------------------------ quantizers
@@ -212,6 +233,10 @@ def mlp_block_args(
 # resid the running residual, torch-layout slices w1 <tile, H> (rows) and
 # w2 <H, tile> (columns), cast to x's dtype; b2 is zero but on the last tile.
 
+# The bf16 K8 tile's GEMM tile width, for both products (at BERT-base B=8,
+# M = 4096: W1 N = 1536 in 256 tiles of 128 x 192, W2 N = 768 in 128)
+K8_TILE_WIDTH = 192
+
 
 def mlp_tile_plain(x, resid, w1, b1, w2, b2) -> torch.Tensor:
     """One float tile (`_xla_mlp_sepx`): resid + cast(W2 gelu(W1 x + b1)
@@ -223,13 +248,18 @@ def mlp_tile_plain(x, resid, w1, b1, w2, b2) -> torch.Tensor:
 
 def mlp_tile_launch(x, resid, w1, b1, w2, b2) -> torch.Tensor:
     """The CUDA version of one float tile (launches only; no counting, no
-    autograd).  The W2 column slice is read in place through its row
-    stride."""
+    autograd): both products on the TMA + wgmma GEMM, the W1 rows with the
+    bias + GELU epilogue, then the W2 column slice, read in place by TMA
+    through its row stride, with the bias + residual epilogue; the fp32
+    vectors once per weight version."""
     b_sz, t, h = resid.shape
-    inter = gemm(x.contiguous().reshape(b_sz * t, h), w1.contiguous(), b1,
-                 EPI_BIAS_GELU)
-    out = gemm(inter, w2, b2, EPI_BIAS_RESID,
-               resid=resid.contiguous().reshape(b_sz * t, h))
+    bn = K8_TILE_WIDTH if x.dtype == torch.bfloat16 else 0
+    inter = float_product(x.reshape(b_sz * t, h),
+                          float_weight((w1,), x.dtype), vec32(b1),
+                          EPI_WG_BIAS_GELU, bn=bn)
+    out = float_product(inter, float_weight((w2,), x.dtype), vec32(b2),
+                        EPI_WG_BIAS_RESID, resids=(resid.reshape(b_sz * t, h),),
+                        bn=bn)
     return out.reshape(b_sz, t, h)
 
 
@@ -243,35 +273,87 @@ def mlp_tile_int8_plain(x, resid, w1, b1, w2, b2) -> torch.Tensor:
     return resid + out.to(resid.dtype)
 
 
-def mlp_tile_int8_launch(x, resid, w1, b1, w2, b2) -> torch.Tensor:
-    """The CUDA version of one K8q tile (launches only; no counting, no
-    autograd).  The tile's weight codes are made once per weight version,
-    the W2 column slice quantized in place through its row stride."""
+class _Int8Chain:
+    """What the tiles of one K8q chain share on the card: every tile's
+    weight codes and fp32 vectors (`weight_codes.split_codes`, one lookup
+    per chain), x's codes and one fp32 <M> row-max buffer per tile.  The
+    first tile's launch makes x's codes, and the same launch zeroes the
+    buffers.  The tiles launch in order, one chain per pass."""
+
+    def __init__(self, w1, b1, w2, b2, n_tiles: int):
+        self.weights, self.n_tiles = (w1, b1, w2, b2), n_tiles
+        self.pack = self.codes = self.amax = None
+        self.k = 0
+
+    def next_tile(self, x: torch.Tensor):
+        """-> (x's codes, x's scales, the next tile's W1 codes, scales, b1,
+        W2 codes, scales, b2, its row-max buffer)."""
+        k = self.k
+        if k >= self.n_tiles:
+            raise RuntimeError(f"a chain of {self.n_tiles} tiles has no "
+                               f"tile {k}")
+        self.k += 1
+        if self.codes is None:
+            b_sz, t, h = x.shape
+            self.pack = split_codes(*self.weights, self.n_tiles, x.dtype)
+            self.amax = torch.empty((self.n_tiles, b_sz * t), device=x.device,
+                                    dtype=torch.float32)
+            self.codes = quant_rows(x.reshape(b_sz * t, h), zero=self.amax)
+        q1, s1, b1, q2, s2, b2 = self.pack
+        rows = slice(k * q1.shape[0] // self.n_tiles,
+                     (k + 1) * q1.shape[0] // self.n_tiles)
+        return (*self.codes, q1[rows], s1[rows], b1[rows], q2[k], s2[k],
+                b2[k], self.amax[k])
+
+
+def mlp_tile_int8_launch(x, resid, w1, b1, w2, b2, *,
+                         chain: _Int8Chain) -> torch.Tensor:
+    """The CUDA version of the next tile of a K8q chain (launches only; no
+    counting, no autograd).  The kernels read the codes of the tile's
+    weight slices (w1 ... b2 are the plain version's and the gradient's)
+    from the chain: the W1 product's epilogue writes the fp32 GELU
+    intermediate and its per-row max |.|, and the W2 product quantizes the
+    intermediate as it loads it, with the residual epilogue."""
     b_sz, t, h = resid.shape
-    inter = gemm_i8(*quant_rows(x.contiguous().reshape(b_sz * t, h)),
-                    *weight_codes((w1,), w1.dtype), b1, I8_EPI_GELU_F32,
-                    x.dtype)
-    out = gemm_i8(*quant_rows(inter), *weight_codes((w2,), w2.dtype), b2,
-                  I8_EPI_BIAS_RESID, x.dtype,
-                  resid=resid.contiguous().reshape(b_sz * t, h))
+    xq, xs, q1, s1, b1_k, q2, s2, b2_k, amax = chain.next_tile(x)
+    inter = gemm_i8(xq, xs, q1, s1, b1_k, I8_EPI_GELU_F32_AMAX, x.dtype,
+                    amax=amax)
+    out = gemm_i8_qa(inter, amax, q2, s2, b2_k, x.dtype,
+                     resid=resid.reshape(b_sz * t, h))
     return out.reshape(b_sz, t, h)
 
 
+def _chain_ln_launch(x, w, b, *, eps: float) -> torch.Tensor:
+    """cast(LN(x)) of a <B, T, H> by the row pass (`rows_prep`), one read
+    and one write."""
+    b_sz, t, h = x.shape
+    return rows_prep(x.reshape(b_sz * t, h),
+                     (vec32(w), vec32(b), eps)).reshape(b_sz, t, h)
+
+
+def _chain_ln(x, w, b, eps: float) -> torch.Tensor:
+    """The LayerNorm before or after a split chain: `layer_norm` for CPU
+    tensors, the row pass on the card."""
+    return dispatch(_chain_ln_launch, lambda *ts, eps: layer_norm(*ts, eps),
+                    COUNTER_CHAIN_LN, (x, w, b), dict(eps=eps))
+
+
 def _tiled(tile, resid, w1, b1, w2, b2, ln_w, ln_b, *, ln_position: str,
-           ln_eps: float, n_tiles: int) -> torch.Tensor:
+           ln_eps: float, n_tiles: int, ln=layer_norm) -> torch.Tensor:
     """`_tiled_mlp`: LN? -> the chain of `tile` over the intermediate
-    slices, the residual accumulating -> LN?"""
-    x = (layer_norm(resid, ln_w, ln_b, ln_eps) if ln_position == "prologue"
+    slices, the residual accumulating -> LN? (`ln(x, w, b, eps)`)."""
+    x = (ln(resid, ln_w, ln_b, ln_eps) if ln_position == "prologue"
          else resid)
     w1, w2 = w1.to(resid.dtype), w2.to(resid.dtype)
     width = w1.shape[0] // n_tiles
+    zero = zero_bias(b2)
     out = resid
     for k in range(n_tiles):
         sl = slice(k * width, (k + 1) * width)
-        b2_k = b2 if k == n_tiles - 1 else torch.zeros_like(b2)
-        out = tile(x, out, w1[sl], b1[sl], w2[:, sl], b2_k)
+        out = tile(x, out, w1[sl], b1[sl], w2[:, sl],
+                   b2 if k == n_tiles - 1 else zero)
     if ln_position == "epilogue":
-        out = layer_norm(out, ln_w, ln_b, ln_eps)
+        out = ln(out, ln_w, ln_b, ln_eps)
     return out
 
 
@@ -288,7 +370,7 @@ def mlp_block_tiled(*args, n_tiles: int, **kwargs) -> torch.Tensor:
     def tile(*ts):
         return dispatch(mlp_tile_launch, mlp_tile_plain, COUNTER_TILED, ts,
                         {})
-    return _tiled(tile, *tensors, n_tiles=n_tiles, **static)
+    return _tiled(tile, *tensors, n_tiles=n_tiles, ln=_chain_ln, **static)
 
 
 def mlp_block_int8_tiled_plain(*tensors, n_tiles: int,
@@ -301,11 +383,13 @@ def mlp_block_int8_tiled(*args, n_tiles: int, **kwargs) -> torch.Tensor:
     """The K8q chain of `n_tiles` tiles, one op call per tile (gradient:
     the float tile's).  Arguments as `mlp_block_args`."""
     tensors, static = mlp_block_args(*args, **kwargs)
+    chain = _Int8Chain(*tensors[1:5], n_tiles)
 
     def tile(*ts):
-        return dispatch(mlp_tile_int8_launch, mlp_tile_int8_plain,
-                        COUNTER_INT8_TILED, ts, {}, grad=mlp_tile_plain)
-    return _tiled(tile, *tensors, n_tiles=n_tiles, **static)
+        launch = functools.partial(mlp_tile_int8_launch, chain=chain)
+        return dispatch(launch, mlp_tile_int8_plain, COUNTER_INT8_TILED, ts,
+                        {}, grad=mlp_tile_plain)
+    return _tiled(tile, *tensors, n_tiles=n_tiles, ln=_chain_ln, **static)
 
 
 def mlp_block(*args, quant: str = "none", **kwargs) -> torch.Tensor:

@@ -8,7 +8,7 @@ JAX ops compute them with `quant_cols` at every call,
 `autognothi_tpu/ops/ladder_block.py:506-507`).  `weight_codes` computes
 the same function with the same quantizer, and keeps the result until a
 source weight changes: the key is each source tensor's identity (for a
-view, such as the K8q chain's column slice of W2, made anew at each call,
+view, such as a K8 tile's slice of b1, made anew at each call,
 the identity of the tensor it views and where it lies in it), held
 through a `weakref` (the cache keeps no weight alive and forgets an entry
 when one of its weights dies), and its `_version` (which a view shares
@@ -17,11 +17,13 @@ with its base) and `data_ptr`.  Any in-place update bumps
 next call recomputes.  The weights stay runtime arguments: this is not
 the constant fold of an export, whose codes drift from the live weights.
 
-The float kernels (K6's products, K5's ladder step) take the same cache
-for what they would otherwise make at every call: the packed Q|K|V weight
-and bias, the fp32 copies of bias and LN vectors, every ladder branch's
-weights stacked per kind, and the tf32 hi and lo planes of the fp32
-weights (`tf32_planes`, a plain torch function on the bits).
+The K8q chain (the int8 split MLP) takes every tile's codes and fp32
+vectors in one lookup (`split_codes`).  The float kernels (K6's products,
+K5's ladder step, the K8 tiles) take the same cache for what they would
+otherwise make at every call: the packed Q|K|V weight and bias, the fp32
+copies of bias and LN vectors, every ladder branch's weights stacked per
+kind, and the tf32 hi and lo planes of the fp32 weights (`tf32_planes`, a
+plain torch function on the bits).
 
 A write that bypasses the version counter (through `.data`) is not seen;
 nothing in the port writes weights that way.  Inference tensors have no
@@ -117,6 +119,45 @@ def weight_codes(weights: Sequence[torch.Tensor], dtype: torch.dtype
     return cached(weights, ("codes", dtype), make)
 
 
+def split_codes(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                b2: torch.Tensor, n_tiles: int, dtype: torch.dtype
+                ) -> Tuple[torch.Tensor, ...]:
+    """What the kernels of a K8q chain (`mlp_block.mlp_block_int8_tiled`)
+    read of its weights, for every tile in one lookup: (codes of W1 cast to
+    `dtype`, per output channel <inter, H> (a tile's are its rows'), their
+    scales <inter>, b1 in fp32 <inter>, the codes of each tile's W2 column
+    slice per output row of the slice <n_tiles, H, tile> (quantized in
+    place through its row stride), their scales <n_tiles, H>, each tile's
+    b2 in fp32 <n_tiles, H>: zeros but on the last tile).  Every tensor is
+    made here, so the cache keeps none of the weights alive."""
+    def make():
+        with torch.no_grad():
+            w1c, w2c = w1.to(dtype), w2.to(dtype)
+            width = w1.shape[0] // n_tiles
+            q1, s1 = _quantize(w1c)
+            parts = [_quantize(w2c[:, k * width:(k + 1) * width])
+                     for k in range(n_tiles)]
+            b2s = torch.zeros((n_tiles, b2.shape[0]), device=b2.device,
+                              dtype=torch.float32)
+            b2s[-1] = b2
+            return (q1, s1, b1.to(torch.float32, copy=True),
+                    torch.stack([q for q, _ in parts]),
+                    torch.stack([s for _, s in parts]), b2s)
+
+    return cached((w1, b1, w2, b2), ("split codes", dtype, n_tiles), make)
+
+
+def zero_bias(b: torch.Tensor) -> torch.Tensor:
+    """zeros_like(b), made once per version of b (the split MLP's b2 on
+    every tile but the last).  Made outside inference mode, so a forward
+    that differentiates may save it."""
+    def make():
+        with torch.inference_mode(False):
+            return torch.zeros_like(b)
+
+    return cached((b,), ("zeros",), make)
+
+
 def packed_bias(biases: Sequence[torch.Tensor]) -> torch.Tensor:
     """The fp32 concatenation of bias vectors (the packed Q | K | V bias)."""
     def make():
@@ -165,9 +206,11 @@ def float_weight(weights: Sequence[torch.Tensor], dtype: torch.dtype
                  ) -> Tuple[torch.Tensor, ...]:
     """Torch-layout weights with their rows stacked (Q | K | V), as the
     float GEMM reads them: bf16 -> (the packed bf16 matrix,); fp32 -> its
-    tf32 (hi, lo) planes."""
+    tf32 (hi, lo) planes.  One bf16 weight whose rows are contiguous is
+    taken as it is: the GEMM reads any row stride (a column slice in
+    place)."""
     if dtype != torch.float32 and len(weights) == 1 and \
-            weights[0].dtype == dtype and weights[0].is_contiguous():
+            weights[0].dtype == dtype and weights[0].stride(-1) == 1:
         return (weights[0],)  # nothing to make (and none to keep alive)
 
     def make():

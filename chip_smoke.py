@@ -95,7 +95,10 @@ Phases, each printing its own lines:
      one K5 and one K6 call at both trunk
      shapes with their device times (one ladder step at most four
      launches); K5 and K6 (and K2) held against their plain versions in
-     bf16 at B=64 too.
+     bf16 at B=64 too; the split MLP chains at BERT-base@512 B=8 (K8q
+     with fp32 and with bf16 parameters, the bf16 K8), each one's CUDA-
+     event and device ms beside its bound and beside `torch._int_mm`
+     (K8q) or bf16 `torch.matmul` (K8) on the same products.
 
 Any failure raises, exits non-zero and prints no result.  The last three
 lines are the card, the kernel table (JSON) and the status line (JSON).
@@ -1329,6 +1332,77 @@ def phase_block_launches(dev, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_split_chains(dev, card: str) -> None:
+    """The split MLP chains at LTT BERT-base@512 B=8 (M = 4096, the gate's
+    2 tiles, LN epilogue): K8q with fp32 and with bf16 parameters, the
+    bf16 float chain K8.  Each held against its plain version, then its
+    CUDA-event and profiler device ms per chain beside its bound and the
+    same products on the library: `torch._int_mm` of each tile's two int8
+    products (profiler device ms) for K8q, `torch.matmul` in bf16 (CUDA
+    events) for K8, summed over the tiles.  Timed only: the port never
+    calls either."""
+    import torch
+
+    from autognothi_tpu_torch.ops import gates
+    from autognothi_tpu_torch.ops import mlp_block as mb
+
+    g = torch.Generator().manual_seed(SEED + 5)
+    t, h, inter = T_BERT, 768, 3072
+    m = B_BERT * t
+    for label, dtype, quant in (("K8q fp32 params", torch.float32, "int8"),
+                                ("K8q bf16 params", torch.bfloat16, "int8"),
+                                ("K8 bf16", torch.bfloat16, "none")):
+        n_tiles = gates.mlp_block_tiles(t, h, inter, dtype, quant)
+        width = inter // n_tiles
+        args = (torch.randn(B_BERT, t, h, generator=g).to(dev, dtype),
+                *(x.to(dev, dtype) for x in (
+                    torch.randn(inter, h, generator=g) * h ** -0.5,
+                    torch.randn(inter, generator=g) * 0.1,
+                    torch.randn(h, inter, generator=g) * inter ** -0.5,
+                    torch.randn(h, generator=g) * 0.1)))
+        ln = ((1 + 0.1 * torch.randn(h, generator=g)).to(dev),
+              (0.1 * torch.randn(h, generator=g)).to(dev), 1e-12)
+        op = functools.partial(mb.mlp_block, ln=ln, ln_position="epilogue",
+                               quant=quant)
+        name = "mlp_block_int8_tiled" if quant == "int8" \
+            else "mlp_block_tiled"
+        with torch.inference_mode():
+            _, ok, msg = compare(op(*args), _under_plain(op)(*args), dtype,
+                                 quant == "int8")
+            check(ok, f"{label}: the chain disagrees with its plain version")
+            ms = cuda_time(lambda: op(*args), reps=10)
+            dev_ms = device_time(lambda: op(*args), 10)
+        bound_ms, bound_by = op_bound(name, args)
+        if quant == "int8":
+            a1, a2 = (torch.randint(-127, 128, shape, generator=g,
+                                    dtype=torch.int8).to(dev)
+                      for shape in ((m, h), (m, width)))
+            w1, w2 = (torch.randint(-127, 128, shape, generator=g,
+                                    dtype=torch.int8).to(dev)
+                      for shape in ((width, h), (h, width)))
+
+            def products():
+                torch._int_mm(a1, w1.T)
+                torch._int_mm(a2, w2.T)
+            lib = f"torch._int_mm x {2 * n_tiles}: device " \
+                  f"{n_tiles * device_time(products, 10):.4f} ms"
+        else:
+            a1, w1 = args[0].reshape(m, h), args[1][:width]
+            a2 = torch.randn(m, width, generator=g).to(dev, dtype)
+            w2 = args[3][:, :width]
+
+            def products():
+                torch.matmul(a1, w1.T)
+                torch.matmul(a2, w2.T)
+            lib = f"torch.matmul bf16 x {2 * n_tiles}: " \
+                  f"{n_tiles * cuda_time(products, reps=10):.4f} ms"
+        print(f"[split-chain] {label} B={B_BERT} T={t} {n_tiles} tiles: "
+              f"{ms:.4f} ms events, device {dev_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); {lib} ({msg}) | {card}",
+              flush=True)
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------- training
 
 
@@ -1794,7 +1868,7 @@ KERNELS = {
                        "autognothi_tpu/ops/mlp_block.py:163"),
     "mlp_block_int8_tiled": ("autognothi_tpu_torch/csrc/int8.cu",
                              "autognothi_tpu/ops/mlp_block.py:294"),
-    "mlp_block_tiled": ("autognothi_tpu_torch/csrc/gemm.cu",
+    "mlp_block_tiled": ("autognothi_tpu_torch/csrc/gemm_wgmma.cu",
                         "autognothi_tpu/ops/mlp_block.py:318"),
     "masked_attention": ("autognothi_tpu_torch/csrc/attention.cu",
                          "autognothi_tpu/ops/flash_attention.py:158"),
@@ -1866,6 +1940,7 @@ def main() -> int:
         phase_yardsticks(dev, card)
         phase_float_gemm(dev, card)
         phase_block_launches(dev, card)
+        phase_split_chains(dev, card)
         phase_int8_gemm(dev, card)
         phase_train_timing(case, card)
 

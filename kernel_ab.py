@@ -6,8 +6,11 @@ K7's two products of both models (beside `torch.matmul`) and the int8
 GEMM alone at K1's and K2's four products at M = 12608 and 50432 (beside
 `torch._int_mm`: `int_mm_device_ms`), the float TMA + wgmma GEMM alone
 at K6's two products at M = 12608 and 4096 where the checkout has it
-(beside `torch.matmul`: `matmul_ms`, CUDA events), and K5 with one branch at
-the train step's teacher shape (256 images) on one NVIDIA GPU, for the
+(beside `torch.matmul`: `matmul_ms`, CUDA events), K5 with one branch at
+the train step's teacher shape (256 images), and the split MLP chains at
+LTT BERT-base@512 B=8 (K8q with fp32 and with bf16 parameters, the bf16
+K8; where the checkout has them, K8's two products alone at each tile
+width) on one NVIDIA GPU, for the
 `autognothi_tpu_torch` and `chip_smoke.py` of the checkout named, so two
 checkouts can be compared on one card, in turns:
 
@@ -29,6 +32,7 @@ Inputs come from seeded generators, so every run sees the same data.
 
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
 import sys
@@ -228,6 +232,75 @@ def main() -> int:
                       lambda a=args: lb.ladder_block_plain(
                           *lb.ladder_block_args(*a)[0],
                           **lb.ladder_block_args(*a)[1])))
+    # the split MLP chains at LTT BERT-base@512 B=8 (2 tiles, LN
+    # epilogue), built here so both checkouts see the same inputs: K8q with
+    # fp32 and with bf16 parameters, the bf16 float chain K8; where the
+    # checkout has them, K8's two products alone at each tile width beside
+    # torch.matmul
+    from autognothi_tpu_torch.ops import mlp_block as mb
+
+    m_bert, h, inter = smoke.B_BERT * smoke.T_BERT, 768, 3072
+    chain_in = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        chain_in[dtype] = (
+            torch.randn(smoke.B_BERT, smoke.T_BERT, h, generator=g).to(
+                dev, dtype),
+            *(x.to(dev, dtype) for x in (
+                torch.randn(inter, h, generator=g) * h ** -0.5,
+                torch.randn(inter, generator=g) * 0.1,
+                torch.randn(h, inter, generator=g) * inter ** -0.5,
+                torch.randn(h, generator=g) * 0.1)))
+    ln = (1 + 0.1 * torch.randn(h, generator=g).to(dev),
+          0.1 * torch.randn(h, generator=g).to(dev), 1e-12)
+    chains = [("K8q fp32 params", torch.float32, "int8"),
+              ("K8q bf16 params", torch.bfloat16, "int8"),
+              ("K8 bf16", torch.bfloat16, "none")]
+    for label_, dtype, quant in chains:
+        op = functools.partial(mb.mlp_block, ln=ln, ln_position="epilogue",
+                               quant=quant)
+        name = "mlp_block_int8_tiled" if quant == "int8" \
+            else "mlp_block_tiled"
+        cases.append((name, f"{label_} <8,512,768>/3072", dtype,
+                      lambda o=op, a=chain_in[dtype]: o(*a),
+                      lambda o=smoke._under_plain(op), a=chain_in[dtype]:
+                      o(*a)))
+    if hasattr(kp, "EPI_WG_BIAS_GELU"):
+        x, w1, b1, w2, b2 = chain_in[torch.bfloat16]
+        a1 = x.reshape(m_bert, h)
+        a2 = torch.randn(m_bert, inter // 2, generator=g).to(dev,
+                                                              torch.bfloat16)
+        r = torch.randn(m_bert, h, generator=g).to(dev, torch.bfloat16)
+        b1_32, b2_32 = b1[:inter // 2].float(), b2.float()
+        for product, widths in (("K8 W1 GELU", (128, 192, 256)),
+                                ("K8 W2 slice", (96, 128, 192))):
+            for bn in widths:
+                if product == "K8 W1 GELU":
+                    args = (a1, w1[:inter // 2], b1_32, kp.EPI_WG_BIAS_GELU)
+                    kw = dict(bn=bn)
+
+                    def ref(a=a1, w=w1[:inter // 2], b=b1_32):
+                        return torch.nn.functional.gelu(
+                            torch.matmul(a.float(), w.float().T) + b
+                        ).bfloat16()
+                    lib = (a1, w1[:inter // 2])
+                else:
+                    args = (a2, w2[:, :inter // 2], b2_32,
+                            kp.EPI_WG_BIAS_RESID)
+                    kw = dict(bn=bn, resids=(r,))
+
+                    def ref(a=a2, w=w2[:, :inter // 2], b=b2_32):
+                        return r + (torch.matmul(a.float(), w.float().T)
+                                    + b).bfloat16()
+                    lib = (a2, w2[:, :inter // 2])
+                shape = f"{product} bn={bn} <{m_bert},{lib[0].shape[1]}>" \
+                        f"x<{lib[1].shape[0]},{lib[1].shape[1]}>^T"
+                cases.append(("gemm_wg", shape, torch.bfloat16,
+                              lambda args=args, kw=kw: kp.gemm_wg(*args,
+                                                                  **kw),
+                              ref))
+                library[shape] = ("matmul_ms",
+                                  lambda a=lib[0], w=lib[1]:
+                                  torch.matmul(a, w.T))
     for op, shape, dtype, kern, plain in cases:
         with torch.inference_mode():
             err, ok, msg = smoke.compare(kern(), plain(), dtype,

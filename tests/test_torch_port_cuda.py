@@ -547,26 +547,56 @@ def test_bert_side_layer_at_512(dev, dtype):
         assert [c.count for c in counters] == [n + 1 for n in before]
 
 
+@pytest.mark.parametrize("n_tiles", [2, 4, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k8q_chain_at_bert_base(dev, dtype):
-    """The int8 split MLP at 768/3072, T = 512: the gate picks 2 tiles, one
-    launch each, against the plain chain."""
+def test_k8q_chain_at_bert_base(dev, dtype, n_tiles, monkeypatch):
+    """The int8 split MLP at 768/3072, T = 512: the gate picks 2 tiles, a
+    lowered `gates.VMEM_BUDGET_BYTES` 4 and 8; LN prologue, epilogue and
+    none: one launch per tile, within the int8 bounds of the plain chain
+    (1e-2, at most 1% of values beyond 1e-4 in fp32)."""
+    from autognothi_tpu_torch.ops import gates
     from autognothi_tpu_torch.ops import mlp_block as mb
 
-    g = torch.Generator().manual_seed(13)
-    b, t, h, inter = 2, 512, 768, 3072
+    budget = _SPLIT_BUDGETS[dtype, "int8"][n_tiles]
+    if budget is not None:
+        monkeypatch.setattr(gates, "VMEM_BUDGET_BYTES", budget)
+    assert gates.mlp_block_tiles(512, 768, 3072, dtype, "int8") == n_tiles
+    g = torch.Generator().manual_seed(13 + n_tiles)
+    resid, ws, ln = _bert_mlp(g, dev, dtype)
+    for position in ("prologue", "epilogue", "none"):
+        before = mb.COUNTER_INT8_TILED.count
+        got = mb.mlp_block(resid, *ws, ln=ln, ln_position=position,
+                           quant="int8")
+        assert mb.COUNTER_INT8_TILED.count == before + n_tiles
+        tensors, static = mb.mlp_block_args(resid, *ws, ln=ln,
+                                            ln_position=position)
+        want = mb.mlp_block_int8_tiled_plain(*tensors, n_tiles=n_tiles,
+                                             **static)
+        _close_int8(got, want, dtype)
+        if dtype == torch.float32:
+            assert _int8_flip_share(got, want, dtype) <= 1e-2
+
+
+_SPLIT_BUDGETS = {  # (dtype, quant) -> {tiles: the budget that gives them}
+    (torch.float32, "int8"): {2: None, 4: 10 * 2 ** 20, 8: 7 * 2 ** 20},
+    (torch.bfloat16, "int8"): {2: None, 4: 7 * 2 ** 20, 8: 5 * 2 ** 20},
+}
+
+
+def _bert_mlp(g, dev, dtype, b=2):
+    t, h, inter = 512, 768, 3072
     resid = _rand(g, dev, b, t, h).to(dtype)
     w1, b1 = _rand(g, dev, inter, h, scale=h ** -0.5), _rand(g, dev, inter)
     w2, b2 = _rand(g, dev, h, inter, scale=inter ** -0.5), _rand(g, dev, h)
     ln = (1 + _rand(g, dev, h, scale=0.1), _rand(g, dev, h, scale=0.1), 1e-12)
-    before = mb.COUNTER_INT8_TILED.count
-    got = mb.mlp_block(resid, w1, b1, w2, b2, ln=ln, ln_position="epilogue",
-                       quant="int8")
-    assert mb.COUNTER_INT8_TILED.count == before + 2
-    tensors, static = mb.mlp_block_args(resid, w1, b1, w2, b2, ln=ln,
-                                        ln_position="epilogue")
-    _close_int8(got, mb.mlp_block_int8_tiled_plain(*tensors, n_tiles=2,
-                                                   **static), dtype)
+    ws = tuple(x.to(dtype) for x in (w1, b1, w2, b2))
+    return resid, ws, ln
+
+
+def _int8_flip_share(got, want, dtype):
+    """The share of values beyond the float tolerance (a flipped code)."""
+    bound = TOL[dtype] * max(1.0, want.float().abs().max().item())
+    return ((got.float() - want.float()).abs() > bound).float().mean().item()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -695,11 +725,11 @@ def test_gemm_refuses_unaligned_operands(dev):
                 kp.EPI_BIAS)
 
 
-@pytest.mark.parametrize("budget", [None, 9 * 2 ** 20])
+@pytest.mark.parametrize("budget", [None, 9 * 2 ** 20, 5 * 2 ** 20])
 def test_bf16_float_chain_at_bert_base(dev, budget, monkeypatch):
     """bf16 without int8 at 768/3072, T = 512: the gate splits the MLP and
     each float tile (K8) is one launch, the W2 column slice read in place;
-    against the plain chain.  A lowered budget gives 4 tiles."""
+    against the plain chain.  Lowered budgets give 4 and 8 tiles."""
     from autognothi_tpu_torch.ops import gates
     from autognothi_tpu_torch.ops import mlp_block as mb
 
@@ -713,7 +743,7 @@ def test_bf16_float_chain_at_bert_base(dev, budget, monkeypatch):
     w2, b2 = _rand(g, dev, h, inter, scale=inter ** -0.5), _rand(g, dev, h)
     ln = (1 + _rand(g, dev, h, scale=0.1), _rand(g, dev, h, scale=0.1), 1e-12)
     n_tiles = gates.mlp_block_tiles(t, h, inter, dtype)
-    assert n_tiles == (2 if budget is None else 4)
+    assert n_tiles == {None: 2, 9 * 2 ** 20: 4, 5 * 2 ** 20: 8}[budget]
     for position in ("prologue", "epilogue"):
         before = mb.COUNTER_TILED.count
         got = mb.mlp_block(resid, w1, b1, w2, b2, ln=ln,
@@ -836,7 +866,8 @@ def test_int8_blocks_quantize_weights_once_per_version(dev):
             resid, mask, *ws, ln[0], ln[1], n_heads=4, mode="mul",
             ln_position="prologue", ln_eps=1e-12)
 
-    for op, activations in ((k1, 2), (k4, 2), (k8q, 4)):
+    # a K8q chain quantizes x once; its intermediates take no row pass
+    for op, activations in ((k1, 2), (k4, 2), (k8q, 1)):
         op()  # warmup: the codes are made here
         names = _launched(op)
         assert _weight_quantizers(names) == 0, names
@@ -1120,3 +1151,159 @@ def test_attention_block_at_vit_width(dev):
             resid, mask, *ws, ln[0], ln[1], n_heads=12, mode="mul",
             ln_position=position, ln_eps=1e-12)
         _close(got, want, torch.float32)
+
+
+# --------------------- the split MLP tiles: K8q's quantizers, K8 on wgmma
+
+
+def _i8_operands(g, dev, m, n, k):
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    sa = (torch.rand(m, generator=g) * 1e-2 + 1e-4).to(dev)
+    sw = (torch.rand(n, generator=g) * 1e-3 + 1e-5).to(dev)
+    return a.to(dev), w.to(dev), sa, sw, _rand(g, dev, n)
+
+
+@pytest.mark.parametrize("n", [96, 768, 1536])
+@pytest.mark.parametrize("m", [1, 63, 197, 4097])
+def test_gemm_i8_amax_epilogue_and_the_codes_of_its_output(dev, m, n):
+    """I8_EPI_GELU_F32_AMAX writes what I8_EPI_GELU_F32 writes and raises
+    each row's amax to the max |GELU| of that row (the blocks' atomics
+    land in any order; the max is exact), so the codes and scales made
+    from it with the quantizer's arithmetic are bit-identical to
+    `quant_rows` on the same fp32 intermediate (the product that makes
+    them in its registers is held to the product on `quant_rows`' codes in
+    `test_gemm_i8_quantizes_its_fp32_a_on_load`).  The x quantizer zeroes
+    the amax buffers in the same launch."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+
+    g = torch.Generator().manual_seed(90)
+    a, w, sa, sw, bias = _i8_operands(g, dev, m, n, 768)
+    amax = torch.full((2, m), float("nan"), device=dev)
+    xq, xs = kp.quant_rows(_rand(g, dev, m, 768), zero=amax)
+    assert torch.equal(amax, torch.zeros_like(amax))
+    for dtype in (torch.float32, torch.bfloat16):
+        amax.zero_()
+        got = kp.gemm_i8(a, sa, w, sw, bias, kp.I8_EPI_GELU_F32_AMAX, dtype,
+                         amax=amax[1])
+        want = kp.gemm_i8(a, sa, w, sw, bias, kp.I8_EPI_GELU_F32, dtype)
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+        assert torch.equal(amax[1], got.abs().amax(dim=1))
+        assert torch.equal(amax[0], torch.zeros_like(amax[0]))
+        # the recipe on the epilogue's amax: a true division, half to even
+        amax_e = amax[1] + 1e-12
+        q = torch.round(got * (amax_e.new_tensor(127.0) / amax_e)[:, None])
+        q_ref, s_ref = kp.quant_rows(got)
+        assert torch.equal(q.to(torch.int8), q_ref)
+        assert torch.equal(amax_e * (1.0 / 127.0), s_ref)
+    with pytest.raises(ValueError, match="amax"):
+        kp.gemm_i8(a, sa, w, sw, bias, kp.I8_EPI_GELU_F32, torch.float32,
+                   amax=amax[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k", [(96, 96), (768, 1536), (768, 384),
+                                 (200, 3072), (192, 768), (384, 96)])
+@pytest.mark.parametrize("m", [1, 63, 197, 4097])
+def test_gemm_i8_quantizes_its_fp32_a_on_load(dev, m, n, k, dtype):
+    """The W2 product of a K8q tile, A quantized in the consumers'
+    registers from its row maxima: bit-identical to the same GEMM on
+    `quant_rows`' codes and scales of A (the same codes, the same int32
+    sums, the same epilogue), also for A read through a row stride wider
+    than K (a column slice); 192-wide tiles at N = 768, 96-wide at the
+    others."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+
+    g = torch.Generator().manual_seed(91)
+    _, w, _, sw, bias = _i8_operands(g, dev, m, n, k)
+    wide = _rand(g, dev, m, k + 32, scale=0.3)
+    wide[0, :k] = 0  # an all-zero row: scale 1e-12 / 127, codes 0
+    resid = _rand(g, dev, m, n).to(dtype)
+    for a in (wide[:, :k].contiguous(), wide[:, 16:16 + k]):
+        amax = a.abs().amax(dim=1)
+        got = kp.gemm_i8_qa(a, amax, w, sw, bias, dtype, resid=resid)
+        want = kp.gemm_i8(*kp.quant_rows(a), w, sw, bias,
+                          kp.I8_EPI_BIAS_RESID, dtype, resid=resid)
+        assert torch.equal(got, want), (m, n, k, dtype)
+
+
+@pytest.mark.parametrize("bn", [0, 96, 128, 192, 256])
+@pytest.mark.parametrize("n,k", [(1536, 768), (768, 1536), (96, 768),
+                                 (200, 96)])
+@pytest.mark.parametrize("m", [1, 63, 4096])
+def test_gemm_wg_bias_gelu_epilogue(dev, m, n, k, bn):
+    """EPI_WG_BIAS_GELU in bf16 (a K8 tile's W1 product) against the
+    float64 product with `_kernel_sepx`'s rounding point: bias and exact
+    GELU on the fp32 sum, then bf16; every tile width, within 1e-2 x
+    max(1, |ref|) (the bf16 rounding of the output and of the operands
+    that the reference shares)."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+
+    g = torch.Generator().manual_seed(93)
+    a = _rand(g, dev, m, k).bfloat16()
+    w = _rand(g, dev, n, k, scale=k ** -0.5).bfloat16()
+    bias = _rand(g, dev, n)
+    got = kp.gemm_wg(a, w, bias, kp.EPI_WG_BIAS_GELU, bn=bn)
+    v = a.double() @ w.double().T + bias.double()
+    ref = (0.5 * v * (1 + torch.erf(v / 2 ** 0.5))).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    err = (got.double() - ref.double()).abs().max().item()
+    assert err <= 1e-2 * max(1.0, ref.double().abs().max().item()), err
+
+
+@pytest.mark.parametrize("bn", [96, 128, 192, 256])
+def test_gemm_wg_reads_a_column_slice_of_w_in_place(dev, bn):
+    """A K8 tile's W2 product: the column slice W2[:, 1536:3072] of a
+    <768, 3072> bf16 weight read by TMA through its row stride, with the
+    bias + residual epilogue, equal to the product on the slice's
+    contiguous copy."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+
+    g = torch.Generator().manual_seed(94)
+    w2 = _rand(g, dev, 768, 3072, scale=3072 ** -0.5).bfloat16()
+    inter = _rand(g, dev, 4096, 1536).bfloat16()
+    bias, resid = _rand(g, dev, 768), _rand(g, dev, 4096, 768).bfloat16()
+    sl = w2[:, 1536:]
+    assert not sl.is_contiguous()
+    got = kp.gemm_wg(inter, sl, bias, kp.EPI_WG_BIAS_RESID, resids=(resid,),
+                     bn=bn)
+    want = kp.gemm_wg(inter, sl.contiguous(), bias, kp.EPI_WG_BIAS_RESID,
+                      resids=(resid,), bn=bn)
+    assert torch.equal(got, want)
+    ref = resid.double() + (inter.double() @ sl.double().T
+                            + bias.double()).bfloat16().double()
+    err = (got.double() - ref).abs().max().item()
+    assert err <= 1e-2 * max(1.0, ref.abs().max().item()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_chain_launches(dev, dtype):
+    """After warmup a 2-tile K8q chain runs one x quantizer (which zeroes
+    the row-max buffers: no fill), no row reduction over an intermediate,
+    no weight quantizer, no copy or fill, and two int8 GEMMs per tile; a
+    bf16 K8 tile runs two wgmma GEMM kernels and no `gemm.cu` kernel."""
+    from autognothi_tpu_torch.ops import mlp_block as mb
+
+    g = torch.Generator().manual_seed(96)
+    resid, ws, ln = _bert_mlp(g, dev, dtype, b=1)
+    position = "epilogue" if dtype == torch.float32 else "none"
+
+    def k8q():
+        return mb.mlp_block(resid, *ws, ln=ln, ln_position=position,
+                            quant="int8")
+
+    k8q()
+    names = _launched(k8q)
+    assert sum("quant_rows_kernel" in s for s in names) == 1, names
+    assert _weight_quantizers(names) == 0, names
+    assert not _copies(names), names
+    assert sum("gemm_i8_wgmma_kernel" in s for s in names) == 4, names
+    if dtype == torch.bfloat16:
+        def k8():
+            return mb.mlp_block(resid, *ws, ln=ln, ln_position="none")
+
+        k8()
+        names = _launched(k8)
+        assert sum("gemm_wg_kernel" in s for s in names) == 4, names
+        assert not any("gemm_tc_kernel" in s for s in names), names
+        assert not _copies(names), names
