@@ -1,30 +1,25 @@
 // The W8A8 building blocks of the int8 serving path: a row quantizer and an
-// int8 x int8 -> int32 tensor-core GEMM with a float epilogue.  The four
-// int8 kernels of the JAX package run here:
+// int8 x int8 -> int32 tensor-core GEMM with a float epilogue.  The int8
+// kernels of the JAX package that run here:
 //   autognothi_tpu/ops/attention_block.py:_pallas_attention_block_q (K1),
-//   autognothi_tpu/ops/ladder_block.py:_pallas_mlp_ladder_q (K2, its trunk MLP),
-//   autognothi_tpu/ops/head_block.py:_pallas_head_q (K3, d1 and d2),
-//   autognothi_tpu/ops/mlp_block.py:_pallas_mlp_block_q (K4),
+//   autognothi_tpu/ops/ladder_block.py:_pallas_mlp_ladder_q (K2, its trunk
+//     MLP: K4's trunk design),
+//   autognothi_tpu/ops/head_block.py:_pallas_head_q (K3's d2 with the d3
+//     fold; its d1 and the fold's sum are in `int8_block.cu`),
+//   autognothi_tpu/ops/mlp_block.py:_pallas_mlp_block_q (K4 at the trunk
+//     widths; the narrow widths are one launch of `int8_block.cu`),
 //   autognothi_tpu/ops/mlp_block.py:_pallas_mlp_sepx_q (K8q, one tile of
 //     the intermediate-dim split).
-//
-// Quantization (autognothi_tpu/ops/mlp_block.py:quant_cols, _quant_rows):
-//   activations, per row: amax = max|x| + 1e-12, inv = 127 / amax,
-//     code = rint(x * inv) (a multiply), scale = amax * (1 / 127);
-//   weights, per output channel (a row of the torch (out, in) layout):
-//     scale = max|w| / 127 + 1e-12, code = rint(w / scale) (a divide).
-// Rounding is half to even (__float2int_rn), as jnp.round.  The activation
-// quantizer can take the LayerNorm prologue: the normalised row is rounded
-// to the activation dtype first, as the JAX kernels cast the LN output.
-// Products and sums that decide a code use the _rn intrinsics, so no FMA
-// contraction moves a value across a rounding boundary.
+// The quantizers' arithmetic is `int8.cuh:quant_row_warp`.
 //
 // GEMM: C[m, n] = epi(acc[m, n] * a_scale[m] * w_scale[n] + bias[n]) with
 // acc = sum_k A[m, k] W[n, k] in int32 (A <M, K> and W <N, K> int8, rows
 // contiguous).  |acc| <= 127^2 K, which fp32 cannot hold exactly from
 // K = 1040 on; int32 does.  Epilogues: cast to the activation dtype; + the
 // residual after that cast; GELU kept in fp32 (the intermediate the next
-// quantizer reads); GELU then cast (K3's d2, the input of the float d3).
+// quantizer reads), with or without each row's max |.|; GELU, the cast,
+// and the product of that cast row slice with a few float rows (K3's d2
+// with its d3 folded in: see kI8GeluFold).
 //
 // Design (Hopper): a persistent, warp-specialised TMA + wgmma kernel
 // (`gemm_i8_wgmma_kernel`).  Both operands are K-major, as 8-bit wgmma
@@ -35,53 +30,53 @@
 // pairs; one producer warp issues them, two consumer warpgroups run
 // wgmma.mma_async m64nBNk32 .s32.s8.s8 from shared memory on the arrived
 // stages (setmaxnreg moves registers from the producer to them) and the
-// float epilogue straight from the accumulator registers.  Tiles are 128
-// x 192 for the trunk products (N a multiple of 192, at least 768: 3, 9,
-// 12 full waves of the 132 SMs at the ViT B=64 products) and 128 x 96
-// otherwise; TMA zero-fills rows past M and N and k past K, so any M, N
-// and any K that is a multiple of 16 runs here.  The old mma.sync m16n8k32
-// kernel (~230-260 TOP/s at the ViT trunk shapes) is gone: no shape needs
-// it.
+// float epilogue straight from the accumulator registers.  Tiles are 128 x
+// 192 for the trunk products (N a multiple of 192, at least 768: 3, 9, 12
+// full waves of the 132 SMs at the ViT B=64 products) and 128 x 96
+// otherwise; TMA zero-fills rows past M and N and k past K, so any M, N and
+// any K that is a multiple of 16 runs here.
 //
 // What bounds it: by the bytes it must move, the epilogue's output (above
-// all K2's <M, 3072> fp32 GELU intermediate) and residual.  On an H100
-// 80GB HBM3 it runs at 41-66% of that bound at the trunk products
-// (PERF.md), held back by the epilogue itself: eight warps per SM compute
-// and store the whole tile, GELU's erff included.  Each 64-column chunk of the epilogue loads its
-// scales, biases and residuals together before its stores.  The producer
-// loads the next tile's stages during the epilogue.  Ping-pong consumers
-// (each warpgroup on its own tile, one's epilogue under the other's
-// products) were measured and ran no faster.  The <M, K> int8 activations
-// and the fp32 MLP intermediate go to device memory, where the TPU
-// kernels kept them on chip.
+// all the <M, 3072> fp32 GELU intermediate of K2's and K4's trunk MLP) and
+// residual.  On an H100 80GB HBM3 it runs at 41-66% of that bound at the
+// trunk products (PERF.md), held back by the epilogue itself: eight warps
+// per SM compute and store the whole tile, GELU's erff included.  Each
+// 64-column chunk of the epilogue loads its scales, biases and residuals
+// together before its stores.  The producer loads the next tile's stages
+// during the epilogue.  Ping-pong consumers (each warpgroup on its own
+// tile, one's epilogue under the other's products) were measured and ran no
+// faster.
 //
-// K8q's tiles re-quantize their own fp32 GELU intermediate per token.  No
-// pass reduces it: the W1 product's kI8GeluF32Amax epilogue raises each
-// row's max |GELU| (fp32 bits, atomicMax: exact in any order) into a
-// buffer the chain's x quantizer zeroed in its own launch; the W2 product
-// (QA) loads the fp32 intermediate by TMA and each consumer thread makes
-// its wgmma A fragments' codes in registers from those maxima, with the
-// quantizer's arithmetic (amax + 1e-12, a true division 127 / amax, codes
-// rounded half to even, scale = amax * (1/127)).  Measured on an H100
-// (PERF.md): an elementwise pass writing the codes from the maxima before
-// a GEMM on codes took as long on the device and one launch more; 64-k
+// The trunk MLPs (K4, K2's trunk half, K8q's tiles) re-quantize their own
+// fp32 GELU intermediate per token.  No pass reduces it: the W1 product's
+// kI8GeluF32Amax epilogue raises each row's max |GELU| (fp32 bits,
+// atomicMax: exact in any order) into a buffer the x quantizer zeroed in
+// its own launch; the W2 product (QA) loads the fp32 intermediate by TMA and
+// each consumer thread makes its wgmma A fragments' codes in registers from
+// those maxima, with the quantizer's arithmetic.  The fp32 intermediate
+// crosses from L2 once per column tile.  Measured on an H100 (PERF.md): at
+// K8q's shape an elementwise pass writing the codes from the maxima before
+// a GEMM on codes took as long on the device and one launch more, at the
+// trunk K4's (N = 768) the row pass + GEMM on codes 40% longer; 64-k
 // stages (five, 64-byte-swizzled W boxes) 3% longer; the A boxes shared by
-// TMA multicast in clusters of the four column tiles five times longer.
+// TMA multicast in clusters of the four column tiles five times longer; 64
+// x 384 tiles (the two consumers side by side on the same rows, so A
+// crosses half as often) 1-3% longer than 128 x 192.
 
 #include <stdint.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "int8.cuh"
 
 namespace ag {
 
 // ------------------------------------------------------------ quantizer
 
-// One warp per row.  LN: mean and rsqrt(var + eps) with fp32 math, then
-// round_to<T>((x - mean) * rstd * w + b).  WEIGHT: the divide recipe.
-// zero <nzero> (may be null): fp32 buffers this launch zeroes on the side
-// (a K8q chain's per-row amax buffers, zeroed by the launch that makes x's
-// codes instead of a fill of their own).
+// One warp per row (`quant_row_warp`).  zero <nzero> (may be null): fp32
+// buffers this launch zeroes on the side (the per-row amax buffers of a
+// trunk MLP or a K8q chain, zeroed by the launch that makes x's codes
+// instead of a fill of their own).
 template <typename T, bool LN, bool WEIGHT>
 __global__ void quant_rows_kernel(const T* __restrict__ x, int ldx, int M,
                                   int N, float eps,
@@ -96,52 +91,26 @@ __global__ void quant_rows_kernel(const T* __restrict__ x, int ldx, int M,
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= M) return;  // whole warps leave together
-  const T* xr = x + (size_t)row * ldx;
-  float mu = 0.f, rs = 1.f;
-  if (LN) {
-    float s = 0.f;
-    for (int c = lane; c < N; c += 32) s += to_f(xr[c]);
-    mu = warp_sum(s) / N;
-    float v = 0.f;
-    for (int c = lane; c < N; c += 32) {
-      const float d = to_f(xr[c]) - mu;
-      v += d * d;
-    }
-    rs = rsqrtf(warp_sum(v) / N + eps);  // as ag_rowstats and torch.rsqrt
-  }
-  auto value = [&](int c) -> float {
-    const float a = to_f(xr[c]);
-    if (!LN) return a;
-    return round_to<T>(
-        __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(a, mu), rs), lnw[c]), lnb[c]));
-  };
-  float amax = 0.f;
-  for (int c = lane; c < N; c += 32) amax = fmaxf(amax, fabsf(value(c)));
-  amax = warp_max(amax);
   int8_t* qr = q + (size_t)row * N;
-  if (WEIGHT) {
-    const float s = __fadd_rn(__fdiv_rn(amax, 127.0f), 1e-12f);
-    for (int c = lane; c < N; c += 32)
-      qr[c] = (int8_t)__float2int_rn(__fdiv_rn(value(c), s));
-    if (lane == 0) scale[row] = s;
-  } else {
-    amax = __fadd_rn(amax, 1e-12f);
-    const float inv = __fdiv_rn(127.0f, amax);
-    for (int c = lane; c < N; c += 32)
-      qr[c] = (int8_t)__float2int_rn(__fmul_rn(value(c), inv));
-    if (lane == 0) scale[row] = __fmul_rn(amax, 1.0f / 127.0f);
-  }
+  const float s = quant_row_warp<T, LN, WEIGHT>(
+      x + (size_t)row * ldx, N, eps, lnw, lnb, lane,
+      [&](int c, int8_t code) { qr[c] = code; });
+  if (lane == 0) scale[row] = s;
 }
 
 // ----------------------------------------------------------------- GEMM
 
 enum EpiI8 {
-  kI8Bias = 0,        // C = cast(v)
-  kI8BiasResid = 1,   // C = R + cast(v)
-  kI8GeluF32 = 2,     // C (fp32) = gelu(v)
-  kI8Gelu = 3,        // C = cast(gelu(v))
-  kI8GeluF32Amax = 4  // kI8GeluF32, and amax[m] = max over the row of |C|
+  kI8Bias = 0,         // C = cast(v)
+  kI8BiasResid = 1,    // C = R + cast(v)
+  kI8GeluF32 = 2,      // C (fp32) = gelu(v)
+  kI8GeluF32Amax = 4,  // kI8GeluF32, and amax[m] = max over the row of |C|
+  kI8GeluFold = 5      // part[tile n][m][f] = sum over the tile's columns n
+                       //   of cast(gelu(v))[m, n] * fold[f][n]; no C
 };
+
+// K3's fold takes at most this many float rows (classes)
+constexpr int kI8MaxFold = 16;
 
 struct GemmI8Args {
   const float* a_scale;  // <M>
@@ -154,6 +123,13 @@ struct GemmI8Args {
   // <M>: kI8GeluF32Amax raises it to each row's max |C| (zeroed before
   // the launch); with A quantized on load, each row's max |A|
   float* amax;
+  // kI8GeluFold: the nfold float rows <kI8MaxFold, N> (rows past nfold
+  // zero) in the activation dtype: bf16, or for fp32 their tf32 hi plane
+  // and fold_lo their lo plane; part <column tiles, M, nfold> fp32
+  const void* fold;
+  const float* fold_lo;
+  int nfold;
+  float* part;
   int M, N, K;
 };
 
@@ -164,8 +140,9 @@ constexpr int kI8Threads = 384;  // consumer warpgroups 0, 1; producer 2
 // Tile widths: 192 for the trunk products (N = 768 ... 3072, multiples of
 // 192: at M = 12608 that is 3, 9 and 12 full waves of the 132 SMs), else
 // 96 (the 96-, 288- and 384-wide side products, which need the narrower
-// tiles to spread over the SMs; any other N).  QA (A quantized on load): a
-// stage holds 128 k of fp32 A, four 128 x 128-byte boxes, so two stages.
+// tiles to spread over the SMs; any other N).  A tile is 128 rows, one
+// 64-row wgmma per consumer.  QA (A quantized on load): a stage holds 128 k
+// of fp32 A, four 128 x 128-byte boxes, so two stages.
 template <int BN, bool QA = false>
 struct I8Tile {
   static constexpr int kStages = QA ? 2 : BN == 192 ? 5 : 6;
@@ -176,169 +153,6 @@ struct I8Tile {
   static constexpr int kSmem =
       kStages * (kABytes + kBBytes) + 2 * kStages * 8 + 1024;
 };
-
-// D[64 x 192] (+)= A[64 x 32] B[192 x 32]^T, s8 x s8 -> s32, both from
-// shared memory (K-major, 128-byte swizzle); scale_d = 0 overwrites D
-__device__ __forceinline__ void wgmma_s8_n192(int* d, uint64_t desc_a,
-                                              uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %98, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63,"
-      " %64, %65, %66, %67, %68, %69, %70, %71,"
-      " %72, %73, %74, %75, %76, %77, %78, %79,"
-      " %80, %81, %82, %83, %84, %85, %86, %87,"
-      " %88, %89, %90, %91, %92, %93, %94, %95}, "
-      "%96, %97, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
-        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
-        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
-        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
-        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
-        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
-        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
-        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// D[64 x 96] (+)= A[64 x 32] B[96 x 32]^T, s8 x s8 -> s32, both from
-// shared memory (K-major, 128-byte swizzle); scale_d = 0 overwrites D
-__device__ __forceinline__ void wgmma_s8_n96(int* d, uint64_t desc_a,
-                                              uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %50, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47}, "
-      "%48, %49, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
-        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-template <int BN>
-__device__ __forceinline__ void wgmma_s8(int* d, uint64_t a, uint64_t b) {
-  if constexpr (BN == 192)
-    wgmma_s8_n192(d, a, b, 1);
-  else
-    wgmma_s8_n96(d, a, b, 1);
-}
-
-// D[64 x 192] (+)= A[64 x 32] B[192 x 32]^T, s8 x s8 -> s32, A from
-// registers (the m16n8k32 s8 fragment of each warp's 16 rows), B from
-// shared memory (K-major, 128-byte swizzle); scale_d = 0 overwrites D
-__device__ __forceinline__ void wgmma_s8_rs_n192(int* d, const uint32_t* a,
-                                                 uint64_t desc_b,
-                                                 int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63,"
-      " %64, %65, %66, %67, %68, %69, %70, %71,"
-      " %72, %73, %74, %75, %76, %77, %78, %79,"
-      " %80, %81, %82, %83, %84, %85, %86, %87,"
-      " %88, %89, %90, %91, %92, %93, %94, %95}, "
-      "{%96, %97, %98, %99}, %100, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
-        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
-        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
-        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
-        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
-        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
-        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
-        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(scale_d));
-}
-
-// D[64 x 96] (+)= A[64 x 32] B[96 x 32]^T, s8 x s8 -> s32, A from
-// registers (the m16n8k32 s8 fragment of each warp's 16 rows), B from
-// shared memory (K-major, 128-byte swizzle); scale_d = 0 overwrites D
-__device__ __forceinline__ void wgmma_s8_rs_n96(int* d, const uint32_t* a,
-                                                 uint64_t desc_b,
-                                                 int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %53, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47}, "
-      "{%48, %49, %50, %51}, %52, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
-        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(scale_d));
-}
-
-template <int BN>
-__device__ __forceinline__ void wgmma_s8_rs(int* d, const uint32_t* a,
-                                            uint64_t b) {
-  if constexpr (BN == 192)
-    wgmma_s8_rs_n192(d, a, b, 1);
-  else
-    wgmma_s8_rs_n96(d, a, b, 1);
-}
 
 // A pair of T from row r, columns c and c + 1 (c + 1 only where `two`), as
 // floats; one 4- or 8-byte load where `vec`.
@@ -360,12 +174,6 @@ __device__ __forceinline__ void load_pair(const T* row, int c, bool two,
     x0 = to_f(row[c]);
     x1 = two ? to_f(row[c + 1]) : 0.f;
   }
-}
-
-// The scale of A's row m quantized on load from its max |x|: amax + 1e-12,
-// times 1/127, as `quant_rows_kernel` writes it
-__device__ __forceinline__ float scale_of_amax(float amax) {
-  return __fmul_rn(__fadd_rn(amax, 1e-12f), 1.0f / 127.0f);
 }
 
 // C tile rows [m0, m0 + 64) of one consumer warpgroup, columns [n0, n0 +
@@ -479,24 +287,133 @@ __device__ __forceinline__ void epilogue(const GemmI8Args& p, const int* acc,
   }
 }
 
+// kI8GeluFold (K3's d2 with its float d3 folded in): the tile's cast(gelu)
+// values, held in the accumulator's fragment layout, are the A fragments of
+// mma.sync products with the fold rows' matching columns: per 8-column group
+// one m16n8k8 per 8 fold rows, bf16 exact products with fp32 sums, fp32 as
+// 3xTF32 (A split in registers, the rows' tf32 planes made once per weight
+// version), so the fold costs a few tensor-core products per group and no
+// scalar loop over the rows.  For tf32 the k order inside a group is
+// permuted (k = t holds column 2t, k = t + 4 column 2t + 1), which the B
+// fragments follow.  The tile's sum over its BN columns for each row and
+// fold row goes to part[n0 / BN]: the products' order is fixed, so every
+// run gives the same bits.
+template <typename T, int BN>
+__device__ __forceinline__ void epilogue_fold(const GemmI8Args& p,
+                                              const int* acc, int m0,
+                                              int n0) {
+  constexpr int kG = 4;  // 8-column groups whose loads are issued together
+  static_assert((BN / 8) % kG == 0, "load groups must tile the columns");
+  constexpr bool kBF16 = sizeof(T) == 2;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rows[2] = {m0 + 16 * warp + g, m0 + 16 * warp + g + 8};
+  float sa[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) sa[h] = rows[h] < p.M ? p.a_scale[rows[h]] : 0.f;
+  const bool two_blocks = p.nfold > 8;  // fold rows 8 ... 15 too
+  float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int j0 = 0; j0 < BN / 8; j0 += kG) {
+    // the group's scales, biases and fold columns, loaded together (from
+    // column 0 past N, whose values are then not used)
+    float ws[kG][2], bs[kG][2];
+    uint32_t fb[kG][2][4];  // [group][block]: bf16 {pair}; fp32 {hi, lo} x 2
+#pragma unroll
+    for (int jj = 0; jj < kG; ++jj) {
+      const int c = n0 + 8 * (j0 + jj) + 2 * t;
+      const int cc = c < p.N ? c : 0;  // N % 8 == 0: the pair is whole
+      ws[jj][0] = p.w_scale[cc];
+      ws[jj][1] = p.w_scale[cc + 1];
+      bs[jj][0] = p.bias[cc];
+      bs[jj][1] = p.bias[cc + 1];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const size_t at = (size_t)(8 * k + g) * p.N + cc;  // fold row 8k + g
+        if constexpr (kBF16) {
+          fb[jj][k][0] = __ldg(reinterpret_cast<const unsigned int*>(
+              static_cast<const __nv_bfloat16*>(p.fold) + at));
+        } else {
+          const float* hi = static_cast<const float*>(p.fold) + at;
+          fb[jj][k][0] = __float_as_uint(__ldg(hi));
+          fb[jj][k][1] = __float_as_uint(__ldg(hi + 1));
+          fb[jj][k][2] = __float_as_uint(__ldg(p.fold_lo + at));
+          fb[jj][k][3] = __float_as_uint(__ldg(p.fold_lo + at + 1));
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kG; ++jj) {
+      const int j = j0 + jj;
+      const bool in = n0 + 8 * j + 2 * t < p.N;
+      float h2[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = __fadd_rn(
+              __fmul_rn(__fmul_rn((float)acc[4 * j + 2 * h + e], sa[h]),
+                        ws[jj][e]),
+              bs[jj][e]);
+          h2[h][e] = in ? round_to<T>(gelu_erf(v)) : 0.f;
+        }
+      uint32_t ah[4], al[4];
+      if constexpr (kBF16) {
+        ah[0] = pack_bf16(h2[0][0], h2[0][1]);
+        ah[1] = pack_bf16(h2[1][0], h2[1][1]);
+      } else {
+        split_tf32(h2[0][0], ah[0], al[0]);
+        split_tf32(h2[1][0], ah[1], al[1]);
+        split_tf32(h2[0][1], ah[2], al[2]);
+        split_tf32(h2[1][1], ah[3], al[3]);
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        if (k == 1 && !two_blocks) break;
+        if constexpr (kBF16) {
+          mma_bf16_1688(d[k], ah, fb[jj][k]);
+        } else {
+          const uint32_t bh[2] = {fb[jj][k][0], fb[jj][k][1]};
+          const uint32_t bl[2] = {fb[jj][k][2], fb[jj][k][3]};
+          mma_3xtf32(d[k], ah, al, bh, bl);
+        }
+      }
+    }
+  }
+  float* part = p.part + (size_t)(n0 / BN) * p.M * p.nfold;
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int f = 8 * k + 2 * t + e;
+        if (f < p.nfold && rows[h] < p.M)
+          part[(size_t)rows[h] * p.nfold + f] = d[k][2 * h + e];
+      }
+}
+
 // Persistent, warp-specialised int8 GEMM: gridDim.x blocks (at most one per
 // SM) walk the 128 x BN output tiles in row-major order, tile t, t +
-// gridDim.x, ...  Warpgroup 2 is the producer: one thread keeps a ring of
-// kStages stages (the A and W boxes of one 128-byte k slice) filled by TMA,
-// each stage guarded by a full barrier (its bytes arrived) and an empty
-// barrier (its eight consumer warps are done reading).  Warpgroups 0 and 1
-// each multiply 64 rows of the tile by all BN columns from the arrived
-// stages (four m64nBNk32 wgmmas per stage) into an int32 accumulator in
-// registers, then run the float epilogue from registers while the
-// producer already fills the ring with the next tile's slices.
+// gridDim.x, ...  Warpgroup 2 is the producer: one
+// thread keeps a ring of kStages stages (the A and W boxes of one 128-byte
+// k slice) filled by TMA, each stage guarded by a full barrier (its bytes
+// arrived) and an empty barrier (its eight consumer warps are done
+// reading).  Warpgroups 0 and 1 each multiply 64 rows of the tile by BN
+// columns from the arrived stages (four m64nBNk32 wgmmas per stage) into an
+// int32 accumulator in registers, then run the float epilogue from
+// registers while the producer already fills the ring with the next tile's
+// slices.  A consumer waits for a stage's products before it releases the
+// stage: keeping one stage's products in flight (wgmma.wait_group 1) was
+// measured on an H100 and ran 0-3% slower or faster by product (PERF.md).
 //
-// QA (a K8q tile's W2 product): A is the fp32 GELU intermediate itself,
-// loaded by TMA as four 128 x 128-byte boxes per 128 k, and each consumer
-// thread quantizes its own wgmma A fragments in registers, code =
+// QA (the W2 product of a trunk MLP or a K8q tile): A is the fp32 GELU
+// intermediate itself, loaded by TMA as four boxes per 128 k, and each
+// consumer thread quantizes its own wgmma A fragments in registers, code =
 // rint(x * (127 / (amax[m] + 1e-12))) with the row maxima the W1 product's
 // epilogue took: the codes `quant_rows_kernel` would write, with no pass
 // and no codes in device memory.  The fp32 A is read once per column tile
-// (from L2 after the first), which is what bounds this product (PERF.md).
+// (from L2 after the first).
 template <typename T, int EPI, int BN, bool QA>
 __global__ void __launch_bounds__(kI8Threads, 1)
     gemm_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
@@ -568,18 +485,18 @@ __global__ void __launch_bounds__(kI8Threads, 1)
           reinterpret_cast<uintptr_t>(p.R) % (2 * sizeof(T)) == 0));
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
+    const int row0 = wg * 64;  // this consumer's rows inside the tile
     int stage = 0, phase = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m0 = (tile / tiles_n) * kI8BM, n0 = (tile % tiles_n) * BN;
       // QA: 127 / (amax + 1e-12) of this thread's two fragment rows, 16
-      // warp + g and + 8 of the warpgroup's 64 (rows past M: zeros by TMA)
+      // warp + g and + 8 of the consumer's 64 (rows past M: zeros by TMA)
       float inv[2] = {0.f, 0.f};
       if constexpr (QA) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const int row = m0 + wg * 64 + 16 * warp + g + 8 * r;
-          if (row < p.M)
-            inv[r] = __fdiv_rn(127.0f, __fadd_rn(p.amax[row], 1e-12f));
+          const int row = m0 + row0 + 16 * warp + g + 8 * r;
+          if (row < p.M) inv[r] = inv_of_amax(p.amax[row]);
         }
       }
       int acc[BN / 2];
@@ -593,7 +510,7 @@ __global__ void __launch_bounds__(kI8Threads, 1)
           // 2 half + r holds row g + 8 r, k 16 half + 4 t ... + 3, which is
           // the 16-byte chunk 4 half + t of the fp32 row in box kk, moved
           // by the 128-byte swizzle to chunk ^ (row % 8) = chunk ^ g
-          const uint8_t* a = sA + stage * Tile::kABytes + wg * 64 * 128;
+          const uint8_t* a = sA + stage * Tile::kABytes + row0 * 128;
           uint32_t af[4][4];
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
@@ -617,7 +534,7 @@ __global__ void __launch_bounds__(kI8Threads, 1)
           for (int kk = 0; kk < 4; ++kk)
             wgmma_s8_rs<BN>(acc, af[kk], sw128_desc(b + kk * 32));
         } else {
-          const uint8_t* a = sA + stage * Tile::kABytes + wg * 64 * kI8BK;
+          const uint8_t* a = sA + stage * Tile::kABytes + row0 * kI8BK;
           fence_regs<BN / 2>(acc);
           wgmma_fence();
 #pragma unroll
@@ -635,7 +552,10 @@ __global__ void __launch_bounds__(kI8Threads, 1)
           phase ^= 1;
         }
       }
-      epilogue<T, EPI, BN, QA>(p, acc, m0 + wg * 64, n0, vec_ok);
+      if constexpr (EPI == kI8GeluFold)
+        epilogue_fold<T, BN>(p, acc, m0 + row0, n0);
+      else
+        epilogue<T, EPI, BN, QA>(p, acc, m0 + row0, n0, vec_ok);
     }
   }
 }
@@ -661,10 +581,14 @@ static int launch_gemm_i8_tile(const CUtensorMap& ma, const CUtensorMap& mw,
 
 // The shape rule: 192-wide tiles where N is a multiple of 192 and at least
 // 768, else 96.
+static inline int gemm_i8_bn(int N) {
+  return N % 192 == 0 && N >= 768 ? 192 : 96;
+}
+
 template <typename T, int EPI, bool QA = false>
 static int launch_gemm_i8(const CUtensorMap& ma, const void* W,
                           const GemmI8Args& p, cudaStream_t s) {
-  const int bn = p.N % 192 == 0 && p.N >= 768 ? 192 : 96;
+  const int bn = gemm_i8_bn(p.N);
   CUtensorMap mw;
   if (!tensor_map(&mw, W, p.N, p.K, p.K, bn)) return (int)cudaErrorInvalidValue;
   if (bn == 192) return launch_gemm_i8_tile<T, EPI, 192, QA>(ma, mw, p, s);
@@ -678,10 +602,14 @@ static int dispatch_gemm_i8(int epi, const CUtensorMap& ma, const void* W,
     case kI8Bias: return launch_gemm_i8<T, kI8Bias>(ma, W, p, s);
     case kI8BiasResid: return launch_gemm_i8<T, kI8BiasResid>(ma, W, p, s);
     case kI8GeluF32: return launch_gemm_i8<T, kI8GeluF32>(ma, W, p, s);
-    case kI8Gelu: return launch_gemm_i8<T, kI8Gelu>(ma, W, p, s);
     case kI8GeluF32Amax:
       return p.amax ? launch_gemm_i8<T, kI8GeluF32Amax>(ma, W, p, s)
                     : (int)cudaErrorInvalidValue;
+    case kI8GeluFold:
+      return p.fold && p.part && p.nfold > 0 && p.nfold <= kI8MaxFold &&
+                     p.N % 8 == 0 && (sizeof(T) == 2 || p.fold_lo)
+                 ? launch_gemm_i8<T, kI8GeluFold>(ma, W, p, s)
+                 : (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -738,13 +666,18 @@ extern "C" int ag_quant_rows(int dtype, const void* x, int ldx, int M, int N,
 
 // int8 GEMM; dtype is the activation type of R and C (C is fp32 for the
 // kI8GeluF32 and kI8GeluF32Amax epilogues; amax <M>, zeroed before, is
-// raised to each row's max |C| by the latter).  A and W are read by TMA: K,
-// lda and both base pointers must be multiples of 16 bytes.
+// raised to each row's max |C| by the latter).  kI8GeluFold writes no C:
+// nfold (at most kI8MaxFold) float rows, fold <kI8MaxFold, N> (zero rows
+// past nfold) in the activation dtype (fp32: the tf32 hi plane, fold_lo the
+// lo plane), N a multiple of 8, and part <the column tiles (`ag_gemm_i8_tiles_n`), M,
+// nfold> fp32.  A and W are read by TMA: K, lda and both base pointers
+// must be multiples of 16 bytes.
 extern "C" int ag_gemm_i8(int dtype, int epi, const void* A, int lda,
                           const void* a_scale, const void* W,
                           const void* w_scale, const void* bias, const void* R,
-                          int ldr, void* C, int ldc, void* amax, int M, int N,
-                          int K, void* stream) {
+                          int ldr, void* C, int ldc, void* amax,
+                          const void* fold, const void* fold_lo, int nfold,
+                          void* part, int M, int N, int K, void* stream) {
   if (K <= 0 || K % 16 != 0 || lda % 16 != 0 ||
       reinterpret_cast<uintptr_t>(A) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(W) % 16 != 0)
@@ -758,6 +691,10 @@ extern "C" int ag_gemm_i8(int dtype, int epi, const void* A, int lda,
                C,
                ldc,
                static_cast<float*>(amax),
+               fold,
+               static_cast<const float*>(fold_lo),
+               nfold,
+               static_cast<float*>(part),
                M,
                N,
                K};
@@ -770,10 +707,18 @@ extern "C" int ag_gemm_i8(int dtype, int epi, const void* A, int lda,
   return (int)cudaErrorInvalidValue;
 }
 
-// The int8 GEMM with A quantized on load (the residual epilogue, a K8q
-// tile's W2 product): A fp32 <M, K> (row stride lda elements) and its
-// per-row max |A| (amax <M>); the rest as `ag_gemm_i8`.  A is read by TMA:
-// its pointer and row stride must be multiples of 16 bytes, K of 16.
+// The number of column tiles of an int8 GEMM of N output columns (the
+// partial sums of kI8GeluFold, one per tile)
+extern "C" int ag_gemm_i8_tiles_n(int N) {
+  const int bn = gemm_i8_bn(N);
+  return (N + bn - 1) / bn;
+}
+
+// The int8 GEMM with A quantized on load (the residual epilogue: the W2
+// product of a trunk MLP or a K8q tile): A fp32 <M, K> (row stride lda
+// elements) and its per-row max |A| (amax <M>); the rest as `ag_gemm_i8`.
+// A is read by TMA: its pointer and row stride must be multiples of 16
+// bytes, K of 16.
 extern "C" int ag_gemm_i8_qa(int dtype, const void* A, int lda,
                              const void* amax, const void* W,
                              const void* w_scale, const void* bias,
@@ -792,6 +737,10 @@ extern "C" int ag_gemm_i8_qa(int dtype, const void* A, int lda,
                C,
                ldc,
                const_cast<float*>(static_cast<const float*>(amax)),
+               nullptr,
+               nullptr,
+               0,
+               nullptr,
                M,
                N,
                K};

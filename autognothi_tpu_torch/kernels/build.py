@@ -45,9 +45,16 @@ _SIGNATURES = {
     "ag_quant_rows": (_I, [_I, _P, _I, _I, _I, _F, _P, _P, _I, _P, _P, _P,
                            _I, _P]),
     "ag_gemm_i8": (_I, [_I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P,
-                        _I, _I, _I, _P]),
+                        _P, _P, _I, _P, _I, _I, _I, _P]),
+    "ag_gemm_i8_tiles_n": (_I, [_I]),
     "ag_gemm_i8_qa": (_I, [_I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I,
                            _I, _I, _P]),
+    "ag_mlp_narrow_supports": (_I, [_I, _I]),
+    "ag_mlp_narrow": (_I, [_I, _I, _P, _I, _P, _P, _F, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _I, _I, _I, _P]),
+    "ag_head_d1": (_I, [_I, _P, _I, _P, _P, _F, _P, _P, _P, _P, _P, _I, _I,
+                        _I, _P]),
+    "ag_fold_sum": (_I, [_I, _P, _I, _I, _I, _P, _P, _P]),
     "ag_gemm_wg": (_I, [_I, _I, _P, _I, _P, _P, _I, _P, ctypes.POINTER(_P),
                         _I, _P, _I, ctypes.c_longlong, _I, _I, _I, _I, _I,
                         _P]),

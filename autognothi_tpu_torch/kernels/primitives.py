@@ -144,8 +144,10 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: int, *,
     return out
 
 
-I8_EPI_BIAS, I8_EPI_BIAS_RESID, I8_EPI_GELU_F32, I8_EPI_GELU = 0, 1, 2, 3
-I8_EPI_GELU_F32_AMAX = 4
+I8_EPI_BIAS, I8_EPI_BIAS_RESID, I8_EPI_GELU_F32 = 0, 1, 2
+I8_EPI_GELU_F32_AMAX, I8_EPI_GELU_FOLD = 4, 5
+# the most float rows (classes) I8_EPI_GELU_FOLD folds in (`int8.cu:kI8MaxFold`)
+I8_MAX_FOLD = 16
 
 
 def quant_rows(x: torch.Tensor, *, weight: bool = False,
@@ -215,14 +217,21 @@ def _i8_resid(resid: Optional[torch.Tensor], m: int, n: int,
 def gemm_i8(a: torch.Tensor, a_scale: torch.Tensor, w: torch.Tensor,
             w_scale: torch.Tensor, bias: torch.Tensor, epi: int,
             dtype: torch.dtype, *, resid: Optional[torch.Tensor] = None,
-            amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+            amax: Optional[torch.Tensor] = None,
+            fold: Sequence[torch.Tensor] = (), classes: int = 0
+            ) -> torch.Tensor:
     """out <M, N> = epilogue((a @ w.T) * a_scale[:, None] * w_scale + bias)
     with int8 a <M, K>, int8 w <N, K> (torch layout) and an exact int32
     accumulator.  `dtype` is the activation dtype; the output is fp32 for
     I8_EPI_GELU_F32(_AMAX) and `dtype` otherwise; resid (`dtype` <M, N>,
     rows contiguous) is added after the cast by I8_EPI_BIAS_RESID.
     I8_EPI_GELU_F32_AMAX also raises amax (fp32 <M>, zeroed before) to each
-    row's max |out|."""
+    row's max |out|.  I8_EPI_GELU_FOLD writes no <M, N>: it folds
+    cast(gelu(...)) into `classes` (at most I8_MAX_FOLD) float rows, given
+    as `fold`: their planes <I8_MAX_FOLD, N> (rows past `classes` zero;
+    `fold_planes` makes them), -> the fp32 partial sums <column
+    tiles, M, classes> of cast(gelu(...)) @ rows.T, one per column tile of
+    the GEMM (`fold_sum` adds them)."""
     lda = _rows(a, "a")
     m, k = a.shape
     if a.dtype != torch.int8:
@@ -234,19 +243,74 @@ def gemm_i8(a: torch.Tensor, a_scale: torch.Tensor, w: torch.Tensor,
                          f"got K={k}, stride {lda}")
     sa = _vec32(a_scale, m, "a_scale")
     sw, b32 = _vec32(w_scale, n, "w_scale"), _vec32(bias, n, "bias")
-    f32_out = epi in (I8_EPI_GELU_F32, I8_EPI_GELU_F32_AMAX)
-    out = torch.empty((m, n), device=a.device,
-                      dtype=torch.float32 if f32_out else dtype)
     if (epi == I8_EPI_BIAS_RESID) != (resid is not None):
         raise ValueError("resid is required exactly by I8_EPI_BIAS_RESID")
     if (epi == I8_EPI_GELU_F32_AMAX) != (amax is not None):
         raise ValueError("amax is required exactly by I8_EPI_GELU_F32_AMAX")
+    if (epi == I8_EPI_GELU_FOLD) != bool(fold):
+        raise ValueError("fold is required exactly by I8_EPI_GELU_FOLD")
+    fold_ptrs, part_ptr = [None, None], None
+    if fold:
+        rows = I8_MAX_FOLD
+        planes = 1 if dtype == torch.bfloat16 else 2
+        if not 0 < classes <= I8_MAX_FOLD or n % 8 or len(fold) != planes \
+                or any(f.shape != (rows, n) or f.dtype != dtype
+                       or not f.is_contiguous() for f in fold):
+            raise ValueError(f"the fold epilogue takes 1 to {I8_MAX_FOLD} "
+                             f"rows of N (a multiple of 8) = {n}, as "
+                             f"{planes} {dtype} plane(s) <{rows}, {n}> "
+                             f"(`fold_planes`), got {classes} rows")
+        fold_ptrs[:planes] = [f.data_ptr() for f in fold]
+        out = torch.empty((load().ag_gemm_i8_tiles_n(n), m, classes),
+                          device=a.device, dtype=torch.float32)
+        part_ptr, c_ptr, ldc = out.data_ptr(), None, 0
+    else:
+        f32_out = epi in (I8_EPI_GELU_F32, I8_EPI_GELU_F32_AMAX)
+        out = torch.empty((m, n), device=a.device,
+                          dtype=torch.float32 if f32_out else dtype)
+        c_ptr, ldc = out.data_ptr(), n
     ldr, r_ptr = _i8_resid(resid, m, n, dtype)
     amax_ptr = None if amax is None else _amax_rows(amax, m)
     _check(load().ag_gemm_i8(_code(dtype), epi, a.data_ptr(), lda,
                              sa.data_ptr(), w.data_ptr(), sw.data_ptr(),
-                             b32.data_ptr(), r_ptr, ldr, out.data_ptr(), n,
-                             amax_ptr, m, n, k, _stream()), "ag_gemm_i8")
+                             b32.data_ptr(), r_ptr, ldr, c_ptr, ldc,
+                             amax_ptr, *fold_ptrs, classes, part_ptr, m, n,
+                             k, _stream()), "ag_gemm_i8")
+    return out
+
+
+def fold_planes(rows: torch.Tensor, dtype: torch.dtype
+                ) -> Tuple[torch.Tensor, ...]:
+    """The planes I8_EPI_GELU_FOLD reads of float rows <C, N> (C at most
+    I8_MAX_FOLD): the rows cast to `dtype`, padded with zero rows to
+    I8_MAX_FOLD; bf16 -> (the bf16 rows,), fp32 -> their tf32 (hi, lo)
+    planes (3xTF32)."""
+    c, n = rows.shape
+    if c > I8_MAX_FOLD:
+        raise ValueError(f"the fold takes at most {I8_MAX_FOLD} rows, got "
+                         f"{c}")
+    padded = torch.zeros((I8_MAX_FOLD, n), device=rows.device, dtype=dtype)
+    padded[:c] = rows.to(dtype)
+    if dtype == torch.bfloat16:
+        return (padded,)
+    from ..ops.weight_codes import tf32_planes
+
+    return tf32_planes(padded)
+
+
+def fold_sum(part: torch.Tensor, b3: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """<M, C> in `dtype` = cast(the sum of the partials <tiles, M, C> of
+    I8_EPI_GELU_FOLD, tile by tile in order, + b3 (fp32 <C>))."""
+    if part.dim() != 3 or part.dtype != torch.float32 \
+            or not part.is_contiguous() or not part.is_cuda:
+        raise ValueError("part must be a contiguous fp32 CUDA <tiles, M, C>")
+    tiles, m, c = part.shape
+    b32 = _fp32_vector(b3, c, "b3")
+    out = torch.empty((m, c), device=part.device, dtype=dtype)
+    _check(load().ag_fold_sum(_code(dtype), part.data_ptr(), tiles, m, c,
+                              b32.data_ptr(), out.data_ptr(), _stream()),
+           "ag_fold_sum")
     return out
 
 
@@ -277,6 +341,96 @@ def gemm_i8_qa(a: torch.Tensor, amax: torch.Tensor, w: torch.Tensor,
                                 out.data_ptr(), n, m, n, k, _stream()),
            "ag_gemm_i8_qa")
     return out
+
+
+def _codes_operand(q: torch.Tensor, s: torch.Tensor, rows: int, cols: int,
+                   name: str) -> None:
+    """int8 codes <rows, cols> (contiguous, 16-byte aligned, read by TMA)
+    with their fp32 scales <rows>."""
+    if q.dtype != torch.int8 or q.shape != (rows, cols) \
+            or not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous, 16-byte aligned int8 "
+                         f"({rows}, {cols}) codes, got {q.dtype} "
+                         f"{tuple(q.shape)}")
+    _fp32_vector(s, rows, f"{name}'s scales")
+
+
+def mlp_narrow(x: torch.Tensor, q1: torch.Tensor, s1: torch.Tensor,
+               b1: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor,
+               b2: torch.Tensor, *,
+               ln: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None,
+               ln_position: str = "none",
+               codes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> torch.Tensor:
+    """The narrow W8A8 MLP block in one launch (`csrc/int8_block.cu`): x
+    <M, H> (rows contiguous) -> <M, H> = [LN](x + cast(W2 codes(gelu(W1
+    codes([LN] x))))) with the weights' codes q1 <I, H>, q2 <H, I> and fp32
+    scales and biases; ln = (fp32 w, fp32 b, eps) at ln_position
+    "prologue" or "epilogue".  H / I: the widths `ag_mlp_narrow_supports`
+    takes.  codes = (int8 <M, I>, fp32 <M>): where given, the launch also
+    writes the intermediate's codes and scales there."""
+    ldx = _rows(x, "x")
+    m, h = x.shape
+    inter = q1.shape[0]
+    if not load().ag_mlp_narrow_supports(h, inter):
+        raise ValueError(f"the narrow MLP block has no kernel for "
+                         f"{h}/{inter}")
+    _codes_operand(q1, s1, inter, h, "W1")
+    _codes_operand(q2, s2, h, inter, "W2")
+    b1, b2 = _fp32_vector(b1, inter, "b1"), _fp32_vector(b2, h, "b2")
+    pos = {"none": 0, "prologue": 1, "epilogue": 2}[ln_position]
+    ln_ptrs, eps = [None, None], 0.0
+    if pos:
+        ln_ptrs = [_fp32_vector(ln[0], h, "ln weight").data_ptr(),
+                   _fp32_vector(ln[1], h, "ln bias").data_ptr()]
+        eps = float(ln[2])
+    hq = hs = None
+    if codes is not None:
+        hq, hs = codes
+        if hq.shape != (m, inter) or hq.dtype != torch.int8 \
+                or not hq.is_contiguous():
+            raise ValueError(f"codes must be a contiguous int8 ({m}, "
+                             f"{inter})")
+        hs = _fp32_vector(hs, m, "the codes' scales")
+        hq, hs = hq.data_ptr(), hs.data_ptr()
+    out = torch.empty((m, h), device=x.device, dtype=x.dtype)
+    _check(load().ag_mlp_narrow(_dtype_code(x), pos, x.data_ptr(), ldx,
+                                *ln_ptrs, eps, q1.data_ptr(), s1.data_ptr(),
+                                b1.data_ptr(), q2.data_ptr(), s2.data_ptr(),
+                                b2.data_ptr(), out.data_ptr(), hq, hs, m, h,
+                                inter, _stream()), "ag_mlp_narrow")
+    return out
+
+
+def head_d1(x: torch.Tensor, q1: torch.Tensor, s1: torch.Tensor,
+            b1: torch.Tensor, *,
+            ln: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The explainer head's d1 straight to codes (`csrc/int8_block.cu`): x
+    <M, K> (rows contiguous, K a multiple of 16 up to 128), [LN (fp32 w, b,
+    eps)], W1's codes <N, K> (N a multiple of 16 up to 4096) with fp32
+    scales and b1 <N> -> (h's int8 codes <M, N>, fp32 scales <M>), h =
+    gelu(the int8 d1 product): the codes `quant_rows` makes of h."""
+    ldx = _rows(x, "x")
+    m, k = x.shape
+    n = q1.shape[0]
+    _codes_operand(q1, s1, n, k, "W1")
+    b1 = _fp32_vector(b1, n, "b1")
+    if k % 16 or k > 128 or n % 16 or n > 4096:
+        raise ValueError(f"d1 takes K a multiple of 16 up to 128 and N a "
+                         f"multiple of 16 up to 4096, got K={k}, N={n}")
+    ln_ptrs, eps = [None, None], 0.0
+    if ln is not None:
+        ln_ptrs = [_fp32_vector(ln[0], k, "ln weight").data_ptr(),
+                   _fp32_vector(ln[1], k, "ln bias").data_ptr()]
+        eps = float(ln[2])
+    hq = torch.empty((m, n), device=x.device, dtype=torch.int8)
+    hs = torch.empty(m, device=x.device, dtype=torch.float32)
+    _check(load().ag_head_d1(_dtype_code(x), x.data_ptr(), ldx, *ln_ptrs, eps,
+                             q1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
+                             hq.data_ptr(), hs.data_ptr(), m, k, n,
+                             _stream()), "ag_head_d1")
+    return hq, hs
 
 
 # ------------------------------------------- float GEMM on TMA + wgmma

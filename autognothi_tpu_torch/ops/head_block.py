@@ -6,16 +6,25 @@ Replaces `autognothi_tpu/ops/head_block.py:_pallas_head_q` (body
 `_kernel_q`, K3): LN -> per-token int8 codes -> int8 d1 + b1 -> GELU
 (fp32) -> re-quantized per token -> int8 d2 + b2 -> GELU -> cast to the
 activation dtype -> float d3 + b3 (fp32 accumulation) -> cast.  The JAX
-kernel splits d2/d3 into column chunks only to fit the TPU's VMEM; the
-function is the same.  On the H100: the row quantizer with the LN
-prologue, the int8 GEMM with a GELU epilogue writing the fp32 <M, 3072>
-intermediate, the row quantizer, the int8 GEMM with a GELU + cast
-epilogue (`csrc/int8.cu`), and the port's float GEMM for d3
-(`csrc/gemm.cu`).  The d1 and d2 weights are quantized from the live
-weights without a cast (as the JAX op), once per weight version
-(`ops/weight_codes.py`); d3's weight is cast to the activation dtype.
-What bounds it: the 3072x3072 d2 product and the fp32 intermediate's
-round trip through device memory.
+kernel keeps h and h2 on chip and folds d3 into d2's column chunks (out +=
+h2_chunk @ w3[chunk]).  On the H100, three launches:
+1. d1 straight to h's codes (`csrc/int8_block.cu`): a block of 64 rows
+   makes x's codes (LN prologue), runs d1 twice (K = 96), first for each
+   row's max |GELU|, then to write the codes `quant_rows` makes of h and
+   their scales: the fp32 <M, 3072> h never reaches device memory;
+2. d2 on the int8 GEMM (`csrc/int8.cu`, TMA + wgmma) with the fold
+   epilogue: bias, GELU, the cast to the activation dtype, and each column
+   tile's h2 slice times the matching slice of w3 (cast to the activation
+   dtype, as JAX does) on mma.sync products from the accumulator's
+   registers (bf16 exact, fp32 as 3xTF32) into an fp32 <tile, M, C> partial
+   sum: h2 never reaches device memory;
+3. the partials summed in a fixed order with b3, then cast.
+The fold's sum order differs from JAX's 4 chunks by an fp32 reordering
+only.  It takes up to `I8_MAX_FOLD` classes (the repo's heads have 2 and
+10); more raise `ValueError` on the card.  The d1 and d2 weights are
+quantized from the live weights without a cast (as the JAX op), once per
+weight version (`ops/weight_codes.py`), and so is w3's cast.  What bounds
+it: the 3072 x 3072 d2 product (238 GOP at ViT B=64), then d1's GELUs.
 
 `explainer_head_block` takes the plain version for CPU tensors and the
 kernel for CUDA tensors; there is no other switch.
@@ -29,11 +38,11 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.build import LaunchCounter
-from ..kernels.primitives import (EPI_BIAS, I8_EPI_GELU, I8_EPI_GELU_F32,
-                                  dispatch, gemm, gemm_i8, quant_rows)
+from ..kernels.primitives import (I8_EPI_GELU_FOLD, I8_MAX_FOLD, dispatch,
+                                  fold_planes, fold_sum, gemm_i8, head_d1)
 from ..models.common import dense, gelu, layer_norm
 from .mlp_block import _quant_rows, int8_linear, quant_cols
-from .weight_codes import weight_codes
+from .weight_codes import cached, identity_ln, vec32, weight_codes
 
 COUNTER = LaunchCounter("head_block")
 
@@ -61,17 +70,33 @@ def head_int8_plain(x, w1, b1, w2, b2, w3, b3, ln_w, ln_b, *, has_ln: bool,
     return out.to(x.dtype)
 
 
+def _fold_planes(w3: torch.Tensor, dtype: torch.dtype):
+    """What d2's fold epilogue reads of w3 <C, inter>: w3 cast to the
+    activation dtype (the float d3's weight as JAX casts it), padded to
+    I8_MAX_FOLD rows, as bf16 or as fp32's tf32 planes
+    (`fold_planes`), once per version of w3."""
+    def make():
+        with torch.no_grad():
+            return fold_planes(w3, dtype)
+
+    return cached((w3,), ("fold", dtype), make)
+
+
 def head_int8_launch(x, w1, b1, w2, b2, w3, b3, ln_w, ln_b, *, has_ln: bool,
                      ln_eps: float) -> torch.Tensor:
-    """The CUDA version of K3 (launches only; no counting, no autograd)."""
+    """The CUDA version of K3 (launches only; no counting, no autograd):
+    d1 to h's codes, d2 with d3 folded into its epilogue, the fold's sum."""
     b_sz, t, h_in = x.shape
+    if w3.shape[0] > I8_MAX_FOLD:
+        raise ValueError(f"the head's d3 fold takes at most {I8_MAX_FOLD} "
+                         f"classes, got {w3.shape[0]}")
     x2 = x.contiguous().reshape(b_sz * t, h_in)
-    h = gemm_i8(*quant_rows(x2, ln=(ln_w, ln_b, ln_eps) if has_ln else None),
-                *weight_codes((w1,), w1.dtype), b1, I8_EPI_GELU_F32, x.dtype)
-    h2 = gemm_i8(*quant_rows(h), *weight_codes((w2,), w2.dtype), b2,
-                 I8_EPI_GELU, x.dtype)
-    out = gemm(h2, w3.to(x.dtype).contiguous(), b3, EPI_BIAS)
-    return out.reshape(b_sz, t, -1)
+    ln = (vec32(ln_w), vec32(ln_b), ln_eps) if has_ln else None
+    hq, hs = head_d1(x2, *weight_codes((w1,), w1.dtype), vec32(b1), ln=ln)
+    part = gemm_i8(hq, hs, *weight_codes((w2,), w2.dtype), vec32(b2),
+                   I8_EPI_GELU_FOLD, x.dtype, fold=_fold_planes(w3, x.dtype),
+                   classes=w3.shape[0])
+    return fold_sum(part, vec32(b3), x.dtype).reshape(b_sz, t, -1)
 
 
 def explainer_head_block_args(
@@ -90,8 +115,7 @@ def explainer_head_block_args(
     its plain version and its kernel."""
     has_ln = ln_w is not None
     if not has_ln:
-        ln_w = torch.ones(x.shape[-1], device=x.device)
-        ln_b = torch.zeros(x.shape[-1], device=x.device)
+        ln_w, ln_b = identity_ln(x.shape[-1], x.device)
     return ((x, w1, b1, w2, b2, w3, b3, ln_w, ln_b),
             dict(has_ln=has_ln, ln_eps=float(ln_eps)))
 

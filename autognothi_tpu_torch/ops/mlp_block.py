@@ -15,9 +15,24 @@ quant="int8" is the W8A8 serving block instead, replacing
 `_pallas_mlp_block_q` (body `_kernel_q`, K4): LN -> per-token int8 codes
 -> int8 W1 (per-output-channel codes of the live weights) -> bias + GELU
 in fp32 -> re-quantized per token -> int8 W2 -> bias -> cast -> + resid.
-On the H100: the row quantizer with the LN prologue, the int8 GEMM with a
-GELU epilogue writing the fp32 intermediate, the row quantizer again and
-the int8 GEMM with the residual epilogue (`csrc/int8.cu`: TMA + wgmma).
+On the H100 one of two designs, by a shape rule (`k4_design`):
+- narrow (the side widths 96/384 and 128/512): one launch
+  (`csrc/int8_block.cu`).  A block of 64 rows holds both weights' codes in
+  shared memory, makes x's codes (with the LN prologue), runs W1 on wgmma,
+  bias, GELU and the whole row's max |.| in registers, the intermediate's
+  codes into shared memory, W2 on them and the residual (and LN)
+  epilogue: the intermediate never leaves the SM, as in the TPU kernel.
+  What bounds it: a block's steps run one after the other, GELU the
+  longest (PERF.md); its bound is the bytes of x and the output.
+- trunk (768/3072, 1024/4096): three launches, K8q's tools on one tile:
+  the row quantizer (LN prologue) zeroes a row-max buffer in the same
+  launch; the int8 GEMM with `I8_EPI_GELU_F32_AMAX` writes the fp32
+  intermediate and raises its rows' max |.|; the W2 product quantizes the
+  intermediate as it loads it (`gemm_i8_qa`), with the residual epilogue
+  (BERT's post-norm adds the LN pass).  The intermediate's codes never
+  reach memory; the fp32 intermediate does (155 MB at ViT B=64, written
+  once, read once per 192 columns, from L2 after the first): that, and the
+  W1 product's epilogue, are what bound it.
 The weight codes are made once per weight version (`ops/weight_codes.py`).
 This module also holds the two quantizers of the JAX package
 (`quant_cols`, `_quant_rows`) and the exact int8 product the plain
@@ -80,15 +95,15 @@ import torch.nn.functional as F
 from ..kernels.build import LaunchCounter
 from ..kernels.primitives import (EPI_BIAS_GELU, EPI_BIAS_RESID,
                                   EPI_WG_BIAS_GELU, EPI_WG_BIAS_RESID,
-                                  I8_EPI_BIAS_RESID, I8_EPI_GELU_F32,
                                   I8_EPI_GELU_F32_AMAX, dispatch, gemm,
                                   gemm_i8, gemm_i8_qa, layernorm_,
-                                  quant_rows, rows_prep, rowstats)
+                                  mlp_narrow, quant_rows, rows_prep,
+                                  rowstats)
 from ..models.common import dense, gelu, layer_norm
 from . import gates
 from .attention_block import LN_POSITIONS, float_product
-from .weight_codes import (float_weight, split_codes, vec32, weight_codes,
-                           zero_bias)
+from .weight_codes import (float_weight, identity_ln, split_codes, vec32,
+                           weight_codes, zero_bias)
 
 COUNTER = LaunchCounter("mlp_block")
 COUNTER_INT8 = LaunchCounter("mlp_block_int8")
@@ -189,16 +204,37 @@ def mlp_block_int8_plain(resid, w1, b1, w2, b2, ln_w, ln_b, *,
     return out
 
 
+# (H, I) of the narrow K4 kernel (`int8_block.cu:ag_mlp_narrow_supports`):
+# the LTT side widths of ViT-B / BERT-base and of ViT-L, where a 64-row
+# block holds both weights' codes and a whole row of the intermediate
+K4_NARROW_WIDTHS = ((96, 384), (128, 512))
+
+
+def k4_design(h: int, inter: int) -> str:
+    """K4's design on the card at MLP widths h / inter: "narrow" (one
+    launch) where the narrow kernel is built for them, else "trunk" (three
+    launches, and BERT's post-norm LN)."""
+    return "narrow" if (h, inter) in K4_NARROW_WIDTHS else "trunk"
+
+
 def mlp_block_int8_launch(resid, w1, b1, w2, b2, ln_w, ln_b, *,
                           ln_position: str, ln_eps: float) -> torch.Tensor:
-    """The CUDA version of K4 (launches only; no counting, no autograd)."""
+    """The CUDA version of K4 (launches only; no counting, no autograd), in
+    the design `k4_design` picks."""
     b_sz, t, h = resid.shape
     x = resid.contiguous().reshape(b_sz * t, h)
-    ln = (ln_w, ln_b, ln_eps) if ln_position == "prologue" else None
-    inter = gemm_i8(*quant_rows(x, ln=ln), *weight_codes((w1,), x.dtype),
-                    b1, I8_EPI_GELU_F32, x.dtype)
-    out = gemm_i8(*quant_rows(inter), *weight_codes((w2,), x.dtype), b2,
-                  I8_EPI_BIAS_RESID, x.dtype, resid=x)
+    (q1, s1), (q2, s2) = (weight_codes((w,), x.dtype) for w in (w1, w2))
+    ln = (vec32(ln_w), vec32(ln_b), ln_eps)
+    if k4_design(h, w1.shape[0]) == "narrow":
+        out = mlp_narrow(x, q1, s1, vec32(b1), q2, s2, vec32(b2), ln=ln,
+                         ln_position=ln_position)
+        return out.reshape(b_sz, t, h)
+    amax = torch.empty(b_sz * t, device=x.device, dtype=torch.float32)
+    xq, xs = quant_rows(x, ln=ln if ln_position == "prologue" else None,
+                        zero=amax)
+    inter = gemm_i8(xq, xs, q1, s1, vec32(b1), I8_EPI_GELU_F32_AMAX,
+                    x.dtype, amax=amax)
+    out = gemm_i8_qa(inter, amax, q2, s2, vec32(b2), x.dtype, resid=x)
     if ln_position == "epilogue":
         layernorm_(out, ln_w, ln_b, ln_eps)
     return out.reshape(b_sz, t, h)
@@ -219,8 +255,7 @@ def mlp_block_args(
         raise ValueError(f"unknown ln_position {ln_position!r}")
     h = resid.shape[-1]
     if ln is None:
-        ln_w = torch.ones(h, device=resid.device)
-        ln_b = torch.zeros(h, device=resid.device)
+        ln_w, ln_b = identity_ln(h, resid.device)
         ln_eps, ln_position = 1e-12, "none"
     else:
         ln_w, ln_b, ln_eps = ln

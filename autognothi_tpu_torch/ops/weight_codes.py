@@ -32,6 +32,7 @@ version counter: their codes are computed at each call.
 
 from __future__ import annotations
 
+import functools
 import threading
 import weakref
 from typing import Callable, Dict, Sequence, Tuple
@@ -156,6 +157,18 @@ def zero_bias(b: torch.Tensor) -> torch.Tensor:
             return torch.zeros_like(b)
 
     return cached((b,), ("zeros",), make)
+
+
+@functools.lru_cache(maxsize=None)
+def identity_ln(n: int, device: torch.device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ones, zeros) fp32 <n> on `device`: the LayerNorm vectors an op
+    without LN hands its kernel and plain version, made once (outside
+    inference mode, so a forward that differentiates may save them), not
+    at every call."""
+    with torch.inference_mode(False), torch.no_grad():
+        return (torch.ones(n, device=device),
+                torch.zeros(n, device=device))
 
 
 def packed_bias(biases: Sequence[torch.Tensor]) -> torch.Tensor:

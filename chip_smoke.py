@@ -98,7 +98,16 @@ Phases, each printing its own lines:
      bf16 at B=64 too; the split MLP chains at BERT-base@512 B=8 (K8q
      with fp32 and with bf16 parameters, the bf16 K8), each one's CUDA-
      event and device ms beside its bound and beside `torch._int_mm`
-     (K8q) or bf16 `torch.matmul` (K8) on the same products.
+     (K8q) or bf16 `torch.matmul` (K8) on the same products; the kernels
+     of one int8 MLP block (K4) and one int8 head (K3) call at the main
+     paths' shapes (`[launches]`: the narrow K4 one launch, the trunk K4 at
+     most three and BERT's post-norm LN, K3 at most three and none of
+     `csrc/gemm.cu`); K4 at the int8 teacher's trunk shape (256 images of
+     197 tokens, 768/3072), held against its plain version, its launches,
+     CUDA-event and device ms beside its bound and `torch._int_mm` on the
+     same two products (`[k4-teacher]`); the K3 and K4 rows of the kernel
+     line carry the same products on `torch._int_mm` (and K3's d3 on
+     `torch.matmul`) as their library time.
 
 Any failure raises, exits non-zero and prints no result.  The last three
 lines are the card, the kernel table (JSON) and the status line (JSON).
@@ -700,7 +709,8 @@ def phase_device() -> None:
                                     "gemm_i8_wgmma_kernel", "gemm_wg_kernel",
                                     "rows_prep_kernel", "ladder_qkv_kernel",
                                     "ladder_attn_kernel",
-                                    "ladder_mlp_kernel")):
+                                    "ladder_mlp_kernel", "mlp_narrow_kernel",
+                                    "head_d1_kernel")):
         print(f"[build] {line}", flush=True)
 
 
@@ -1297,17 +1307,20 @@ def phase_float_gemm(dev, card: str) -> None:
 def phase_block_launches(dev, card: str) -> None:
     """K5's and K6's launches at the main paths' trunk shapes (ViT B=64,
     BERT-base@512 B=8, its additive mask in the activation dtype as the
-    model makes it), fp32 and bf16: the kernels of one call with each one's
-    device time per call (10 profiled calls); one ladder step is at most
-    four launches for every branch together."""
+    model makes it), and K4's and K3's at all their shapes there, fp32 and
+    bf16: the kernels of one call with each one's device time per call (10
+    profiled calls); one ladder step is at most four launches for every
+    branch together; K4 and K3 as `check_int8_launches` says."""
     import torch
 
     reps = 10
     for cases_fn, b in ((op_cases, B_TIME), (bert_op_cases, B_BERT)):
         for dtype in (torch.float32, torch.bfloat16):
             for name, tag, op, _, args, kw in cases_fn(dev, dtype, b, False):
-                if name not in ("ladder_block", "attention_block") \
-                        or "side" in tag:
+                int8_block = name in ("mlp_block_int8", "head_block")
+                if not int8_block and (name not in ("ladder_block",
+                                                    "attention_block")
+                                       or "side" in tag):
                     continue
                 with torch.inference_mode():
                     events = profiled_kernels(lambda: op(*args, **kw), reps)
@@ -1325,6 +1338,10 @@ def phase_block_launches(dev, card: str) -> None:
                 if name == "ladder_block":
                     check(launches <= 4, f"{name} {tag}: {launches} "
                                          f"launches per ladder step")
+                if int8_block:
+                    check_int8_launches(name, f"{tag} {dtype}", kernels,
+                                        launches, "LN-epi" in tag)
+                    continue
                 check(not any(w in k.lower() for k in kernels
                               for w in ("copy", "cat", "fill")),
                       f"{name} {tag} {dtype}: a copy, concatenation or fill "
@@ -1798,6 +1815,9 @@ def phase_timing(dev, card: str, service) -> dict:
             t_lib = None
             if name == "masked_attention" and tag.endswith(" add"):
                 t_lib = time_library_attention(args, card)
+            if name in ("mlp_block_int8", "head_block") \
+                    and name not in per_op:
+                t_lib = time_library_int8(name, args, card)
         bound_ms, bound_by = op_bound(name, args)
         print(f"[time] {name:20s} {tag:22s} fp32 B={B_TIME}: kernel "
               f"{t_kern:.4f} ms, plain {t_plain:.4f} ms, bound "
@@ -1850,6 +1870,121 @@ def time_library_attention(args, card: str) -> float:
     return t_lib
 
 
+def _int8_products(name: str, args: tuple):
+    """The int8 products of one K4 or K3 call (int8 operands of the call's
+    shapes, seeded) on the library, -> a function that runs them:
+    `torch._int_mm` for each int8 product, and K3's float d3 on
+    `torch.matmul` in the activation dtype."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED + 7)
+    x = args[0]
+    m = x.shape[0] * x.shape[1]
+    pairs = []
+    for w in (args[1], args[3]):  # W1 and W2 (K4), d1 and d2 (K3)
+        n, k = w.shape
+        pairs.append(tuple(torch.randint(-127, 128, shape, generator=g,
+                                         dtype=torch.int8).to(x.device)
+                           for shape in ((m, k), (n, k))))
+    d3 = None
+    if name == "head_block":
+        w3 = args[5]
+        d3 = (torch.randn(m, w3.shape[1], generator=g).to(x.device, x.dtype),
+              w3.to(x.dtype))
+
+    def run():
+        for a, w in pairs:
+            torch._int_mm(a, w.T)
+        if d3 is not None:
+            torch.matmul(d3[0], d3[1].T)
+    return run
+
+
+def time_library_int8(name: str, args: tuple, card: str) -> float:
+    """The same products as one K4 or K3 call on the library
+    (`_int8_products`): device ms per call (the profiler's device time;
+    timed here only, the port never calls them)."""
+    ms = device_time(_int8_products(name, args), 10)
+    print(f"[time] {name} library yardstick torch._int_mm x 2"
+          f"{' + torch.matmul (d3)' if name == 'head_block' else ''}: "
+          f"device {ms:.4f} ms | {card}", flush=True)
+    return ms
+
+
+def check_int8_launches(name: str, tag: str, kernels: dict,
+                        launches: float, post_ln: bool) -> None:
+    """K4: the narrow design (`mlp_narrow_kernel`) one launch, the trunk
+    design at most three and BERT's post-norm LN; K3 at most three, none
+    of `csrc/gemm.cu`'s (`gemm_tc_kernel`); neither a copy or fill."""
+    if name == "mlp_block_int8":
+        if any("mlp_narrow_kernel" in k for k in kernels):
+            check(launches == 1, f"K4 {tag}: {launches} launches per call "
+                                 f"on the narrow design")
+        else:
+            check(launches <= 3 + int(post_ln),
+                  f"K4 {tag}: {launches} launches per call on the trunk "
+                  f"design")
+    else:
+        check(launches <= 3, f"K3 {tag}: {launches} launches per call")
+        check(not any("gemm_tc_kernel" in k for k in kernels),
+              f"K3 {tag}: a csrc/gemm.cu kernel among {sorted(kernels)}")
+    check(not any(w in k.lower() for k in kernels
+                  for w in ("copy", "cat", "fill")),
+          f"{name} {tag}: a copy, concatenation or fill among its kernels: "
+          f"{sorted(kernels)}")
+
+
+def phase_k4_teacher(dev, card: str) -> None:
+    """K4 at the int8 teacher's trunk shape: the train step's B x M = 256
+    masked images of 197 tokens, 768/3072, the LN prologue (12 calls a
+    step).  Held against its plain version, then its launches per call,
+    CUDA-event and device ms beside its bound and the same two products on
+    `torch._int_mm` (device ms), fp32 activations as the teacher's."""
+    import torch
+
+    from autognothi_tpu_torch.ops import mlp_block as mb
+
+    g = torch.Generator().manual_seed(SEED + 6)
+    b, h, inter = TRAIN_B * TRAIN_M, 768, 3072
+
+    def lin(d_out, d_in):
+        return ((torch.rand(d_out, d_in, generator=g) * 2 - 1)
+                * d_in ** -0.5).to(dev), \
+            ((torch.rand(d_out, generator=g) * 2 - 1) * d_in ** -0.5).to(dev)
+
+    (w1, b1), (w2, b2) = lin(inter, h), lin(h, inter)
+    ln = ((1 + 0.1 * torch.randn(h, generator=g)).to(dev),
+          (0.1 * torch.randn(h, generator=g)).to(dev), 1e-12)
+    args = (torch.randn(b, T, h, generator=g).to(dev), w1, b1, w2, b2)
+    op = functools.partial(mb.mlp_block, ln=ln, ln_position="prologue",
+                           quant="int8")
+    with torch.inference_mode():
+        _, ok, msg = compare(op(*args), mb.mlp_block_int8_plain(
+            *args, ln[0], ln[1], ln_position="prologue", ln_eps=1e-12),
+            torch.float32, True)
+        check(ok, f"K4 at the teacher's shape disagrees with its plain "
+                  f"version ({msg})")
+        ms = cuda_time(lambda: op(*args), reps=10)
+        events = profiled_kernels(lambda: op(*args), 10)
+    kernels: dict = {}
+    for k, t_ms in events:
+        kernels[k] = kernels.get(k, 0.0) + t_ms / 10
+    launches = len(events) / 10
+    check_int8_launches("mlp_block_int8", "teacher 768/3072", kernels,
+                        launches, False)
+    lib_ms = device_time(_int8_products("mlp_block_int8", args), 10)
+    bound_ms, bound_by = op_bound("mlp_block_int8", args)
+    print(f"[k4-teacher] mlp_block_int8 768/3072 B={b} T={T} LN prologue: "
+          f"{ms:.4f} ms events, device {sum(kernels.values()):.4f} ms, "
+          f"{launches:g} launches per call ("
+          + "; ".join(f"{k[:48]} {v:.4f}" for k, v in
+                      sorted(kernels.items(), key=lambda kv: -kv[1]))
+          + f"), bound {bound_ms:.4f} ms ({bound_by}); torch._int_mm x 2: "
+          f"device {lib_ms:.4f} ms ({msg}) | {card}", flush=True)
+    del args, w1, w2
+    torch.cuda.empty_cache()
+
+
 # name -> (source, the TPU kernel it replaces: its pl.pallas_call)
 KERNELS = {
     "attention_block": ("autognothi_tpu_torch/csrc/gemm_wgmma.cu",
@@ -1862,9 +1997,9 @@ KERNELS = {
                              "autognothi_tpu/ops/attention_block.py:245"),
     "mlp_ladder_block": ("autognothi_tpu_torch/csrc/int8.cu",
                          "autognothi_tpu/ops/ladder_block.py:527"),
-    "head_block": ("autognothi_tpu_torch/csrc/int8.cu",
+    "head_block": ("autognothi_tpu_torch/csrc/int8_block.cu",
                    "autognothi_tpu/ops/head_block.py:138"),
-    "mlp_block_int8": ("autognothi_tpu_torch/csrc/int8.cu",
+    "mlp_block_int8": ("autognothi_tpu_torch/csrc/int8_block.cu",
                        "autognothi_tpu/ops/mlp_block.py:163"),
     "mlp_block_int8_tiled": ("autognothi_tpu_torch/csrc/int8.cu",
                              "autognothi_tpu/ops/mlp_block.py:294"),
@@ -1941,6 +2076,7 @@ def main() -> int:
         phase_float_gemm(dev, card)
         phase_block_launches(dev, card)
         phase_split_chains(dev, card)
+        phase_k4_teacher(dev, card)
         phase_int8_gemm(dev, card)
         phase_train_timing(case, card)
 

@@ -10,7 +10,11 @@ at K6's two products at M = 12608 and 4096 where the checkout has it
 the train step's teacher shape (256 images), and the split MLP chains at
 LTT BERT-base@512 B=8 (K8q with fp32 and with bf16 parameters, the bf16
 K8; where the checkout has them, K8's two products alone at each tile
-width) on one NVIDIA GPU, for the
+width), K4 at the int8 teacher's trunk shape (256 images) and, where the
+checkout has them, the trunk K4's W2 product quantizing on load beside
+the row pass + GEMM on codes (M = 12608 and 50432), its W1 product
+with the amax epilogue, and K3's d1 straight to codes beside the fp32 h
+and a row pass (ViT B=64, BERT B=8) on one NVIDIA GPU, for the
 `autognothi_tpu_torch` and `chip_smoke.py` of the checkout named, so two
 checkouts can be compared on one card, in turns:
 
@@ -43,7 +47,7 @@ I8_PRODUCTS = (("K1 qkv", 2304, 768, 0), ("K1 out", 768, 768, 1),
                ("K2 W1 GELU", 3072, 768, 2), ("K2 W2", 768, 3072, 1))
 
 
-def device_ms(fn, tries: int = 5) -> float:
+def device_ms(fn, tries: int = 10) -> float:
     """Device time of the kernels of REPS calls of `fn`, per call, from
     the profiler's device-side events of the second of two windows (the
     profiler now and then loses the first events of a window it starts
@@ -301,6 +305,79 @@ def main() -> int:
                 library[shape] = ("matmul_ms",
                                   lambda a=lib[0], w=lib[1]:
                                   torch.matmul(a, w.T))
+    # K4 at the int8 teacher's trunk shape (256 images of 197 tokens, the
+    # LN prologue), in both checkouts; then, where the checkout has them,
+    # the trunk K4's W2 product quantizing on load beside the row pass + GEMM
+    # on codes it replaced, its W1 product with the amax
+    # epilogue, and K3's d1 straight to codes beside the fp32 h + row pass
+    t, h, inter = smoke.T, 768, 3072
+    teacher = (torch.randn(4 * smoke.B_TIME, t, h, generator=g).to(dev),
+               *(x.to(dev) for x in (
+                   torch.randn(inter, h, generator=g) * h ** -0.5,
+                   torch.randn(inter, generator=g) * 0.1,
+                   torch.randn(h, inter, generator=g) * inter ** -0.5,
+                   torch.randn(h, generator=g) * 0.1)))
+    t_ln = (1 + 0.1 * torch.randn(h, generator=g).to(dev),
+            0.1 * torch.randn(h, generator=g).to(dev), 1e-12)
+    op = functools.partial(mb.mlp_block, ln=t_ln, ln_position="prologue",
+                           quant="int8")
+    cases.append(("mlp_block_int8", f"teacher 768/3072 B={4 * smoke.B_TIME}",
+                  torch.float32, lambda o=op: o(*teacher),
+                  lambda: mb.mlp_block_int8_plain(
+                      *teacher, t_ln[0], t_ln[1], ln_position="prologue",
+                      ln_eps=1e-12)))
+    for m in (smoke.B_TIME * t, 4 * smoke.B_TIME * t):
+        w2q, w2s = kp.quant_rows(teacher[3], weight=True)
+        b2 = teacher[4]
+        inter_f = torch.nn.functional.gelu(
+            torch.randn(m, inter, generator=g).to(dev))
+        amax = inter_f.abs().amax(dim=1)
+        r_qa = torch.randn(m, h, generator=g).to(dev)
+
+        def codes_ref(a=inter_f, w=w2q, sw=w2s, b=b2, r=r_qa):
+            return kp.gemm_i8(*kp.quant_rows(a), w, sw, b,
+                              kp.I8_EPI_BIAS_RESID, torch.float32, resid=r)
+        cases.append(("gemm_i8", f"K4 W2 row pass + codes <{m},{inter}>x"
+                      f"<{h},{inter}>^T", torch.float32, codes_ref,
+                      codes_ref))
+        cases.append(("gemm_i8", f"K4 W2 quantize-on-load <{m},{inter}>x"
+                      f"<{h},{inter}>^T", torch.float32,
+                      lambda a=inter_f, am=amax, w=w2q, sw=w2s, b=b2,
+                      r=r_qa: kp.gemm_i8_qa(a, am, w, sw, b, torch.float32,
+                                            resid=r), codes_ref))
+        if hasattr(kp, "I8_EPI_GELU_F32_AMAX"):
+            xq, xs = kp.quant_rows(torch.randn(m, h, generator=g).to(dev))
+            w1q, w1s = kp.quant_rows(teacher[1], weight=True)
+            buf = torch.zeros(m, device=dev)
+            cases.append(("gemm_i8", f"K4 W1 GELU amax <{m},{h}>x"
+                          f"<{inter},{h}>^T", torch.float32,
+                          lambda xq=xq, xs=xs, w=w1q, sw=w1s, buf=buf:
+                          kp.gemm_i8(xq, xs, w, sw, teacher[2],
+                                     kp.I8_EPI_GELU_F32_AMAX, torch.float32,
+                                     amax=buf),
+                          lambda xq=xq, xs=xs, w=w1q, sw=w1s:
+                          kp.gemm_i8(xq, xs, w, sw, teacher[2],
+                                     kp.I8_EPI_GELU_F32, torch.float32)))
+    if hasattr(kp, "head_d1"):
+        for m in (smoke.B_TIME * t, smoke.B_BERT * smoke.T_BERT):
+            x = torch.randn(m, 96, generator=g).to(dev)
+            d1w = (torch.randn(inter, 96, generator=g) * 96 ** -0.5).to(dev)
+            q1, s1 = kp.quant_rows(d1w, weight=True)
+            b1 = (0.1 * torch.randn(inter, generator=g)).to(dev)
+            hl = (1 + 0.1 * torch.randn(96, generator=g).to(dev),
+                  0.1 * torch.randn(96, generator=g).to(dev), 1e-5)
+
+            def d1_fp32(x=x, q1=q1, s1=s1, b1=b1, hl=hl):
+                return kp.quant_rows(kp.gemm_i8(
+                    *kp.quant_rows(x, ln=hl), q1, s1, b1,
+                    kp.I8_EPI_GELU_F32, torch.float32))
+            cases.append(("gemm_i8", f"K3 d1 to codes <{m},96>x<{inter},96>"
+                          f"^T", torch.float32,
+                          lambda x=x, q1=q1, s1=s1, b1=b1, hl=hl:
+                          kp.head_d1(x, q1, s1, b1, ln=hl), d1_fp32))
+            cases.append(("gemm_i8", f"K3 d1 fp32 h + row pass <{m},96>x"
+                          f"<{inter},96>^T", torch.float32, d1_fp32,
+                          d1_fp32))
     for op, shape, dtype, kern, plain in cases:
         with torch.inference_mode():
             err, ok, msg = smoke.compare(kern(), plain(), dtype,

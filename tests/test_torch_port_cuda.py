@@ -230,8 +230,7 @@ def test_gemm_i8_tiles_and_epilogues(dev, m, n, k, dtype):
     gelu = torch.nn.functional.gelu
     cases = {kp.I8_EPI_BIAS: y.to(dtype),
              kp.I8_EPI_BIAS_RESID: resid + y.to(dtype),
-             kp.I8_EPI_GELU_F32: gelu(y),
-             kp.I8_EPI_GELU: gelu(y).to(dtype)}
+             kp.I8_EPI_GELU_F32: gelu(y)}
     for epi, want in cases.items():
         got = kp.gemm_i8(a, sa, w, sw, bias, epi, dtype,
                          resid=resid if epi == kp.I8_EPI_BIAS_RESID else None)
@@ -241,9 +240,25 @@ def test_gemm_i8_tiles_and_epilogues(dev, m, n, k, dtype):
         ulp = 2e-6 if got.dtype == torch.float32 else 8e-3
         bound = ulp * max(1.0, want.float().abs().max().item())
         assert (got.float() - want.float()).abs().max().item() <= bound
+    _check_fold(kp, a, sa, w, sw, bias, dtype, gelu(y), 3)
     with pytest.raises(ValueError):  # K must be a multiple of 16
         kp.gemm_i8(a[:, :k - 8], sa, w[:, :k - 8].contiguous(), sw, bias,
                    kp.I8_EPI_BIAS, dtype)
+
+
+def _check_fold(kp, a, sa, w, sw, bias, dtype, gelu, c):
+    """I8_EPI_GELU_FOLD (K3's d2 with d3 folded in): one fp32 partial sum
+    per column tile of cast(gelu) times c float rows, whose sum is the
+    float64 product of the cast GELU and those rows within the int8 bounds
+    (erf's last bits, the cast, an fp32 sum in tiles)."""
+    g = torch.Generator().manual_seed(c)
+    m, n = a.shape[0], w.shape[0]
+    fold = _rand(g, a.device, c, n, scale=n ** -0.5)
+    part = kp.gemm_i8(a, sa, w, sw, bias, kp.I8_EPI_GELU_FOLD, dtype,
+                      fold=kp.fold_planes(fold, dtype), classes=c)
+    assert part.dtype == torch.float32 and part.shape[1:] == (m, c)
+    want = gelu.to(dtype).double() @ fold.to(dtype).double().T
+    _close_int8(part.double().sum(0), want, dtype)
 
 
 @pytest.mark.parametrize("random_mask", [False, True])
@@ -776,7 +791,8 @@ def test_gemm_i8_wgmma_grid(dev, m, n, k):
     and bf16.  The bias and residual epilogues are bit-identical to the
     same epilogue steps in torch on `torch._int_mm`'s int32 sum (each
     multiply and add rounded on its own, as the kernel's _rn intrinsics);
-    the GELU epilogues within `_close_int8` (erf's last bits)."""
+    the GELU epilogues (the fp32 one, and the fold of K3's d3) within
+    `_close_int8` (erf's last bits)."""
     from autognothi_tpu_torch.kernels import primitives as kp
 
     g = torch.Generator().manual_seed(19)
@@ -799,8 +815,7 @@ def test_gemm_i8_wgmma_grid(dev, m, n, k):
         got = kp.gemm_i8(a, sa, w, sw, bias, kp.I8_EPI_GELU_F32, dtype)
         assert got.dtype == torch.float32
         _close_int8(got, gelu, torch.float32)
-        got = kp.gemm_i8(a, sa, w, sw, bias, kp.I8_EPI_GELU, dtype)
-        _close_int8(got, gelu.to(dtype), dtype)
+        _check_fold(kp, a, sa, w, sw, bias, dtype, gelu, 10)
 
 
 def _launched(fn):
@@ -822,6 +837,31 @@ def _launched(fn):
     return [e.name for e in prof.events()
             if e.device_type == DeviceType.CUDA
             and not e.name.startswith("ProfilerStep")]
+
+
+def _launched_per_call(fn, reps=3, tries=5):
+    """Kernel names of the device launches of one call of `fn`, from a
+    window of `reps` calls bracketed by two fills (dropped): the profiler
+    now and then loses the first or last event of a window, so a window in
+    which a kernel is seen a number of times that is not a whole multiple
+    of the calls is profiled again, and `tries` such windows fail."""
+    def window():
+        torch.zeros(1, device="cuda")
+        for _ in range(reps):
+            fn()
+        torch.zeros(1, device="cuda")
+
+    names = []
+    for _ in range(tries):
+        names = _launched(window)
+        for end in (0, -1):
+            if names and "FillFunctor" in names[end]:
+                names.pop(end)
+        counts = {n: names.count(n) for n in names}
+        if counts and all(c % reps == 0 for c in counts.values()):
+            return names[:len(names) // reps]
+    raise AssertionError(f"the profiler lost events in {tries} windows: "
+                         f"{names}")
 
 
 def _weight_quantizers(names):
@@ -866,8 +906,9 @@ def test_int8_blocks_quantize_weights_once_per_version(dev):
             resid, mask, *ws, ln[0], ln[1], n_heads=4, mode="mul",
             ln_position="prologue", ln_eps=1e-12)
 
-    # a K8q chain quantizes x once; its intermediates take no row pass
-    for op, activations in ((k1, 2), (k4, 2), (k8q, 1)):
+    # K4's trunk design and a K8q chain quantize x once; their
+    # intermediates take no row pass
+    for op, activations in ((k1, 2), (k4, 1), (k8q, 1)):
         op()  # warmup: the codes are made here
         names = _launched(op)
         assert _weight_quantizers(names) == 0, names
@@ -1307,3 +1348,221 @@ def test_split_chain_launches(dev, dtype):
         assert sum("gemm_wg_kernel" in s for s in names) == 4, names
         assert not any("gemm_tc_kernel" in s for s in names), names
         assert not _copies(names), names
+
+
+# ------------------ K4's two designs and K3 without its fp32 intermediate
+
+
+def config_mlp_widths():
+    """Every (H, I) at which a configuration of the repo
+    (`experiments/*/.hparams.json`) runs an MLP block: the trunk's hidden
+    and intermediate sizes, and an LTT side's (`s_attn_hidden_size` and
+    `s_attn_intermediate_size` where given, else an eighth of the trunk's,
+    the ratio of the repo's LTT configurations, 96 / 768)."""
+    import json
+    import pathlib
+
+    widths = set()
+    root = pathlib.Path(__file__).resolve().parents[1] / "experiments"
+    for path in sorted(root.glob("*/.hparams.json")):
+        net = json.loads(path.read_text())["net"]["params"]
+        h, inter = net["hidden_size"], net["intermediate_size"]
+        widths.add((h, inter))
+        widths.add((net.get("s_attn_hidden_size", h // 8),
+                    net.get("s_attn_intermediate_size", inter // 8)))
+    return sorted(widths)
+
+
+def _k4_weights(g, dev, h, inter):
+    return (_rand(g, dev, inter, h, scale=h ** -0.5), _rand(g, dev, inter),
+            _rand(g, dev, h, inter, scale=inter ** -0.5), _rand(g, dev, h))
+
+
+def _h_codes(kp, x, q1, s1, b1, dtype, ln=None):
+    """The codes and scales `quant_rows` makes of gelu(the int8 W1 / d1
+    product) of x, the intermediate through device memory."""
+    inter = kp.gemm_i8(*kp.quant_rows(x, ln=ln), q1, s1, b1,
+                       kp.I8_EPI_GELU_F32, dtype)
+    return kp.quant_rows(inter)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("position", ["prologue", "epilogue", "none"])
+@pytest.mark.parametrize("h,inter", [(96, 384), (128, 512)])
+def test_k4_narrow_block(dev, h, inter, position, dtype):
+    """The narrow K4 (one launch) at the side widths, 3 x 197 rows (not a
+    multiple of the 64-row block): the intermediate's codes and scales it
+    makes are `quant_rows`' of the intermediate bit for bit; without the LN
+    epilogue its output is bit for bit the int8 GEMM's residual epilogue
+    on those codes; against the plain block within the int8 bounds (1e-2,
+    at most 1% of values beyond 1e-4 in fp32); one launch, no copy."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+    from autognothi_tpu_torch.ops import mlp_block as mb
+    from autognothi_tpu_torch.ops.weight_codes import vec32, weight_codes
+
+    assert mb.k4_design(h, inter) == "narrow"
+    g = torch.Generator().manual_seed(100)
+    b, t = 3, 197
+    resid = _rand(g, dev, b, t, h).to(dtype)
+    w1, b1, w2, b2 = _k4_weights(g, dev, h, inter)
+    ln = (1 + _rand(g, dev, h, scale=0.1), _rand(g, dev, h, scale=0.1), 1e-12)
+    x = resid.reshape(b * t, h)
+    (q1, s1), (q2, s2) = (weight_codes((w,), dtype) for w in (w1, w2))
+    hq = torch.empty(b * t, inter, device=dev, dtype=torch.int8)
+    hs = torch.empty(b * t, device=dev)
+    got = kp.mlp_narrow(x, q1, s1, b1, q2, s2, b2, ln=ln,
+                        ln_position=position, codes=(hq, hs))
+    want_q, want_s = _h_codes(kp, x, q1, s1, b1, dtype,
+                              ln=ln if position == "prologue" else None)
+    assert torch.equal(hq, want_q) and torch.equal(hs, want_s)
+    if position != "epilogue":
+        assert torch.equal(got, kp.gemm_i8(hq, hs, q2, s2, b2,
+                                           kp.I8_EPI_BIAS_RESID, dtype,
+                                           resid=x))
+
+    def op():
+        return mb.mlp_block(resid, w1, b1, w2, b2, ln=ln,
+                            ln_position=position, quant="int8")
+
+    before = mb.COUNTER_INT8.count
+    out = op()
+    assert mb.COUNTER_INT8.count == before + 1
+    assert torch.equal(out.reshape(b * t, h), got)
+    want = mb.mlp_block_int8_plain(resid, w1, b1, w2, b2, ln[0], ln[1],
+                                   ln_position=position, ln_eps=1e-12)
+    _close_int8(out, want, dtype)
+    if dtype == torch.float32:
+        assert _int8_flip_share(out, want, dtype) <= 1e-2
+    names = _launched_per_call(op)
+    assert len(names) == 1 and "mlp_narrow_kernel" in names[0], names
+    assert vec32(b1).dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,inter,b,t,position", [
+    (768, 3072, 256, 197, "prologue"),   # the int8 teacher's trunk MLP
+    (768, 3072, 4, 197, "epilogue"),
+    (1024, 4096, 2, 197, "prologue")])
+def test_k4_trunk_block(dev, h, inter, b, t, position, dtype):
+    """The trunk K4 (x's codes with the row-max buffer zeroed in the same
+    launch, W1 with the amax epilogue, W2 quantizing on load): against the
+    plain block within the int8 bounds, at the teacher's 50,432 rows too;
+    three launches, and BERT's post-norm LN a fourth.  K4's own launch:
+    at 1024/4096 the op takes the JAX budget's K8q split (F5), so the
+    block is called as K2 calls it."""
+    from autognothi_tpu_torch.ops import mlp_block as mb
+
+    assert mb.k4_design(h, inter) == "trunk"
+    g = torch.Generator().manual_seed(101)
+    resid = _rand(g, dev, b, t, h).to(dtype)
+    w1, b1, w2, b2 = _k4_weights(g, dev, h, inter)
+    ln = (1 + _rand(g, dev, h, scale=0.1), _rand(g, dev, h, scale=0.1), 1e-12)
+
+    def op():
+        return mb.mlp_block_int8_launch(resid, w1, b1, w2, b2, ln[0], ln[1],
+                                        ln_position=position, ln_eps=1e-12)
+
+    got = op()
+    want = mb.mlp_block_int8_plain(resid, w1, b1, w2, b2, ln[0], ln[1],
+                                   ln_position=position, ln_eps=1e-12)
+    _close_int8(got, want, dtype)
+    if dtype == torch.float32:
+        assert _int8_flip_share(got, want, dtype) <= 1e-2
+    del want
+    names = _launched_per_call(op)
+    assert len(names) == (4 if position == "epilogue" else 3), names
+    assert sum("quant_rows_kernel" in s for s in names) == 1, names
+    assert sum("gemm_i8_wgmma_kernel" in s for s in names) == 2, names
+    assert not _copies(names), names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,has_ln", [(10, True), (2, False)])
+def test_k3_head_at_full_width(dev, c, has_ln, dtype):
+    """K3 at 96-3072-3072-C on 2 x 197 rows (ViT's head with LN, C = 10;
+    BERT's without, C = 2): d1 writes h's codes and scales, bit for bit
+    `quant_rows`' of the fp32 h; the head within the int8 bounds of its
+    plain version; at most three launches, none of them `csrc/gemm.cu`'s
+    and no copy."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+    from autognothi_tpu_torch.ops import head_block as hb
+    from autognothi_tpu_torch.ops.weight_codes import weight_codes
+
+    g = torch.Generator().manual_seed(103)
+    b, t, h_in, inter = 2, 197, 96, 3072
+    x = _rand(g, dev, b, t, h_in).to(dtype)
+    ws = (_rand(g, dev, inter, h_in, scale=h_in ** -0.5), _rand(g, dev, inter),
+          _rand(g, dev, inter, inter, scale=inter ** -0.5),
+          _rand(g, dev, inter), _rand(g, dev, c, inter, scale=inter ** -0.5),
+          _rand(g, dev, c))
+    ln = ((1 + _rand(g, dev, h_in, scale=0.1), _rand(g, dev, h_in, scale=0.1))
+          if has_ln else (None, None))
+    x2 = x.reshape(b * t, h_in)
+    q1, s1 = weight_codes((ws[0],), ws[0].dtype)
+    ln_k = (*ln, 1e-5) if has_ln else None
+    hq, hs = kp.head_d1(x2, q1, s1, ws[1], ln=ln_k)
+    want_q, want_s = _h_codes(kp, x2, q1, s1, ws[1], dtype, ln=ln_k)
+    assert torch.equal(hq, want_q) and torch.equal(hs, want_s)
+
+    def op():
+        return hb.explainer_head_block(x, *ws, *ln, 1e-5)
+
+    before = hb.COUNTER.count
+    got = op()
+    assert hb.COUNTER.count == before + 1 and got.shape == (b, t, c)
+    tensors, static = hb.explainer_head_block_args(x, *ws, *ln, 1e-5)
+    want = hb.head_int8_plain(*tensors, **static)
+    _close_int8(got, want, dtype)
+    if dtype == torch.float32:
+        assert _int8_flip_share(got, want, dtype) <= 1e-2
+    names = _launched_per_call(op)
+    assert len(names) <= 3, names
+    assert not any("gemm_tc_kernel" in s for s in names), names
+    assert not _copies(names), names
+
+
+@pytest.mark.parametrize("shift", [-3.0, -20.0])
+def test_k3_d1_codes_where_negative_values_may_hold_the_max(dev, shift):
+    """d1's max pass evaluates GELU only where a value can hold the row's
+    max; a row whose largest value v has gelu(v) <= 0.171 takes a pass over
+    every value.  With d1's bias shifted down (-3: some rows so, some not;
+    -20: every row) h's codes and scales stay `quant_rows`' bit for bit."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+    from autognothi_tpu_torch.ops.weight_codes import weight_codes
+
+    g = torch.Generator().manual_seed(105)
+    m, h_in, inter = 197, 96, 3072
+    x = _rand(g, dev, m, h_in)
+    x[:40] *= 0.05  # rows whose values stay near the bias
+    w1 = _rand(g, dev, inter, h_in, scale=h_in ** -0.5)
+    b1 = _rand(g, dev, inter, scale=0.5) + shift
+    q1, s1 = weight_codes((w1,), torch.float32)
+    hq, hs = kp.head_d1(x, q1, s1, b1)
+    want_q, want_s = _h_codes(kp, x, q1, s1, b1, torch.float32)
+    assert torch.equal(hq, want_q) and torch.equal(hs, want_s)
+
+
+def test_k3_fold_refuses_more_classes_than_it_takes(dev):
+    """The d3 fold takes up to `I8_MAX_FOLD` classes; a head with more
+    raises ValueError on the card (no fallback)."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+    from autognothi_tpu_torch.ops import head_block as hb
+
+    g = torch.Generator().manual_seed(104)
+    c = kp.I8_MAX_FOLD + 1
+    x = _rand(g, dev, 1, 5, 32)
+    ws = (_rand(g, dev, 64, 32), _rand(g, dev, 64), _rand(g, dev, 64, 64),
+          _rand(g, dev, 64), _rand(g, dev, c, 64), _rand(g, dev, c))
+    with pytest.raises(ValueError, match=f"at most {kp.I8_MAX_FOLD}"):
+        hb.explainer_head_block(x, *ws, None, None, 1e-5)
+
+
+def test_k4_design_rule_matches_the_kernels_built(dev):
+    """`k4_design` says "narrow" exactly where the narrow kernel is built,
+    over every MLP width of the repo's configurations and their sides."""
+    from autognothi_tpu_torch.kernels.build import load
+    from autognothi_tpu_torch.ops import mlp_block as mb
+
+    for h, inter in config_mlp_widths():
+        assert (mb.k4_design(h, inter) == "narrow") == bool(
+            load().ag_mlp_narrow_supports(h, inter)), (h, inter)
