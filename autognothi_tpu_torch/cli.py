@@ -1,13 +1,17 @@
 """Command shell of the port: the same verbs and flags as
-`autognothi_tpu/cli.py`.  `serve` and `train_explainer` run; the other
-verbs are not ported yet and raise.
+`autognothi_tpu/cli.py`.  `serve`, the seven `train_all` verbs and
+`train_all` itself run; the other verbs are not ported yet and raise.
 
     python -m autognothi_tpu_torch serve <experiment_dir> --device cuda \\
         --port 8321 --batch-size 8 --window 0.0
+    python -m autognothi_tpu_torch train_all <experiment_dir> --device cuda
     python -m autognothi_tpu_torch train_explainer <experiment_dir> \\
         --device cuda
 
-A trainer stopped by SIGTERM at a batch boundary exits with 75.
+The training verbs (`train_*`, `conv_*`, `train_all`) take the LTT ViT
+(`net.kind` "ltt_vit") only; another net kind raises at them.  Every verb
+runs on `--device`, "cuda" by default, which raises on a host without a
+card.  A trainer stopped by SIGTERM at a batch boundary exits with 75.
 """
 
 from __future__ import annotations
@@ -19,15 +23,31 @@ from typing import List, Optional
 
 NOT_PORTED = (
     "preload_all", "pretrain_classifier", "estimate_train_time",
-    "conv_pretrained_classifier", "train_classifier",
-    "conv_classifier_surrogate", "train_surrogate",
-    "conv_surrogate_explainer", "conv_explainer_final",
-    "train_all", "measure_accuracy", "measure_faithfulness",
-    "measure_cls_acc", "measure_performance", "measure_train_resources",
-    "measure_branches_cka", "measure_dual_task_similarity", "measure_all",
-    "run_all", "run_image_explanation", "run_text_explanation",
-    "export_final",
+    "measure_accuracy", "measure_faithfulness", "measure_cls_acc",
+    "measure_performance", "measure_train_resources", "measure_branches_cka",
+    "measure_dual_task_similarity", "measure_all", "run_all",
+    "run_image_explanation", "run_text_explanation", "export_final",
+    "__show_fridge__", "__preview_text_shapley__",
 )
+# the training pipeline's verbs -> (module, function); the trainers run in
+# an env forked with their stage's logger block
+TRAINING = {
+    "conv_pretrained_classifier": ("train_all", None),
+    "train_classifier": ("train_classifier", "logger_classifier"),
+    "conv_classifier_surrogate": ("train_all", None),
+    "train_surrogate": ("train_surrogate", "logger_surrogate"),
+    "conv_surrogate_explainer": ("train_all", None),
+    "train_explainer": ("train_explainer", "logger_explainer"),
+    "conv_explainer_final": ("train_all", None),
+    "train_all": ("train_all", None),
+}
+# the net kinds the training verbs take (LTT BERT training is not ported)
+TRAINING_NET_KINDS = ("ltt_vit",)
+
+
+def _device(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda", type=str,
+                   help="cuda (the default; raises without a card) or cpu")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -41,8 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("serve")
     p.add_argument("model_path", type=pathlib.Path)
-    p.add_argument("--device", default="cuda", type=str,
-                   help="cuda (the default; raises without a card) or cpu")
+    _device(p)
     p.add_argument("--host", default="127.0.0.1", type=str)
     p.add_argument("--port", default=8321, type=int)
     p.add_argument("--batch-size", dest="batch_size", default=8, type=int)
@@ -59,30 +78,47 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--artifact", default=None, type=pathlib.Path,
                    help="an export artifact (not ported yet)")
 
-    p = sub.add_parser("train_explainer")
-    p.add_argument("model_path", type=pathlib.Path)
-    p.add_argument("--device", default="cuda", type=str,
-                   help="cuda (the default; raises without a card) or cpu")
+    for name in TRAINING:
+        p = sub.add_parser(name)
+        p.add_argument("model_path", type=pathlib.Path)
+        _device(p)
     return parser
+
+
+def _train(env, command: str, device: str) -> None:
+    import importlib
+
+    from .pipeline.training import INTERRUPT_EXIT_CODE, TrainingInterrupted
+
+    if env.config.net.kind not in TRAINING_NET_KINDS:
+        raise NotImplementedError(
+            f"{command}: training net kind {env.config.net.kind!r} is not "
+            f"ported yet (ported: {', '.join(TRAINING_NET_KINDS)})")
+    module, logger = TRAINING[command]
+    fn = getattr(importlib.import_module(f".pipeline.{module}", __package__),
+                 command)
+    try:
+        if logger is None:
+            fn(env, device)
+        else:
+            with env.fork(lambda ec: getattr(ec, logger)) as stage_env:
+                fn(stage_env, device=device)
+    except TrainingInterrupted as err:
+        print(f"[[[ interrupted: {err} ]]]", file=sys.stderr)
+        raise SystemExit(INTERRUPT_EXIT_CODE) from err
 
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
-    if args.command not in ("serve", "train_explainer"):
+    if args.command in NOT_PORTED:
         raise NotImplementedError(
             f"command {args.command!r} is not ported yet")
     from .pipeline.env import ExpEnv
-    from .pipeline.training import INTERRUPT_EXIT_CODE, TrainingInterrupted
 
-    with ExpEnv(args.model_path) as env:
-        if args.command == "train_explainer":
-            from .pipeline.train_explainer import train_explainer
-
-            try:
-                train_explainer(env, device=args.device)
-            except TrainingInterrupted as err:
-                print(f"[[[ interrupted: {err} ]]]", file=sys.stderr)
-                raise SystemExit(INTERRUPT_EXIT_CODE) from err
+    env = ExpEnv(args.model_path)
+    try:
+        if args.command in TRAINING:
+            _train(env, args.command, args.device)
             return
         from .pipeline.serve import serve
 
@@ -90,6 +126,8 @@ def main(argv: Optional[List[str]] = None) -> None:
               window_s=args.window_s,
               u8_dequant=(args.u8_scale, args.u8_offset),
               artifact=args.artifact, device=args.device)
+    finally:
+        env.close()
 
 
 if __name__ == "__main__":

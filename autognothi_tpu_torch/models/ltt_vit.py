@@ -34,16 +34,20 @@ from torch import nn
 from ..ops import gates
 from ..ops.ladder_block import ladder_block, mlp_ladder_block
 from ..ops.shapley import normalize_shapley_explanation
-from .common import (dense, fused_dims_ok, gelu, init_embedding,
-                     init_linear, layer_norm, pallas_mode, quant_mode)
+from .common import (dense, fused_dims_ok, gelu, layer_norm, pallas_mode,
+                     quant_mode)
 from .vit import (VanillaViTConfig, ViTEmbeddings, ViTLayer,
-                  explainer_mlp_head, explainer_mlp_head_module, fill_linear,
-                  fill_norm, linear, norm, vit_embeddings)
+                  explainer_mlp_head, explainer_mlp_head_module,
+                  fill_embeddings, fill_linear, fill_norm, linear, norm,
+                  vit_embeddings)
 
 BRANCHES = (0, 1)
 # what each checkpoint section holds: its ladder branches, the surrogate's
-# side classifier, the explainer side layers + head, the null buffer
+# side classifier, the explainer side layers + head, the null buffer (the
+# classifier has the surrogate's layout, as `init_classifier` is
+# `init_ltt_vit_surrogate` in the JAX recipe)
 SECTIONS = {
+    "classifier": dict(branches=(0,), srg_head=True, explainer=False),
     "surrogate": dict(branches=(0,), srg_head=True, explainer=False),
     "explainer": dict(branches=(0,), srg_head=False, explainer=True),
     "final": dict(branches=BRANCHES, srg_head=True, explainer=True),
@@ -94,8 +98,9 @@ class LttViTConfig:
 
 
 class LttViT(nn.Module):
-    """Parameters of one checkpoint section, "surrogate", "explainer" or
-    "final" (the JAX `init_ltt_vit_{surrogate,explainer,final}`), under the
+    """Parameters of one checkpoint section, "classifier", "surrogate",
+    "explainer" or "final" (the JAX `init_ltt_vit_{surrogate,explainer,
+    final}`), under the
     JAX package's names.  Created empty: fill with `init_ltt_vit` or a
     state dict."""
 
@@ -141,18 +146,9 @@ def init_ltt_vit(cfg: LttViTConfig, section: str,
     """A fresh section on the CPU, drawn from `generator` with the JAX
     package's distributions (its keys and shapes; not its numbers)."""
     model = LttViT(cfg, section)
-    emb = model.vit.embeddings
-    with torch.no_grad():
-        emb.cls_token.copy_(init_embedding(generator, *emb.cls_token.shape))
-        emb.position_embeddings.copy_(
-            init_embedding(generator, *emb.position_embeddings.shape))
-        # conv default init: fan_in = C * P * P
-        proj = emb.patch_embeddings.projection
-        w, b = init_linear(generator, proj.weight.shape[0],
-                           proj.weight[0].numel())
-        proj.weight.copy_(w.reshape(proj.weight.shape))
-        proj.bias.copy_(b)
-        if section == "final":
+    fill_embeddings(model.vit.embeddings, generator)
+    if section == "final":
+        with torch.no_grad():
             model.surrogate_null.zero_()
     for layer in model.vit.encoder.layers:
         layer.reset_parameters(generator)
@@ -281,12 +277,13 @@ def _cls_head(head: nn.Module, h: torch.Tensor) -> torch.Tensor:
 
 def ltt_vit_surrogate_fwd(model: LttViT, cfg: LttViTConfig,
                           pixels: torch.Tensor, mask: torch.Tensor, **kw
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (surrogate probabilities from branch 0, classifier probabilities)
-    (`:368-373`)."""
+                          ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """-> (surrogate probabilities from branch 0, classifier probabilities,
+    the representations {"repr_cls": trunk h, "repr_srg": branch 0's side},
+    both after their final LayerNorms) (`:368-373`)."""
     h, (side,) = ltt_vit_backbone(model, cfg, pixels, mask, (0,), **kw)
     return _cls_head(model.s_attn_classifier, side), \
-        _cls_head(model.classifier, h)
+        _cls_head(model.classifier, h), {"repr_cls": h, "repr_srg": side}
 
 
 def ltt_vit_explainer_head(model: LttViT, cfg: LttViTConfig,
@@ -313,8 +310,9 @@ def ltt_vit_explainer_fwd(model: LttViT, cfg: LttViTConfig,
                           ltt_active_layers: Optional[int] = None,
                           deterministic: bool = True,
                           rng: Optional[torch.Generator] = None
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (attributions <B, C, n_players>, classifier probabilities)
+                          ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """-> (attributions <B, C, n_players>, classifier probabilities, the
+    representations {"repr_cls": trunk h, "repr_exp": branch 0's side})
     (`:403-416`)."""
     h, (side,) = ltt_vit_backbone(model, cfg, pixels, mask, (0,),
                                   ltt_active_layers=ltt_active_layers,
@@ -322,7 +320,7 @@ def ltt_vit_explainer_fwd(model: LttViT, cfg: LttViTConfig,
     logits = _cls_head(model.classifier, h)
     attr = ltt_vit_explainer_head(model, cfg, side, mask, grand, null,
                                   deterministic=deterministic, rng=rng)
-    return attr, logits
+    return attr, logits, {"repr_cls": h, "repr_exp": side}
 
 
 def ltt_vit_final_fwd(model: LttViT, cfg: LttViTConfig,

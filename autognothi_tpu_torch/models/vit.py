@@ -1,6 +1,8 @@
 """ViT building blocks (port of the parts of `autognothi_tpu/models/vit.py`
 that the LTT ViT runs: the pre-norm layer, the embeddings, the explainer
-head).
+head), and the vanilla ViT classifier's parameters and init
+(`init_vit_classifier`, as flat numpy dicts), which the LTT ViT recipe's
+conversion of a base model builds on.
 
 Modules hold parameters under exactly the JAX flat names, e.g.
 `attention.self.query.weight` or `layernorm_before.bias`, so a JAX
@@ -16,8 +18,9 @@ with dropout, whose attention is the masked attention op in mode "1".
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -26,7 +29,8 @@ from ..ops.attention_block import attention_block
 from ..ops.head_block import explainer_head_block
 from ..ops.mlp_block import mlp_block
 from .common import (dense, dense_serving, dropout, fused_dims_ok, gelu,
-                     init_layer_norm, init_linear, layer_norm, pallas_mode,
+                     init_embedding, init_layer_norm, init_linear,
+                     layer_norm, pallas_mode,
                      quant_mode, self_attention)
 
 
@@ -191,6 +195,52 @@ class ViTEmbeddings(nn.Module):
         self.patch_embeddings.projection.weight = nn.Parameter(
             torch.empty(h, c, ps, ps))
         self.patch_embeddings.projection.bias = nn.Parameter(torch.empty(h))
+
+
+def fill_embeddings(emb: ViTEmbeddings, generator: torch.Generator) -> None:
+    """The JAX `init_vit_backbone`'s embeddings: normal CLS token and
+    position embeddings; the patch projection as the conv default (fan_in
+    = C * P * P)."""
+    with torch.no_grad():
+        emb.cls_token.copy_(init_embedding(generator, *emb.cls_token.shape))
+        emb.position_embeddings.copy_(
+            init_embedding(generator, *emb.position_embeddings.shape))
+        proj = emb.patch_embeddings.projection
+        w, b = init_linear(generator, proj.weight.shape[0],
+                           proj.weight[0].numel())
+        proj.weight.copy_(w.reshape(proj.weight.shape))
+        proj.bias.copy_(b)
+
+
+class ViTClassifier(nn.Module):
+    """The vanilla ViT classifier's parameters under the JAX names
+    (`init_vit_classifier`): `vit.embeddings.*`, `vit.encoder.layers.{i}.*`,
+    `vit.layernorm.*`, `classifier.*`."""
+
+    def __init__(self, cfg: VanillaViTConfig):
+        super().__init__()
+        self.vit = nn.Module()
+        self.vit.embeddings = ViTEmbeddings(cfg)
+        self.vit.encoder = nn.Module()
+        self.vit.encoder.layers = nn.ModuleList(
+            ViTLayer(cfg.hidden_size, cfg.intermediate_size)
+            for _ in range(cfg.num_hidden_layers))
+        self.vit.layernorm = norm(cfg.hidden_size)
+        self.classifier = linear(cfg.num_labels, cfg.hidden_size)
+
+
+def init_vit_classifier(cfg: VanillaViTConfig, generator: torch.Generator
+                        ) -> Dict[str, np.ndarray]:
+    """A fresh vanilla ViT classifier as a flat dict of fp32 numpy arrays,
+    drawn from `generator` with the JAX package's laws (its keys and
+    shapes; not its numbers)."""
+    model = ViTClassifier(cfg)
+    fill_embeddings(model.vit.embeddings, generator)
+    for layer in model.vit.encoder.layers:
+        layer.reset_parameters(generator)
+    fill_norm(model.vit.layernorm)
+    fill_linear(model.classifier, generator)
+    return {k: v.detach().numpy() for k, v in model.state_dict().items()}
 
 
 def explainer_mlp_head_module(d_in: int, d_hidden: int,

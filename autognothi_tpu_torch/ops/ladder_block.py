@@ -18,10 +18,18 @@ Each stage has a plain version of its own (`side_in_plain`,
 branch-major tensors as its launch; chained they compute
 `ladder_block_plain`.  The branches' weights are packed per kind once per
 weight version (`ops/weight_codes.py:cached`), so a step launches no
-concatenation and no copy.  The kernels take any side width that is a
-multiple of 8 up to 128, in heads of d = 8 (`ag_ladder_supports`), and any
-MLP width that is a multiple of 8; more than four branches take one
+concatenation and no copy.  The stage kernels take any side width that is
+a multiple of 8 up to 128, in heads of d = 8 (`ag_ladder_supports`), and
+any MLP width that is a multiple of 8; more than four branches take one
 side-in launch per four.
+
+Every other side shape the JAX gate admits (a side of hidden / 4, heads of
+d = 16-64) takes the second route, `ladder_route` says which by shape
+alone: the same side-in launch, then each branch's side layer on the
+kernels of the float attention block (the Q|K|V and out-projection
+products on `csrc/gemm_wgmma.cu`, the core of `csrc/attention.cu`, which
+takes d = 8, 16, 32 or 64 at T <= 512) and of the float MLP block
+(`csrc/gemm.cu`).  A head width the core has no kernel for raises.
 
 Both layer kinds run on the card: the ViT's "mul" mask with pre-norm
 (LN1 and LN2 before attention and MLP) and BERT's additive "add" bias
@@ -56,17 +64,23 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.build import LaunchCounter
-from ..kernels.primitives import (EPI_WG_GELU_RESID_SPLIT, LADDER_ATTENTION,
+from ..kernels.primitives import (EPI_BIAS_GELU, EPI_BIAS_RESID,
+                                  EPI_WG_BIAS, EPI_WG_BIAS_RESID,
+                                  EPI_WG_GELU_RESID_SPLIT, LADDER_ATTENTION,
                                   LADDER_MLP, LADDER_QKV, WG_MAX_BRANCHES,
-                                  attention_heads, dispatch, gemm_wg,
-                                  ladder_stage)
+                                  attention_core, attention_heads, dispatch,
+                                  gemm, gemm_wg, ladder_stage, layernorm_,
+                                  rows_prep, rowstats)
 from ..models.common import dense, gelu, layer_norm
-from .attention_block import _attend, attention_block_plain
+from .attention_block import (_attend, attention_block_plain,
+                              float_product)
 from .mlp_block import (mlp_block_int8_launch, mlp_block_int8_plain,
                         mlp_block_plain)
 from .weight_codes import cached, float_weight, tf32_planes
 
 COUNTER = LaunchCounter("ladder_block")
+# the ladder_block calls of those that took the per-branch route
+COUNTER_PER_BRANCH = LaunchCounter("ladder_block_per_branch")
 COUNTER_MLP_LADDER = LaunchCounter("mlp_ladder_block")
 COUNTER_ATTENTION = LaunchCounter("ladder_attention")
 
@@ -263,20 +277,114 @@ def ladder_stages_plain(h, mask_row, *flat, n_branches, n_heads, mode,
                           mode=mode, pre_norm=pre_norm, ln_eps=ln_eps)
 
 
-def ladder_pack_cached(flat, n_branches: int, dtype: torch.dtype) -> dict:
-    """`ladder_pack`, made once per version of the branches' weights."""
-    return cached(flat[n_branches:], ("ladder", n_branches, dtype),
-                  lambda: ladder_pack(flat, n_branches, dtype, planes=True))
+# the attention core's head widths and token limit
+# (`csrc/attention.cu:ag_attention_supports`)
+CORE_HEAD_DIMS = (8, 16, 32, 64)
+CORE_MAX_T = 512
+STAGES_MAX_S = 128  # `csrc/ladder.cu:kLadMaxS`
+
+
+def ladder_route(s: int, inter: int, n_heads: int, t: int) -> str:
+    """K5's route on the card for a side of width s in n_heads heads, an
+    MLP of width inter and T = t tokens an image: "stages" (the four stage
+    launches of `csrc/ladder.cu`: heads of d = 8, s a multiple of 8 up to
+    128) or "per_branch" (the side-in launch, then each branch's side layer
+    on the float attention and MLP blocks' kernels: d = 8, 16, 32 or 64, T
+    <= 512).  Both take widths that are multiples of 8.  Any other shape
+    raises ValueError naming it; the choice never depends on a launch."""
+    d = s // n_heads if n_heads > 0 and s % n_heads == 0 else 0
+    shape = (f"side {s} in {n_heads} heads (d = {s / max(n_heads, 1):g}), "
+             f"MLP {inter}, T = {t}")
+    if s % 8 or inter % 8 or d == 0:
+        raise ValueError(f"the ladder kernels take side and MLP widths that "
+                         f"are multiples of 8 in whole heads, got {shape}")
+    if d == 8 and s <= STAGES_MAX_S:
+        return "stages"
+    if d in CORE_HEAD_DIMS and t <= CORE_MAX_T:
+        return "per_branch"
+    raise ValueError(f"no ladder kernel for {shape}: the stage kernels take "
+                     f"d = 8 up to a side of {STAGES_MAX_S}, the attention "
+                     f"core d in {CORE_HEAD_DIMS} at T <= {CORE_MAX_T}")
+
+
+def _branch_pack(pack: dict, dtype: torch.dtype) -> dict:
+    """The float GEMM's weights of every branch's Q|K|V and out-projection
+    (`float_product`'s tuples: (bf16,) or fp32 tf32 (hi, lo) planes),
+    stacked per kind like the rest of the pack."""
+    if dtype == torch.float32:
+        return {k: tf32_planes(pack[k]) for k in ("wqkv", "wo")}
+    return {k: (pack[k],) for k in ("wqkv", "wo")}
+
+
+def side_layer_launch(x, mask_row, pack, i, *, n_heads, mode, pre_norm,
+                      ln_eps):
+    """Branch i's side layer on x <M, S> (the side-in output), the
+    per-branch route: the attention half as `attention_block_launch` runs
+    it (the LN row pass, Q|K|V and out-projection on the wgmma GEMM, the
+    attention core), the MLP half as `mlp_block_launch` (LN statistics,
+    W1 with GELU and W2 with the residual on `csrc/gemm.cu`); post-norm
+    LayerNorms in place after each residual."""
+    m, s = x.shape
+    b_sz, t = mask_row.shape
+    wg = pack["per_branch"]
+    ln1 = (pack["ln1_w"][i], pack["ln1_b"][i], ln_eps)
+    a = rows_prep(x, ln1) if pre_norm else x
+    qkv = float_product(a, tuple(w[i] for w in wg["wqkv"]), pack["bqkv"][i],
+                        EPI_WG_BIAS)
+    ctx = attention_core(qkv, mask_row, b_sz, t, s, n_heads, mode)
+    x1 = float_product(ctx, tuple(w[i] for w in wg["wo"]), pack["bo"][i],
+                       EPI_WG_BIAS_RESID, resids=(x,))
+    if not pre_norm:
+        layernorm_(x1, *ln1)
+    ln2_w, ln2_b = pack["ln2_w"][i], pack["ln2_b"][i]
+    ln = (*rowstats(x1, ln_eps), ln2_w, ln2_b) if pre_norm else None
+    inter = gemm(x1, pack["w1"][i], pack["b1"][i], EPI_BIAS_GELU, ln=ln)
+    out = gemm(inter, pack["w2"][i], pack["b2"][i], EPI_BIAS_RESID, resid=x1)
+    if not pre_norm:
+        layernorm_(out, ln2_w, ln2_b, ln_eps)
+    return out
+
+
+def ladder_pack_cached(flat, n_branches: int, dtype: torch.dtype,
+                       route: str = "stages") -> dict:
+    """`ladder_pack` (with the per-branch products' weights for that
+    route), made once per version of the branches' weights."""
+    def make():
+        pack = ladder_pack(flat, n_branches, dtype, planes=True)
+        if route == "per_branch":
+            pack["per_branch"] = _branch_pack(pack, dtype)
+        return pack
+
+    return cached(flat[n_branches:], ("ladder", n_branches, dtype, route),
+                  make)
 
 
 def ladder_block_launch(h, mask_row, *flat, n_branches, n_heads, mode,
                         pre_norm, ln_eps) -> Tuple[torch.Tensor, ...]:
-    """The CUDA version (launches only; no counting, no autograd): the four
-    stage launches on the branches' weights packed once per version."""
-    pack = ladder_pack_cached(flat, n_branches, h.dtype)
-    return _ladder_stages(LAUNCH_STAGES, pack, h, mask_row,
-                          flat[:n_branches], n_heads=n_heads, mode=mode,
-                          pre_norm=pre_norm, ln_eps=ln_eps)
+    """The CUDA version (launches only; no counting, no autograd), on the
+    route `ladder_route` picks: the four stage launches, or the side-in
+    launch and each branch's side layer; the branches' weights packed once
+    per version."""
+    b_sz, t, hidden = h.shape
+    s, inter = flat[0].shape[-1], flat[n_branches + BRANCH_KEYS.index("w1")
+                                      ].shape[0]
+    route = ladder_route(s, inter, n_heads, t)
+    pack = ladder_pack_cached(flat, n_branches, h.dtype, route)
+    if route == "stages":
+        return _ladder_stages(LAUNCH_STAGES, pack, h, mask_row,
+                              flat[:n_branches], n_heads=n_heads, mode=mode,
+                              pre_norm=pre_norm, ln_eps=ln_eps)
+    COUNTER_PER_BRANCH.add()
+    m = b_sz * t
+    x = side_in_launch(h.contiguous().reshape(m, hidden),
+                       [side.contiguous().reshape(m, s)
+                        for side in flat[:n_branches]],
+                       pack["map_w"], pack["map_b"],
+                       *pack.get("map_planes", ()))
+    return tuple(side_layer_launch(x[i], mask_row, pack, i, n_heads=n_heads,
+                                   mode=mode, pre_norm=pre_norm,
+                                   ln_eps=ln_eps).view(b_sz, t, s)
+                 for i in range(n_branches))
 
 
 def ladder_block_args(

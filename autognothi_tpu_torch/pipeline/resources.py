@@ -3,13 +3,20 @@
 package's: `{section}-epoch-{e}.ckpt`, an npz of the flat parameter dict,
 written atomically; the newest epoch up to the section's epoch count is
 the one loaded; retention keeps epoch 0, the last epoch and the epochs
-matching the `ckpt_when` cadence."""
+matching the `ckpt_when` cadence.
+
+With AUTOGNOTHI_CKPT_OPT=1 a trainer also writes its optimizer state
+beside each epoch's parameters, `{section}-epoch-{e}.opt.ckpt` (npz with
+the port's own named leaves: `count`, `mu/<name>`, `nu/<name>`), and a
+resumed run reloads it, so that it is bit-identical to an uninterrupted
+one; only the newest opt file is kept.  A file of the JAX package's
+(optax leaves by position, `leaf_*`) is refused, never mapped."""
 
 from __future__ import annotations
 
 import os
 import pathlib
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +26,7 @@ from ..params import from_jax_params, load_params_file, save_params
 from ..recipes.types import ModelRecipe
 from ..utils.strings import ranged_modulo_test
 from .config import Config_Dataset, Config_Train, ExpConfig
+from .training import AdamW
 
 
 def get_recipe(config: ExpConfig) -> Tuple[ModelRecipe, Any]:
@@ -76,50 +84,110 @@ def latest_epoch(path: pathlib.Path, section: str,
 def _max_epochs(config: ExpConfig, section: str) -> int:
     if section == "final":
         return 0
-    if section == "explainer":
-        return config.train_explainer.epochs
-    if section == "surrogate":
-        raw = config.raw.get("train_surrogate")
-        if raw is None:
-            raise ValueError("the experiment config has no train_surrogate")
-        return int(raw["epochs"])
-    raise NotImplementedError(
-        f"loading the {section!r} section is not ported yet")
+    t_cfg = getattr(config, f"train_{section}", None) \
+        if section in ("classifier", "surrogate", "explainer") else None
+    if t_cfg is None:
+        raise ValueError(f"the experiment config has no train_{section}")
+    return t_cfg.epochs
+
+
+def load_epoch_params(env, section: str
+                      ) -> Tuple[int, Dict[str, np.ndarray]]:
+    """Newest checkpoint of `section` as a flat dict of numpy arrays."""
+    epoch = latest_epoch(env.model_path, section,
+                         _max_epochs(env.config, section))
+    if epoch is None:
+        raise FileNotFoundError(
+            f"no checkpoint found for '{section}' under '{env.model_path}'")
+    return epoch, load_params_file(ckpt_path(env.model_path, section, epoch))
 
 
 def load_epoch_model(env, recipe: ModelRecipe, section: str,
                      device: torch.device,
                      dtype: torch.dtype = torch.float32
                      ) -> Tuple[int, torch.nn.Module]:
-    """Newest checkpoint of `section` ("surrogate", "explainer" or
-    "final"), loaded strictly onto `device` in eval mode."""
+    """Newest checkpoint of `section` ("classifier", "surrogate",
+    "explainer" or "final"), loaded strictly onto `device` in eval mode."""
     m_config = recipe.t_config(**env.config.net.params)
-    epoch = latest_epoch(env.model_path, section,
-                         _max_epochs(env.config, section))
-    if epoch is None:
-        raise FileNotFoundError(
-            f"no checkpoint found for '{section}' under '{env.model_path}'")
-    flat = load_params_file(ckpt_path(env.model_path, section, epoch))
+    epoch, flat = load_epoch_params(env, section)
     return epoch, from_jax_params(flat, m_config, device, dtype, section)
 
 
-def refuse_opt_ckpt() -> None:
-    """AUTOGNOTHI_CKPT_OPT=1 asks for the optimizer state beside the
-    parameters (exact resume); the port does not write it yet, so a
-    trainer refuses before it trains."""
-    if os.environ.get("AUTOGNOTHI_CKPT_OPT", "0") == "1":
-        raise NotImplementedError(
-            "AUTOGNOTHI_CKPT_OPT=1 (optimizer-state checkpoints) is not "
-            "ported yet")
+# ------------------------------------------- optimizer-state checkpoints
+
+
+def opt_ckpt_enabled() -> bool:
+    """AUTOGNOTHI_CKPT_OPT=1: checkpoint the optimizer state beside the
+    parameters, for a bit-identical resume (off by default: the reference
+    rebuilds the moments from zero on resume)."""
+    return os.environ.get("AUTOGNOTHI_CKPT_OPT", "0") == "1"
+
+
+def opt_path(path: pathlib.Path, section: str, epoch: int) -> pathlib.Path:
+    # not matched by `latest_epoch`'s exact-name probe
+    return pathlib.Path(path) / f"{section}-epoch-{epoch}.opt.ckpt"
+
+
+def save_opt_state(path: pathlib.Path, section: str, epoch: int,
+                   opt: AdamW) -> None:
+    """`opt`'s count and moments under their names, atomically."""
+    leaves = {"count": np.asarray(opt.count, np.int64)}
+    for k in opt.names:
+        leaves[f"mu/{k}"] = opt.mu[k].detach().cpu().numpy()
+        leaves[f"nu/{k}"] = opt.nu[k].detach().cpu().numpy()
+    save_params(opt_path(path, section, epoch), leaves)
+
+
+def maybe_restore_opt_state(path: pathlib.Path, section: str, epoch: int,
+                            opt: AdamW) -> AdamW:
+    """Exact resume: load the optimizer state saved at `epoch` into `opt`
+    (the freshly built one, in place).  A no-op when AUTOGNOTHI_CKPT_OPT is
+    off, at epoch 0, or without an opt file.  Raises where the file's
+    names or shapes are not `opt`'s, and for a JAX-written file."""
+    file = opt_path(path, section, epoch)
+    if not opt_ckpt_enabled() or epoch <= 0 or not file.exists():
+        return opt
+    arrays = load_params_file(file)
+    if any(k.startswith("leaf_") for k in arrays):
+        raise ValueError(
+            f"optimizer checkpoint {file.name} was written by the JAX "
+            f"package (optax leaves by position); the port reads only its "
+            f"own named moments: delete it to resume with fresh moments")
+    want = {"count", *(f"{m}/{k}" for m in ("mu", "nu") for k in opt.names)}
+    if set(arrays) != want:
+        raise ValueError(
+            f"optimizer checkpoint {file.name} holds other parameters than "
+            f"the rebuilt optimizer (missing {sorted(want - set(arrays))}, "
+            f"extra {sorted(set(arrays) - want)}): the config or freeze "
+            f"rules changed since it was written; delete it to resume with "
+            f"fresh moments")
+    for k in opt.names:
+        for m, store in (("mu", opt.mu), ("nu", opt.nu)):
+            got = arrays[f"{m}/{k}"]
+            if got.shape != tuple(store[k].shape):
+                raise ValueError(
+                    f"optimizer checkpoint {file.name}: {m}/{k} has shape "
+                    f"{got.shape}, expected {tuple(store[k].shape)}")
+            with torch.no_grad():
+                store[k].copy_(torch.from_numpy(got))
+    opt.count = int(arrays["count"])
+    return opt
 
 
 def save_epoch_ckpt(path: pathlib.Path, section: str, cfg: Config_Train,
-                    epoch: int, params: Mapping[str, np.ndarray]) -> None:
+                    epoch: int, params: Mapping[str, np.ndarray],
+                    opt: Optional[AdamW] = None) -> None:
     """Save atomically, then delete the previous epoch's file unless the
-    retention keeps it (epoch 0, the last epoch, the `ckpt_when` cadence)."""
+    retention keeps it (epoch 0, the last epoch, the `ckpt_when` cadence).
+    With AUTOGNOTHI_CKPT_OPT=1 and an `opt`, its state is saved beside the
+    parameters, and the previous epoch's opt file goes whatever the
+    retention: a resume only ever continues from the newest epoch."""
     path = pathlib.Path(path)
     save_params(ckpt_path(path, section, epoch), params)
+    if opt is not None and opt_ckpt_enabled():
+        save_opt_state(path, section, epoch, opt)
     prev = epoch - 1
     if not (prev == 0 or prev == cfg.epochs
             or ranged_modulo_test(cfg.ckpt_when)(prev)):
         ckpt_path(path, section, prev).unlink(missing_ok=True)
+    opt_path(path, section, prev).unlink(missing_ok=True)

@@ -12,13 +12,13 @@ epoch draws its coalition (and dropout) masks from a generator on the
 training device seeded with `derive_seed(seed, "train_explainer[epoch=e]
 [train|test]")`.  The duo and KernelSHAP variants and pipeline-parallel
 training (AUTOGNOTHI_PP, AUTOGNOTHI_PP_TP above 1) are not ported and
-raise.
+raise.  With AUTOGNOTHI_CKPT_OPT=1 the optimizer state is checkpointed
+beside each epoch and reloaded on resume.
 """
 
 from __future__ import annotations
 
 import math
-import os
 import time
 
 import torch
@@ -30,14 +30,16 @@ from ..utils.devices import resolve_device
 from ..utils.seeding import iterative_generator, set_iterative_seed
 from .env import ExpEnv
 from .resources import (get_recipe, load_cfg_dataset, load_epoch_model,
-                        refuse_opt_ckpt, save_epoch_ckpt)
+                        maybe_restore_opt_state, save_epoch_ckpt)
 from .training import (AdamW, LossDrain, cast_input, cosine_lr, filter_mask,
-                       graceful_training, ones_mask, pad_batch)
+                       graceful_training, maybe_enable_debug_nans, ones_mask,
+                       pad_batch, refuse_pipeline_parallel)
 
 
 @graceful_training
 def train_explainer(env: ExpEnv, device: str = "cuda") -> None:
     env.log("[[[ train explainer ]]]")
+    maybe_enable_debug_nans()
     config = env.config
     recipe, m_config = get_recipe(config)
     if not recipe.training.support_explainer:
@@ -47,12 +49,7 @@ def train_explainer(env: ExpEnv, device: str = "cuda") -> None:
             recipe.training.exp_variant_kernel_shap:
         raise NotImplementedError(
             "the duo and KernelSHAP explainer trainers are not ported yet")
-    if any(os.environ.get(k, "").strip() not in ("", "0", "1")
-           for k in ("AUTOGNOTHI_PP", "AUTOGNOTHI_PP_TP")):
-        raise NotImplementedError(
-            "pipeline-parallel training (AUTOGNOTHI_PP, AUTOGNOTHI_PP_TP) "
-            "is not ported yet")
-    refuse_opt_ckpt()
+    refuse_pipeline_parallel()
     t_cfg = config.train_explainer
     if t_cfg is None:
         raise ValueError("the experiment config has no train_explainer")
@@ -71,7 +68,9 @@ def train_explainer(env: ExpEnv, device: str = "cuda") -> None:
     for name, p in model.named_parameters():
         p.requires_grad_(trainable(name))
     params = dict(model.named_parameters())
-    opt = AdamW(params, trainable)
+    # exact resume (AUTOGNOTHI_CKPT_OPT=1); otherwise fresh moments
+    opt = maybe_restore_opt_state(env.model_path, "explainer", epoch_start,
+                                  AdamW(params, trainable))
     step = make_explainer_train_step(recipe, m_config, n_players,
                                      t_cfg.n_mask_samples)
     eval_step = make_explainer_eval_step(recipe, m_config, n_players,
@@ -140,10 +139,11 @@ def train_explainer(env: ExpEnv, device: str = "cuda") -> None:
             epoch, iterative_generator(config.seed, key + "[test]", dev),
             lr, update_mask, ltt_active, train=False)
         ts_delta = time.time() - ts_begin
-        env.log(f"METRICS: {{'epoch': {epoch}, 'train_reg_loss': "
-                f"{train_loss}, 'test_reg_loss': {test_loss}}}")
+        env.metrics({"epoch": epoch, "train_reg_loss": train_loss,
+                     "test_reg_loss": test_loss})
         env.log(f"  > epoch {epoch} done in {ts_delta:.2f}s // "
                 f"train_loss: shap {train_loss:.6f} // "
                 f"test_loss: shap {test_loss:.6f}")
         save_epoch_ckpt(env.model_path, "explainer", t_cfg, epoch,
-                        to_flat(model))
+                        to_flat(model), opt=opt)
+        env.flush_cfg()

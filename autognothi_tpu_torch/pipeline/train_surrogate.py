@@ -1,0 +1,198 @@
+"""Surrogate training stage (port of `autognothi_tpu/pipeline/
+train_surrogate.py` for one device): KL distillation of the frozen
+classifier under random coalition masks, epoch by epoch, resuming from the
+newest surrogate checkpoint.
+
+    python -m autognothi_tpu_torch train_surrogate <experiment_dir> \\
+        --device cuda
+
+Per batch: the teacher, the classifier's trunk probabilities
+(`fw_classifier`'s second output) on the all-on mask, without a graph and
+in the arithmetic AUTOGNOTHI_INT8 picks (W8A8 with it: K1 and K2 in pallas
+mode "2"); then the student's branch-0 probabilities on a
+`mask_purely_uniform` coalition, under `quant_override("none")`, the KL
+loss (`loss_logits_kl_divergence`) and, on the same forward, the
+cross-entropy metric.  Each epoch draws its masks, and then its dropout
+masks, from a generator on the training device seeded with
+`derive_seed(seed, "train_surrogate[epoch=e][train|test]")`.  With
+EXPERIMENTAL_progressive_training one more ladder layer unfreezes every
+three epochs.  Pipeline-parallel training is not ported and raises.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import torch
+
+from ..models.common import quant_override
+from ..ops.shapley import loss_logits_kl_divergence, mask_purely_uniform
+from ..params import to_flat
+from ..utils.devices import resolve_device
+from ..utils.seeding import iterative_generator, set_iterative_seed
+from .env import ExpEnv
+from .resources import (get_recipe, load_cfg_dataset, load_epoch_model,
+                        maybe_restore_opt_state, save_epoch_ckpt)
+from .training import (AdamW, LossDrain, cast_input, cosine_lr,
+                       cross_entropy_on_probs, filter_mask, graceful_training,
+                       make_train_step, maybe_enable_debug_nans, ones_mask,
+                       pad_batch, refuse_pipeline_parallel)
+
+
+def surrogate_loss(recipe, m_config, is_ltt: bool):
+    """-> loss_fn(model, xs, mask, orig_ys, labels, generator, ltt_active,
+    weights) -> (kld, (cls, adapt_ys)): the JAX stage's `loss_fn`
+    (`:90-102`)."""
+
+    def loss_fn(model, xs, mask, orig_ys, labels, generator, ltt_active,
+                weights):
+        kw = {"ltt_active_layers": ltt_active} if is_ltt else {}
+        with quant_override("none"):
+            adapt_ys, _ = recipe.fw_surrogate(m_config, model, xs, mask,
+                                              deterministic=False,
+                                              rng=generator, **kw)
+        kld = loss_logits_kl_divergence(orig_ys, adapt_ys, weights)
+        return kld, (cross_entropy_on_probs(adapt_ys, labels, weights),
+                     adapt_ys)
+
+    return loss_fn
+
+
+def surrogate_teacher(recipe, m_config):
+    """-> teacher(cls_model, xs, mask) -> the classifier's trunk
+    probabilities, without a graph, in the arithmetic AUTOGNOTHI_INT8 picks
+    (no override: not the explainer step's AUTOGNOTHI_INT8_TEACHER)."""
+
+    def teacher(cls_model, xs, mask):
+        with torch.no_grad():
+            return recipe.fw_classifier(m_config, cls_model, xs, mask)[1]
+
+    return teacher
+
+
+@graceful_training
+def train_surrogate(env: ExpEnv, device: str = "cuda") -> None:
+    env.log("[[[ train surrogate ]]]")
+    maybe_enable_debug_nans()
+    config = env.config
+    recipe, m_config = get_recipe(config)
+    if not recipe.training.support_surrogate:
+        env.log("[[[ skip: surrogate cannot be trained ]]]")
+        return
+    refuse_pipeline_parallel()
+    t_cfg = config.train_surrogate
+    if t_cfg is None:
+        raise ValueError("the experiment config has no train_surrogate")
+    dev = resolve_device(device)
+    d_loader = load_cfg_dataset(config.dataset)
+    n_players = recipe.n_players(m_config)
+    gen_input = recipe.gen_input(m_config, None)
+
+    _, cls_model = load_epoch_model(env, recipe, "classifier", dev)
+    epoch_start, model = load_epoch_model(env, recipe, "surrogate", dev)
+    if epoch_start >= t_cfg.epochs:
+        env.log("[[[ surrogate already trained ]]]")
+        return
+    cls_model.requires_grad_(False)
+    trainable = recipe.trainable(m_config, "surrogate")
+    for name, p in model.named_parameters():
+        p.requires_grad_(trainable(name))
+    params = dict(model.named_parameters())
+    # exact resume (AUTOGNOTHI_CKPT_OPT=1); otherwise fresh moments
+    opt = maybe_restore_opt_state(env.model_path, "surrogate", epoch_start,
+                                  AdamW(params, trainable))
+    is_ltt = recipe.progressive_trainable is not None
+    full_depth = getattr(m_config, "num_hidden_layers", 0)
+    step = make_train_step(surrogate_loss(recipe, m_config, is_ltt))
+    teacher = surrogate_teacher(recipe, m_config)
+
+    def eval_fwd(xs, mask, orig_ys, labels, weights, ltt_active):
+        kw = {"ltt_active_layers": ltt_active} if is_ltt else {}
+        with torch.no_grad(), quant_override("none"):
+            adapt_ys, _ = recipe.fw_surrogate(m_config, model, xs, mask,
+                                              **kw)
+            return (loss_logits_kl_divergence(orig_ys, adapt_ys, weights),
+                    cross_entropy_on_probs(adapt_ys, labels, weights),
+                    adapt_ys)
+
+    def run_epoch(epoch: int, gen: torch.Generator, lr: float, update_mask,
+                  ltt_active: int, train: bool):
+        state = {"kld": 0.0, "cls": 0.0, "correct": 0, "total": 0}
+        tag = "train" if train else "test"
+
+        def emit(batch_idx, vals, host):
+            kld_val, cls_val, adapt = vals
+            zs, batch = host
+            state["kld"] += kld_val
+            state["cls"] += cls_val
+            state["correct"] += int(np.sum(
+                np.argmax(adapt[:batch], axis=1) == zs))
+            state["total"] += batch
+            env.log(f"  > epoch {epoch} :{batch_idx}:{tag} // "
+                    f"loss: kld {kld_val / batch:.6f} cls "
+                    f"{cls_val / batch:.6f} // "
+                    f"acc: {100.0 * state['correct'] / state['total']:.3f}%, "
+                    f"{state['correct']}/{state['total']}")
+
+        drain = LossDrain(emit)
+        items = (d_loader.train(t_cfg.batch_size) if train
+                 else d_loader.test(t_cfg.batch_size))
+        for _inputs, _targets in items:
+            xs, zs = gen_input(_inputs, _targets)
+            batch = xs.shape[0]
+            xs, zs_p, weights = pad_batch(xs, zs, t_cfg.batch_size)
+            xs = cast_input(torch.from_numpy(xs).to(dev))
+            labels = torch.from_numpy(zs_p).to(dev)
+            w = torch.from_numpy(weights).to(dev)
+            padded = xs.shape[0]
+            mask_1 = torch.ones((padded, n_players), dtype=torch.int32,
+                                device=dev)
+            mask_rand = mask_purely_uniform(gen, padded, n_players)
+            orig_ys = teacher(cls_model, xs, mask_1)
+            if train:
+                kld, (cls, adapt_ys) = step(model, opt, lr, update_mask, xs,
+                                            mask_rand, orig_ys, labels, gen,
+                                            ltt_active, w)
+            else:
+                kld, cls, adapt_ys = eval_fwd(xs, mask_rand, orig_ys, labels,
+                                              w, ltt_active)
+            drain.push((kld, cls, adapt_ys), (np.asarray(zs), batch))
+        drain.flush()
+        total = max(state["total"], 1)
+        return (state["kld"] / total, state["cls"] / total,
+                state["correct"] / total)
+
+    for epoch in range(epoch_start + 1, t_cfg.epochs + 1):
+        key = f"train_surrogate[epoch={epoch}]"
+        set_iterative_seed(config.seed, key)
+        env.log(f"### epoch {epoch}")
+        update_mask = ones_mask(params)
+        ltt_active = full_depth
+        if t_cfg.EXPERIMENTAL_progressive_training and is_ltt:
+            unfrozen = min(math.ceil(epoch / 3), m_config.num_hidden_layers)
+            env.log(f"  > freeze side branches exc. first {unfrozen} layers")
+            update_mask = filter_mask(params, recipe.progressive_trainable(
+                m_config, "surrogate", unfrozen))
+            ltt_active = unfrozen
+        lr = cosine_lr(t_cfg.lr, epoch, t_cfg.epochs)
+        ts_begin = time.time()
+        train_kld, train_cls, train_acc = run_epoch(
+            epoch, iterative_generator(config.seed, key + "[train]", dev),
+            lr, update_mask, ltt_active, train=True)
+        test_kld, test_cls, test_acc = run_epoch(
+            epoch, iterative_generator(config.seed, key + "[test]", dev),
+            lr, update_mask, ltt_active, train=False)
+        ts_delta = time.time() - ts_begin
+        env.metrics({"epoch": epoch, "train_kld_loss": train_kld,
+                     "train_cls_loss": train_cls, "train_cls_acc": train_acc,
+                     "test_kld_loss": test_kld, "test_cls_loss": test_cls,
+                     "test_cls_acc": test_acc})
+        env.log(f"  > epoch {epoch} done in {ts_delta:.2f}s // "
+                f"train_loss: kld {train_kld:.6f} cls {train_cls:.6f} // "
+                f"test_loss: kld {test_kld:.6f} cls {test_cls:.6f} // "
+                f"test_acc: {test_acc:.3f}")
+        save_epoch_ckpt(env.model_path, "surrogate", t_cfg, epoch,
+                        to_flat(model), opt=opt)
+        env.flush_cfg()

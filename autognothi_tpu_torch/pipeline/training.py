@@ -1,7 +1,8 @@
 """Shared training machinery (port of `autognothi_tpu/pipeline/training.py`):
-AdamW with the optax arithmetic and freeze masks, the cosine learning
-rate, ragged-batch padding, the compute dtype, and the SIGTERM-graceful
-batch loop.
+AdamW with the optax arithmetic and freeze masks, the train step factory
+(`make_train_step`), the cross-entropy on probabilities, the cosine
+learning rate, ragged-batch padding, the compute dtype, the deferred loss
+fetch, the anomaly switch, and the SIGTERM-graceful batch loop.
 
 - Freezing is partitioning, as `optax.multi_transform` with `set_to_zero`
   does it: a frozen parameter gets no update and no weight decay.  The
@@ -26,6 +27,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 # torch.optim.AdamW defaults; the reference never overrides them
 ADAMW_BETAS = (0.9, 0.999)
@@ -105,12 +107,96 @@ def cast_input(xs: torch.Tensor) -> torch.Tensor:
     return xs.to(compute_dtype()) if xs.is_floating_point() else xs
 
 
+def refuse_pipeline_parallel() -> None:
+    """Pipeline-parallel training (AUTOGNOTHI_PP, AUTOGNOTHI_PP_TP above 1)
+    is not ported: a trainer raises before it trains."""
+    if any(os.environ.get(k, "").strip() not in ("", "0", "1")
+           for k in ("AUTOGNOTHI_PP", "AUTOGNOTHI_PP_TP")):
+        raise NotImplementedError(
+            "pipeline-parallel training (AUTOGNOTHI_PP, AUTOGNOTHI_PP_TP) "
+            "is not ported yet")
+
+
+def defer_loss_fetch() -> bool:
+    """AUTOGNOTHI_DEFER_LOSS_FETCH=1 fetches the per-step losses once per
+    epoch (`LossDrain.flush`) instead of after every batch, so the host
+    does not wait on the device between steps; the log lines are the same
+    either way, only when they print changes."""
+    return os.environ.get("AUTOGNOTHI_DEFER_LOSS_FETCH") == "1"
+
+
+def pad_ragged() -> bool:
+    """AUTOGNOTHI_PAD_RAGGED=0 opts out of fixed-shape batch padding."""
+    return os.environ.get("AUTOGNOTHI_PAD_RAGGED", "1") != "0"
+
+
+def maybe_enable_debug_nans() -> None:
+    """AUTOGNOTHI_DEBUG_NANS=1: autograd anomaly detection on every train
+    op (the reference's `torch.autograd.set_detect_anomaly(True)`); off by
+    default, since it slows every step."""
+    if os.environ.get("AUTOGNOTHI_DEBUG_NANS") == "1":
+        torch.autograd.set_detect_anomaly(True)
+
+
+def cross_entropy_on_probs(probs: torch.Tensor, labels: torch.Tensor,
+                           weights: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """torch `F.cross_entropy` applied to the models' softmax outputs, that
+    is a log-softmax over *probabilities* (the reference's observable
+    behaviour, kept).  `weights` <batch> marks real rows (0 = padding): a
+    weighted mean."""
+    logp = torch.log_softmax(probs, dim=-1)
+    nll = -logp.gather(-1, labels.long()[:, None])[:, 0]
+    if weights is None:
+        return nll.mean()
+    w = weights.to(nll.dtype)
+    return (w * nll).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def make_train_step(loss_fn: Callable[..., Tuple[torch.Tensor, object]]
+                    ) -> Callable:
+    """-> step(model, opt, lr, update_mask, *batch) -> (loss, aux), the
+    JAX `make_train_step` on a module trained in place:
+    `loss_fn(model, *batch) -> (loss, aux)` (a 0-d loss with a graph), the
+    gradients of the trainable parameters (those that require grad) by
+    `torch.autograd.grad`, then `opt.update` with `update_mask` (which
+    multiplies gradients and updates).  aux is returned detached.  The
+    spans "forward", "backward" and "adamw" are `record_function` ranges."""
+
+    def step(model: torch.nn.Module, opt: AdamW, lr: float,
+             update_mask: Mapping[str, float], *batch):
+        params = dict(model.named_parameters())
+        trainable = {k: p for k, p in params.items() if p.requires_grad}
+        with record_function("forward"):
+            loss, aux = loss_fn(model, *batch)
+        with record_function("backward"):
+            grads = torch.autograd.grad(loss, list(trainable.values()),
+                                        allow_unused=True)
+        with record_function("adamw"):
+            opt.update(params, dict(zip(trainable, grads)), lr, update_mask)
+        return loss.detach(), _detached(aux)
+
+    return step
+
+
+def _detached(aux):
+    if isinstance(aux, torch.Tensor):
+        return aux.detach()
+    if isinstance(aux, tuple):
+        return tuple(_detached(a) for a in aux)
+    return aux
+
+
 def pad_batch(xs, zs, batch_size: int):
     """Edge-pad a (possibly ragged final) batch up to `batch_size` ->
     (xs, zs, weights <padded> float32 marking the real rows).  The weighted
-    losses make the padded result equal the unpadded one."""
+    losses make the padded result equal the unpadded one.  With
+    AUTOGNOTHI_PAD_RAGGED=0 the batch stays as it is, all weights 1."""
     xs = np.asarray(xs)
     real = xs.shape[0]
+    if not pad_ragged():
+        return xs, (None if zs is None else np.asarray(zs)), \
+            np.ones((real,), np.float32)
     target = -(-real // batch_size) * batch_size
 
     def pad(a):
@@ -194,22 +280,39 @@ def graceful_training(fn):
 class LossDrain:
     """The per-batch loss fetch every trainer shares, and the one point
     where a requested SIGTERM stops the loop at a batch boundary.
-    `push(device_vals, host_vals)` fetches one batch's values and calls
-    `emit(batch_idx, host_values, host_vals)`; `flush()` ends the epoch."""
+    `push(device_vals, host_vals)` records one batch and `flush()` ends the
+    epoch; `emit(batch_idx, host_values, host_vals)` runs in batch order.
+    Each batch's values are fetched at once, or, with
+    AUTOGNOTHI_DEFER_LOSS_FETCH=1 (`defer_loss_fetch`), all of the epoch's
+    at `flush()`; the emitted lines are the same either way."""
 
-    def __init__(self, emit: Callable[[int, Tuple[float, ...], tuple],
+    def __init__(self, emit: Callable[[int, Tuple[object, ...], tuple],
                                       None]):
         self._emit = emit
+        self.deferred = defer_loss_fetch()
+        self._pend: list = []
         self._count = 0
+
+    @staticmethod
+    def _fetch(vals: tuple) -> tuple:
+        return tuple(v.item() if isinstance(v, torch.Tensor) and v.dim() == 0
+                     else v.detach().cpu().numpy()
+                     if isinstance(v, torch.Tensor) else float(v)
+                     for v in vals)
 
     def push(self, device_vals: tuple, host_vals: tuple = ()) -> None:
         if shutdown_requested():
             raise TrainingInterrupted(
                 "SIGTERM: stopped at a batch boundary; completed epochs are "
                 "checkpointed, rerun the same command to resume")
-        self._emit(self._count, tuple(float(v) for v in device_vals),
-                   host_vals)
+        if self.deferred:
+            self._pend.append((device_vals, host_vals))
+        else:
+            self._emit(self._count, self._fetch(device_vals), host_vals)
         self._count += 1
 
     def flush(self) -> None:
+        for i, (vals, host) in enumerate(self._pend):
+            self._emit(i, self._fetch(vals), host)
+        self._pend.clear()
         self._count = 0

@@ -1,17 +1,20 @@
 """The per-architecture recipe contract (the ported subset of
 `autognothi_tpu/recipes/types.py:ModelRecipe`): the interface the pipeline
 uses to touch models.  A model is an `nn.Module` whose state-dict keys are
-the JAX flat parameter names."""
+the JAX flat parameter names; the inits and conversions work on flat dicts
+of numpy arrays on the host, and draw the parameters they make anew
+(`New()`) from a `torch.Generator`."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple, Type
+from typing import Any, Callable, Dict, Optional, Tuple, Type
 
 import numpy as np
 import torch
 
 Model = torch.nn.Module
+Flat = Dict[str, np.ndarray]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,6 +24,14 @@ class ModelRecipe_Training:
     support_explainer: bool
     exp_variant_duo: bool
     exp_variant_kernel_shap: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelRecipe_Measurements:
+    """The ported part of the JAX contract's measurements: whether
+    `train_all` checks the final's coherency (the reports' `allow_*`
+    switches come with the reports)."""
+    verify_final_coherency: bool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +64,33 @@ class ModelRecipe:
     # (experiment dir, cfg) -> the `misc` the data adapters take (the BERT
     # tokenizer); None -> misc is None
     load_misc: Optional[Callable[[Any, Any], Any]] = None
+    # the training stages; None where the recipe does not train yet.
+    # fresh layouts :: (cfg, generator) -> Flat
+    init_classifier: Optional[Callable[[Any, torch.Generator], Flat]] = None
+    init_surrogate: Optional[Callable[[Any, torch.Generator], Flat]] = None
+    init_explainer: Optional[Callable[[Any, torch.Generator], Flat]] = None
+    init_final: Optional[Callable[[Any, torch.Generator], Flat]] = None
+    # the conversion chain; `generator` draws the New() parameters:
+    #   (cfg, bundle, generator) -> Flat
+    conv_pretrained_classifier: Optional[Callable[..., Flat]] = None
+    #   (cfg, misc, classifier, generator) -> Flat
+    conv_classifier_surrogate: Optional[Callable[..., Flat]] = None
+    #   (cfg, misc, surrogate, generator) -> Flat
+    conv_surrogate_explainer: Optional[Callable[..., Flat]] = None
+    #   (cfg, misc, classifier, surrogate, explainer, generator, device)
+    #   -> Flat; `device` runs its surrogate forward of the null input
+    conv_explainer_final: Optional[Callable[..., Flat]] = None
+    # (cfg, model, xs, mask <B, P>, **kw) -> (side probabilities, trunk
+    # probabilities)
+    fw_classifier: Optional[Callable[..., Tuple[torch.Tensor,
+                                                torch.Tensor]]] = None
+    measurements: Optional[ModelRecipe_Measurements] = None
+    # representation observers (the CKA report):
+    # (cfg, model, xs, mask[, grand, null]) -> (out, hidden <B, T, H>)
+    fw_classifier_repr: Optional[Callable[..., Tuple[torch.Tensor,
+                                                     torch.Tensor]]] = None
+    fw_explainer_repr: Optional[Callable[..., Tuple[torch.Tensor,
+                                                    torch.Tensor]]] = None
 
 
 def surrogate_coalition_values(recipe: ModelRecipe, m_config: Any,

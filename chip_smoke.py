@@ -109,6 +109,29 @@ Phases, each printing its own lines:
      line carry the same products on `torch._int_mm` (and K3's d3 on
      `torch.matmul`) as their library time.
 
+  6. the training pipeline through `train_all`: a `random_init` LTT
+     ViT-B/16@224 experiment on `cv_samples` at 224 px (2 train batches
+     and 1 test batch of 8, one epoch per trainer, the surrogate's
+     progressive, dropout 0) through `python -m autognothi_tpu_torch
+     train_all <exp> --device cuda` (`cli_main`): each of the seven
+     stages' kernel calls against its steps' and forwards' (the
+     classifier's and the surrogate's steps counted in their own check,
+     the explainer's from phase 4, the final's conversion its null forward
+     and the coherency check's four forwards), the coherency line
+     (`cls_diff`, `exp_diff` on the card, limit 1e-5), `serve` of the
+     written `final-epoch-0.ckpt` answering an `images` request of 3 rows
+     against its plain forward, a rerun at `current stage: 7 / 7`; one
+     classifier step and one surrogate step (fp32 teacher, and the int8
+     teacher, AUTOGNOTHI_INT8=1: K1 + K2) against the same step on the
+     plain versions (loss within 1e-4 relative, 1e-2 with the int8
+     teacher), their ms/step with the kernels and plain in turns; and,
+     under AUTOGNOTHI_CKPT_OPT=1, 2 surrogate epochs against 1 followed by
+     a resumed 1, bit for bit (full depth).  With the timing phase
+     (`[launches] ladder_block route=per_branch`): K5 at the sides the
+     stage kernels do not take ((side, heads) = (192, 12), (256, 16),
+     (384, 12), d = 16, 16, 32; F7), its route, launches and device time,
+     against its plain version.
+
 Any failure raises, exits non-zero and prints no result.  The last three
 lines are the card, the kernel table (JSON) and the status line (JSON).
 """
@@ -1611,6 +1634,476 @@ def phase_train_cli(exp: pathlib.Path, per_step: dict) -> dict:
     return total
 
 
+# ------------------------------------------------------------- train_all
+
+# one fp32 forward of the LTT ViT-B classifier or surrogate (branch 0): 12
+# trunk layers (K6 + K7) and 12 ladder steps (K5)
+TRUNK_FWD = {"attention_block": 12, "mlp_block": 12, "ladder_block": 12}
+# the final's conversion: the surrogate's null forward, then the coherency
+# check's classifier, surrogate, explainer (+ its 96-wide side layer: K6 +
+# K7) and final (2 branches, + the side layer) forwards
+FINAL_COUNTS = {"attention_block": 62, "mlp_block": 62, "ladder_block": 60}
+STAGES = ("conv_pretrained_classifier", "train_classifier",
+          "conv_classifier_surrogate", "train_surrogate",
+          "conv_surrogate_explainer", "train_explainer",
+          "conv_explainer_final")
+# the F7 route's shapes: (side, heads) = d 16, 16 and 32
+PER_BRANCH_SHAPES = ((192, 12), (256, 16), (384, 12))
+
+
+def write_train_all_experiment(tmp: pathlib.Path, name: str = "train_all",
+                               surrogate_epochs: int = 1) -> pathlib.Path:
+    """A `random_init` LTT ViT-B/16@224 experiment on `cv_samples` at 224
+    px (2 train batches and 1 test batch of TRAIN_B images), one epoch per
+    trainer (the surrogate's progressive), dropout 0, TRAIN_M coalitions
+    per image in the explainer stage."""
+    from autognothi_tpu_torch import RECIPE_VERSION
+
+    hp = json.loads((REPO / "experiments" / "vit_base_imagenette_vanilla"
+                     / ".hparams.json").read_text())
+    hp["net"] = {"kind": "ltt_vit", "version": RECIPE_VERSION,
+                 "base_model": "random_init", "params": dict(LTT_VIT_B16)}
+    hp["dataset"] = {"kind": "cv_samples", "train_size": 2 * TRAIN_B,
+                     "test_size": TRAIN_B, "img_px_size": 224,
+                     "num_classes": 10, "seed": SEED}
+    hp["seed"] = SEED
+    every = {"ckpt_when": "_:%1==0", "lr": 5e-5, "batch_size": TRAIN_B}
+    hp["train_classifier"] = {"epochs": 1, **every}
+    hp["train_surrogate"] = {"epochs": surrogate_epochs, **every,
+                             "EXPERIMENTAL_progressive_training": True}
+    hp["train_explainer"] = {"epochs": 1, **every, "n_mask_samples": TRAIN_M,
+                             "lambda_efficiency": 0.0, "lambda_norm": 0.0}
+    exp = tmp / name
+    exp.mkdir()
+    (exp / ".hparams.json").write_text(json.dumps(hp, indent=2))
+    return exp
+
+
+@contextlib.contextmanager
+def counted_stages(counts: dict):
+    """Each of `train_all`'s seven stages with the kernel calls it made
+    (from counts of 0 at its start) into `counts[stage]`."""
+    import torch
+
+    from autognothi_tpu_torch.pipeline import train_all as ta
+
+    def wrap(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            reset_counts()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            counts[name] = {k: v for k, v in read_counts().items() if v}
+            return out
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for name in STAGES:
+            stack.enter_context(mock.patch.object(ta, name,
+                                                  wrap(name, getattr(ta, name))))
+        yield
+
+
+class StageCase:
+    """The classifier and surrogate steps of the train_all experiment on
+    one batch and one `mask_purely_uniform` coalition per image, each on
+    fresh copies of its stage's checkpoint."""
+
+    def __init__(self, dev, exp: pathlib.Path):
+        import torch
+
+        from autognothi_tpu_torch.ops.shapley import mask_purely_uniform
+        from autognothi_tpu_torch.pipeline.env import ExpEnv
+        from autognothi_tpu_torch.pipeline.resources import (
+            get_recipe, load_cfg_dataset, load_epoch_model)
+
+        env = ExpEnv(exp)
+        self.recipe, self.cfg = get_recipe(env.config)
+        self.models = {s: load_epoch_model(env, self.recipe, s, dev)[1]
+                       for s in ("classifier", "surrogate")}
+        loader = load_cfg_dataset(env.config.dataset)
+        env.close()
+        raw_xs, raw_ys = next(iter(loader.train(TRAIN_B)))
+        xs, ys = self.recipe.gen_input(self.cfg, None)(raw_xs, raw_ys)
+        self.xs = torch.from_numpy(xs).to(dev)
+        self.labels = torch.from_numpy(ys).to(dev)
+        n_players = self.recipe.n_players(self.cfg)
+        self.ones = torch.ones((TRAIN_B, n_players), dtype=torch.int32,
+                               device=dev)
+        self.mask = mask_purely_uniform(
+            torch.Generator(device=dev).manual_seed(SEED), TRAIN_B,
+            n_players)
+        self.w = torch.ones(TRAIN_B, device=dev)
+
+    def fresh(self, stage: str):
+        """-> a run() that takes one train step of `stage` on its own copy
+        of the model (the surrogate's teacher included), -> the loss."""
+        from autognothi_tpu_torch.pipeline.train_classifier import \
+            classifier_loss
+        from autognothi_tpu_torch.pipeline.train_surrogate import (
+            surrogate_loss, surrogate_teacher)
+        from autognothi_tpu_torch.pipeline.training import (AdamW,
+                                                            make_train_step)
+
+        model = copy.deepcopy(self.models[stage])
+        trainable = self.recipe.trainable(self.cfg, stage)
+        for name, p in model.named_parameters():
+            p.requires_grad_(trainable(name))
+        params = dict(model.named_parameters())
+        opt = AdamW(params, trainable)
+        ones = {k: 1.0 for k in params}
+        depth = self.cfg.num_hidden_layers
+        if stage == "classifier":
+            step = make_train_step(classifier_loss(self.recipe, self.cfg,
+                                                   True))
+            return lambda: step(model, opt, 5e-5, ones, self.xs, self.ones,
+                                self.labels, None, depth, self.w)[0]
+        step = make_train_step(surrogate_loss(self.recipe, self.cfg, True))
+        teacher = surrogate_teacher(self.recipe, self.cfg)
+        cls = self.models["classifier"]
+
+        def run():
+            orig = teacher(cls, self.xs, self.ones)
+            return step(model, opt, 5e-5, ones, self.xs, self.mask, orig,
+                        self.labels, None, depth, self.w)[0]
+        return run
+
+    def eval_calls(self, stage: str) -> dict:
+        """The kernel calls of the stage's eval forward of one batch (the
+        surrogate's: its teacher and the student)."""
+        import torch
+
+        from autognothi_tpu_torch.models.common import quant_override
+
+        reset_counts()
+        with torch.no_grad(), train_env("2", "fp32"):
+            if stage == "surrogate":
+                self.recipe.fw_classifier(self.cfg, self.models["classifier"],
+                                          self.xs, self.ones)
+            with quant_override("none"):
+                fw = (self.recipe.fw_classifier if stage == "classifier"
+                      else self.recipe.fw_surrogate)
+                fw(self.cfg, self.models[stage], self.xs, self.ones
+                   if stage == "classifier" else self.mask)
+        torch.cuda.synchronize()
+        return {k: v for k, v in read_counts().items() if v}
+
+
+def _scaled(*terms) -> dict:
+    """sum of n x counts over (n, counts) terms."""
+    out: dict = {}
+    for n, counts in terms:
+        for k, v in counts.items():
+            out[k] = out.get(k, 0) + n * v
+    return {k: v for k, v in out.items() if v}
+
+
+def phase_stage_steps(case: StageCase) -> dict:
+    """One classifier step and one surrogate step (fp32 teacher, then the
+    int8 teacher, AUTOGNOTHI_INT8=1) with the kernels against the same step
+    with the plain versions; -> the kernel calls of one step, by stage."""
+    import torch
+
+    per_step = {}
+    for stage, teacher in (("classifier", "fp32"), ("surrogate", "fp32"),
+                           ("surrogate", "int8")):
+        losses, calls = {}, {}
+        for which in ("kernels", "plain"):
+            run = case.fresh(stage)
+            with train_env("2", "fp32"), int8_mode(teacher == "int8"), \
+                    (plain_ops() if which == "plain"
+                     else contextlib.nullcontext()):
+                reset_counts()
+                losses[which] = run().item()
+                torch.cuda.synchronize()
+                calls[which] = {k: v for k, v in read_counts().items() if v}
+        rel = abs(losses["kernels"] - losses["plain"]) \
+            / abs(losses["plain"])
+        want = _scaled((1 if stage == "classifier" else 2, TRUNK_FWD)) \
+            if teacher == "fp32" else None
+        print(f"[stage-step] {stage} teacher={teacher}: loss kernels "
+              f"{losses['kernels']:.8f}, plain {losses['plain']:.8f}, rel "
+              f"diff {rel:.3e} (limit {STEP_TOL[teacher]:.0e}); kernel calls "
+              f"{calls['kernels']}"
+              + (f" (expected {want})" if want else ""), flush=True)
+        check(not calls["plain"], "the plain step launched kernels")
+        check(want is None or calls["kernels"] == want,
+              f"{stage}: one step's kernel calls differ")
+        check(teacher == "fp32" or (calls["kernels"].get(
+            "attention_block_int8") == 12 and calls["kernels"].get(
+            "mlp_ladder_block") == 12),
+              "the int8 surrogate teacher did not run K1 and K2")
+        check(rel <= STEP_TOL[teacher] and
+              all(math.isfinite(v) for v in losses.values()),
+              f"{stage} teacher={teacher}: the kernel step's loss differs "
+              f"from the plain step's")
+        if teacher == "fp32":
+            per_step[stage] = calls["kernels"]
+    return per_step
+
+
+def phase_stage_timing(case: StageCase, card: str) -> None:
+    """ms per classifier and surrogate step (fp32 teacher), kernels and
+    plain in turns (plain, kernels, kernels, plain), 3 steps after a
+    warmup each; then one step of each split into its spans (forward,
+    backward, AdamW; the surrogate's teacher is outside them)."""
+    import torch
+
+    from autognothi_tpu_torch.pipeline import training
+
+    reps = 3
+    for stage in ("classifier", "surrogate"):
+        runs = {"kernels": case.fresh(stage), "plain": case.fresh(stage)}
+        ms = {"plain": [], "kernels": []}
+        for which in ("plain", "kernels", "kernels", "plain"):
+            ctx = plain_ops() if which == "plain" else contextlib.nullcontext()
+            with train_env("2", "fp32"), ctx:
+                runs[which]()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    runs[which]()
+                torch.cuda.synchronize()
+            ms[which].append((time.perf_counter() - t0) / reps * 1e3)
+        for which, vals in ms.items():
+            print(f"[stage-time] {stage} step B={TRAIN_B} {which:7s}: "
+                  f"{' '.join(f'{v:.2f}' for v in vals)} ms/step | {card}",
+                  flush=True)
+        for which in ("kernels", "plain"):
+            ctx = plain_ops() if which == "plain" else contextlib.nullcontext()
+            timer = SpanTimer()
+            with train_env("2", "fp32"), ctx, \
+                    mock.patch.object(training, "record_function", timer):
+                runs[which]()
+            spans = timer.totals()
+            print(f"[stage-time] {stage} {which:7s} step split (CUDA "
+                  f"events): "
+                  f"{', '.join(f'{k} {v:.2f} ms' for k, v in spans.items())}"
+                  f" | {card}", flush=True)
+
+
+def serve_final(dev, exp: pathlib.Path) -> dict:
+    """`serve` from the experiment's final-epoch-0.ckpt: one `images`
+    request of 3 rows, held against the plain forward of the served model
+    at the serve gate; -> the request's kernel calls."""
+    import numpy as np
+    import torch
+
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.serve import serve_in_thread
+
+    env = ExpEnv(exp)
+    server, service, thread = serve_in_thread(env, port=0, batch_size=8,
+                                              device="cuda")
+    port = server.server_address[1]
+    rows = np.random.RandomState(SEED + 7).rand(3, 3, 224, 224).astype(
+        np.float32)
+    try:
+        reset_counts()
+        got = _post(port, {"images": rows.tolist()})
+        calls = {k: v for k, v in read_counts().items() if v}
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "server thread did not stop")
+    env.close()
+    with plain_ops(), torch.inference_mode():
+        ref = service.recipe.fw_final(service.m_config, service.model,
+                                      torch.from_numpy(rows).to(dev))
+    for what, want in (("logits", ref[0]), ("attributions", ref[1])):
+        mine = torch.from_numpy(np.asarray(got[what], np.float32))
+        check(mine.shape == want.shape, f"served {what} {tuple(mine.shape)}")
+        _, ok, msg = compare(mine, want.cpu(), torch.float32, False,
+                             whole=True)
+        print(f"[train_all] served final, images x3, {what} "
+              f"{tuple(mine.shape)} vs plain forward: {msg}", flush=True)
+        check(ok, f"the served final's {what} differ from the plain forward")
+    check(calls == FP32_COUNTS, f"the served request's kernel calls {calls}")
+    return calls
+
+
+def opt_resume_bit_identical(tmp: pathlib.Path, src: pathlib.Path) -> None:
+    """Under AUTOGNOTHI_CKPT_OPT=1, 2 surrogate epochs at once and 1 epoch
+    followed by a resumed 1 (a run stopped right after epoch 1's
+    checkpoints) give the same parameters, bit for bit."""
+    import shutil
+
+    import numpy as np
+
+    from autognothi_tpu_torch.cli import main as cli_main
+    from autognothi_tpu_torch.params import load_params_file
+    from autognothi_tpu_torch.pipeline import train_surrogate as ts
+
+    class Stop(Exception):
+        pass
+
+    dirs = {}
+    for name in ("whole", "split"):
+        exp = write_train_all_experiment(tmp, f"opt_{name}",
+                                         surrogate_epochs=2)
+        for f in ("classifier-epoch-1.ckpt", "surrogate-epoch-0.ckpt"):
+            shutil.copy(src / f, exp / f)
+        dirs[name] = exp
+    real = ts.save_epoch_ckpt
+
+    def stop_after_1(*args, **kwargs):
+        out = real(*args, **kwargs)
+        if args[3] == 1:
+            raise Stop()
+        return out
+
+    argv = ["train_surrogate", "--device", "cuda"]
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, {"AUTOGNOTHI_CKPT_OPT": "1"}), \
+            train_env("2", "fp32"):
+        cli_main([argv[0], str(dirs["whole"]), *argv[1:]])
+        with mock.patch.object(ts, "save_epoch_ckpt", stop_after_1):
+            try:
+                cli_main([argv[0], str(dirs["split"]), *argv[1:]])
+            except Stop:
+                pass
+        check((dirs["split"] / "surrogate-epoch-1.opt.ckpt").exists(),
+              "no optimizer checkpoint after epoch 1")
+        cli_main([argv[0], str(dirs["split"]), *argv[1:]])
+    got = load_params_file(dirs["split"] / "surrogate-epoch-2.ckpt")
+    want = load_params_file(dirs["whole"] / "surrogate-epoch-2.ckpt")
+    differ = [k for k in want if not np.array_equal(got[k], want[k])]
+    print(f"[train_all] AUTOGNOTHI_CKPT_OPT=1: 2 surrogate epochs vs 1 + "
+          f"resumed 1 (full depth): {len(want) - len(differ)} of "
+          f"{len(want)} tensors bit-identical, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(not differ, f"the resumed surrogate differs: {differ[:4]}")
+    check(not (dirs["split"] / "surrogate-epoch-1.opt.ckpt").exists(),
+          "the previous epoch's optimizer checkpoint was kept")
+
+
+def phase_train_all(dev, tmp: pathlib.Path, explainer_step: dict,
+                    card: str) -> dict:
+    """`python -m autognothi_tpu_torch train_all <exp> --device cuda`
+    through `cli_main` on a random_init LTT ViT-B/16@224 experiment: the
+    seven stages' kernel calls against their steps' and forwards', the
+    coherency line, the served final, a rerun at stage 7, the new steps
+    against their plain versions, their times, and the optimizer-state
+    resume; -> the kernel calls of the train_all run and the served
+    request."""
+    import re
+
+    import torch
+
+    from autognothi_tpu_torch.cli import main as cli_main
+
+    exp = write_train_all_experiment(tmp)
+    stage_calls: dict = {}
+    t0 = time.perf_counter()
+    with train_env("2", "int8"), counted_stages(stage_calls):
+        cli_main(["train_all", str(exp), "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    log = (exp / ".log.txt").read_text()
+    diffs = re.search(r"cls_diff: (\S+), exp_diff: (\S+)", log)
+    check(diffs is not None and "verified final model is coherent" in log,
+          "train_all did not verify the final's coherency")
+    check("freeze side branches exc. first 1 layers" in log,
+          "the surrogate stage did not train progressively")
+    print(f"[train_all] seven stages in {seconds:.1f} s; coherency on the "
+          f"card: cls_diff {diffs.group(1)}, exp_diff {diffs.group(2)} "
+          f"(limit 1e-05) | {card}", flush=True)
+
+    case = StageCase(dev, exp)
+    per_step = phase_stage_steps(case)
+    evals = {s: case.eval_calls(s) for s in ("classifier", "surrogate")}
+    expected = {
+        "conv_pretrained_classifier": {},
+        "train_classifier": _scaled((2, per_step["classifier"]),
+                                    (1, evals["classifier"])),
+        "conv_classifier_surrogate": {},
+        "train_surrogate": _scaled((2, per_step["surrogate"]),
+                                   (1, evals["surrogate"])),
+        "conv_surrogate_explainer": {},
+        "train_explainer": _scaled((3, explainer_step[("2", "int8")]),
+                                   (1, NULL_COUNTS["2"])),
+        "conv_explainer_final": FINAL_COUNTS,
+    }
+    for stage in STAGES:
+        print(f"[train_all] {stage}: kernel calls {stage_calls.get(stage)} "
+              f"(expected {expected[stage]})", flush=True)
+        check(stage_calls.get(stage) == expected[stage],
+              f"{stage}: kernel calls differ from its steps' and forwards'")
+    total = _scaled(*((1, c) for c in stage_calls.values()))
+    with train_env("2", "int8"):
+        total = _scaled((1, total), (1, serve_final(dev, exp)))
+        cli_main(["train_all", str(exp), "--device", "cuda"])
+    rerun = (exp / ".log.txt").read_text()[len(log):]
+    check("current stage: 7 / 7" in rerun, "the rerun did not detect stage 7")
+    print("[train_all] rerun on the same directory: current stage: 7 / 7",
+          flush=True)
+    phase_stage_timing(case, card)
+    del case
+    opt_resume_bit_identical(tmp, exp)
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_ladder_route(dev, card: str) -> None:
+    """F7: K5 at the shapes the stage kernels do not take, (side, heads) =
+    (192, 12), (256, 16), (384, 12) over 2 branches at ViT B=8 (fp32 and
+    bf16, "mul" pre-norm) and (192, 12) at BERT's B=2, T=512 ("add"
+    post-norm): the route, the calls counted, the kernels of one call
+    with their device times, held against the plain version."""
+    import torch
+
+    from autognothi_tpu_torch.ops import ladder_block as lb
+
+    cases = [(s, heads, dtype, "mul", B_CHECK * 2, T)
+             for s, heads in PER_BRANCH_SHAPES
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases.append((192, 12, torch.float32, "add", 2, T_BERT))
+    for s, heads, dtype, mode, b, t in cases:
+        g = torch.Generator().manual_seed(SEED + s)
+        route = lb.ladder_route(s, 4 * s, heads, t)
+        check(route == "per_branch", f"side {s} / {heads} took {route}")
+        hid = torch.randn(b, t, 768, generator=g).to(dev, dtype)
+        sides = [torch.randn(b, t, s, generator=g).to(dev, dtype)
+                 for _ in range(2)]
+        shapes = {"map_w": (s, 768), "w1": (4 * s, s), "b1": (4 * s,),
+                  "w2": (s, 4 * s)}
+        branches = [{k: (torch.randn(shapes.get(
+            k, (s, s) if k.startswith("w") else (s,)), generator=g) * 0.1
+            + (1.0 if k in ("ln1_w", "ln2_w") else 0.0)).to(dev, dtype)
+            for k in lb.BRANCH_KEYS} for _ in range(2)]
+        mask = (torch.rand(b, t, generator=g) > 0.3).float().to(dev)
+        mask[:, 0] = 1
+        if mode == "add":
+            mask = (1 - mask.to(dtype)) * torch.finfo(dtype).min
+        args = (hid, sides, mask, branches, heads, mode, mode == "mul", 1e-12)
+        before = (lb.COUNTER.count, lb.COUNTER_PER_BRANCH.count)
+        with torch.inference_mode():
+            got = lb.ladder_block(*args)
+            check((lb.COUNTER.count - before[0],
+                   lb.COUNTER_PER_BRANCH.count - before[1]) == (1, 1),
+                  "the per-branch route's call was not counted")
+            tensors, static = lb.ladder_block_args(*args)
+            want = lb.ladder_block_plain(*tensors, **static)
+            events = profiled_kernels(lambda: lb.ladder_block(*args), 5)
+        _, ok, msg = compare(tuple(got), tuple(want), dtype, False)
+        kernels: dict = {}
+        for k, ms in events:
+            kernels[k] = kernels.get(k, 0.0) + ms
+        print(f"[launches] ladder_block route={route} S={s} heads={heads} "
+              f"(d={s // heads}) {mode} {str(dtype):14s} B={b} T={t}: "
+              f"{len(events) / 5:g} launches per call, device "
+              f"{sum(kernels.values()) / 5:.4f} ms; vs plain {msg}; "
+              + "; ".join(f"{k[:40]} {v / 5:.4f}" for k, v in
+                          sorted(kernels.items(), key=lambda kv: -kv[1])[:5])
+              + f" | {card}", flush=True)
+        check(ok, f"K5 per-branch S={s} heads={heads} {dtype}: differs from "
+                  f"its plain version")
+        check(not any("ladder_" in k for k in kernels),
+              "the per-branch route launched a stage kernel")
+    torch.cuda.empty_cache()
+
+
 class SpanTimer:
     """Stands in for `record_function` in the train step: CUDA events at
     each span's ends, so each span's time on the card's stream is read."""
@@ -2057,12 +2550,16 @@ def main() -> int:
         case = TrainCase(dev, train_exp)
         per_step = phase_train_steps(case)
         launches_train = phase_train_cli(train_exp, per_step)
+        launches_all = phase_train_all(dev, pathlib.Path(tmp), per_step,
+                                       card)
         # every main path was driven from counts of 0: serve fp32 and int8
-        # (ViT and BERT), train_explainer in pallas modes "2" and "1"
+        # (ViT and BERT), train_explainer in pallas modes "2" and "1",
+        # train_all's seven stages and its served final
         for k in launches:
             launches[k] += (launches_int8[k] + launches_bert[k]
                             + launches_bert_int8[k]
-                            + launches_train.get(k, 0))
+                            + launches_train.get(k, 0)
+                            + launches_all.get(k, 0))
         per_op = phase_timing(dev, card, service)
         # the ViT shapes keep their rows; K8q and the bf16 float chain run
         # only at BERT's.  The four BERT forwards counted there are main
@@ -2075,6 +2572,7 @@ def main() -> int:
         phase_yardsticks(dev, card)
         phase_float_gemm(dev, card)
         phase_block_launches(dev, card)
+        phase_ladder_route(dev, card)
         phase_split_chains(dev, card)
         phase_k4_teacher(dev, card)
         phase_int8_gemm(dev, card)

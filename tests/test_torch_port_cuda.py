@@ -1107,15 +1107,52 @@ def test_ladder_with_more_branches_than_one_side_in_takes(dev, dtype):
 
 
 def test_ladder_refuses_widths_it_has_no_kernel_for(dev):
-    """Side widths past 128 or heads other than d = 8 raise on the card."""
+    """Head widths the attention core has no kernel for (d = 4, d = 128)
+    and side widths that are no multiple of 8 raise on the card, naming
+    the shape."""
     from autognothi_tpu_torch.ops import ladder_block as lb
 
     g = torch.Generator().manual_seed(96)
-    for s, heads in ((136, 17), (96, 6)):
+    for s, heads in ((96, 24), (256, 2), (36, 4)):
         hid, sides, branches = _ladder_case(g, dev, torch.float32, 1, 9, s=s)
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match=f"side {s} in {heads} heads"):
             lb.ladder_block(hid, sides, _mask(g, dev, 2, 9, True), branches,
                             heads, "mul", True, 1e-12)
+
+
+@pytest.mark.parametrize("s,heads", [(192, 12), (256, 16), (384, 12)])
+@pytest.mark.parametrize("kind", ["mul pre", "add post"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ladder_per_branch_route(dev, dtype, kind, s, heads):
+    """F7: sides the stage kernels do not take (d = 16 and 32; a side of
+    hidden / 4) run the per-branch route (the side-in launch, then each
+    branch's side layer on K6's and K7's kernels), held against
+    `ladder_block_plain` over 2 branches at T = 197; d = 8 at 96 still
+    takes the four stage launches."""
+    from autognothi_tpu_torch.ops import ladder_block as lb
+
+    g = torch.Generator().manual_seed(200 + s + heads)
+    mode, pre_norm = ("mul", True) if kind == "mul pre" else ("add", False)
+    t = 197
+    assert lb.ladder_route(s, 4 * s, heads, t) == "per_branch"
+    assert lb.ladder_route(96, 384, 12, t) == "stages"
+    hid, sides, branches = _ladder_case(g, dev, dtype, 2, t, s=s)
+    mask = _mask(g, dev, 2, t, True)
+    if mode == "add":
+        mask = (1 - mask.to(dtype)) * torch.finfo(dtype).min
+    before = (lb.COUNTER.count, lb.COUNTER_PER_BRANCH.count)
+    got = lb.ladder_block(hid, sides, mask, branches, heads, mode, pre_norm,
+                          1e-12)
+    assert (lb.COUNTER.count, lb.COUNTER_PER_BRANCH.count) == \
+        (before[0] + 1, before[1] + 1)
+    tensors, static = lb.ladder_block_args(hid, sides, mask, branches, heads,
+                                           mode, pre_norm, 1e-12)
+    for y, want in zip(got, lb.ladder_block_plain(*tensors, **static)):
+        _close(y, want, dtype)
+    names = _launched_per_call(lambda: lb.ladder_block(
+        hid, sides, mask, branches, heads, mode, pre_norm, 1e-12))
+    assert not any("ladder" in n for n in names), names
+    assert sum("attention_tc_kernel" in n for n in names) == 2, names
 
 
 def _copies(names):
@@ -1147,7 +1184,7 @@ def test_ladder_and_attention_block_launch_counts(dev, dtype):
                                    mode, mode == "mul", 1e-12)
 
         step()
-        names = _launched(step)
+        names = _launched_per_call(step)
         assert len(names) == 4 and not _copies(names), names
         assert sum("ladder_" in s for s in names) == 3, names
         assert sum("gemm_wg_kernel" in s for s in names) == 1, names
@@ -1163,7 +1200,7 @@ def test_ladder_and_attention_block_launch_counts(dev, dtype):
                                       ln=ln, ln_position=position)
 
         k6()
-        names = _launched(k6)
+        names = _launched_per_call(k6)
         assert not _copies(names), names
         assert sum("gemm_wg_kernel" in s for s in names) == 2, names
     with torch.no_grad():

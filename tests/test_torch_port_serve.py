@@ -111,24 +111,40 @@ def test_port_server_health_stats_and_bad_payloads(servers):
 
 
 def test_import_graph_is_free_of_jax_and_the_jax_package():
+    # every module of the port, imported in one fresh interpreter
+    mods = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in (REPO / "autognothi_tpu_torch").rglob("*.py")
+        if p.name != "__main__.py")
+    assert "autognothi_tpu_torch.pipeline.train_all" in mods
     code = (
-        "import sys\n"
-        "import autognothi_tpu_torch, autognothi_tpu_torch.pipeline.serve\n"
-        "import autognothi_tpu_torch.cli, autognothi_tpu_torch.ops.head_block\n"
-        "import autognothi_tpu_torch.pipeline.train_explainer\n"
-        "import autognothi_tpu_torch.ops.flash_attention\n"
-        "import autognothi_tpu_torch.ops.shapley\n"
-        "import autognothi_tpu_torch.data.loader\n"
-        "import autognothi_tpu_torch.utils.seeding\n"
-        "import autognothi_tpu_torch.recipes.ltt_bert\n"
-        "import autognothi_tpu_torch.data.tokenizer\n"
-        "import autognothi_tpu_torch.ops.gates\n"
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
         "bad = [m for m in ('jax', 'jaxlib', 'optax', 'pydantic', 'orbax',\n"
         "                    'autognothi_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_every_jax_verb_is_ported_or_refused():
+    from autognothi_tpu.cli import build_parser as jax_parser
+    from autognothi_tpu_torch.cli import NOT_PORTED, TRAINING, build_parser
+
+    def verbs(parser):
+        sub = next(a for a in parser._actions
+                   if isinstance(a, __import__("argparse")._SubParsersAction))
+        return set(sub.choices)
+
+    jax_verbs, port_verbs = verbs(jax_parser()), verbs(build_parser())
+    assert jax_verbs == port_verbs
+    ported = {"serve", *TRAINING}
+    assert ported | set(NOT_PORTED) == jax_verbs
+    assert not ported & set(NOT_PORTED)
+    assert {"__show_fridge__", "__preview_text_shapley__"} <= set(NOT_PORTED)
 
 
 def test_resolve_device_cuda_raises_without_a_card():
@@ -197,7 +213,7 @@ def test_unported_verbs_and_kinds_raise(tmp_path):
     from autognothi_tpu_torch.pipeline.config import parse_config
 
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(["train_all", str(tmp_path)])
+        main(["measure_faithfulness", str(tmp_path)])
     hp = _ltt_vit_hparams()
     hp["net"]["kind"] = "vanilla_vit"
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -222,8 +238,12 @@ def test_port_reads_no_environment_switch():
     # masked attention op or plain math), AUTOGNOTHI_INT8 (W8A8 or not),
     # AUTOGNOTHI_FUSED_MIN_HIDDEN (layers and ladders narrower than it run
     # the unfused, unquantized math instead of the fused ops),
-    # AUTOGNOTHI_INT8_TEACHER, AUTOGNOTHI_COMPUTE_DTYPE, AUTOGNOTHI_CKPT_OPT,
-    # and AUTOGNOTHI_PP / AUTOGNOTHI_PP_TP, which only refuse (not ported)
+    # AUTOGNOTHI_INT8_TEACHER, AUTOGNOTHI_COMPUTE_DTYPE, AUTOGNOTHI_CKPT_OPT
+    # (optimizer-state checkpoints), AUTOGNOTHI_DEFER_LOSS_FETCH (when the
+    # losses are fetched), AUTOGNOTHI_PAD_RAGGED (padding of the last batch),
+    # AUTOGNOTHI_DEBUG_NANS (autograd anomaly detection), AUTOGNOTHI_ZOO
+    # (where local base models are stored), and AUTOGNOTHI_PP /
+    # AUTOGNOTHI_PP_TP, which only refuse (not ported)
     import re
 
     src = (REPO / "autognothi_tpu_torch").rglob("*.py")
@@ -239,12 +259,12 @@ def test_port_reads_no_environment_switch():
         "autognothi_tpu_torch/pipeline/resources.py":
             ["AUTOGNOTHI_CKPT_OPT"],
         "autognothi_tpu_torch/pipeline/training.py":
-            ["AUTOGNOTHI_COMPUTE_DTYPE"],
-        "autognothi_tpu_torch/pipeline/train_explainer.py": [],
+            ["AUTOGNOTHI_COMPUTE_DTYPE", "AUTOGNOTHI_DEBUG_NANS",
+             "AUTOGNOTHI_DEFER_LOSS_FETCH", "AUTOGNOTHI_PAD_RAGGED"],
+        "autognothi_tpu_torch/zoo/loader.py": ["AUTOGNOTHI_ZOO"],
     }
-    src = (REPO / "autognothi_tpu_torch/pipeline/train_explainer.py"
-           ).read_text()
+    src = (REPO / "autognothi_tpu_torch/pipeline/training.py").read_text()
     assert '("AUTOGNOTHI_PP", "AUTOGNOTHI_PP_TP")' in src
     total = sum(p.read_text().count("os.environ")
                 for p in (REPO / "autognothi_tpu_torch").rglob("*.py"))
-    assert total == 7
+    assert total == 11

@@ -431,9 +431,6 @@ def test_train_explainer_refuses_what_is_not_ported(tmp_path):
         with mock.patch.dict(os.environ, env), \
                 pytest.raises(NotImplementedError, match="not ported"):
             main(["train_explainer", str(exp_dir), "--device", "cpu"])
-    with mock.patch.dict(os.environ, {"AUTOGNOTHI_CKPT_OPT": "1"}), \
-            pytest.raises(NotImplementedError, match="not ported"):
-        main(["train_explainer", str(exp_dir), "--device", "cpu"])
     assert not (exp_dir / "explainer-epoch-1.ckpt").exists()
 
 
