@@ -16,7 +16,13 @@
 // mask ("mul", the ViT quirk: a masked score becomes 0 and keeps weight
 // exp(0 - max)) or plus the fp32 bias ("add", BERT's finfo.min); keys past T
 // are -inf; fp32 softmax; p rounded to v's dtype; P.V summed in fp32; rows
-// past T are not written.
+// past T are not written.  Any T: the key loop walks ceil(T / 64) chunks
+// in both passes, the grid has ceil(T / 64) query tiles, and each chunk's
+// mask values are staged with it, so nothing grows with T but the loop.
+// Head dims 8, 16, 32, 64 and 128 are compiled; the wrapper zero-pads
+// another d up to the next of them and passes the true d for the scale
+// (zero columns add nothing to q . k, and P.V's padded columns are dropped),
+// which is exact.
 //
 // Design, flash-style: one block of 4 warps per (64 queries, head, image);
 // each warp owns 16 query rows, with its Q fragments in registers.  K and V
@@ -89,7 +95,7 @@ __global__ void __launch_bounds__(kAttWarps * 32)
     attention_tc_kernel(const T* __restrict__ qp, const T* __restrict__ kp,
                         const T* __restrict__ vp,
                         const void* __restrict__ mask, T* __restrict__ op,
-                        HeadViews views, int Tn) {
+                        HeadViews views, int Tn, int d_scale) {
   constexpr bool F32 = sizeof(T) == 4;
   constexpr bool TWO_PASS = !F32;  // bf16: the JAX rounding point of p
   constexpr int P = att_pitch<T, D>();
@@ -114,7 +120,8 @@ __global__ void __launch_bounds__(kAttWarps * 32)
   T* ob = op + b * views.sb[3] + head * views.sh[3];
   const long long kst = views.st[1], vst = views.st[2];
   const size_t m0 = (size_t)b * Tn;  // the image's first mask value
-  const float scale = 1.0f / sqrtf((float)D);
+  // 1/sqrt of the true head dim (D itself unless the caller zero-padded)
+  const float scale = 1.0f / sqrtf((float)d_scale);
   const int r0 = blockIdx.x * kAttQT + warp * 16;  // the warp's first row
   const int nc = (Tn + kAttKC - 1) / kAttKC;
   const int steps = TWO_PASS ? 2 * nc : nc;
@@ -370,7 +377,7 @@ struct AttnCall {
   bool mask_bf16;
   void* out;
   HeadViews views;
-  int N, Tn, nh;
+  int N, Tn, nh, d_scale;
   cudaStream_t stream;
 };
 
@@ -389,7 +396,7 @@ static int launch_attention(const AttnCall& a) {
   kernel<<<grid, kAttWarps * 32, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.mask, static_cast<T*>(a.out), a.views,
-      a.Tn);
+      a.Tn, a.d_scale);
   return (int)cudaGetLastError();
 }
 
@@ -400,6 +407,7 @@ static int pick_d(int d, const AttnCall& a) {
     case 16: return launch_attention<T, MUL, 16, MBF16>(a);
     case 32: return launch_attention<T, MUL, 32, MBF16>(a);
     case 64: return launch_attention<T, MUL, 64, MBF16>(a);
+    case 128: return launch_attention<T, MUL, 128, MBF16>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -417,21 +425,25 @@ static int pick_mask(int d, const AttnCall& a) {
 
 using namespace ag;
 
-// Head dims the core is compiled for; others are refused.
+// Head dims the core is compiled for (others are zero-padded to one by the
+// caller); any T of at least 1.
 extern "C" int ag_attention_supports(int Tn, int d) {
-  return (d == 8 || d == 16 || d == 32 || d == 64) && Tn >= 1 && Tn <= 512;
+  return (d == 8 || d == 16 || d == 32 || d == 64 || d == 128) && Tn >= 1;
 }
 
 // q, k, v, out: <N, nh, Tn, d> views; strides[12] holds the (batch, head,
 // row) element strides of q, k, v and out, in that order.  q, k and v must
 // be 16-byte aligned with strides of whole 16 bytes (cp.async and the
 // 32-bit Q fragment loads).  mask <N, Tn>: fp32, or bf16 (mask_bf16) with
-// bf16 activations.
+// bf16 activations.  d_scale: the true head dim (1 <= d_scale <= d), for
+// the 1/sqrt scale of q and k zero-padded from it to d.
 extern "C" int ag_attention(int dtype, int mul, const void* q, const void* k,
                             const void* v, const long long* strides,
                             const void* mask, int mask_bf16, void* out,
-                            int N, int Tn, int nh, int d, void* stream) {
-  if (nh <= 0 || N <= 0 || !ag_attention_supports(Tn, d))
+                            int N, int Tn, int nh, int d, int d_scale,
+                            void* stream) {
+  if (nh <= 0 || N <= 0 || N > 65535 || nh > 65535 || d_scale < 1 ||
+      d_scale > d || !ag_attention_supports(Tn, d))
     return (int)cudaErrorInvalidValue;
   AttnCall a;
   a.q = q;
@@ -448,6 +460,7 @@ extern "C" int ag_attention(int dtype, int mul, const void* q, const void* k,
   a.N = N;
   a.Tn = Tn;
   a.nh = nh;
+  a.d_scale = d_scale;
   a.stream = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return mul ? pick_mask<float, true>(d, a) : pick_mask<float, false>(d, a);

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "ag_layernorm": (_I, [_I, _P, _I, _I, _F, _P, _P, _P, _P]),
     "ag_attention": (_I, [_I, _I, _P, _P, _P,
                           ctypes.POINTER(ctypes.c_longlong), _P, _I, _P, _I,
-                          _I, _I, _I, _P]),
+                          _I, _I, _I, _I, _P]),
     "ag_attention_supports": (_I, [_I, _I]),
     "ag_quant_rows": (_I, [_I, _P, _I, _I, _I, _F, _P, _P, _I, _P, _P, _P,
                            _I, _P]),

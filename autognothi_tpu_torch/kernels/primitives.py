@@ -657,6 +657,18 @@ def ladder_stage(stage: int, x: torch.Tensor, *, w: torch.Tensor,
     return out
 
 
+# head dims the attention core is compiled for
+# (`csrc/attention.cu:ag_attention_supports`); it takes any T
+CORE_HEAD_DIMS = (8, 16, 32, 64, 128)
+
+
+def core_head_dim(d: int) -> Optional[int]:
+    """The compiled head dim a head of width d runs at: d itself, or the
+    next larger one, to which q, k and v are zero-padded; None past 128."""
+    return next((c for c in CORE_HEAD_DIMS if c >= d), None) if d >= 1 \
+        else None
+
+
 def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask_row: torch.Tensor, mode: str,
                     out: torch.Tensor) -> torch.Tensor:
@@ -664,8 +676,10 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     <N, h, T, D> CUDA tensors of one dtype with any (batch, head, row)
     strides and contiguous rows; mask_row <N, T> is a 0/1 row ("mul") or
     an additive bias ("add").  q, k and v are read in 16-byte pieces:
-    their pointers and strides must be whole multiples of 16 bytes.
-    Writes out and returns it."""
+    their pointers and strides must be whole multiples of 16 bytes.  A
+    head dim the core is not compiled for (up to 128) is zero-padded to the
+    next compiled one, with the true 1/sqrt(D) scale, and the output's
+    padded columns dropped: exact.  Writes out and returns it."""
     if mode not in ("mul", "add"):
         raise ValueError(f"unknown mask mode {mode!r}")
     n, nh, t, d = q.shape
@@ -676,23 +690,31 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"{name} must be a CUDA {q.dtype} <{n}, {nh}, {t}, {d}> "
                 f"view with contiguous rows, got {x.dtype} "
                 f"{tuple(x.shape)} strides {x.stride()}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _aligned16(x, name, x.stride()[:3])
-    lib = load()
-    if not lib.ag_attention_supports(t, d):
-        raise ValueError(f"attention core is built for head dims 8/16/32/64 "
-                         f"and T <= 512, got d={d}, T={t}")
+    dc = core_head_dim(d)
+    if dc is None or t < 1:
+        raise ValueError(f"attention core is built for head dims "
+                         f"{CORE_HEAD_DIMS} (a narrower head is zero-padded "
+                         f"to one) and T >= 1, got d={d}, T={t}")
     if n > 65535 or nh > 65535:
         raise ValueError(f"the core's grid takes at most 65535 images and "
                          f"heads, got {n} x {nh}")
+    target = out
+    if dc != d:
+        q, k, v = (torch.nn.functional.pad(x, (0, dc - d)) for x in (q, k, v))
+        target = torch.empty((n, nh, t, dc), device=q.device, dtype=q.dtype)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _aligned16(x, name, x.stride()[:3])
+    lib = load()
     mask, mask_bf16 = _mask_rows(mask_row.to(device=q.device), (n, t),
                                  q.dtype)
     strides = (ctypes.c_longlong * 12)(
-        *(s for x in (q, k, v, out) for s in x.stride()[:3]))
+        *(s for x in (q, k, v, target) for s in x.stride()[:3]))
     _check(lib.ag_attention(_dtype_code(q), int(mode == "mul"), q.data_ptr(),
                             k.data_ptr(), v.data_ptr(), strides,
-                            mask.data_ptr(), mask_bf16, out.data_ptr(), n, t,
-                            nh, d, _stream()), "ag_attention")
+                            mask.data_ptr(), mask_bf16, target.data_ptr(), n,
+                            t, nh, dc, d, _stream()), "ag_attention")
+    if target is not out:
+        out.copy_(target[..., :d])
     return out
 
 

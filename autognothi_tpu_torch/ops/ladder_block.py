@@ -24,12 +24,13 @@ any MLP width that is a multiple of 8; more than four branches take one
 side-in launch per four.
 
 Every other side shape the JAX gate admits (a side of hidden / 4, heads of
-d = 16-64) takes the second route, `ladder_route` says which by shape
+d = 4 or 16-128) takes the second route, `ladder_route` says which by shape
 alone: the same side-in launch, then each branch's side layer on the
 kernels of the float attention block (the Q|K|V and out-projection
 products on `csrc/gemm_wgmma.cu`, the core of `csrc/attention.cu`, which
-takes d = 8, 16, 32 or 64 at T <= 512) and of the float MLP block
-(`csrc/gemm.cu`).  A head width the core has no kernel for raises.
+runs d = 8, 16, 32, 64 or 128 at any T and zero-pads a narrower head,
+such as d = 4, to the next of them) and of the float MLP block
+(`csrc/gemm.cu`).  A head wider than 128 raises.
 
 Both layer kinds run on the card: the ViT's "mul" mask with pre-norm
 (LN1 and LN2 before attention and MLP) and BERT's additive "add" bias
@@ -64,11 +65,12 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.build import LaunchCounter
-from ..kernels.primitives import (EPI_BIAS_GELU, EPI_BIAS_RESID,
-                                  EPI_WG_BIAS, EPI_WG_BIAS_RESID,
-                                  EPI_WG_GELU_RESID_SPLIT, LADDER_ATTENTION,
-                                  LADDER_MLP, LADDER_QKV, WG_MAX_BRANCHES,
-                                  attention_core, attention_heads, dispatch,
+from ..kernels.primitives import (CORE_HEAD_DIMS, EPI_BIAS_GELU,
+                                  EPI_BIAS_RESID, EPI_WG_BIAS,
+                                  EPI_WG_BIAS_RESID, EPI_WG_GELU_RESID_SPLIT,
+                                  LADDER_ATTENTION, LADDER_MLP, LADDER_QKV,
+                                  WG_MAX_BRANCHES, attention_core,
+                                  attention_heads, core_head_dim, dispatch,
                                   gemm, gemm_wg, ladder_stage, layernorm_,
                                   rows_prep, rowstats)
 from ..models.common import dense, gelu, layer_norm
@@ -277,10 +279,6 @@ def ladder_stages_plain(h, mask_row, *flat, n_branches, n_heads, mode,
                           mode=mode, pre_norm=pre_norm, ln_eps=ln_eps)
 
 
-# the attention core's head widths and token limit
-# (`csrc/attention.cu:ag_attention_supports`)
-CORE_HEAD_DIMS = (8, 16, 32, 64)
-CORE_MAX_T = 512
 STAGES_MAX_S = 128  # `csrc/ladder.cu:kLadMaxS`
 
 
@@ -289,9 +287,11 @@ def ladder_route(s: int, inter: int, n_heads: int, t: int) -> str:
     MLP of width inter and T = t tokens an image: "stages" (the four stage
     launches of `csrc/ladder.cu`: heads of d = 8, s a multiple of 8 up to
     128) or "per_branch" (the side-in launch, then each branch's side layer
-    on the float attention and MLP blocks' kernels: d = 8, 16, 32 or 64, T
-    <= 512).  Both take widths that are multiples of 8.  Any other shape
-    raises ValueError naming it; the choice never depends on a launch."""
+    on the float attention and MLP blocks' kernels: any d up to 128, which
+    the attention core runs at d = 8, 16, 32, 64 or 128, zero-padding
+    another d to the next of them; any T).  Both take widths that are
+    multiples of 8.  Any other shape raises ValueError naming it; the
+    choice never depends on a launch."""
     d = s // n_heads if n_heads > 0 and s % n_heads == 0 else 0
     shape = (f"side {s} in {n_heads} heads (d = {s / max(n_heads, 1):g}), "
              f"MLP {inter}, T = {t}")
@@ -300,11 +300,11 @@ def ladder_route(s: int, inter: int, n_heads: int, t: int) -> str:
                          f"are multiples of 8 in whole heads, got {shape}")
     if d == 8 and s <= STAGES_MAX_S:
         return "stages"
-    if d in CORE_HEAD_DIMS and t <= CORE_MAX_T:
+    if core_head_dim(d) is not None and t >= 1:
         return "per_branch"
     raise ValueError(f"no ladder kernel for {shape}: the stage kernels take "
                      f"d = 8 up to a side of {STAGES_MAX_S}, the attention "
-                     f"core d in {CORE_HEAD_DIMS} at T <= {CORE_MAX_T}")
+                     f"core d up to {CORE_HEAD_DIMS[-1]}")
 
 
 def _branch_pack(pack: dict, dtype: torch.dtype) -> dict:

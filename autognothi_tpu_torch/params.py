@@ -1,12 +1,15 @@
 """Parameter exchange with the JAX package: flat dicts of numpy arrays
 under torch-style names, stored as npz checkpoints in the same format as
 `autognothi_tpu/pipeline/resources.py` (`save_params` / `load_params_file`).
+A state dict saved with `torch.save` (the torch reference's checkpoints)
+is read too; an Orbax directory is not (it needs `orbax`).
 """
 
 from __future__ import annotations
 
 import os
 import pathlib
+import zipfile
 from typing import Dict, Mapping, Union
 
 import numpy as np
@@ -54,8 +57,28 @@ def save_params(file: pathlib.Path, params: Mapping[str, np.ndarray]) -> None:
         tmp.unlink(missing_ok=True)
 
 
+def _is_torch_archive(file: pathlib.Path) -> bool:
+    """npz and torch checkpoints are both zip files; torch's carries a
+    `data.pkl` entry (`autognothi_tpu/pipeline/resources.py:224-233`)."""
+    if not zipfile.is_zipfile(file):
+        return False
+    with zipfile.ZipFile(file) as z:
+        return any(name.endswith("data.pkl") for name in z.namelist())
+
+
 def load_params_file(file: pathlib.Path) -> Dict[str, np.ndarray]:
-    """An npz checkpoint -> flat dict.  (Torch archives and Orbax
-    directories are not read by the port yet.)"""
+    """A checkpoint -> flat dict of numpy arrays: an npz, or a state dict
+    (or a module, whose state dict is taken) saved with `torch.save`.  An
+    Orbax directory raises: reading one needs `orbax`."""
+    file = pathlib.Path(file)
+    if file.is_dir():
+        raise NotImplementedError(
+            f"{file} is an Orbax checkpoint directory; the port reads npz "
+            f"and torch.save checkpoints only (Orbax needs `orbax`)")
+    if _is_torch_archive(file):
+        obj = torch.load(file, map_location="cpu", weights_only=False)
+        if hasattr(obj, "state_dict"):
+            obj = obj.state_dict()
+        return {k: v.detach().cpu().numpy() for k, v in obj.items()}
     with np.load(file, allow_pickle=False) as data:
         return {k: data[k] for k in data.files}

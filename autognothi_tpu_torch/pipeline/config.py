@@ -2,10 +2,11 @@
 dataclasses.  The port reads `seed`, the `net` block, the `dataset` block,
 the three training sections (`train_classifier`, `train_surrogate`,
 `train_explainer`, fields and defaults as `autognothi_tpu/pipeline/
-config.py:232-246`) and the three optional wandb blocks (`logger_classifier`,
-`logger_surrogate`, `logger_explainer`, `:288-325`); the rest of the file
-(the eval blocks) is kept as a raw dict for the stages that are not ported
-yet."""
+config.py:232-246`), the three optional wandb blocks (`logger_classifier`,
+`logger_surrogate`, `logger_explainer`, `:288-325`) and the seven eval
+blocks of the reports (`eval_accuracy` ... `eval_dual_task_similarity`,
+`:249-285`: every field required, `dataset` may be null).  Each block is
+None where the file has none; a stage that needs it raises."""
 
 from __future__ import annotations
 
@@ -47,6 +48,52 @@ class Config_Train_Explainer(Config_Train):
     lambda_norm: float = 0.0
 
 
+@dataclasses.dataclass(frozen=True)
+class Config_Eval_Accuracy:
+    dataset: Optional[Config_Dataset]
+    batch_size: int
+    resolution: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Config_Eval_Faithfulness:
+    dataset: Optional[Config_Dataset]
+    batch_size: int
+    resolution: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Config_Eval_ClsAcc:
+    dataset: Optional[Config_Dataset]
+    on_exp_epochs: Optional[str]
+    batch_size: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Config_Eval_Performance:
+    dataset: Optional[Config_Dataset]
+    loops: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Config_Eval_TrainResources:
+    dataset: Optional[Config_Dataset]
+    batch_size: int
+    max_samples: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Config_Eval_BranchesCka:
+    dataset: Optional[Config_Dataset]
+    batch_size: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Config_Eval_DualTaskSimilarity:
+    dataset: Optional[Config_Dataset]
+    batch_size: int
+
+
 @dataclasses.dataclass
 class Config_Logger:
     """A stage's wandb options; the run id and step are set as it logs."""
@@ -72,6 +119,20 @@ class ExpConfig:
     logger_classifier: Optional[Config_Logger] = None
     logger_surrogate: Optional[Config_Logger] = None
     logger_explainer: Optional[Config_Logger] = None
+    eval_accuracy: Optional[Config_Eval_Accuracy] = None
+    eval_faithfulness: Optional[Config_Eval_Faithfulness] = None
+    eval_cls_acc: Optional[Config_Eval_ClsAcc] = None
+    eval_performance: Optional[Config_Eval_Performance] = None
+    eval_train_resources: Optional[Config_Eval_TrainResources] = None
+    eval_branches_cka: Optional[Config_Eval_BranchesCka] = None
+    eval_dual_task_similarity: Optional[Config_Eval_DualTaskSimilarity] = None
+
+
+def _dataset(raw: Optional[Dict[str, Any]]) -> Optional[Config_Dataset]:
+    if raw is None:
+        return None
+    return Config_Dataset(kind=str(raw["kind"]),
+                          fields={k: v for k, v in raw.items() if k != "kind"})
 
 
 def _section(raw: Dict[str, Any], name: str, cls, required: tuple):
@@ -81,6 +142,8 @@ def _section(raw: Dict[str, Any], name: str, cls, required: tuple):
         if field not in raw:
             raise KeyError(f"{name}.{field}")
     known = {f.name for f in dataclasses.fields(cls)}
+    if "dataset" in known:  # the eval blocks' own dataset, or null
+        raw = dict(raw, dataset=_dataset(raw["dataset"]))
     return cls(**{k: v for k, v in raw.items() if k in known})
 
 
@@ -94,6 +157,15 @@ _BLOCKS = {
         "n_mask_samples", "lambda_efficiency", "lambda_norm")),
     **{name: (Config_Logger, ("wandb_enabled", "wandb_project",
                               "wandb_name")) for name in LOGGERS},
+    **{name: (cls, tuple(f.name for f in dataclasses.fields(cls)))
+       for name, cls in (
+           ("eval_accuracy", Config_Eval_Accuracy),
+           ("eval_faithfulness", Config_Eval_Faithfulness),
+           ("eval_cls_acc", Config_Eval_ClsAcc),
+           ("eval_performance", Config_Eval_Performance),
+           ("eval_train_resources", Config_Eval_TrainResources),
+           ("eval_branches_cka", Config_Eval_BranchesCka),
+           ("eval_dual_task_similarity", Config_Eval_DualTaskSimilarity))},
 }
 
 
@@ -109,9 +181,7 @@ def parse_config(raw: Dict[str, Any]) -> ExpConfig:
                            params=dict(net["params"]),
                            base_model=str(net.get("base_model", ""))),
             raw=raw,
-            dataset=None if dataset is None else Config_Dataset(
-                kind=str(dataset["kind"]),
-                fields={k: v for k, v in dataset.items() if k != "kind"}),
+            dataset=_dataset(dataset),
             **{name: None if raw.get(name) is None
                else _section(dict(raw[name]), name, cls, required)
                for name, (cls, required) in _BLOCKS.items()})

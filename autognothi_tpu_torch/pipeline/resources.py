@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import os
 import pathlib
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,6 +79,28 @@ def latest_epoch(path: pathlib.Path, section: str,
         if ckpt_path(path, section, epoch).exists():
             return epoch
     return None
+
+
+def get_epoch_ckpts(path: pathlib.Path, section: str,
+                    max_epochs: int) -> List[int]:
+    """Every checkpointed epoch of `section` up to max_epochs, ascending."""
+    return [e for e in range(max_epochs + 1)
+            if ckpt_path(path, section, e).exists()]
+
+
+def load_epoch_ckpt(path: pathlib.Path, section: str, max_epochs: int,
+                    required: bool = False
+                    ) -> Tuple[Optional[int], Optional[Dict[str, np.ndarray]]]:
+    """The newest checkpoint of `section` up to max_epochs -> (epoch, flat
+    dict); (None, None) where there is none, or FileNotFoundError with
+    `required`."""
+    epoch = latest_epoch(path, section, max_epochs)
+    if epoch is not None:
+        return epoch, load_params_file(ckpt_path(path, section, epoch))
+    if required:
+        raise FileNotFoundError(
+            f"no checkpoint found for '{section}' under '{path}'")
+    return None, None
 
 
 def _max_epochs(config: ExpConfig, section: str) -> int:

@@ -268,7 +268,18 @@ def ltt_vit_recipe() -> ModelRecipe:
         conv_surrogate_explainer=conv_surrogate_explainer,
         conv_explainer_final=conv_explainer_final,
         fw_classifier=fw_classifier,
-        measurements=ModelRecipe_Measurements(verify_final_coherency=True),
+        measurements=ModelRecipe_Measurements(
+            verify_final_coherency=True,
+            allow_accuracy=True,
+            allow_faithfulness=True,
+            allow_cls_acc=True,
+            allow_performance_cls=True,
+            allow_performance_srg_exp=True,
+            allow_performance_fin=True,
+            allow_train_resources=True,
+            allow_dual_task_similarity=False,
+            allow_branches_cka=True,
+        ),
         fw_classifier_repr=fw_classifier_repr,
         fw_explainer_repr=fw_explainer_repr,
     )

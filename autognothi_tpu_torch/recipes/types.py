@@ -28,10 +28,20 @@ class ModelRecipe_Training:
 
 @dataclasses.dataclass(frozen=True)
 class ModelRecipe_Measurements:
-    """The ported part of the JAX contract's measurements: whether
-    `train_all` checks the final's coherency (the reports' `allow_*`
-    switches come with the reports)."""
+    """Whether `train_all` checks the final's coherency, and which reports
+    `measure_all` runs (`autognothi_tpu/recipes/types.py:59-70`).
+    `allow_dual_task_similarity` is False or, in the JAX package, the duo
+    recipes' gradient probe; the port's recipes set it False."""
     verify_final_coherency: bool
+    allow_accuracy: bool = False
+    allow_faithfulness: bool = False
+    allow_cls_acc: bool = False
+    allow_performance_cls: bool = False
+    allow_performance_srg_exp: bool = False
+    allow_performance_fin: bool = False
+    allow_train_resources: bool = False
+    allow_dual_task_similarity: Any = False
+    allow_branches_cka: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

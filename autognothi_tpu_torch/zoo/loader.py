@@ -6,7 +6,9 @@ to the bases that need no download).
 - `ft_<name>`: a locally fine-tuned classifier stored as `params.npz` (a
   flat dict in the classifier layout) with an optional `tokenizer/`
   directory, under `$AUTOGNOTHI_ZOO/<name>` or, without that variable,
-  `~/.cache/autognothi/zoo/<name>`: the JAX package's store.
+  `~/.cache/autognothi/zoo/<name>`: the JAX package's store; where that
+  store lacks it, read-only from `zoo/store/<name>` inside this package,
+  as the JAX loader falls back to its own (a source checkout's bundle).
 - The Hugging Face hub bases (`gg_vit_*`, `bert_tayp`, `prj_bert_*`,
   `gg_bert_*`) need the hub's checkpoints and `transformers`; the port
   loads neither, so naming one raises, saying what is missing.
@@ -23,6 +25,7 @@ import numpy as np
 _STORE = pathlib.Path(
     os.environ.get("AUTOGNOTHI_ZOO")
     or pathlib.Path.home() / ".cache" / "autognothi" / "zoo")
+_PKG_STORE = pathlib.Path(__file__).parent / "store"
 
 # the hub bases of the JAX package: name -> hub id
 HUB_IDS = {
@@ -41,10 +44,14 @@ HUB_IDS = {
 
 def _load_local_ft(name: str) -> Tuple[Dict[str, np.ndarray], Any]:
     store = _STORE / name
+    if not (store / "params.npz").exists() and (
+            _PKG_STORE / name / "params.npz").exists():
+        store = _PKG_STORE / name  # read-only fallback
     if not (store / "params.npz").exists():
         raise FileNotFoundError(
-            f"fine-tuned base model '{name}' not found under {store}: "
-            f"`pretrain_classifier` writes it there")
+            f"fine-tuned base model '{name}' not found under {_STORE / name} "
+            f"(or the bundled {_PKG_STORE / name}): `pretrain_classifier` "
+            f"writes it there")
     with np.load(store / "params.npz", allow_pickle=False) as data:
         params = {k: data[k] for k in data.files}
     tokenizer = None

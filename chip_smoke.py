@@ -131,6 +131,29 @@ Phases, each printing its own lines:
      stage kernels do not take ((side, heads) = (192, 12), (256, 16),
      (384, 12), d = 16, 16, 32; F7), its route, launches and device time,
      against its plain version.
+  7. the reports through `run_all`: a fresh copy of phase 6's experiment
+     (the same widths, depth and data) with eval blocks (faithfulness at
+     16 stops over the 8 test images: 10 classes x 16 stops x 2 = 320
+     coalitions an image; accuracy at 5 masked counts; cls_acc at every
+     explainer epoch; performance over 2 loops at batch 1; train resources
+     over 16 images at batch 8; CKA at batch 8) through `python -m
+     autognothi_tpu_torch run_all <exp> --device cuda` (`cli_main`): the
+     six report files, the kernels each report launched (K6, K7 and K5 in
+     every one), a second `measure_all` that reloads them and launches
+     nothing; the quality gate: faithfulness's four AUCs with the kernels
+     against the same report under the plain versions on the card, on the
+     same checkpoints (fp32 within 1e-3; W8A8, AUTOGNOTHI_INT8=1, within
+     5e-3, launching K1, K2, K4, K3 and K5; pallas mode "1" within 1e-3,
+     launching K9), the worst drift and its curve printed; cls_acc and
+     accuracy equal to the plain run's, or each difference a named argmax
+     flip the plain forward nearly ties; the performance report's ms per
+     sample, GFLOPs and MiB per stage and the train resources' seconds and
+     MiB per step, each beside the card.  With the timing phase: F8, K6
+     and K1 at ViT-B/16@384's trunk (B=8, T=577) against their plain
+     versions with device ms, and the core there beside SDPA (`[f8]`);
+     F7, a side of d = 4 (96 in 24 heads, and the mini configurations' 16
+     in 4) on the per-branch route against its plain version, and the
+     core's d = 128 instance beside d = 64 (`[f7]`).
 
 Any failure raises, exits non-zero and prints no result.  The last three
 lines are the card, the kernel table (JSON) and the status line (JSON).
@@ -2478,6 +2501,465 @@ def phase_k4_teacher(dev, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# -------------------------------------------------------------- run_all
+
+# the six reports the LTT ViT recipe allows (dual-task similarity is off),
+# as `measure_all` calls them and the files it writes
+REPORT_FNS = ("measure_accuracy", "measure_faithfulness", "measure_cls_acc",
+              "measure_performance", "measure_train_resources",
+              "measure_branches_cka")
+REPORT_FILES = ("accuracy.json", "branches_cka.json", "cls_acc.json",
+                "faithfulness.json", "performance.json",
+                "train_resources.json")
+# the kernels each report launches on the fp32 path (pallas mode "2"):
+# every forward it runs is the float blocks' K6 + K7 and the ladder K5
+FP32_REPORT_KERNELS = ("attention_block", "mlp_block", "ladder_block")
+# faithfulness under W8A8: the final K1 + K2 + K4 + K3, the coalitions'
+# trunk K1 + K4 and their ladder K5; under pallas mode "1": K9
+FAITH_KERNELS = {
+    "fp32": FP32_REPORT_KERNELS,
+    "int8": ("attention_block_int8", "mlp_ladder_block", "mlp_block_int8",
+             "head_block", "ladder_block"),
+    "mode 1": ("masked_attention",),
+}
+# the faithfulness AUCs, kernels against plain versions on the card: the
+# fp32 kernels within 1e-3; W8A8 within 5e-3, the JAX package's quality
+# gate (BASELINE.md, playground/quality_gate.py)
+FAITH_TOL = {"fp32": 1e-3, "int8": 5e-3, "mode 1": 1e-3}
+FAITH_ENV = {"fp32": ("2", False), "int8": ("2", True), "mode 1": ("1", False)}
+CURVES = ("insertion", "deletion", "insertion_non_ok", "deletion_non_ok")
+# an argmax that flips between kernel and plain forwards is explained when
+# the plain forward's two best classes lie within this of each other
+FLIP_MARGIN = 1e-3
+# the cut that keeps phase 7 inside the time limit: ViT-B/16@224 widths,
+# 8 test images at 16 faithfulness stops (10 classes x 16 stops x 2
+# directions = 320 coalitions an image)
+RUN_ALL_EVAL = {
+    "eval_accuracy": {"dataset": None, "batch_size": TRAIN_B,
+                      "resolution": 5},
+    "eval_faithfulness": {"dataset": None, "batch_size": TRAIN_B,
+                          "resolution": 16},
+    "eval_cls_acc": {"dataset": None, "on_exp_epochs": "_:%1==0",
+                     "batch_size": TRAIN_B},
+    "eval_performance": {"dataset": None, "loops": 2},
+    "eval_train_resources": {"dataset": None, "batch_size": TRAIN_B,
+                             "max_samples": 2 * TRAIN_B},
+    "eval_branches_cka": {"dataset": None, "batch_size": TRAIN_B},
+}
+
+
+def write_run_all_experiment(tmp: pathlib.Path) -> pathlib.Path:
+    """Phase 6's experiment (random_init LTT ViT-B/16@224 on `cv_samples`
+    at 224 px, 2 train and 1 test batch of TRAIN_B) in a fresh directory,
+    with the eval blocks of RUN_ALL_EVAL."""
+    exp = write_train_all_experiment(tmp, name="run_all")
+    hp = json.loads((exp / ".hparams.json").read_text())
+    hp.update(copy.deepcopy(RUN_ALL_EVAL))
+    (exp / ".hparams.json").write_text(json.dumps(hp, indent=2))
+    return exp
+
+
+def report_env(pallas: str, int8: bool):
+    """AUTOGNOTHI_PALLAS and AUTOGNOTHI_INT8 inside; the explainer step's
+    teacher at its default (int8)."""
+    return mock.patch.dict(os.environ, {
+        "AUTOGNOTHI_PALLAS": pallas, "AUTOGNOTHI_INT8": "1" if int8 else "0",
+        "AUTOGNOTHI_INT8_TEACHER": "1"})
+
+
+@contextlib.contextmanager
+def counted_reports(calls: dict, seconds: dict):
+    """Each report `measure_all` runs, with the kernel calls it made (the
+    counts read before and after it, not reset) into `calls[report]` and
+    its wall seconds into `seconds[report]`."""
+    import torch
+
+    from autognothi_tpu_torch.pipeline import measure_all as ma
+
+    def wrap(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = read_counts()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            calls[name] = {k: v - before[k] for k, v in read_counts().items()
+                           if v - before[k]}
+            return out
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for name in REPORT_FNS:
+            stack.enter_context(mock.patch.object(ma, name,
+                                                  wrap(name, getattr(ma,
+                                                                     name))))
+        yield
+
+
+def faith_drift(got: dict, want: dict) -> tuple:
+    """-> (the largest |AUC difference| of the four curves, its curve, the
+    largest difference of any curve point, `data_*` included)."""
+    aucs = [(abs(got[c]["auc"] - want[c]["auc"]), c) for c in CURVES]
+    worst, curve = max(aucs)
+
+    def leaves(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                yield from leaves(v)
+        elif isinstance(x, list):
+            for v in x:
+                yield from leaves(v)
+        elif isinstance(x, float):
+            yield x
+
+    points = max((abs(a - b) for a, b in zip(leaves(got), leaves(want))),
+                 default=0.0)
+    return worst, curve, points
+
+
+def report_predictions(exp: pathlib.Path, report: str, dev) -> list:
+    """The per-image argmax predictions, labels and plain top-2 margins
+    behind the cls_acc or accuracy report, as (key, kernel class, plain
+    class, label, plain margin) per image: the report's own loops, its
+    forwards once with the kernels and once plain."""
+    import numpy as np
+    import torch
+
+    from autognothi_tpu_torch.ops.shapley import mask_uniform_selective
+    from autognothi_tpu_torch.params import from_jax_params
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.resources import (
+        get_epoch_ckpts, get_recipe, load_cfg_dataset, load_epoch_ckpt,
+        load_epoch_model, load_epoch_params)
+    from autognothi_tpu_torch.utils.seeding import iterative_generator
+
+    with ExpEnv(exp) as env:
+        cfg = env.config
+        recipe, m_cfg = get_recipe(cfg)
+        loader = load_cfg_dataset(cfg.dataset)
+        gen_input = recipe.gen_input(m_cfg, None)
+        n_players = recipe.n_players(m_cfg)
+        runs = []  # (key, forward, batch size)
+        if report == "cls_acc":
+            _, cls_p = load_epoch_params(env, "classifier")
+            _, srg_p = load_epoch_params(env, "surrogate")
+            for ep in get_epoch_ckpts(exp, "explainer",
+                                      cfg.train_explainer.epochs):
+                _, exp_p = load_epoch_ckpt(exp, "explainer", ep,
+                                           required=True)
+                final = from_jax_params(recipe.conv_explainer_final(
+                    m_cfg, None, cls_p, srg_p, exp_p, iterative_generator(
+                        cfg.seed, f"measure_cls_acc[epoch={ep}]"), dev),
+                    m_cfg, dev, section="final")
+                runs.append((f"epoch {ep}", lambda xs, bi, m=final:
+                             recipe.fw_final(m_cfg, m, xs)[0],
+                             cfg.train_classifier.batch_size))
+        else:
+            _, srg = load_epoch_model(env, recipe, "surrogate", dev)
+            for n_masked in np.linspace(0, n_players,
+                                        cfg.eval_accuracy.resolution,
+                                        dtype=np.int64).tolist():
+                def fwd(xs, bi, n=n_masked):
+                    mask = mask_uniform_selective(iterative_generator(
+                        cfg.seed, f"measure_accuracy[mask={n},batch={bi}]"),
+                        xs.shape[0], n_players, int(n)).to(dev)
+                    return recipe.fw_surrogate(m_cfg, srg, xs, mask)[0]
+                runs.append((f"mask {n_masked}", fwd,
+                             cfg.train_surrogate.batch_size))
+    out = []
+    with torch.no_grad():
+        for key, fwd, batch in runs:
+            for bi, (raw_xs, raw_ys) in enumerate(loader.test(batch)):
+                xs, zs = gen_input(raw_xs, raw_ys)
+                xs = torch.from_numpy(xs).to(dev)
+                got = fwd(xs, bi).float().cpu().numpy()
+                with plain_ops():
+                    want = fwd(xs, bi).float().cpu().numpy()
+                top2 = np.sort(want, axis=1)[:, -2:]
+                for i in range(xs.shape[0]):
+                    out.append((f"{key} image {bi * batch + i}",
+                                int(got[i].argmax()), int(want[i].argmax()),
+                                int(zs[i]), float(top2[i, 1] - top2[i, 0])))
+    return out
+
+
+def check_report_equal(exp: pathlib.Path, report: str, got: dict,
+                       want: dict, dev) -> None:
+    """The kernel run's cls_acc or accuracy report equals the plain run's,
+    or each difference is a flipped argmax the plain forward nearly ties
+    (its two best classes within FLIP_MARGIN), named."""
+    if got == want:
+        print(f"[run_all] {report}: kernels {got['accuracy']} == plain "
+              f"{want['accuracy']}", flush=True)
+        return
+    preds = report_predictions(exp, report, dev)
+    flips = [p for p in preds if p[1] != p[2]]
+    for key, k_cls, p_cls, label, margin in flips:
+        print(f"[run_all] {report}: {key} flips kernel {k_cls} / plain "
+              f"{p_cls} (label {label}), plain top-2 margin {margin:.2e}",
+              flush=True)
+    check(flips and all(p[4] <= FLIP_MARGIN for p in flips),
+          f"{report}: kernels {got} != plain {want}, not explained by "
+          f"near-tied flips")
+    print(f"[run_all] {report}: kernels {got['accuracy']} vs plain "
+          f"{want['accuracy']}: {len(flips)} flipped argmax, each within "
+          f"{FLIP_MARGIN:g} of a tie in the plain forward", flush=True)
+
+
+def phase_run_all(dev, tmp: pathlib.Path, card: str) -> dict:
+    """`python -m autognothi_tpu_torch run_all <exp> --device cuda` through
+    `cli_main` on a fresh random_init LTT ViT-B/16@224 experiment: the six
+    reports and the kernels each launched, a second `measure_all` that
+    reloads them and launches nothing, the quality gate (faithfulness with
+    the kernels against the plain versions on the card: fp32, W8A8 and
+    pallas mode "1"), cls_acc and accuracy against the plain run, and the
+    performance and train-resources numbers; -> the kernel calls of the
+    counted paths (run_all, the W8A8 and mode "1" faithfulness runs)."""
+    import torch
+
+    from autognothi_tpu_torch.cli import main as cli_main
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.measure_accuracy import \
+        measure_accuracy
+    from autognothi_tpu_torch.pipeline.measure_cls_acc import \
+        measure_cls_acc
+    from autognothi_tpu_torch.pipeline.measure_faithfulness import \
+        measure_faithfulness
+    from autognothi_tpu_torch.pipeline.reports import to_json
+
+    exp = write_run_all_experiment(tmp)
+    calls: dict = {}
+    report_seconds: dict = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with report_env("2", False), counted_reports(calls, report_seconds):
+        cli_main(["run_all", str(exp), "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    total = {k: v for k, v in read_counts().items() if v}
+    reports = exp / ".reports"
+    files = tuple(sorted(p.name for p in reports.iterdir()))
+    print(f"[run_all] train_all + measure_all in {seconds:.1f} s: "
+          f"{', '.join(files)} | {card}", flush=True)
+    check(files == REPORT_FILES, f"run_all wrote {files}")
+    for name in REPORT_FNS:
+        got = calls.get(name, {})
+        print(f"[run_all] {name}: {report_seconds.get(name, 0.0):.2f} s, "
+              f"kernel calls {got}", flush=True)
+        check(all(got.get(k, 0) > 0 for k in FP32_REPORT_KERNELS),
+              f"{name} launched no {FP32_REPORT_KERNELS} kernel: {got}")
+    texts = {n: (reports / n).read_text() for n in files}
+    stamps = {n: (reports / n).stat().st_mtime_ns for n in files}
+    reset_counts()
+    with report_env("2", False):
+        cli_main(["measure_all", str(exp), "--device", "cuda"])
+    torch.cuda.synchronize()
+    again = {k: v for k, v in read_counts().items() if v}
+    check(not again and all((reports / n).read_text() == texts[n]
+                            and (reports / n).stat().st_mtime_ns == stamps[n]
+                            for n in files),
+          f"the second measure_all recomputed: kernel calls {again}")
+    print("[run_all] second measure_all: the six reports reloaded, nothing "
+          "computed (0 kernel calls, files unchanged)", flush=True)
+
+    # the quality gate: faithfulness on the same checkpoints, kernels
+    # against plain versions on the card
+    kernel_faith = {"fp32": json.loads(texts["faithfulness.json"])}
+    for path in ("fp32", "int8", "mode 1"):
+        pallas, int8 = FAITH_ENV[path]
+        with report_env(pallas, int8):
+            if path != "fp32":
+                torch.cuda.synchronize()
+                reset_counts()
+                with ExpEnv(exp) as env:
+                    kernel_faith[path] = to_json(measure_faithfulness(
+                        env, device="cuda"))
+                torch.cuda.synchronize()
+                run = {k: v for k, v in read_counts().items() if v}
+                print(f"[run_all] faithfulness {path}: kernel calls {run}",
+                      flush=True)
+                check(all(run.get(k, 0) > 0 for k in FAITH_KERNELS[path]),
+                      f"faithfulness {path} launched no "
+                      f"{FAITH_KERNELS[path]} kernel: {run}")
+                total = _scaled((1, total), (1, run))
+            with plain_ops(), ExpEnv(exp) as env:
+                plain = to_json(measure_faithfulness(env, device="cuda"))
+        got = kernel_faith[path]
+        worst, curve, points = faith_drift(got, plain)
+        print(f"[run_all] quality gate, faithfulness {path}: AUCs "
+              + ", ".join(f"{c} {got[c]['auc']:.6f} (plain "
+                          f"{plain[c]['auc']:.6f})" for c in CURVES)
+              + f"; worst AUC drift {worst:.3e} on {curve} (limit "
+              f"{FAITH_TOL[path]:g}); largest curve-point drift "
+              f"{points:.3e} | {card}", flush=True)
+        check(worst <= FAITH_TOL[path],
+              f"faithfulness {path}: AUC drift {worst:.3e} on {curve} "
+              f"above {FAITH_TOL[path]:g}")
+
+    for report, fn in (("cls_acc", measure_cls_acc),
+                       ("accuracy", measure_accuracy)):
+        with report_env("2", False), plain_ops(), ExpEnv(exp) as env:
+            want = to_json(fn(env, device="cuda"))
+        check_report_equal(exp, report,
+                           json.loads(texts[f"{report}.json"]), want, dev)
+
+    perf = json.loads(texts["performance.json"])
+    for stage in ("classifier", "surrogate", "explainer", "final"):
+        r = perf[stage]
+        check(r["time_avg"] > 0 and r["gflops"] > 0 and r["mem_mib"] > 0,
+              f"performance {stage}: {r}")
+        print(f"[run_all] performance {stage}: {r['time_avg'] * 1e3:.3f} "
+              f"ms/sample (std {r['time_std'] * 1e3:.3f}, batch 1, "
+              f"{len(r['time'])} samples), {r['gflops']:.3f} GFLOPs, "
+              f"{r['params_all']:.3f} M params ({r['params_trainable']:.3f} "
+              f"M trainable), {r['mem_mib']:.1f} MiB ({r['mem_estimator']}) "
+              f"| {card}", flush=True)
+    trn = json.loads(texts["train_resources.json"])
+    print(f"[run_all] train_resources: init {trn['init_tm']:.3f} s, "
+          f"{trn['init_mem']:.1f} MiB; surrogate step "
+          f"{trn['srg_tm']['avg'] * 1e3:.3f} ms/sample, "
+          f"{trn['srg_mem']['avg']:.1f} MiB; explainer step "
+          f"{trn['exp_tm']['avg'] * 1e3:.3f} ms/sample, "
+          f"{trn['exp_mem']['avg']:.1f} MiB ({trn['mem_estimator']}, batch "
+          f"{TRAIN_B}) | {card}", flush=True)
+    check(trn["srg_tm"]["avg"] > 0 and trn["exp_tm"]["avg"] > 0
+          and trn["srg_mem"]["avg"] > 0 and trn["exp_mem"]["avg"] > 0,
+          f"train_resources: {trn}")
+    torch.cuda.empty_cache()
+    return total
+
+
+# ViT-B/16@384: T = 577 tokens (24 x 24 patches + CLS), B = 8
+T_384, B_384 = 577, 8
+
+
+def phase_long_and_narrow(dev, card: str) -> None:
+    """F8: K6 and K1 at ViT-B/16@384's trunk (<8, 577, 768>, "mul", LN
+    prologue) against their plain versions, with device ms, and the core
+    alone there (<8, 12, 577, 64>, beside SDPA); F7: a side of d = 4 (96
+    in 24 heads at the ViT-B trunk, and the mini configurations' 16 in 4
+    heads) on the kernel route against its plain version, its launches
+    and device ms, and the core's d = 128 instance beside d = 64 at the
+    same width."""
+    import torch
+
+    from autognothi_tpu_torch.ops import attention_block as ab
+    from autognothi_tpu_torch.ops import flash_attention as fa
+    from autognothi_tpu_torch.ops import gates
+    from autognothi_tpu_torch.ops import ladder_block as lb
+
+    h = 768
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator().manual_seed(SEED + 384)
+        resid = torch.randn(B_384, T_384, h, generator=g).to(dev, dtype)
+        ws = tuple((torch.randn(s, generator=g) * h ** -0.5).to(dev, dtype)
+                   for s in [(h, h), (h,)] * 4)
+        ln = ((1 + 0.1 * torch.randn(h, generator=g)).to(dev),
+              (0.1 * torch.randn(h, generator=g)).to(dev), 1e-12)
+        mask = (torch.rand(B_384, T_384, generator=g) > 0.3).float().to(dev)
+        mask[:, 0] = 1
+        for quant in ("none", "int8"):
+            int8 = quant == "int8"
+            if int8 and not gates.attention_block_fits(T_384, h, dtype,
+                                                       quant):
+                print(f"[f8] K1 {str(dtype):14s} B={B_384} T={T_384}: the "
+                      f"JAX budget gate runs the float block here (K6)",
+                      flush=True)
+                continue
+            name = "attention_block_int8" if int8 else "attention_block"
+            counter = counters()[name]
+
+            def op():
+                return ab.attention_block(resid, mask, ws, 12, "mul", ln=ln,
+                                          ln_position="prologue",
+                                          quant=quant)
+            plain = ab.attention_block_int8_plain if int8 \
+                else ab.attention_block_plain
+
+            def ref():
+                return plain(resid, mask, *ws, ln[0], ln[1], n_heads=12,
+                             mode="mul", ln_position="prologue",
+                             ln_eps=1e-12)
+            with torch.inference_mode():
+                before = counter.count
+                got = op()
+                check(counter.count == before + 1,
+                      f"{name} at T={T_384} did not reach its kernel")
+                _, ok, msg = compare(got, ref(), dtype, int8)
+                ms = device_time(op, 5)
+                plain_ms = cuda_time(ref, 3)
+            print(f"[f8] {name:20s} {str(dtype):14s} B={B_384} T={T_384} "
+                  f"(ViT-B/16@384): device {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms (CUDA events); vs plain {msg} | {card}", flush=True)
+            check(ok, f"{name} {dtype} at T={T_384} differs from its plain "
+                      f"version")
+    for s, heads, b, t, hid_w in ((96, 24, B_CHECK * 2, T, 768),
+                                  (16, 4, B_CHECK, 17, 32)):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(SEED + s + t)
+            check(lb.ladder_route(s, 4 * s, heads, t) == "per_branch",
+                  f"side {s} / {heads} heads takes no kernel route")
+            hid = torch.randn(b, t, hid_w, generator=g).to(dev, dtype)
+            sides = [torch.randn(b, t, s, generator=g).to(dev, dtype)
+                     for _ in range(2)]
+            shapes = {"map_w": (s, hid_w), "w1": (4 * s, s),
+                      "b1": (4 * s,), "w2": (s, 4 * s)}
+            branches = [{k: (torch.randn(shapes.get(
+                k, (s, s) if k.startswith("w") else (s,)), generator=g)
+                * 0.1 + (1.0 if k in ("ln1_w", "ln2_w") else 0.0)).to(
+                    dev, dtype) for k in lb.BRANCH_KEYS} for _ in range(2)]
+            mask = (torch.rand(b, t, generator=g) > 0.3).float().to(dev)
+            mask[:, 0] = 1
+            args = (hid, sides, mask, branches, heads, "mul", True, 1e-12)
+            with torch.inference_mode():
+                before = lb.COUNTER_PER_BRANCH.count
+                got = lb.ladder_block(*args)
+                check(lb.COUNTER_PER_BRANCH.count == before + 1,
+                      "the d = 4 side did not take the per-branch route")
+                tensors, static = lb.ladder_block_args(*args)
+                want = lb.ladder_block_plain(*tensors, **static)
+                events = profiled_kernels(lambda: lb.ladder_block(*args), 5)
+            _, ok, msg = compare(tuple(got), tuple(want), dtype, False)
+            print(f"[f7] ladder_block route=per_branch S={s} heads={heads} "
+                  f"(d=4, zero-padded to 8) {str(dtype):14s} B={b} T={t}: "
+                  f"{len(events) / 5:g} launches per call, device "
+                  f"{sum(ms for _, ms in events) / 5:.4f} ms; vs plain {msg} "
+                  f"| {card}", flush=True)
+            check(ok, f"K5 d = 4 at side {s} {dtype} differs from its plain "
+                      f"version")
+    # the core alone: K9 at ViT-B/16@384's T beside SDPA ("add"), and the
+    # d = 128 instance (fp32 spills) beside d = 64 at the same width
+    for (n, heads, t, d, mode) in ((B_384, 12, T_384, 64, "add"),
+                                   (B_384, 2, T, 128, "mul"),
+                                   (B_384, 4, T, 64, "mul")):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(SEED + t + d)
+            q, k, v = (torch.randn(n, heads, t, d, generator=g).to(dev, dtype)
+                       for _ in range(3))
+            row = (torch.rand(n, t, generator=g) > 0.3).float().to(dev)
+            row[:, 0] = 1
+            if mode == "add":
+                row = (1 - row) * torch.finfo(torch.float32).min
+            with torch.inference_mode():
+                got = fa.masked_attention(q, k, v, row, mode=mode)
+                want = fa.masked_attention_plain(q, k, v, row, mode=mode)
+                ms = device_time(lambda: fa.masked_attention(q, k, v, row,
+                                                             mode=mode), 5)
+                lib = (time_library_attention((q, k, v, row), card)
+                       if mode == "add" else None)
+            _, ok, msg = compare(got, want, dtype, False)
+            tag = "f8" if t == T_384 else "f7"
+            print(f"[{tag}] masked_attention core <{n}, {heads}, {t}, {d}> "
+                  f"{mode} {str(dtype):14s}: device {ms:.4f} ms"
+                  + (f", SDPA {lib:.4f} ms (CUDA events)" if lib else "")
+                  + f"; vs plain {msg} | {card}", flush=True)
+            check(ok, f"the core at <{n}, {heads}, {t}, {d}> {dtype} differs "
+                      f"from its plain version")
+    torch.cuda.empty_cache()
+
+
 # name -> (source, the TPU kernel it replaces: its pl.pallas_call)
 KERNELS = {
     "attention_block": ("autognothi_tpu_torch/csrc/gemm_wgmma.cu",
@@ -2552,14 +3034,17 @@ def main() -> int:
         launches_train = phase_train_cli(train_exp, per_step)
         launches_all = phase_train_all(dev, pathlib.Path(tmp), per_step,
                                        card)
+        launches_reports = phase_run_all(dev, pathlib.Path(tmp), card)
         # every main path was driven from counts of 0: serve fp32 and int8
         # (ViT and BERT), train_explainer in pallas modes "2" and "1",
-        # train_all's seven stages and its served final
+        # train_all's seven stages and its served final, run_all's stages
+        # and six reports, faithfulness in W8A8 and in mode "1"
         for k in launches:
             launches[k] += (launches_int8[k] + launches_bert[k]
                             + launches_bert_int8[k]
                             + launches_train.get(k, 0)
-                            + launches_all.get(k, 0))
+                            + launches_all.get(k, 0)
+                            + launches_reports.get(k, 0))
         per_op = phase_timing(dev, card, service)
         # the ViT shapes keep their rows; K8q and the bf16 float chain run
         # only at BERT's.  The four BERT forwards counted there are main
@@ -2573,6 +3058,7 @@ def main() -> int:
         phase_float_gemm(dev, card)
         phase_block_launches(dev, card)
         phase_ladder_route(dev, card)
+        phase_long_and_narrow(dev, card)
         phase_split_chains(dev, card)
         phase_k4_teacher(dev, card)
         phase_int8_gemm(dev, card)

@@ -1107,13 +1107,14 @@ def test_ladder_with_more_branches_than_one_side_in_takes(dev, dtype):
 
 
 def test_ladder_refuses_widths_it_has_no_kernel_for(dev):
-    """Head widths the attention core has no kernel for (d = 4, d = 128)
-    and side widths that are no multiple of 8 raise on the card, naming
-    the shape."""
+    """Heads wider than the attention core's widest (d = 256 > 128), heads
+    that split no side evenly, and side widths that are no multiple of 8
+    raise on the card, naming the shape (d = 4 and d = 128 run since F7's
+    repair: `test_ladder_padded_and_wide_heads`)."""
     from autognothi_tpu_torch.ops import ladder_block as lb
 
     g = torch.Generator().manual_seed(96)
-    for s, heads in ((96, 24), (256, 2), (36, 4)):
+    for s, heads in ((512, 2), (96, 5), (36, 4)):
         hid, sides, branches = _ladder_case(g, dev, torch.float32, 1, 9, s=s)
         with pytest.raises(ValueError, match=f"side {s} in {heads} heads"):
             lb.ladder_block(hid, sides, _mask(g, dev, 2, 9, True), branches,
@@ -1603,3 +1604,129 @@ def test_k4_design_rule_matches_the_kernels_built(dev):
     for h, inter in config_mlp_widths():
         assert (mb.k4_design(h, inter) == "narrow") == bool(
             load().ag_mlp_narrow_supports(h, inter)), (h, inter)
+
+
+# --------------------------------------- F8: T past 512; F7: d = 4, 128
+
+
+@pytest.mark.parametrize("mode", ["mul", "add"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [577, 1025])
+@pytest.mark.parametrize("d", [8, 64])
+def test_attention_core_past_512(dev, d, t, dtype, mode):
+    """F8: T = 577 (ViT-B/16@384) and 1025: the key loop walks 10 and 17
+    chunks of 64 (bf16 twice); K9 on split heads, and the core on packed
+    views, against the plain version."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+    from autognothi_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(t + d)
+    n, heads = 2, 4
+    mask = _mask(g, dev, n, t, True)
+    if mode == "add":
+        mask = (1 - mask) * torch.finfo(torch.float32).min
+    q, k, v = (_rand(g, dev, n, heads, t, d).to(dtype) for _ in range(3))
+    before = fa.COUNTER.count
+    got = fa.masked_attention(q, k, v, mask, mode=mode)
+    assert fa.COUNTER.count == before + 1
+    _close(got, fa.masked_attention_plain(q, k, v, mask, mode=mode), dtype)
+    q, k, v = _attention_views(g, dev, n, heads, t, d, dtype, True)
+    out = torch.full((n, t, heads, d), float("nan"), device=dev,
+                     dtype=dtype).transpose(1, 2)
+    kp.attention_heads(q, k, v, mask, mode, out)
+    _close(out, fa.masked_attention_plain(q, k, v, mask, mode=mode), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [577, 1025])
+def test_attention_blocks_past_512(dev, t, dtype):
+    """F8: K6 and K1 at ViT-B/16@384's trunk <2, 577, 768> (and T = 1025),
+    the ViT's "mul" mask with the LN prologue and BERT's "add" bias with
+    the LN epilogue, against their plain versions; where
+    `gates.attention_block_fits` admits the int8 block (bf16) it is K1,
+    elsewhere the float block runs, as in JAX."""
+    from autognothi_tpu_torch.ops import attention_block as ab
+    from autognothi_tpu_torch.ops import gates
+
+    g = torch.Generator().manual_seed(t)
+    b, h = 2, 768
+    resid = _rand(g, dev, b, t, h).to(dtype)
+    ws = tuple(_rand(g, dev, *s, scale=h ** -0.5) for s in [(h, h), (h,)] * 4)
+    ln = (1 + _rand(g, dev, h, scale=0.1), _rand(g, dev, h, scale=0.1), 1e-12)
+    keep = _mask(g, dev, b, t, True)
+    for mode, position in (("mul", "prologue"), ("add", "epilogue")):
+        mask = keep if mode == "mul" else \
+            (1 - keep) * torch.finfo(torch.float32).min
+        for quant in ("none", "int8"):
+            int8 = quant == "int8" and gates.attention_block_fits(
+                t, h, dtype, quant)
+            before = (ab.COUNTER.count, ab.COUNTER_INT8.count)
+            got = ab.attention_block(resid, mask, ws, 12, mode, ln=ln,
+                                     ln_position=position, quant=quant)
+            assert (ab.COUNTER.count - before[0],
+                    ab.COUNTER_INT8.count - before[1]) == \
+                ((0, 1) if int8 else (1, 0))
+            plain = ab.attention_block_int8_plain if int8 \
+                else ab.attention_block_plain
+            want = plain(resid, mask, *ws, ln[0], ln[1], n_heads=12,
+                         mode=mode, ln_position=position, ln_eps=1e-12)
+            (_close_int8 if int8 else _close)(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,t", [(4, 17), (4, 577), (12, 197), (96, 65),
+                                 (128, 197), (128, 577)])
+def test_attention_core_padded_and_wide_heads(dev, d, t, dtype):
+    """F7: head widths the core is not compiled for (4, 12, 96) run
+    zero-padded to the next compiled one (8, 16, 128) with the true
+    1/sqrt(d), and d = 128 has its own instance; on packed views (as the
+    blocks hand them: d = 4 bf16 is not 16-byte aligned) and on split
+    heads, against the plain version."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+    from autognothi_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(7 * d + t)
+    n, heads = 2, 3
+    for mode in ("mul", "add"):
+        mask = _mask(g, dev, n, t, True)
+        if mode == "add":
+            mask = (1 - mask) * torch.finfo(torch.float32).min
+        for packed in (True, False):
+            q, k, v = _attention_views(g, dev, n, heads, t, d, dtype, packed)
+            out = torch.full((n, t, heads, d), float("nan"), device=dev,
+                             dtype=dtype).transpose(1, 2)
+            kp.attention_heads(q, k, v, mask, mode, out)
+            _close(out, fa.masked_attention_plain(q, k, v, mask, mode=mode),
+                   dtype)
+
+
+@pytest.mark.parametrize("kind", ["mul pre", "add post"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,heads,t", [(16, 4, 17), (96, 24, 197),
+                                       (256, 2, 197), (192, 12, 577)])
+def test_ladder_padded_and_wide_heads(dev, s, heads, t, dtype, kind):
+    """F7's rest and F8 on K5: the mini configurations' side (16 in 4
+    heads of d = 4, T = 17), d = 4 at a side of 96, d = 128 (256 in 2
+    heads), and d = 16 at T = 577 take the per-branch route on the card,
+    against `ladder_block_plain` over 2 branches; one attention launch per
+    branch."""
+    from autognothi_tpu_torch.ops import ladder_block as lb
+
+    g = torch.Generator().manual_seed(300 + s + heads + t)
+    mode, pre_norm = ("mul", True) if kind == "mul pre" else ("add", False)
+    assert lb.ladder_route(s, 4 * s, heads, t) == "per_branch"
+    hid, sides, branches = _ladder_case(g, dev, dtype, 2, t, s=s)
+    mask = _mask(g, dev, 2, t, True)
+    if mode == "add":
+        mask = (1 - mask.to(dtype)) * torch.finfo(dtype).min
+    before = lb.COUNTER_PER_BRANCH.count
+    got = lb.ladder_block(hid, sides, mask, branches, heads, mode, pre_norm,
+                          1e-12)
+    assert lb.COUNTER_PER_BRANCH.count == before + 1
+    tensors, static = lb.ladder_block_args(hid, sides, mask, branches, heads,
+                                           mode, pre_norm, 1e-12)
+    for y, want in zip(got, lb.ladder_block_plain(*tensors, **static)):
+        _close(y, want, dtype)
+    names = _launched_per_call(lambda: lb.ladder_block(
+        hid, sides, mask, branches, heads, mode, pre_norm, 1e-12))
+    assert sum("attention_tc_kernel" in n for n in names) == 2, names

@@ -118,6 +118,13 @@ def test_import_graph_is_free_of_jax_and_the_jax_package():
         for p in (REPO / "autognothi_tpu_torch").rglob("*.py")
         if p.name != "__main__.py")
     assert "autognothi_tpu_torch.pipeline.train_all" in mods
+    for new in ("pipeline.measure_all", "pipeline.measure_faithfulness",
+                "pipeline.measure_cls_acc", "pipeline.measure_accuracy",
+                "pipeline.measure_branches_cka", "pipeline.measure_performance",
+                "pipeline.measure_train_resources", "pipeline.reports",
+                "ops.cka", "utils.flops", "utils.units", "utils.functional",
+                "parallel.mesh"):
+        assert f"autognothi_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -132,7 +139,8 @@ def test_import_graph_is_free_of_jax_and_the_jax_package():
 
 def test_every_jax_verb_is_ported_or_refused():
     from autognothi_tpu.cli import build_parser as jax_parser
-    from autognothi_tpu_torch.cli import NOT_PORTED, TRAINING, build_parser
+    from autognothi_tpu_torch.cli import (NOT_PORTED, REPORTS, TRAINING,
+                                          build_parser)
 
     def verbs(parser):
         sub = next(a for a in parser._actions
@@ -141,7 +149,7 @@ def test_every_jax_verb_is_ported_or_refused():
 
     jax_verbs, port_verbs = verbs(jax_parser()), verbs(build_parser())
     assert jax_verbs == port_verbs
-    ported = {"serve", *TRAINING}
+    ported = {"serve", *TRAINING, *REPORTS, "measure_all", "run_all"}
     assert ported | set(NOT_PORTED) == jax_verbs
     assert not ported & set(NOT_PORTED)
     assert {"__show_fridge__", "__preview_text_shapley__"} <= set(NOT_PORTED)
@@ -213,7 +221,7 @@ def test_unported_verbs_and_kinds_raise(tmp_path):
     from autognothi_tpu_torch.pipeline.config import parse_config
 
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(["measure_faithfulness", str(tmp_path)])
+        main(["export_final", str(tmp_path)])
     hp = _ltt_vit_hparams()
     hp["net"]["kind"] = "vanilla_vit"
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -242,7 +250,8 @@ def test_port_reads_no_environment_switch():
     # (optimizer-state checkpoints), AUTOGNOTHI_DEFER_LOSS_FETCH (when the
     # losses are fetched), AUTOGNOTHI_PAD_RAGGED (padding of the last batch),
     # AUTOGNOTHI_DEBUG_NANS (autograd anomaly detection), AUTOGNOTHI_ZOO
-    # (where local base models are stored), and AUTOGNOTHI_PP /
+    # (where local base models are stored), AUTOGNOTHI_PROFILE_DIR (where
+    # the performance report writes its profiler trace), and AUTOGNOTHI_PP /
     # AUTOGNOTHI_PP_TP, which only refuse (not ported)
     import re
 
@@ -256,6 +265,8 @@ def test_port_reads_no_environment_switch():
              "AUTOGNOTHI_PALLAS"],
         "autognothi_tpu_torch/parallel/train_step.py":
             ["AUTOGNOTHI_INT8_TEACHER"],
+        "autognothi_tpu_torch/pipeline/measure_performance.py":
+            ["AUTOGNOTHI_PROFILE_DIR"],
         "autognothi_tpu_torch/pipeline/resources.py":
             ["AUTOGNOTHI_CKPT_OPT"],
         "autognothi_tpu_torch/pipeline/training.py":
@@ -267,4 +278,4 @@ def test_port_reads_no_environment_switch():
     assert '("AUTOGNOTHI_PP", "AUTOGNOTHI_PP_TP")' in src
     total = sum(p.read_text().count("os.environ")
                 for p in (REPO / "autognothi_tpu_torch").rglob("*.py"))
-    assert total == 11
+    assert total == 12

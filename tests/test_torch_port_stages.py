@@ -602,13 +602,19 @@ def test_training_verbs_refuse_what_is_not_ported(tmp_path):
     (192, 12, 768, 197, "per_branch"), (256, 16, 1024, 197, "per_branch"),
     (384, 12, 1536, 197, "per_branch"), (192, 3, 768, 512, "per_branch"),
     (136, 17, 544, 65, "per_branch"), (128, 2, 512, 9, "per_branch"),
-    (96, 24, 384, 197, None), (256, 2, 1024, 197, None),
-    (192, 12, 768, 513, None), (36, 4, 144, 9, None), (96, 12, 100, 9, None),
-    (96, 5, 384, 9, None)])
+    # d = 4 (zero-padded to 8), d = 128, T past 512 (F7, F8)
+    (96, 24, 384, 197, "per_branch"), (256, 2, 1024, 197, "per_branch"),
+    (192, 12, 768, 513, "per_branch"), (16, 4, 32, 17, "per_branch"),
+    (96, 8, 384, 577, "per_branch"), (160, 2, 640, 1025, "per_branch"),
+    (96, 12, 384, 577, "stages"),
+    (512, 2, 2048, 197, None), (264, 2, 1056, 9, None),
+    (36, 4, 144, 9, None), (96, 12, 100, 9, None), (96, 5, 384, 9, None)])
 def test_ladder_route_by_shape(s, heads, inter, t, route):
     """The route K5 takes on the card, by shape alone: the stage kernels at
-    d = 8 up to a side of 128, the per-branch route at d = 16-64 (and d = 8
-    past 128) with T <= 512; every other shape raises, naming it."""
+    d = 8 up to a side of 128, the per-branch route at every other head of
+    d <= 128 (a d the attention core is not compiled for, such as 4 or 12,
+    zero-padded to the next of 8, 16, 32, 64, 128) at any T; a head wider
+    than 128, or a width that is no multiple of 8, raises, naming it."""
     from autognothi_tpu_torch.ops.ladder_block import ladder_route
 
     if route is None:
