@@ -1,8 +1,8 @@
 """Command shell of the port: the same verbs and flags as
 `autognothi_tpu/cli.py`.  `serve`, the seven `train_all` verbs,
-`train_all` itself, the six reports of the LTT ViT recipe, `measure_all`
-and `run_all` (`train_all`, then `measure_all`) run; the other verbs are
-not ported yet and raise.
+`train_all` itself, the six reports of the LTT recipes, `measure_all` and
+`run_all` (`train_all`, then `measure_all`) run; the other verbs are not
+ported yet and raise.
 
     python -m autognothi_tpu_torch serve <experiment_dir> --device cuda \\
         --port 8321 --batch-size 8 --window 0.0
@@ -13,11 +13,11 @@ not ported yet and raise.
     python -m autognothi_tpu_torch measure_faithfulness <experiment_dir> \\
         --device cuda
 
-The training and report verbs take the LTT ViT (`net.kind` "ltt_vit")
-only; another net kind raises at them.  A report verb reads its cached
-`<exp>/.reports/<name>.json` where there is one (`--resolution` on
-`measure_faithfulness` recomputes and writes nothing, as in the JAX
-package).  Every verb runs on `--device`, "cuda" by default, which raises
+The training and report verbs take the LTT ViT and the LTT BERT
+(`net.kind` "ltt_vit", "ltt_bert"); another net kind raises at them.  A
+report verb reads its cached `<exp>/.reports/<name>.json` where there is
+one (`--resolution` on `measure_faithfulness` recomputes and writes
+nothing, as in the JAX package).  Every verb runs on `--device`, "cuda" by default, which raises
 on a host without a card.  A trainer stopped by SIGTERM at a batch
 boundary exits with 75.
 """
@@ -47,8 +47,8 @@ TRAINING = {
     "conv_explainer_final": ("train_all", None),
     "train_all": ("train_all", None),
 }
-# the net kinds the training verbs take (LTT BERT training is not ported)
-TRAINING_NET_KINDS = ("ltt_vit",)
+# the net kinds the training verbs take
+TRAINING_NET_KINDS = ("ltt_vit", "ltt_bert")
 # the report verbs -> (module, report class, cached file); `measure_all`
 # and `run_all` run them all
 REPORTS = {
@@ -69,9 +69,8 @@ REPORTS = {
 MEASURE_ALL_FLAGS = ("accuracy", "faithfulness", "cls_acc", "performance",
                      "train_resources", "branches_cka",
                      "dual_task_similarity")
-# the net kinds the report verbs take (the LTT BERT recipe has no
-# surrogate forward yet)
-REPORT_NET_KINDS = ("ltt_vit",)
+# the net kinds the report verbs take
+REPORT_NET_KINDS = ("ltt_vit", "ltt_bert")
 
 
 def _device(p: argparse.ArgumentParser) -> None:

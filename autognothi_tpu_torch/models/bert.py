@@ -1,6 +1,7 @@
 """BERT building blocks (port of the parts of `autognothi_tpu/models/bert.py`
-that the LTT BERT runs: the config, the embeddings and the post-norm
-layer).
+that the LTT BERT runs: the config, the embeddings, the post-norm layer,
+and the backbone and classifier sections with their inits, `bert.*`,
+`bert_pooler.dense.*` and `classifier.*`, `:64-118`).
 
 Modules hold parameters under exactly the JAX flat names (e.g.
 `attention.self.query.weight`, `attention.output.LayerNorm.bias`), so a
@@ -19,7 +20,9 @@ op in mode "1".
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
+
+import numpy as np
 
 import torch
 from torch import nn
@@ -168,3 +171,52 @@ class BertLayer(nn.Module):
                                  self.output.dense.bias),
                       cfg.hidden_dropout_prob, deterministic)
         return layer_norm(out + attn_out, ln2.weight, ln2.bias, eps)
+
+
+# ------------------------------------------------------------ sections
+
+
+def bert_backbone(cfg: VanillaBertConfig) -> nn.Module:
+    """The `bert.` section: `embeddings.*` and `encoder.layers.{i}.*`
+    (`init_bert_backbone`, `:82-99`); a model adds its own parts under
+    `encoder` beside the layers."""
+    bert = nn.Module()
+    bert.embeddings = BertEmbeddings(cfg)
+    bert.encoder = nn.Module()
+    bert.encoder.layers = nn.ModuleList(
+        BertLayer(cfg.hidden_size, cfg.intermediate_size)
+        for _ in range(cfg.num_hidden_layers))
+    return bert
+
+
+def fill_bert_backbone(bert: nn.Module, generator: torch.Generator) -> None:
+    """The JAX init's laws: N(0, 1) tables with a zero padding row, ones /
+    zeros LayerNorms, every linear U(+-1/sqrt(fan_in))."""
+    bert.embeddings.reset_parameters(generator)
+    for layer in bert.encoder.layers:
+        layer.reset_parameters(generator)
+
+
+class BertClassifier(nn.Module):
+    """The vanilla BERT classifier's parameters under the JAX names
+    (`init_bert_classifier`, `:102-111`): `bert.*`, `bert_pooler.dense.*`,
+    `classifier.*`."""
+
+    def __init__(self, cfg: VanillaBertConfig):
+        super().__init__()
+        self.bert = bert_backbone(cfg)
+        self.bert_pooler = nn.Module()
+        self.bert_pooler.dense = linear(cfg.hidden_size, cfg.hidden_size)
+        self.classifier = linear(cfg.num_labels, cfg.hidden_size)
+
+
+def init_bert_classifier(cfg: VanillaBertConfig, generator: torch.Generator
+                         ) -> Dict[str, np.ndarray]:
+    """A fresh vanilla BERT classifier as a flat dict of fp32 numpy arrays,
+    drawn from `generator` with the JAX package's laws (its keys and
+    shapes; not its numbers)."""
+    model = BertClassifier(cfg)
+    fill_bert_backbone(model.bert, generator)
+    fill_linear(model.bert_pooler.dense, generator)
+    fill_linear(model.classifier, generator)
+    return {k: v.detach().numpy() for k, v in model.state_dict().items()}

@@ -14,13 +14,20 @@ ladder op fits the JAX budget (`gates.ladder_block_fits`, on
 `max_position_embeddings`), the ladder op for every branch ("add" mask,
 post-norm: K5); otherwise both branch maps as one dense and each branch's
 side layer (`BertLayer`, whose own ops are fused and int8 as the mode
-says).  The trunk layer is `BertLayer` either way.
+says).  The trunk layer is `BertLayer` either way.  With dropout active
+(a training forward with a non-zero rate) every layer takes the unfused
+math, which draws its dropout masks from the caller's generator.
+
+The sections' forwards (`ltt_bert_{surrogate,explainer,final}_fwd`), the
+embed-once coalition forward of the surrogate and the freeze rules
+(`ltt_bert_trainable`, `ltt_bert_progressive`) follow the JAX functions
+of the same names.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -29,7 +36,8 @@ from ..ops import gates
 from ..ops.head_block import explainer_head_block
 from ..ops.ladder_block import ladder_block
 from ..ops.shapley import normalize_shapley_explanation
-from .bert import BertEmbeddings, BertLayer, VanillaBertConfig, bert_embeddings
+from .bert import (BertLayer, VanillaBertConfig, bert_backbone,
+                   bert_embeddings, fill_bert_backbone)
 from .common import (additive_mask_bias, dense, dense_serving, dropout,
                      fused_dims_ok, gelu, pallas_mode, quant_mode)
 from .vit import fill_linear, linear
@@ -37,8 +45,11 @@ from .vit import fill_linear, linear
 BRANCHES = (0, 1)
 # what each checkpoint section holds (`init_ltt_bert_{surrogate,explainer,
 # final}`): its ladder branches, the surrogate's side pooler + classifier,
-# the explainer side layers + head
+# the explainer side layers + head (the classifier has the surrogate's
+# layout, as `init_classifier` is `init_ltt_bert_surrogate` in the JAX
+# recipe)
 SECTIONS = {
+    "classifier": dict(branches=(0,), srg_head=True, explainer=False),
     "surrogate": dict(branches=(0,), srg_head=True, explainer=False),
     "explainer": dict(branches=(0,), srg_head=False, explainer=True),
     "final": dict(branches=BRANCHES, srg_head=True, explainer=True),
@@ -92,9 +103,9 @@ class LttBertConfig:
 
 
 class LttBert(nn.Module):
-    """Parameters of one checkpoint section, "surrogate", "explainer" or
-    "final", under the JAX package's names.  Created empty: fill with
-    `reset_parameters` or a state dict."""
+    """Parameters of one checkpoint section, "classifier", "surrogate",
+    "explainer" or "final", under the JAX package's names.  Created empty:
+    fill with `reset_parameters` or a state dict."""
 
     def __init__(self, cfg: LttBertConfig, section: str = "final"):
         super().__init__()
@@ -105,11 +116,7 @@ class LttBert(nn.Module):
         self.branches = parts["branches"]
         h, s = cfg.hidden_size, cfg.s_attn_hidden_size
         n_layers = cfg.num_hidden_layers
-        self.bert = nn.Module()
-        self.bert.embeddings = BertEmbeddings(cfg.into())
-        self.bert.encoder = nn.Module()
-        self.bert.encoder.layers = nn.ModuleList(
-            BertLayer(h, cfg.intermediate_size) for _ in range(n_layers))
+        self.bert = bert_backbone(cfg.into())
         self.bert.encoder.s_attn_maps = nn.ModuleDict(
             {f"{b}_{i}": linear(s, h) for b in self.branches
              for i in range(n_layers)})
@@ -140,9 +147,7 @@ class LttBert(nn.Module):
         """Fresh values on the CPU from `generator`, with the JAX package's
         distributions (`init_ltt_bert_*`: its keys and shapes, not its
         numbers); surrogate_null is zero."""
-        self.bert.embeddings.reset_parameters(generator)
-        for layer in self.bert.encoder.layers:
-            layer.reset_parameters(generator)
+        fill_bert_backbone(self.bert, generator)
         for i in range(self.cfg.num_hidden_layers):
             for b in self.branches:
                 fill_linear(self.bert.encoder.s_attn_maps[f"{b}_{i}"],
@@ -164,9 +169,11 @@ class LttBert(nn.Module):
                 self.surrogate_null.zero_()
 
 
-def init_ltt_bert_final(cfg: LttBertConfig,
-                        generator: torch.Generator) -> LttBert:
-    model = LttBert(cfg, "final")
+def init_ltt_bert(cfg: LttBertConfig, section: str,
+                  generator: torch.Generator) -> LttBert:
+    """A fresh section on the CPU, drawn from `generator` with the JAX
+    package's distributions (`init_ltt_bert_*`, `:113-167`)."""
+    model = LttBert(cfg, section)
     model.reset_parameters(generator)
     return model
 
@@ -315,6 +322,40 @@ def ltt_bert_explainer_head(model: LttBert, cfg: LttBertConfig,
     return out[:, 1:, :].transpose(1, 2)
 
 
+def ltt_bert_surrogate_fwd(model: LttBert, cfg: LttBertConfig,
+                           input_ids: torch.Tensor,
+                           attention_mask: torch.Tensor,
+                           token_type_ids: torch.Tensor, **kw
+                           ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """-> (side branch-0 probabilities, trunk probabilities, the
+    representations {"repr_cls": trunk h, "repr_srg": branch 0's side})
+    (`:349-366`).  kw: ltt_active_layers, deterministic, rng."""
+    deterministic, rng = kw.get("deterministic", True), kw.get("rng")
+    h, (side,) = ltt_bert_backbone(model, cfg, input_ids, attention_mask,
+                                   token_type_ids, (0,), **kw)
+    logits = _main_head(model, h, cfg, deterministic, rng)
+    srg = _side_cls_head(model, side, cfg, deterministic, rng)
+    return srg, logits, {"repr_cls": h, "repr_srg": side}
+
+
+def ltt_bert_explainer_fwd(model: LttBert, cfg: LttBertConfig,
+                           input_ids: torch.Tensor,
+                           attention_mask: torch.Tensor,
+                           token_type_ids: torch.Tensor,
+                           grand: torch.Tensor, null: torch.Tensor, **kw
+                           ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """-> (attributions <B, C, T - 1>, trunk probabilities, the
+    representations {"repr_cls": trunk h, "repr_exp": branch 0's side})
+    (`:421-443`)."""
+    deterministic, rng = kw.get("deterministic", True), kw.get("rng")
+    h, (side,) = ltt_bert_backbone(model, cfg, input_ids, attention_mask,
+                                   token_type_ids, (0,), **kw)
+    logits = _main_head(model, h, cfg, deterministic, rng)
+    attr = ltt_bert_explainer_head(model, cfg, side, attention_mask, grand,
+                                   null, deterministic=deterministic, rng=rng)
+    return attr, logits, {"repr_cls": h, "repr_exp": side}
+
+
 def ltt_bert_final_fwd(model: LttBert, cfg: LttBertConfig,
                        input_ids: torch.Tensor, attention_mask: torch.Tensor,
                        token_type_ids: torch.Tensor
@@ -333,3 +374,57 @@ def ltt_bert_final_fwd(model: LttBert, cfg: LttBertConfig,
     attr = ltt_bert_explainer_head(model, cfg, exp_side, attention_mask,
                                    grand, model.surrogate_null)
     return logits, attr
+
+
+def ltt_bert_surrogate_coalitions_fwd(model: LttBert, cfg: LttBertConfig,
+                                      input_ids: torch.Tensor,  # <B, T>
+                                      masks: torch.Tensor,  # <B, M, T>
+                                      token_type_ids: torch.Tensor, *,
+                                      deterministic: bool = True
+                                      ) -> torch.Tensor:
+    """The surrogate (branch 0) over B*M coalitions, the embeddings
+    computed once per sentence and broadcast over M; masks carry the CLS
+    column -> <B, M, n_classes> side probabilities (`:482-512`).  A no-grad
+    teacher sweep: eval mode only, as in the JAX package."""
+    if not deterministic:
+        raise NotImplementedError(
+            "the coalition fast path is a no-grad teacher sweep and runs "
+            "eval-mode only")
+    b, m, t = masks.shape
+    emb = bert_embeddings(model.bert.embeddings, cfg.into(), input_ids,
+                          token_type_ids)
+    emb = emb[:, None].expand(b, m, t, emb.shape[-1]).reshape(
+        b * m, t, emb.shape[-1])
+    bias = additive_mask_bias(masks.reshape(b * m, t), emb.dtype)
+    _, (side,) = ltt_bert_encoder(model, cfg, emb, bias, (0,))
+    return _side_cls_head(model, side, cfg).reshape(b, m, -1)
+
+
+# --------------------------------------------------------- freeze rules
+
+
+def ltt_bert_trainable(cfg: LttBertConfig,
+                       section: str) -> Callable[[str], bool]:
+    """The frozen trunk: embeddings, trunk layers, its pooler and
+    classifier receive no updates (`:515-525`)."""
+    frozen_prefixes = ("bert.embeddings.", "bert.encoder.layers.",
+                       "bert_pooler.", "classifier.")
+
+    def trainable(name: str) -> bool:
+        return not name.startswith(frozen_prefixes)
+
+    return trainable
+
+
+def ltt_bert_progressive(cfg: LttBertConfig, section: str,
+                         unfrozen: int) -> Callable[[str], bool]:
+    """Progressive training: ladder maps and side layers train only below
+    layer `unfrozen` (`:528-541`)."""
+    def keep(name: str) -> bool:
+        for marker in ("s_attn_maps.", "s_attn_layers."):
+            if marker in name:
+                tail = name.split(marker, 1)[1]
+                return int(tail.split(".")[0].split("_")[1]) < unfrozen
+        return True
+
+    return keep

@@ -26,8 +26,11 @@ class Config_Net:
 
 @dataclasses.dataclass(frozen=True)
 class Config_Dataset:
-    """`kind` and its fields; only `cv_samples` is loaded by the port
-    (train_size, test_size, img_px_size, num_classes, seed = 1234)."""
+    """`kind` and its fields, as `autognothi_tpu/pipeline/config.py:37-77`:
+    `cv_samples` (train_size, test_size, img_px_size, num_classes, seed =
+    1234), `nlp_samples` and `yelp_polarity_mini` (none), `yelp_polarity`
+    (train_size, test_size, test_seed).  `imagenette` is not loaded by the
+    port."""
     kind: str
     fields: Dict[str, Any]
 

@@ -26,7 +26,8 @@ from ..parallel.mesh import setup_data_parallel, sharded_eval_fn
 from ..utils.devices import resolve_device
 from ..utils.seeding import iterative_generator
 from .env import ExpEnv
-from .resources import get_recipe, load_cfg_dataset, load_epoch_model
+from .resources import (get_recipe, load_cfg_dataset, load_epoch_model,
+                        load_misc)
 
 
 @dataclasses.dataclass
@@ -54,8 +55,7 @@ def measure_accuracy(env: ExpEnv, d_loader: Optional[DatasetLoader] = None,
         d_loader = load_cfg_dataset(config.eval_accuracy.dataset
                                     or config.dataset)
 
-    m_misc = (recipe.load_misc(env.model_path, m_config)
-              if recipe.load_misc else None)
+    m_misc = load_misc(env, recipe, m_config)
     n_players = recipe.n_players(m_config)
     gen_input = recipe.gen_input(m_config, m_misc)
     _, srg_model = load_epoch_model(env, recipe, "surrogate", dev)

@@ -27,7 +27,7 @@ from ..params import from_jax_params
 from ..utils.devices import resolve_device
 from .env import ExpEnv
 from .resources import (get_epoch_ckpts, get_recipe, load_cfg_dataset,
-                        load_epoch_ckpt, load_epoch_model)
+                        load_epoch_ckpt, load_epoch_model, load_misc)
 
 
 @dataclasses.dataclass
@@ -87,8 +87,7 @@ def measure_branches_cka(env: ExpEnv,
             eval_cfg.dataset if eval_cfg is not None
             and eval_cfg.dataset is not None else config.dataset)
 
-    m_misc = (recipe.load_misc(env.model_path, m_config)
-              if recipe.load_misc else None)
+    m_misc = load_misc(env, recipe, m_config)
     n_players = recipe.n_players(m_config)
     gen_input = recipe.gen_input(m_config, m_misc)
     batch_size = (eval_cfg.batch_size if eval_cfg is not None

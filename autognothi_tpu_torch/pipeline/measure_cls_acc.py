@@ -24,7 +24,7 @@ from ..utils.seeding import iterative_generator
 from ..utils.strings import ranged_modulo_test
 from .env import ExpEnv
 from .resources import (get_epoch_ckpts, get_recipe, load_cfg_dataset,
-                        load_epoch_ckpt, load_epoch_params)
+                        load_epoch_ckpt, load_epoch_params, load_misc)
 
 
 @dataclasses.dataclass
@@ -52,8 +52,7 @@ def measure_cls_acc(env: ExpEnv, d_loader: Optional[DatasetLoader] = None,
         d_loader = load_cfg_dataset(config.eval_cls_acc.dataset
                                     or config.dataset)
 
-    m_misc = (recipe.load_misc(env.model_path, m_config)
-              if recipe.load_misc else None)
+    m_misc = load_misc(env, recipe, m_config)
     gen_input = recipe.gen_input(m_config, m_misc)
     _, cls_params = load_epoch_params(env, "classifier")
     _, srg_params = load_epoch_params(env, "surrogate")

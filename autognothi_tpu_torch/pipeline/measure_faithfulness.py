@@ -30,7 +30,8 @@ from ..parallel.mesh import setup_data_parallel, sharded_call
 from ..recipes.types import surrogate_coalition_values
 from ..utils.devices import resolve_device
 from .env import ExpEnv
-from .resources import get_recipe, load_cfg_dataset, load_epoch_model
+from .resources import (get_recipe, load_cfg_dataset, load_epoch_model,
+                        load_misc)
 
 CurvePoint = Dict[int, Dict[int, float]]  # cls -> stop -> metric
 
@@ -103,8 +104,7 @@ def measure_faithfulness(env: ExpEnv,
     _, srg_model = load_epoch_model(env, recipe, "surrogate", dev)
     _, final_model = load_epoch_model(env, recipe, "final", dev)
 
-    m_misc = (recipe.load_misc(env.model_path, m_config)
-              if recipe.load_misc else None)
+    m_misc = load_misc(env, recipe, m_config)
     n_players = recipe.n_players(m_config)
     gen_input = recipe.gen_input(m_config, m_misc)
 

@@ -33,7 +33,8 @@ from ..utils.devices import resolve_device
 from ..utils.flops import fn_flops
 from ..utils.units import GFLOPS, MParams, Seconds
 from .env import ExpEnv
-from .resources import get_recipe, load_cfg_dataset, load_epoch_model
+from .resources import (get_recipe, load_cfg_dataset, load_epoch_model,
+                        load_misc)
 
 MEM_NONE_CPU = "not_measured: the cpu has no device allocator"
 
@@ -169,8 +170,7 @@ def measure_performance(env: ExpEnv,
         env.log("loading dataset...")
         d_loader = load_cfg_dataset(config.eval_performance.dataset
                                     or config.dataset)
-    m_misc = (recipe.load_misc(env.model_path, m_config)
-              if recipe.load_misc else None)
+    m_misc = load_misc(env, recipe, m_config)
     n_players = recipe.n_players(m_config)
     gen_input = recipe.gen_input(m_config, m_misc)
     loops = config.eval_performance.loops

@@ -44,7 +44,7 @@ from ..utils.seeding import iterative_generator
 from ..utils.units import MiBytes, Seconds
 from .env import ExpEnv
 from .measure_performance import AllocatorPeak, device_fence
-from .resources import get_recipe, load_cfg_dataset
+from .resources import get_recipe, load_cfg_dataset, load_misc
 from .training import AdamW, make_train_step, ones_mask
 
 
@@ -102,8 +102,7 @@ def measure_train_resources(env: ExpEnv,
         raise ValueError("the experiment config has no eval_train_resources")
     dev = resolve_device(device)
 
-    m_misc = (recipe.load_misc(env.model_path, m_config)
-              if recipe.load_misc else None)
+    m_misc = load_misc(env, recipe, m_config)
     n_players = recipe.n_players(m_config)
     n_mask_samples = config.train_explainer.n_mask_samples
     gen_input = recipe.gen_input(m_config, m_misc)

@@ -21,7 +21,8 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from ..data.loader import DatasetLoader, load_cv_samples
+from ..data.loader import (DatasetLoader, load_cv_samples, load_nlp_samples,
+                           load_yelp_polarity, load_yelp_polarity_mini)
 from ..params import from_jax_params, load_params_file, save_params
 from ..recipes.types import ModelRecipe
 from ..utils.strings import ranged_modulo_test
@@ -49,20 +50,40 @@ def get_recipe(config: ExpConfig) -> Tuple[ModelRecipe, Any]:
     return recipe, recipe.t_config(**config.net.params)
 
 
+DATASET_KINDS = ("cv_samples", "nlp_samples", "yelp_polarity_mini",
+                 "yelp_polarity")
+
+
+def load_misc(env, recipe: ModelRecipe, m_config: Any) -> Any:
+    """The recipe's `misc` for the experiment (the BERT recipes' tokenizer,
+    `<exp>/tokenizer/`); None for a recipe without one."""
+    if recipe.load_misc is None:
+        return None
+    return recipe.load_misc(env.model_path, m_config)
+
+
 def load_cfg_dataset(cfg: Optional[Config_Dataset]) -> DatasetLoader:
-    """The experiment's dataset; only the offline `cv_samples` set is
-    ported."""
+    """The experiment's dataset (`:112-130`); `imagenette` is not ported."""
     if cfg is None:
         raise ValueError("the experiment config has no dataset block")
-    if cfg.kind != "cv_samples":
-        raise NotImplementedError(
-            f"dataset kind {cfg.kind!r} is not ported yet (ported: "
-            f"cv_samples)")
     f = cfg.fields
-    return load_cv_samples(
-        train_size=int(f["train_size"]), test_size=int(f["test_size"]),
-        img_px_size=int(f["img_px_size"]),
-        num_classes=int(f["num_classes"]), seed=int(f.get("seed", 1234)))
+    if cfg.kind == "cv_samples":
+        return load_cv_samples(
+            train_size=int(f["train_size"]), test_size=int(f["test_size"]),
+            img_px_size=int(f["img_px_size"]),
+            num_classes=int(f["num_classes"]),
+            seed=int(f.get("seed", 1234)))
+    if cfg.kind == "nlp_samples":
+        return load_nlp_samples()
+    if cfg.kind == "yelp_polarity_mini":
+        return load_yelp_polarity_mini()
+    if cfg.kind == "yelp_polarity":
+        return load_yelp_polarity(train_size=int(f["train_size"]),
+                                  test_size=int(f["test_size"]),
+                                  test_seed=int(f["test_seed"]))
+    raise NotImplementedError(
+        f"dataset kind {cfg.kind!r} is not ported yet (ported: "
+        f"{', '.join(DATASET_KINDS)})")
 
 
 # --------------------------------------------------------- checkpoint I/O

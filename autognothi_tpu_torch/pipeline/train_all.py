@@ -26,7 +26,7 @@ from ..utils.seeding import iterative_generator
 from .config import Config_Train
 from .env import ExpEnv
 from .resources import (get_recipe, latest_epoch, load_epoch_params,
-                        save_epoch_ckpt)
+                        load_misc, save_epoch_ckpt)
 from .train_classifier import train_classifier
 from .train_explainer import train_explainer
 from .train_surrogate import train_surrogate
@@ -120,7 +120,8 @@ def conv_classifier_surrogate(env: ExpEnv, device: str = "cuda") -> None:
     epoch_cls, cls_params = _load_trained(env, "classifier")
     env.log(f"[[[ converting classifier {epoch_cls} -> surrogate 0... ]]]")
     gen = iterative_generator(config.seed, "conv_classifier_surrogate")
-    params = recipe.conv_classifier_surrogate(m_config, None, cls_params, gen)
+    params = recipe.conv_classifier_surrogate(
+        m_config, load_misc(env, recipe, m_config), cls_params, gen)
     save_epoch_ckpt(env.model_path, "surrogate", config.train_surrogate, 0,
                     params)
     env.log(f"[[[ convert classifier {epoch_cls} -> surrogate 0 ok ]]]")
@@ -134,7 +135,8 @@ def conv_surrogate_explainer(env: ExpEnv, device: str = "cuda") -> None:
     epoch_srg, srg_params = _load_trained(env, "surrogate")
     env.log(f"[[[ converting surrogate {epoch_srg} -> explainer 0... ]]]")
     gen = iterative_generator(config.seed, "conv_surrogate_explainer")
-    params = recipe.conv_surrogate_explainer(m_config, None, srg_params, gen)
+    params = recipe.conv_surrogate_explainer(
+        m_config, load_misc(env, recipe, m_config), srg_params, gen)
     save_epoch_ckpt(env.model_path, "explainer", config.train_explainer, 0,
                     params)
     env.log(f"[[[ convert surrogate {epoch_srg} -> explainer 0 ok ]]]")
@@ -151,7 +153,8 @@ def conv_explainer_final(env: ExpEnv, device: str = "cuda") -> None:
     env.log("[[[ converting models -> final 0... ]]]")
     gen = iterative_generator(config.seed, "conv_explainer_final")
     final_params = recipe.conv_explainer_final(
-        m_config, None, cls_params, srg_params, exp_params, gen, dev)
+        m_config, load_misc(env, recipe, m_config), cls_params, srg_params,
+        exp_params, gen, dev)
     if not verify_final_coherency(env, final_params, cls_params, srg_params,
                                   exp_params, dev):
         raise ValueError("cannot save final model due to non-coherency")
@@ -176,7 +179,8 @@ def verify_final_coherency(env: ExpEnv, final_params, cls_params, srg_params,
     def model(params, section):
         return from_jax_params(params, m_config, device, section=section)
 
-    nil_xs = torch.from_numpy(recipe.gen_null(m_config, None)).to(device)
+    nil_xs = torch.from_numpy(recipe.gen_null(
+        m_config, load_misc(env, recipe, m_config))).to(device)
     nil_mask = torch.ones((1, recipe.n_players(m_config)), dtype=torch.int32,
                           device=device)
     with torch.no_grad():

@@ -30,7 +30,7 @@ from ..utils.devices import resolve_device
 from ..utils.seeding import iterative_generator, set_iterative_seed
 from .env import ExpEnv
 from .resources import (get_recipe, load_cfg_dataset, load_epoch_model,
-                        maybe_restore_opt_state, save_epoch_ckpt)
+                        load_misc, maybe_restore_opt_state, save_epoch_ckpt)
 from .training import (AdamW, LossDrain, cast_input, cosine_lr, filter_mask,
                        graceful_training, maybe_enable_debug_nans, ones_mask,
                        pad_batch, refuse_pipeline_parallel)
@@ -56,7 +56,8 @@ def train_explainer(env: ExpEnv, device: str = "cuda") -> None:
     dev = resolve_device(device)
     d_loader = load_cfg_dataset(config.dataset)
     n_players = recipe.n_players(m_config)
-    gen_input = recipe.gen_input(m_config, None)
+    m_misc = load_misc(env, recipe, m_config)
+    gen_input = recipe.gen_input(m_config, m_misc)
 
     _, srg_model = load_epoch_model(env, recipe, "surrogate", dev)
     epoch_start, model = load_epoch_model(env, recipe, "explainer", dev)
@@ -78,7 +79,7 @@ def train_explainer(env: ExpEnv, device: str = "cuda") -> None:
 
     # surrogate_null: the surrogate on the all-on null input, once
     with torch.no_grad():
-        nil_xs = torch.from_numpy(recipe.gen_null(m_config, None)).to(dev)
+        nil_xs = torch.from_numpy(recipe.gen_null(m_config, m_misc)).to(dev)
         surrogate_null, _ = recipe.fw_surrogate(
             m_config, srg_model, nil_xs,
             torch.ones((1, n_players), dtype=torch.int32, device=dev))

@@ -34,7 +34,7 @@ from ..utils.devices import resolve_device
 from ..utils.seeding import iterative_generator, set_iterative_seed
 from .env import ExpEnv
 from .resources import (get_recipe, load_cfg_dataset, load_epoch_model,
-                        maybe_restore_opt_state, save_epoch_ckpt)
+                        load_misc, maybe_restore_opt_state, save_epoch_ckpt)
 from .training import (AdamW, LossDrain, cast_input, cosine_lr,
                        cross_entropy_on_probs, filter_mask, graceful_training,
                        make_train_step, maybe_enable_debug_nans, ones_mask,
@@ -88,7 +88,8 @@ def train_surrogate(env: ExpEnv, device: str = "cuda") -> None:
     dev = resolve_device(device)
     d_loader = load_cfg_dataset(config.dataset)
     n_players = recipe.n_players(m_config)
-    gen_input = recipe.gen_input(m_config, None)
+    m_misc = load_misc(env, recipe, m_config)
+    gen_input = recipe.gen_input(m_config, m_misc)
 
     _, cls_model = load_epoch_model(env, recipe, "classifier", dev)
     epoch_start, model = load_epoch_model(env, recipe, "surrogate", dev)

@@ -155,6 +155,30 @@ Phases, each printing its own lines:
      in 4) on the per-branch route against its plain version, and the
      core's d = 128 instance beside d = 64 (`[f7]`).
 
+  8. LTT BERT training and reports through `run_all`: a `random_init`
+     experiment with experiments/bert_base_tayp_ltt's `net.params` (full
+     depth and width, dropout 0) on the bundled `nlp_samples` (24
+     sentences) with a `build_vocab` vocabulary, the shipped training
+     blocks at one epoch each (classifier and surrogate batch 8, the
+     surrogate progressive; explainer batch 4 x M = 2; lr 5e-5) and the
+     shipped eval blocks cut as BERT_RUN_ALL_EVAL says (faithfulness at
+     16 stops: 64 coalitions a sentence; train resources 8 samples; a CKA
+     block at batch 8), through `python -m autognothi_tpu_torch run_all
+     <exp> --device cuda` (`cli_main`): each stage's kernel calls against
+     its steps' and forwards', the coherency line, `serve` of the final
+     answering a `texts` request of 3 rows against its plain forward, the
+     six reports with their seconds and kernel calls (K6, K7, K5 in each),
+     a second `measure_all` that launches nothing; the quality gate
+     (faithfulness with the kernels against the plain versions on the
+     card: fp32 within 1e-3; W8A8 within 5e-3, launching K6, K8q, K5, K1,
+     K4, K3; mode "1" within 1e-3, launching K9); cls_acc and accuracy
+     against the plain run; one classifier, surrogate and explainer step
+     with the fp32 and the int8 teacher against their plain versions
+     (`[bert stage-step]`) and their ms/step and spans (`[bert
+     stage-time]`); a surrogate step at dropout 0.1 (no kernel in its
+     differentiated forward, kernels in its teacher); the performance and
+     train-resources numbers.
+
 Any failure raises, exits non-zero and prints no result.  The last three
 lines are the card, the kernel table (JSON) and the status line (JSON).
 """
@@ -983,7 +1007,7 @@ def write_bert_experiment(tmp: pathlib.Path) -> pathlib.Path:
     from autognothi_tpu_torch.data.tokenizer import (WordPieceTokenizer,
                                                      build_vocab)
     from autognothi_tpu_torch.models.ltt_bert import (LttBertConfig,
-                                                      init_ltt_bert_final)
+                                                      init_ltt_bert)
     from autognothi_tpu_torch.params import save_params, to_flat
 
     hp = json.loads(BERT_EXP.read_text())
@@ -993,7 +1017,7 @@ def write_bert_experiment(tmp: pathlib.Path) -> pathlib.Path:
     WordPieceTokenizer(build_vocab(CORPUS)).save(exp / "tokenizer")
     cfg = LttBertConfig(**hp["net"]["params"])
     t0 = time.perf_counter()
-    model = init_ltt_bert_final(cfg, torch.Generator().manual_seed(SEED))
+    model = init_ltt_bert(cfg, "final", torch.Generator().manual_seed(SEED))
     with torch.no_grad():  # a non-trivial null makes normalisation visible
         model.surrogate_null.fill_(0.1)
     save_params(exp / "final-epoch-0.ckpt", to_flat(model))
@@ -1728,39 +1752,58 @@ def counted_stages(counts: dict):
 
 
 class StageCase:
-    """The classifier and surrogate steps of the train_all experiment on
-    one batch and one `mask_purely_uniform` coalition per image, each on
-    fresh copies of its stage's checkpoint."""
+    """The trained classifier and surrogate of a train_all experiment on
+    the card (and its explainer, where `explainer` gives the explainer
+    stage's batch and M), the first train batch of `batch` inputs, one
+    `mask_purely_uniform` coalition per input and M Shapley masks per
+    explainer input; each step on fresh copies of its stage's model."""
 
-    def __init__(self, dev, exp: pathlib.Path):
+    def __init__(self, dev, exp: pathlib.Path, batch: int = TRAIN_B,
+                 explainer: tuple = None):
         import torch
 
-        from autognothi_tpu_torch.ops.shapley import mask_purely_uniform
+        from autognothi_tpu_torch.ops.shapley import (mask_purely_uniform,
+                                                      mask_shapley)
         from autognothi_tpu_torch.pipeline.env import ExpEnv
         from autognothi_tpu_torch.pipeline.resources import (
-            get_recipe, load_cfg_dataset, load_epoch_model)
+            get_recipe, load_cfg_dataset, load_epoch_model, load_misc)
 
-        env = ExpEnv(exp)
-        self.recipe, self.cfg = get_recipe(env.config)
-        self.models = {s: load_epoch_model(env, self.recipe, s, dev)[1]
-                       for s in ("classifier", "surrogate")}
-        loader = load_cfg_dataset(env.config.dataset)
-        env.close()
-        raw_xs, raw_ys = next(iter(loader.train(TRAIN_B)))
-        xs, ys = self.recipe.gen_input(self.cfg, None)(raw_xs, raw_ys)
+        sections = ("classifier", "surrogate") + (
+            ("explainer",) if explainer else ())
+        with ExpEnv(exp) as env:
+            self.recipe, self.cfg = get_recipe(env.config)
+            self.models = {s: load_epoch_model(env, self.recipe, s, dev)[1]
+                           for s in sections}
+            loader = load_cfg_dataset(env.config.dataset)
+            misc = load_misc(env, self.recipe, self.cfg)
+        raw_xs, raw_ys = next(iter(loader.train(batch)))
+        xs, ys = self.recipe.gen_input(self.cfg, misc)(raw_xs, raw_ys)
         self.xs = torch.from_numpy(xs).to(dev)
         self.labels = torch.from_numpy(ys).to(dev)
-        n_players = self.recipe.n_players(self.cfg)
-        self.ones = torch.ones((TRAIN_B, n_players), dtype=torch.int32,
-                               device=dev)
-        self.mask = mask_purely_uniform(
-            torch.Generator(device=dev).manual_seed(SEED), TRAIN_B,
-            n_players)
-        self.w = torch.ones(TRAIN_B, device=dev)
+        self.batch = batch
+        self.n_players = p = self.recipe.n_players(self.cfg)
+        self.ones = torch.ones((batch, p), dtype=torch.int32, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        self.mask = mask_purely_uniform(gen, batch, p)
+        self.w = torch.ones(batch, device=dev)
+        if explainer:
+            self.exp_b, self.m = explainer
+            self.masks = mask_shapley(gen, self.exp_b * self.m, p).reshape(
+                self.exp_b, self.m, p)
+            with torch.no_grad(), train_env("2", "fp32"):
+                nil = torch.from_numpy(self.recipe.gen_null(self.cfg, misc))
+                self.null, _ = self.recipe.fw_surrogate(
+                    self.cfg, self.models["surrogate"].requires_grad_(False),
+                    nil.to(dev), torch.ones((1, p), dtype=torch.int32,
+                                            device=dev))
 
-    def fresh(self, stage: str):
+    def fresh(self, stage: str, cfg=None, generator=None):
         """-> a run() that takes one train step of `stage` on its own copy
-        of the model (the surrogate's teacher included), -> the loss."""
+        of the model (the surrogate's teacher included), -> the loss.
+        `cfg` replaces the model config (a dropout step), `generator`
+        draws its dropout masks."""
+        from autognothi_tpu_torch.parallel.train_step import \
+            make_explainer_train_step
         from autognothi_tpu_torch.pipeline.train_classifier import \
             classifier_loss
         from autognothi_tpu_torch.pipeline.train_surrogate import (
@@ -1768,27 +1811,34 @@ class StageCase:
         from autognothi_tpu_torch.pipeline.training import (AdamW,
                                                             make_train_step)
 
+        cfg = cfg or self.cfg
         model = copy.deepcopy(self.models[stage])
-        trainable = self.recipe.trainable(self.cfg, stage)
+        trainable = self.recipe.trainable(cfg, stage)
         for name, p in model.named_parameters():
             p.requires_grad_(trainable(name))
         params = dict(model.named_parameters())
         opt = AdamW(params, trainable)
         ones = {k: 1.0 for k in params}
-        depth = self.cfg.num_hidden_layers
+        depth = cfg.num_hidden_layers
         if stage == "classifier":
-            step = make_train_step(classifier_loss(self.recipe, self.cfg,
-                                                   True))
+            step = make_train_step(classifier_loss(self.recipe, cfg, True))
             return lambda: step(model, opt, 5e-5, ones, self.xs, self.ones,
-                                self.labels, None, depth, self.w)[0]
-        step = make_train_step(surrogate_loss(self.recipe, self.cfg, True))
-        teacher = surrogate_teacher(self.recipe, self.cfg)
+                                self.labels, generator, depth, self.w)[0]
+        if stage == "explainer":
+            step = make_explainer_train_step(self.recipe, cfg,
+                                             self.n_players, self.m)
+            xs = self.xs[:self.exp_b]
+            return lambda: step(model, opt, self.models["surrogate"],
+                                self.null, xs, generator, 5e-5, ones, depth,
+                                masks=self.masks)
+        step = make_train_step(surrogate_loss(self.recipe, cfg, True))
+        teacher = surrogate_teacher(self.recipe, cfg)
         cls = self.models["classifier"]
 
         def run():
             orig = teacher(cls, self.xs, self.ones)
             return step(model, opt, 5e-5, ones, self.xs, self.mask, orig,
-                        self.labels, None, depth, self.w)[0]
+                        self.labels, generator, depth, self.w)[0]
         return run
 
     def eval_calls(self, stage: str) -> dict:
@@ -1865,50 +1915,60 @@ def phase_stage_steps(case: StageCase) -> dict:
     return per_step
 
 
-def phase_stage_timing(case: StageCase, card: str) -> None:
-    """ms per classifier and surrogate step (fp32 teacher), kernels and
+def phase_stage_timing(case: StageCase, card: str,
+                       runs=(("classifier", "classifier", "fp32"),
+                             ("surrogate", "surrogate", "fp32")),
+                       tag: str = "[stage-time]") -> None:
+    """ms per step of each (label, stage, teacher) of `runs`, kernels and
     plain in turns (plain, kernels, kernels, plain), 3 steps after a
-    warmup each; then one step of each split into its spans (forward,
-    backward, AdamW; the surrogate's teacher is outside them)."""
+    warmup each; then one step of each split into its spans (the
+    explainer's teacher, forward, backward, AdamW; the surrogate's teacher
+    is outside them)."""
     import torch
 
+    from autognothi_tpu_torch.parallel import train_step
     from autognothi_tpu_torch.pipeline import training
 
     reps = 3
-    for stage in ("classifier", "surrogate"):
-        runs = {"kernels": case.fresh(stage), "plain": case.fresh(stage)}
+    for label, stage, teacher in runs:
+        steps = {"kernels": case.fresh(stage), "plain": case.fresh(stage)}
         ms = {"plain": [], "kernels": []}
         for which in ("plain", "kernels", "kernels", "plain"):
             ctx = plain_ops() if which == "plain" else contextlib.nullcontext()
-            with train_env("2", "fp32"), ctx:
-                runs[which]()
+            with train_env("2", teacher), ctx:
+                steps[which]()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 for _ in range(reps):
-                    runs[which]()
+                    steps[which]()
                 torch.cuda.synchronize()
             ms[which].append((time.perf_counter() - t0) / reps * 1e3)
+        batch = f"B={case.exp_b} x M={case.m}" if stage == "explainer" \
+            else f"B={case.batch}"
         for which, vals in ms.items():
-            print(f"[stage-time] {stage} step B={TRAIN_B} {which:7s}: "
+            print(f"{tag} {label} step {batch} {which:7s}: "
                   f"{' '.join(f'{v:.2f}' for v in vals)} ms/step | {card}",
                   flush=True)
         for which in ("kernels", "plain"):
             ctx = plain_ops() if which == "plain" else contextlib.nullcontext()
             timer = SpanTimer()
-            with train_env("2", "fp32"), ctx, \
-                    mock.patch.object(training, "record_function", timer):
-                runs[which]()
+            with train_env("2", teacher), ctx, \
+                    mock.patch.object(training, "record_function", timer), \
+                    mock.patch.object(train_step, "record_function", timer):
+                steps[which]()
             spans = timer.totals()
-            print(f"[stage-time] {stage} {which:7s} step split (CUDA "
+            print(f"{tag} {label} {which:7s} step split (CUDA "
                   f"events): "
                   f"{', '.join(f'{k} {v:.2f} ms' for k, v in spans.items())}"
                   f" | {card}", flush=True)
 
 
-def serve_final(dev, exp: pathlib.Path) -> dict:
+def serve_final(dev, exp: pathlib.Path, texts: list = None,
+                tag: str = "[train_all]") -> dict:
     """`serve` from the experiment's final-epoch-0.ckpt: one `images`
-    request of 3 rows, held against the plain forward of the served model
-    at the serve gate; -> the request's kernel calls."""
+    request of 3 rows (or, for a BERT experiment, the `texts` given),
+    held against the plain forward of the served model at the serve gate;
+    -> the request's kernel calls."""
     import numpy as np
     import torch
 
@@ -1919,11 +1979,18 @@ def serve_final(dev, exp: pathlib.Path) -> dict:
     server, service, thread = serve_in_thread(env, port=0, batch_size=8,
                                               device="cuda")
     port = server.server_address[1]
-    rows = np.random.RandomState(SEED + 7).rand(3, 3, 224, 224).astype(
-        np.float32)
+    if texts is None:
+        rows = np.random.RandomState(SEED + 7).rand(3, 3, 224, 224).astype(
+            np.float32)
+        payload, label, want_calls = {"images": rows.tolist()}, "images", \
+            FP32_COUNTS
+    else:
+        rows, _ = service.gen_input(texts, [0] * len(texts))
+        payload, label, want_calls = {"texts": texts}, "texts", \
+            BERT_COUNTS["fp32"]
     try:
         reset_counts()
-        got = _post(port, {"images": rows.tolist()})
+        got = _post(port, payload)
         calls = {k: v for k, v in read_counts().items() if v}
     finally:
         server.shutdown()
@@ -1940,10 +2007,10 @@ def serve_final(dev, exp: pathlib.Path) -> dict:
         check(mine.shape == want.shape, f"served {what} {tuple(mine.shape)}")
         _, ok, msg = compare(mine, want.cpu(), torch.float32, False,
                              whole=True)
-        print(f"[train_all] served final, images x3, {what} "
+        print(f"{tag} served final, {label} x{len(rows)}, {what} "
               f"{tuple(mine.shape)} vs plain forward: {msg}", flush=True)
         check(ok, f"the served final's {what} differ from the plain forward")
-    check(calls == FP32_COUNTS, f"the served request's kernel calls {calls}")
+    check(calls == want_calls, f"the served request's kernel calls {calls}")
     return calls
 
 
@@ -2631,14 +2698,15 @@ def report_predictions(exp: pathlib.Path, report: str, dev) -> list:
     from autognothi_tpu_torch.pipeline.env import ExpEnv
     from autognothi_tpu_torch.pipeline.resources import (
         get_epoch_ckpts, get_recipe, load_cfg_dataset, load_epoch_ckpt,
-        load_epoch_model, load_epoch_params)
+        load_epoch_model, load_epoch_params, load_misc)
     from autognothi_tpu_torch.utils.seeding import iterative_generator
 
     with ExpEnv(exp) as env:
         cfg = env.config
         recipe, m_cfg = get_recipe(cfg)
         loader = load_cfg_dataset(cfg.dataset)
-        gen_input = recipe.gen_input(m_cfg, None)
+        misc = load_misc(env, recipe, m_cfg)
+        gen_input = recipe.gen_input(m_cfg, misc)
         n_players = recipe.n_players(m_cfg)
         runs = []  # (key, forward, batch size)
         if report == "cls_acc":
@@ -2649,7 +2717,7 @@ def report_predictions(exp: pathlib.Path, report: str, dev) -> list:
                 _, exp_p = load_epoch_ckpt(exp, "explainer", ep,
                                            required=True)
                 final = from_jax_params(recipe.conv_explainer_final(
-                    m_cfg, None, cls_p, srg_p, exp_p, iterative_generator(
+                    m_cfg, misc, cls_p, srg_p, exp_p, iterative_generator(
                         cfg.seed, f"measure_cls_acc[epoch={ep}]"), dev),
                     m_cfg, dev, section="final")
                 runs.append((f"epoch {ep}", lambda xs, bi, m=final:
@@ -2685,24 +2753,24 @@ def report_predictions(exp: pathlib.Path, report: str, dev) -> list:
 
 
 def check_report_equal(exp: pathlib.Path, report: str, got: dict,
-                       want: dict, dev) -> None:
+                       want: dict, dev, tag: str = "[run_all]") -> None:
     """The kernel run's cls_acc or accuracy report equals the plain run's,
     or each difference is a flipped argmax the plain forward nearly ties
     (its two best classes within FLIP_MARGIN), named."""
     if got == want:
-        print(f"[run_all] {report}: kernels {got['accuracy']} == plain "
+        print(f"{tag} {report}: kernels {got['accuracy']} == plain "
               f"{want['accuracy']}", flush=True)
         return
     preds = report_predictions(exp, report, dev)
     flips = [p for p in preds if p[1] != p[2]]
     for key, k_cls, p_cls, label, margin in flips:
-        print(f"[run_all] {report}: {key} flips kernel {k_cls} / plain "
+        print(f"{tag} {report}: {key} flips kernel {k_cls} / plain "
               f"{p_cls} (label {label}), plain top-2 margin {margin:.2e}",
               flush=True)
     check(flips and all(p[4] <= FLIP_MARGIN for p in flips),
           f"{report}: kernels {got} != plain {want}, not explained by "
           f"near-tied flips")
-    print(f"[run_all] {report}: kernels {got['accuracy']} vs plain "
+    print(f"{tag} {report}: kernels {got['accuracy']} vs plain "
           f"{want['accuracy']}: {len(flips)} flipped argmax, each within "
           f"{FLIP_MARGIN:g} of a tie in the plain forward", flush=True)
 
@@ -2827,6 +2895,370 @@ def phase_run_all(dev, tmp: pathlib.Path, card: str) -> dict:
     check(trn["srg_tm"]["avg"] > 0 and trn["exp_tm"]["avg"] > 0
           and trn["srg_mem"]["avg"] > 0 and trn["exp_mem"]["avg"] > 0,
           f"train_resources: {trn}")
+    torch.cuda.empty_cache()
+    return total
+
+
+# ------------------------------------------------------- LTT BERT run_all
+
+BERT_TRAIN_B, BERT_EXP_B, BERT_M = 8, 4, 2  # the shipped training blocks
+# phase 8's eval blocks: experiments/bert_base_tayp_ltt's, cut where
+# marked to keep the phase inside the time limit (widths and depth are the
+# shipped ones; the data is the 24 bundled sentences)
+BERT_RUN_ALL_EVAL = {
+    "eval_accuracy": {"dataset": None, "batch_size": 8, "resolution": 8},
+    # raised from the shipped 4 stops to 16: 2 classes x 16 stops x 2
+    # directions = 64 coalitions a sentence, each a masked BERT-base@512
+    "eval_faithfulness": {"dataset": None, "batch_size": 8,
+                          "resolution": 16},
+    "eval_cls_acc": {"dataset": None, "on_exp_epochs": None,
+                     "batch_size": 8},
+    "eval_performance": {"dataset": None, "loops": 2},
+    # cut from the shipped 32 samples to 8 (4 steps of 2)
+    "eval_train_resources": {"dataset": None, "batch_size": 2,
+                             "max_samples": 8},
+    # the shipped file has no CKA block; the JAX schema's batch of 8
+    "eval_branches_cka": {"dataset": None, "batch_size": 8},
+}
+# the kernels of faithfulness on each path at BERT-base@512: fp32 K6, K7,
+# K5; W8A8 with fp32 parameters the float trunk attention K6 (the JAX
+# budget), the 2-tile K8q, K5, and the final's side layer K1 + K4 and head
+# K3; pallas mode "1" K9
+BERT_FAITH_KERNELS = {
+    "fp32": FP32_REPORT_KERNELS,
+    "int8": ("attention_block", "mlp_block_int8_tiled", "ladder_block",
+             "attention_block_int8", "mlp_block_int8", "head_block"),
+    "mode 1": ("masked_attention",),
+}
+
+
+def nlp_samples() -> list:
+    """The sentences of the port's copy of the bundled sample set."""
+    return [x["inputs"] for x in json.loads(
+        (REPO / "autognothi_tpu_torch" / "data" / "nlp_samples.json")
+        .read_text())]
+
+
+def write_bert_run_all_experiment(tmp: pathlib.Path) -> pathlib.Path:
+    """A `random_init` LTT BERT-base@512 experiment (experiments/
+    bert_base_tayp_ltt's `net.params`, full depth and width, dropout 0) on
+    `nlp_samples`, with a `build_vocab` vocabulary over the port's copy of
+    the sample set under `<exp>/tokenizer/` (`vocab_size` stays the
+    shipped 30,522, as in phase 3), the shipped training blocks at one
+    epoch each (the surrogate's progressive) and BERT_RUN_ALL_EVAL."""
+    from autognothi_tpu_torch import RECIPE_VERSION
+    from autognothi_tpu_torch.data.tokenizer import (WordPieceTokenizer,
+                                                     build_vocab)
+
+    hp = json.loads(BERT_EXP.read_text())
+    hp["net"].update(version=RECIPE_VERSION, base_model="random_init",
+                     params=dict(hp["net"]["params"],
+                                 attention_probs_dropout_prob=0.0,
+                                 hidden_dropout_prob=0.0))
+    hp["dataset"] = {"kind": "nlp_samples"}
+    hp["seed"] = SEED
+    for section in ("train_classifier", "train_surrogate",
+                    "train_explainer"):
+        hp[section].update(epochs=1, ckpt_when="_:%1==0")
+    hp["train_surrogate"]["EXPERIMENTAL_progressive_training"] = True
+    check((hp["train_classifier"]["batch_size"],
+           hp["train_surrogate"]["batch_size"],
+           hp["train_explainer"]["batch_size"],
+           hp["train_explainer"]["n_mask_samples"])
+          == (BERT_TRAIN_B, BERT_TRAIN_B, BERT_EXP_B, BERT_M),
+          "the shipped BERT training blocks changed")
+    hp.update(copy.deepcopy(BERT_RUN_ALL_EVAL))
+    exp = tmp / "ltt_bert_run_all"
+    exp.mkdir()
+    (exp / ".hparams.json").write_text(json.dumps(hp, indent=2))
+    WordPieceTokenizer(build_vocab(nlp_samples())).save(exp / "tokenizer")
+    return exp
+
+
+# the kernel calls of one step at 12 layers, by (stage, teacher), the
+# steps held against their plain versions: a classifier or surrogate
+# forward is TRUNK_FWD; the explainer's adds its side layer (K6 + K7); an
+# int8 teacher forward runs the float trunk attention (K6, the JAX budget)
+# and the 2-tile K8q (F4).  The classifier has no teacher; the
+# surrogate's follows AUTOGNOTHI_INT8, the explainer's (the coalitions and
+# v_1) AUTOGNOTHI_INT8_TEACHER
+INT8_TEACHER_FWD = {"attention_block": 12, "mlp_block_int8_tiled": 24,
+                    "ladder_block": 12}
+EXPLAINER_FWD = _scaled((1, TRUNK_FWD),
+                        (1, {"attention_block": 1, "mlp_block": 1}))
+BERT_STEP_COUNTS = {
+    ("classifier", "fp32"): TRUNK_FWD,
+    ("surrogate", "fp32"): _scaled((2, TRUNK_FWD)),
+    ("surrogate", "int8"): _scaled((1, TRUNK_FWD), (1, INT8_TEACHER_FWD)),
+    ("explainer", "fp32"): _scaled((2, TRUNK_FWD), (1, EXPLAINER_FWD)),
+    ("explainer", "int8"): _scaled((2, INT8_TEACHER_FWD),
+                                   (1, EXPLAINER_FWD)),
+}
+
+
+def phase_bert_stage_steps(case: StageCase, card: str) -> dict:
+    """One step of each stage and teacher with the kernels against the same
+    step on the plain versions (loss within STEP_TOL); -> the kernel calls
+    of one step, by (stage, teacher)."""
+    import torch
+
+    per_step = {}
+    for (stage, teacher), want in BERT_STEP_COUNTS.items():
+        losses, calls = {}, {}
+        for which in ("kernels", "plain"):
+            run = case.fresh(stage)
+            with train_env("2", teacher), \
+                    int8_mode(stage == "surrogate" and teacher == "int8"), \
+                    (plain_ops() if which == "plain"
+                     else contextlib.nullcontext()):
+                reset_counts()
+                losses[which] = run().item()
+                torch.cuda.synchronize()
+                calls[which] = {k: v for k, v in read_counts().items() if v}
+        rel = abs(losses["kernels"] - losses["plain"]) \
+            / abs(losses["plain"])
+        print(f"[bert stage-step] {stage} teacher={teacher}: loss kernels "
+              f"{losses['kernels']:.8f}, plain {losses['plain']:.8f}, rel "
+              f"diff {rel:.3e} (limit {STEP_TOL[teacher]:.0e}); kernel calls "
+              f"{calls['kernels']} (expected {want}) | {card}", flush=True)
+        check(not calls["plain"], "the plain step launched kernels")
+        check(calls["kernels"] == want,
+              f"{stage} teacher={teacher}: one step's kernel calls differ")
+        check(rel <= STEP_TOL[teacher] and
+              all(math.isfinite(v) for v in losses.values()),
+              f"{stage} teacher={teacher}: the kernel step's loss differs "
+              f"from the plain step's")
+        per_step[(stage, teacher)] = calls["kernels"]
+    return per_step
+
+
+def phase_bert_dropout_step(case: StageCase, dev, card: str) -> None:
+    """One surrogate step at the shipped dropout 0.1: a finite loss, no
+    kernel call in the differentiated forward (dropout keeps it on the
+    unfused math), kernel calls in its teacher (the step's calls less
+    those of one teacher call alone)."""
+    import dataclasses
+
+    import torch
+
+    from autognothi_tpu_torch.pipeline.train_surrogate import \
+        surrogate_teacher
+
+    cfg = dataclasses.replace(case.cfg, attention_probs_dropout_prob=0.1,
+                              hidden_dropout_prob=0.1)
+    run = case.fresh("surrogate", cfg=cfg,
+                     generator=torch.Generator(device=dev).manual_seed(SEED))
+    with train_env("2", "fp32"):
+        reset_counts()
+        surrogate_teacher(case.recipe, cfg)(case.models["classifier"],
+                                            case.xs, case.ones)
+        torch.cuda.synchronize()
+        teacher = {k: v for k, v in read_counts().items() if v}
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = run().item()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        step = {k: v for k, v in read_counts().items() if v}
+    student = {k: v - teacher.get(k, 0) for k, v in step.items()
+               if v - teacher.get(k, 0)}
+    print(f"[bert stage-step] surrogate at dropout 0.1: loss {loss:.8f}, "
+          f"{ms:.1f} ms; teacher kernel calls {teacher}, differentiated "
+          f"forward {student} | {card}", flush=True)
+    check(math.isfinite(loss), "the dropout step's loss is not finite")
+    check(teacher and not student,
+          "dropout 0.1: the teacher launched no kernel or the "
+          "differentiated forward launched one")
+
+
+def phase_bert_run_all(dev, tmp: pathlib.Path, card: str) -> dict:
+    """`python -m autognothi_tpu_torch run_all <exp> --device cuda` through
+    `cli_main` on a random_init LTT BERT-base@512 experiment on
+    `nlp_samples`: the seven stages' kernel calls against their steps' and
+    forwards', the coherency line, the served final (`texts`), the six
+    reports and their kernel calls, a second `measure_all` that launches
+    nothing, the quality gate (faithfulness with the kernels against the
+    plain versions on the card: fp32, W8A8, pallas mode "1"), cls_acc and
+    accuracy against the plain run, the three stages' steps against their
+    plain versions and their times, a step at dropout 0.1, and the
+    performance and train-resources numbers; -> the kernel calls of the
+    counted paths (run_all, the served request, the W8A8 and mode "1"
+    faithfulness runs)."""
+    import re
+
+    import torch
+
+    from autognothi_tpu_torch.cli import main as cli_main
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.measure_accuracy import \
+        measure_accuracy
+    from autognothi_tpu_torch.pipeline.measure_cls_acc import \
+        measure_cls_acc
+    from autognothi_tpu_torch.pipeline.measure_faithfulness import \
+        measure_faithfulness
+    from autognothi_tpu_torch.pipeline.reports import to_json
+
+    tag = "[bert run_all]"
+    exp = write_bert_run_all_experiment(tmp)
+    stage_calls: dict = {}
+    calls: dict = {}
+    report_seconds: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # each stage starts from counts of 0; each report is read as the counts'
+    # difference across it: their sum is the whole run's
+    with report_env("2", False), counted_stages(stage_calls), \
+            counted_reports(calls, report_seconds):
+        cli_main(["run_all", str(exp), "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    total = _scaled(*((1, c) for c in stage_calls.values()),
+                    *((1, c) for c in calls.values()))
+    log = (exp / ".log.txt").read_text()
+    diffs = re.search(r"cls_diff: (\S+), exp_diff: (\S+)", log)
+    check("current stage: 0 / 7" in log and diffs is not None
+          and "verified final model is coherent" in log,
+          "train_all did not verify the final's coherency")
+    check("freeze side branches exc. first 1 layers" in log,
+          "the surrogate stage did not train progressively")
+    print(f"{tag} LTT BERT-base@512 on nlp_samples "
+          f"({len(nlp_samples())} sentences): "
+          f"train_all + measure_all in {seconds:.1f} s (the six reports "
+          f"{sum(report_seconds.values()):.1f} s); coherency on the card: "
+          f"cls_diff {diffs.group(1)}, exp_diff {diffs.group(2)} (limit "
+          f"1e-05) | {card}", flush=True)
+
+    case = StageCase(dev, exp, BERT_TRAIN_B, (BERT_EXP_B, BERT_M))
+    per_step = phase_bert_stage_steps(case, card)
+    evals = {s: case.eval_calls(s) for s in ("classifier", "surrogate")}
+    n = len(nlp_samples())
+    batches = {s: -(-n // b) for s, b in (("classifier", BERT_TRAIN_B),
+                                         ("explainer", BERT_EXP_B))}
+    expected = {
+        "conv_pretrained_classifier": {},
+        "train_classifier": _scaled(
+            (batches["classifier"], per_step[("classifier", "fp32")]),
+            (batches["classifier"], evals["classifier"])),
+        "conv_classifier_surrogate": {},
+        "train_surrogate": _scaled(
+            (batches["classifier"], per_step[("surrogate", "fp32")]),
+            (batches["classifier"], evals["surrogate"])),
+        "conv_surrogate_explainer": {},
+        # train and eval steps alike: the teacher and the explainer forward
+        "train_explainer": _scaled(
+            (2 * batches["explainer"], per_step[("explainer", "int8")]),
+            (1, NULL_COUNTS["2"])),
+        "conv_explainer_final": FINAL_COUNTS,
+    }
+    for stage in STAGES:
+        print(f"{tag} {stage}: kernel calls {stage_calls.get(stage)} "
+              f"(expected {expected[stage]})", flush=True)
+        check(stage_calls.get(stage) == expected[stage],
+              f"{stage}: kernel calls differ from its steps' and forwards'")
+    with report_env("2", False):
+        total = _scaled((1, total), (1, serve_final(
+            dev, exp, texts=[x for x in CORPUS[:3]], tag=tag)))
+
+    reports = exp / ".reports"
+    files = tuple(sorted(p.name for p in reports.iterdir()))
+    check(files == REPORT_FILES, f"run_all wrote {files}")
+    for name in REPORT_FNS:
+        got = calls.get(name, {})
+        print(f"{tag} {name}: {report_seconds.get(name, 0.0):.2f} s, "
+              f"kernel calls {got} | {card}", flush=True)
+        check(all(got.get(k, 0) > 0 for k in FP32_REPORT_KERNELS),
+              f"{name} launched no {FP32_REPORT_KERNELS} kernel: {got}")
+    texts = {n: (reports / n).read_text() for n in files}
+    stamps = {n: (reports / n).stat().st_mtime_ns for n in files}
+    reset_counts()
+    with report_env("2", False):
+        cli_main(["measure_all", str(exp), "--device", "cuda"])
+    torch.cuda.synchronize()
+    again = {k: v for k, v in read_counts().items() if v}
+    check(not again and all((reports / n).read_text() == texts[n]
+                            and (reports / n).stat().st_mtime_ns == stamps[n]
+                            for n in files),
+          f"the second measure_all recomputed: kernel calls {again}")
+    print(f"{tag} second measure_all: the six reports reloaded, nothing "
+          f"computed (0 kernel calls, files unchanged)", flush=True)
+
+    kernel_faith = {"fp32": json.loads(texts["faithfulness.json"])}
+    for path in ("fp32", "int8", "mode 1"):
+        pallas, int8 = FAITH_ENV[path]
+        with report_env(pallas, int8):
+            if path != "fp32":
+                torch.cuda.synchronize()
+                reset_counts()
+                t1 = time.perf_counter()
+                with ExpEnv(exp) as env:
+                    kernel_faith[path] = to_json(measure_faithfulness(
+                        env, device="cuda"))
+                torch.cuda.synchronize()
+                run = {k: v for k, v in read_counts().items() if v}
+                print(f"{tag} faithfulness {path}: "
+                      f"{time.perf_counter() - t1:.2f} s, kernel calls "
+                      f"{run} | {card}", flush=True)
+                check(all(run.get(k, 0) > 0
+                          for k in BERT_FAITH_KERNELS[path]),
+                      f"faithfulness {path} launched no "
+                      f"{BERT_FAITH_KERNELS[path]} kernel: {run}")
+                total = _scaled((1, total), (1, run))
+            t1 = time.perf_counter()
+            with plain_ops(), ExpEnv(exp) as env:
+                plain = to_json(measure_faithfulness(env, device="cuda"))
+            plain_s = time.perf_counter() - t1
+        got = kernel_faith[path]
+        worst, curve, points = faith_drift(got, plain)
+        print(f"{tag} quality gate, faithfulness {path}: AUCs "
+              + ", ".join(f"{c} {got[c]['auc']:.6f} (plain "
+                          f"{plain[c]['auc']:.6f})" for c in CURVES)
+              + f"; worst AUC drift {worst:.3e} on {curve} (limit "
+              f"{FAITH_TOL[path]:g}); largest curve-point drift "
+              f"{points:.3e}; plain run {plain_s:.2f} s | {card}",
+              flush=True)
+        check(worst <= FAITH_TOL[path],
+              f"faithfulness {path}: AUC drift {worst:.3e} on {curve} "
+              f"above {FAITH_TOL[path]:g}")
+
+    for report, fn in (("cls_acc", measure_cls_acc),
+                       ("accuracy", measure_accuracy)):
+        with report_env("2", False), plain_ops(), ExpEnv(exp) as env:
+            want = to_json(fn(env, device="cuda"))
+        check_report_equal(exp, report, json.loads(texts[f"{report}.json"]),
+                           want, dev, tag=tag)
+
+    perf = json.loads(texts["performance.json"])
+    for stage in ("classifier", "surrogate", "explainer", "final"):
+        r = perf[stage]
+        check(r["time_avg"] > 0 and r["gflops"] > 0 and r["mem_mib"] > 0,
+              f"performance {stage}: {r}")
+        print(f"{tag} performance {stage}: {r['time_avg'] * 1e3:.3f} "
+              f"ms/sample (std {r['time_std'] * 1e3:.3f}, batch 1, "
+              f"{len(r['time'])} samples), {r['gflops']:.3f} GFLOPs, "
+              f"{r['params_all']:.3f} M params ({r['params_trainable']:.3f} "
+              f"M trainable), {r['mem_mib']:.1f} MiB ({r['mem_estimator']}) "
+              f"| {card}", flush=True)
+    trn = json.loads(texts["train_resources.json"])
+    print(f"{tag} train_resources: init {trn['init_tm']:.3f} s, "
+          f"{trn['init_mem']:.1f} MiB; surrogate step "
+          f"{trn['srg_tm']['avg'] * 1e3:.3f} ms/sample, "
+          f"{trn['srg_mem']['avg']:.1f} MiB; explainer step "
+          f"{trn['exp_tm']['avg'] * 1e3:.3f} ms/sample, "
+          f"{trn['exp_mem']['avg']:.1f} MiB ({trn['mem_estimator']}, batch "
+          f"{BERT_RUN_ALL_EVAL['eval_train_resources']['batch_size']}) | "
+          f"{card}", flush=True)
+    check(trn["srg_tm"]["avg"] > 0 and trn["exp_tm"]["avg"] > 0
+          and trn["srg_mem"]["avg"] > 0 and trn["exp_mem"]["avg"] > 0,
+          f"train_resources: {trn}")
+
+    phase_bert_dropout_step(case, dev, card)
+    phase_stage_timing(case, card, (
+        ("classifier", "classifier", "fp32"),
+        ("surrogate", "surrogate", "fp32"),
+        ("explainer teacher=fp32", "explainer", "fp32"),
+        ("explainer teacher=int8", "explainer", "int8")),
+        tag="[bert stage-time]")
+    del case
     torch.cuda.empty_cache()
     return total
 
@@ -3035,16 +3467,20 @@ def main() -> int:
         launches_all = phase_train_all(dev, pathlib.Path(tmp), per_step,
                                        card)
         launches_reports = phase_run_all(dev, pathlib.Path(tmp), card)
+        launches_bert_run_all = phase_bert_run_all(dev, pathlib.Path(tmp),
+                                                   card)
         # every main path was driven from counts of 0: serve fp32 and int8
         # (ViT and BERT), train_explainer in pallas modes "2" and "1",
         # train_all's seven stages and its served final, run_all's stages
-        # and six reports, faithfulness in W8A8 and in mode "1"
+        # and six reports, faithfulness in W8A8 and in mode "1", for the
+        # LTT ViT (phases 6, 7) and the LTT BERT (phase 8)
         for k in launches:
             launches[k] += (launches_int8[k] + launches_bert[k]
                             + launches_bert_int8[k]
                             + launches_train.get(k, 0)
                             + launches_all.get(k, 0)
-                            + launches_reports.get(k, 0))
+                            + launches_reports.get(k, 0)
+                            + launches_bert_run_all.get(k, 0))
         per_op = phase_timing(dev, card, service)
         # the ViT shapes keep their rows; K8q and the bf16 float chain run
         # only at BERT's.  The four BERT forwards counted there are main

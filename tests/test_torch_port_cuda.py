@@ -1372,7 +1372,7 @@ def test_split_chain_launches(dev, dtype):
                             quant="int8")
 
     k8q()
-    names = _launched(k8q)
+    names = _launched_per_call(k8q)
     assert sum("quant_rows_kernel" in s for s in names) == 1, names
     assert _weight_quantizers(names) == 0, names
     assert not _copies(names), names
@@ -1382,7 +1382,7 @@ def test_split_chain_launches(dev, dtype):
             return mb.mlp_block(resid, *ws, ln=ln, ln_position="none")
 
         k8()
-        names = _launched(k8)
+        names = _launched_per_call(k8)
         assert sum("gemm_wg_kernel" in s for s in names) == 4, names
         assert not any("gemm_tc_kernel" in s for s in names), names
         assert not _copies(names), names
@@ -1730,3 +1730,222 @@ def test_ladder_padded_and_wide_heads(dev, s, heads, t, dtype, kind):
     names = _launched_per_call(lambda: lb.ladder_block(
         hid, sides, mask, branches, heads, mode, pre_norm, 1e-12))
     assert sum("attention_tc_kernel" in n for n in names) == 2, names
+
+
+# --------------------------------- LTT BERT training at BERT-base@512
+
+
+def _plain_dispatch(launch, plain, counter, tensors, static, grad=None):
+    """`kernels.primitives.dispatch` as it routes CPU tensors (the plain
+    version, with `grad` as its gradient where one is wanted), on the
+    card."""
+    import functools
+
+    from autognothi_tpu_torch.kernels.primitives import _KernelFn
+
+    if grad is None or not (torch.is_grad_enabled()
+                            and any(t.requires_grad for t in tensors)):
+        return plain(*tensors, **static)
+    return _KernelFn.apply(functools.partial(plain, **static),
+                           functools.partial(grad, **static), *tensors)
+
+
+def _route_plain(monkeypatch):
+    from autognothi_tpu_torch.ops import attention_block as ab
+    from autognothi_tpu_torch.ops import flash_attention as fa
+    from autognothi_tpu_torch.ops import head_block as hb
+    from autognothi_tpu_torch.ops import ladder_block as lb
+    from autognothi_tpu_torch.ops import mlp_block as mb
+
+    for mod in (ab, fa, hb, lb, mb):
+        monkeypatch.setattr(mod, "dispatch", _plain_dispatch)
+
+
+def _bert_counts():
+    from autognothi_tpu_torch.ops import attention_block as ab
+    from autognothi_tpu_torch.ops import ladder_block as lb
+    from autognothi_tpu_torch.ops import mlp_block as mb
+
+    return {c.name: c.count for c in (ab.COUNTER, mb.COUNTER, lb.COUNTER,
+                                      mb.COUNTER_INT8_TILED)}
+
+
+def _bert_base(dev, sections):
+    """A random LTT BERT-base@512 (experiments/bert_base_tayp_ltt widths,
+    12 layers, dropout 0) in each section; the trunk's and the side's heads
+    biased apart, so that the surrogate stage's KL is not float noise."""
+    import json
+    import pathlib
+
+    from autognothi_tpu_torch.models.ltt_bert import (LttBertConfig,
+                                                      init_ltt_bert)
+
+    hp = json.loads((pathlib.Path(__file__).resolve().parents[1]
+                     / "experiments" / "bert_base_tayp_ltt"
+                     / ".hparams.json").read_text())
+    cfg = LttBertConfig(**dict(hp["net"]["params"],
+                               attention_probs_dropout_prob=0.0,
+                               hidden_dropout_prob=0.0))
+    models = {}
+    for i, section in enumerate(sections):
+        m = init_ltt_bert(cfg, section, torch.Generator().manual_seed(40 + i))
+        with torch.no_grad():
+            m.classifier.bias.copy_(torch.tensor([2.0, -2.0]))
+            if hasattr(m, "s_attn_classifier"):
+                m.s_attn_classifier.bias.copy_(torch.tensor([-2.0, 2.0]))
+        models[section] = m.to(dev)
+    return cfg, models
+
+
+def _bert_batch(dev, b=2, t=512, m=2):
+    g = torch.Generator().manual_seed(41)
+    ids = torch.randint(5, 30000, (b, t), generator=g)
+    ids[:, 0] = 2
+    labels = torch.randint(0, 2, (b,), generator=g)
+    mask = (torch.rand(b, t - 1, generator=g)
+            > torch.rand(b, 1, generator=g)).to(torch.int32)
+    masks = torch.randint(0, 2, (b, m, t - 1), generator=g,
+                          dtype=torch.int32)
+    return ids.to(dev), labels.to(dev), mask.to(dev), masks.to(dev)
+
+
+@pytest.mark.parametrize("stage", ["classifier", "surrogate", "explainer"])
+def test_bert_stage_steps_against_plain(dev, stage, monkeypatch):
+    """One classifier, surrogate and explainer step at BERT-base@512 (B =
+    2, M = 2, 12 layers, fp32 teachers) with the kernels in the
+    differentiated forward (K6 and K7 with the LN epilogue, K5 "add"
+    post-norm, under autograd) against the same step on the plain
+    versions: loss within 1e-4 relative, every trainable gradient within
+    1e-4 x max|g|, the updated parameters within 1e-6 where |g| is ten
+    times that bound (tests/test_torch_port_stages.py's rule)."""
+    import copy
+
+    from autognothi_tpu_torch.parallel.train_step import \
+        make_explainer_train_step
+    from autognothi_tpu_torch.pipeline.train_classifier import \
+        classifier_loss
+    from autognothi_tpu_torch.pipeline.train_surrogate import (
+        surrogate_loss, surrogate_teacher)
+    from autognothi_tpu_torch.pipeline.training import (AdamW,
+                                                        make_train_step)
+    from autognothi_tpu_torch.recipes.ltt_bert import ltt_bert_recipe
+
+    class Spy(AdamW):
+        def update(self, params, grads, lr, update_mask):
+            self.grads = {k: v.detach().clone() for k, v in grads.items()
+                          if v is not None}
+            super().update(params, grads, lr, update_mask)
+
+    monkeypatch.setenv("AUTOGNOTHI_PALLAS", "2")
+    monkeypatch.setenv("AUTOGNOTHI_INT8", "0")
+    monkeypatch.setenv("AUTOGNOTHI_INT8_TEACHER", "0")
+    recipe = ltt_bert_recipe()
+    teacher_section = {"classifier": None, "surrogate": "classifier",
+                       "explainer": "surrogate"}[stage]
+    cfg, models = _bert_base(dev, [stage] + ([teacher_section]
+                                             if teacher_section else []))
+    ids, labels, mask, masks = _bert_batch(dev)
+    ones = torch.ones_like(mask)
+    w = torch.ones(2, device=dev)
+    trainable = recipe.trainable(cfg, stage)
+    out = {}
+    for which in ("kernels", "plain"):
+        if which == "plain":
+            _route_plain(monkeypatch)
+        model = copy.deepcopy(models[stage])
+        for name, p in model.named_parameters():
+            p.requires_grad_(trainable(name))
+        opt = Spy(dict(model.named_parameters()), trainable)
+        update = {k: 1.0 for k in opt.names}
+        before = _bert_counts()
+        if stage == "explainer":
+            srg = models["surrogate"].requires_grad_(False)
+            step = make_explainer_train_step(recipe, cfg, 511, 2)
+            loss = step(model, opt, srg, torch.full((1, 2), 0.4, device=dev),
+                        ids, None, 5e-5, update, 12, masks=masks)
+        elif stage == "classifier":
+            loss, _ = make_train_step(classifier_loss(recipe, cfg, True))(
+                model, opt, 5e-5, update, ids, ones, labels, None, 12, w)
+        else:
+            orig = surrogate_teacher(recipe, cfg)(models["classifier"], ids,
+                                                  ones)
+            loss, _ = make_train_step(surrogate_loss(recipe, cfg, True))(
+                model, opt, 5e-5, update, ids, mask, orig, labels, None, 12,
+                w)
+        torch.cuda.synchronize()
+        calls = {k: v - before[k] for k, v in _bert_counts().items()}
+        out[which] = (loss.item(), opt.grads, dict(model.named_parameters()),
+                      calls)
+    (loss, got, got_p, calls), (ref, want, want_p, ref_calls) = \
+        out["kernels"], out["plain"]
+    assert abs(loss - ref) <= 1e-4 * abs(ref), (loss, ref)
+    # every trunk layer K6 + K7 and every ladder step K5 (the explainer's
+    # side layer adds one K6 + K7 to each of its forwards)
+    assert calls["ladder_block"] >= 12 and calls["attention_block"] >= 12 \
+        and calls["mlp_block"] >= 12, calls
+    assert not any(ref_calls.values()), ref_calls
+    g_max = max(v.abs().max().item() for v in want.values())
+    for k, v in want.items():
+        err = (got[k] - v).abs().max().item()
+        assert err <= 1e-4 * g_max, (k, err, g_max)
+        # AdamW's first update is about lr sign(g): where a gradient is
+        # within the bound of 0 its sign, and the update, is not settled;
+        # held where |g| is ten times the bound
+        moved = v.abs() > 1e-3 * g_max
+        if moved.any():
+            assert (got_p[k] - want_p[k])[moved].abs().max().item() \
+                <= 1e-6, k
+
+
+def test_bert_ladder_with_fewer_active_layers(dev, monkeypatch):
+    """K5 "add" post-norm in a surrogate forward at BERT-base@512 with
+    ltt_active_layers 1 and 5 of 12 against the plain versions: K5 runs at
+    every layer (the gate keeps the update of the first k), the outputs
+    agree, and they differ from the full depth's."""
+    from autognothi_tpu_torch.recipes.ltt_bert import fw_surrogate
+
+    monkeypatch.setenv("AUTOGNOTHI_PALLAS", "2")
+    monkeypatch.setenv("AUTOGNOTHI_INT8", "0")
+    cfg, models = _bert_base(dev, ["surrogate"])
+    ids, _, mask, _ = _bert_batch(dev)
+    got = {}
+    with torch.no_grad():
+        for active in (1, 5, 12):
+            before = _bert_counts()["ladder_block"]
+            got[active] = fw_surrogate(cfg, models["surrogate"], ids, mask,
+                                       ltt_active_layers=active)[0]
+            assert _bert_counts()["ladder_block"] == before + 12
+        _route_plain(monkeypatch)
+        for active in (1, 5):
+            want = fw_surrogate(cfg, models["surrogate"], ids, mask,
+                                ltt_active_layers=active)[0]
+            _close(got[active], want, torch.float32)
+            assert (got[active] - got[12]).abs().max().item() > 1e-6
+
+
+def test_bert_int8_teacher_sweep_against_plain(dev, monkeypatch):
+    """The explainer step's teacher at BERT-base@512 (B = 2 x M = 2) in
+    pallas mode "2" with the int8 teacher: the float trunk attention (K6,
+    the JAX budget), the 2-tile int8 MLP (K8q) and K5, against the same
+    sweep on the plain versions, within the int8 bound (1e-2 x max(1,
+    max|ref|): a flipped code moves a row by a quantization step)."""
+    from autognothi_tpu_torch.parallel.train_step import _teacher
+    from autognothi_tpu_torch.recipes.ltt_bert import ltt_bert_recipe
+
+    monkeypatch.setenv("AUTOGNOTHI_PALLAS", "2")
+    monkeypatch.delenv("AUTOGNOTHI_INT8_TEACHER", raising=False)
+    cfg, models = _bert_base(dev, ["surrogate"])
+    ids, _, _, masks = _bert_batch(dev)
+    recipe = ltt_bert_recipe()
+    before = _bert_counts()
+    got = _teacher(recipe, cfg, models["surrogate"], ids, masks)
+    torch.cuda.synchronize()
+    calls = {k: v - before[k] for k, v in _bert_counts().items()}
+    # the coalitions' and v_1's forwards: 12 layers each
+    assert calls == {"attention_block": 24, "mlp_block": 0,
+                     "ladder_block": 24, "mlp_block_int8_tiled": 48}, calls
+    _route_plain(monkeypatch)
+    want = _teacher(recipe, cfg, models["surrogate"], ids, masks)
+    for x, y in zip(got, want):
+        err = (x - y).abs().max().item()
+        assert err <= 1e-2 * max(1.0, y.abs().max().item()), err
