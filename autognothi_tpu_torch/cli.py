@@ -1,8 +1,8 @@
 """Command shell of the port: the same verbs and flags as
 `autognothi_tpu/cli.py`.  `serve`, the seven `train_all` verbs,
-`train_all` itself, the six reports of the LTT recipes, `measure_all` and
-`run_all` (`train_all`, then `measure_all`) run; the other verbs are not
-ported yet and raise.
+`train_all` itself, the six reports, `measure_all` and `run_all`
+(`train_all`, then `measure_all`) run; the other verbs are not ported yet
+and raise.
 
     python -m autognothi_tpu_torch serve <experiment_dir> --device cuda \\
         --port 8321 --batch-size 8 --window 0.0
@@ -13,8 +13,9 @@ ported yet and raise.
     python -m autognothi_tpu_torch measure_faithfulness <experiment_dir> \\
         --device cuda
 
-The training and report verbs take the LTT ViT and the LTT BERT
-(`net.kind` "ltt_vit", "ltt_bert"); another net kind raises at them.  A
+Every verb takes the LTT, vanilla and froyo towers of both families
+(`net.kind` "ltt_vit", "ltt_bert", "vanilla_vit", "vanilla_bert",
+"froyo_vit", "froyo_bert"); another net kind raises.  A
 report verb reads its cached `<exp>/.reports/<name>.json` where there is
 one (`--resolution` on `measure_faithfulness` recomputes and writes
 nothing, as in the JAX package).  Every verb runs on `--device`, "cuda" by default, which raises
@@ -28,6 +29,8 @@ import argparse
 import pathlib
 import sys
 from typing import List, Optional
+
+from .pipeline.config import PORTED_NET_KINDS
 
 NOT_PORTED = (
     "preload_all", "pretrain_classifier", "estimate_train_time",
@@ -48,7 +51,7 @@ TRAINING = {
     "train_all": ("train_all", None),
 }
 # the net kinds the training verbs take
-TRAINING_NET_KINDS = ("ltt_vit", "ltt_bert")
+TRAINING_NET_KINDS = PORTED_NET_KINDS
 # the report verbs -> (module, report class, cached file); `measure_all`
 # and `run_all` run them all
 REPORTS = {
@@ -70,7 +73,7 @@ MEASURE_ALL_FLAGS = ("accuracy", "faithfulness", "cls_acc", "performance",
                      "train_resources", "branches_cka",
                      "dual_task_similarity")
 # the net kinds the report verbs take
-REPORT_NET_KINDS = ("ltt_vit", "ltt_bert")
+REPORT_NET_KINDS = PORTED_NET_KINDS
 
 
 def _device(p: argparse.ArgumentParser) -> None:

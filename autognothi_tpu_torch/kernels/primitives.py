@@ -15,7 +15,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from .build import load
+from .build import LaunchCounter, load
 
 _P = ctypes.c_void_p
 
@@ -739,9 +739,14 @@ def attention_core(qkv: torch.Tensor, mask_row: torch.Tensor, b: int, t: int,
 # ------------------------------------------------------------ autograd
 
 
+# backward passes of `_KernelFn`: each recomputes a plain version
+RECOMPUTES = LaunchCounter("plain_recompute")
+
+
 class _KernelFn(torch.autograd.Function):
     """Forward runs the kernel; backward differentiates the plain version
-    (recompute), the counterpart of the JAX package's custom_vjp."""
+    (recompute, counted by RECOMPUTES), the counterpart of the JAX
+    package's custom_vjp."""
 
     @staticmethod
     def forward(ctx, kernel, plain, *tensors):
@@ -751,6 +756,7 @@ class _KernelFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
+        RECOMPUTES.add()
         tensors = ctx.saved_tensors
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(t.is_floating_point())

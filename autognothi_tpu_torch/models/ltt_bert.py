@@ -33,13 +33,13 @@ import torch
 from torch import nn
 
 from ..ops import gates
-from ..ops.head_block import explainer_head_block
 from ..ops.ladder_block import ladder_block
 from ..ops.shapley import normalize_shapley_explanation
-from .bert import (BertLayer, VanillaBertConfig, bert_backbone,
-                   bert_embeddings, fill_bert_backbone)
-from .common import (additive_mask_bias, dense, dense_serving, dropout,
-                     fused_dims_ok, gelu, pallas_mode, quant_mode)
+from .bert import (BertBackbone, BertLayer, VanillaBertConfig,
+                   bert_embeddings, bert_explainer_mlp, explainer_mlp_module,
+                   fill_bert_backbone, pooled_probs)
+from .common import (additive_mask_bias, dense, dropout, fused_dims_ok, gelu,
+                     pallas_mode)
 from .vit import fill_linear, linear
 
 BRANCHES = (0, 1)
@@ -116,7 +116,7 @@ class LttBert(nn.Module):
         self.branches = parts["branches"]
         h, s = cfg.hidden_size, cfg.s_attn_hidden_size
         n_layers = cfg.num_hidden_layers
-        self.bert = bert_backbone(cfg.into())
+        self.bert = BertBackbone(cfg.into())
         self.bert.encoder.s_attn_maps = nn.ModuleDict(
             {f"{b}_{i}": linear(s, h) for b in self.branches
              for i in range(n_layers)})
@@ -135,10 +135,8 @@ class LttBert(nn.Module):
                 BertLayer(s, cfg.s_attn_intermediate_size,
                           ident_ln1=(i == 0))
                 for i in range(cfg.explainer_s_attn_num_layers))
-            w_hid = cfg.explainer_s_head_hidden_size
-            self.s_attn_explainer = nn.ModuleDict(
-                {"0": linear(w_hid, s), "2": linear(w_hid, w_hid),
-                 "4": linear(cfg.num_labels, w_hid)})
+            self.s_attn_explainer = explainer_mlp_module(
+                s, cfg.explainer_s_head_hidden_size, cfg.num_labels)
         if section == "final":
             self.register_buffer("surrogate_null",
                                  torch.empty(1, cfg.num_labels))
@@ -264,27 +262,15 @@ def ltt_bert_backbone(model: LttBert, cfg: LttBertConfig,
     return ltt_bert_encoder(model, cfg, emb, bias, branches, **kw)
 
 
-def _pooled_probs(pooler: nn.Module, classifier: nn.Module, h: torch.Tensor,
-                  cfg: LttBertConfig, deterministic: bool,
-                  rng: Optional[torch.Generator]) -> torch.Tensor:
-    """tanh pooler on the CLS row, then the classifier's softmax
-    (`_main_head`, `_side_cls_head`, `:321-346`)."""
-    pooled = torch.tanh(dense(h[:, 0, :], pooler.weight.to(h.dtype),
-                              pooler.bias.to(h.dtype)))
-    pooled = dropout(rng, pooled, cfg.hidden_dropout_prob, deterministic)
-    return torch.softmax(dense(pooled, classifier.weight.to(h.dtype),
-                               classifier.bias.to(h.dtype)), dim=-1)
-
-
 def _main_head(model: LttBert, h, cfg, deterministic=True, rng=None):
-    return _pooled_probs(model.bert_pooler.dense, model.classifier, h, cfg,
-                         deterministic, rng)
+    return pooled_probs(model.bert_pooler.dense, model.classifier, h, cfg,
+                        deterministic, rng)
 
 
 def _side_cls_head(model: LttBert, side, cfg, deterministic=True, rng=None):
-    return _pooled_probs(model.bert_s_attn_pooler.dense,
-                         model.s_attn_classifier, side, cfg, deterministic,
-                         rng)
+    return pooled_probs(model.bert_s_attn_pooler.dense,
+                        model.s_attn_classifier, side, cfg, deterministic,
+                        rng)
 
 
 def ltt_bert_explainer_head(model: LttBert, cfg: LttBertConfig,
@@ -304,19 +290,7 @@ def ltt_bert_explainer_head(model: LttBert, cfg: LttBertConfig,
     for layer in model.s_attn_attention_layers:
         side = layer(side, bias, side_cfg, deterministic, rng)
     side = dropout(rng, side, cfg.hidden_dropout_prob, deterministic)
-    d1, d2, d3 = (model.s_attn_explainer[k] for k in ("0", "2", "4"))
-    if pallas_mode() == "2" and quant_mode() == "int8" and side.dim() == 3 \
-            and d1.weight.shape[0] == d2.weight.shape[0] \
-            and gates.head_token_tile(side.shape[-2], side.shape[-1],
-                                      d1.weight.shape[0],
-                                      d3.weight.shape[0]) is not None:
-        out = explainer_head_block(side, d1.weight, d1.bias, d2.weight,
-                                   d2.bias, d3.weight, d3.bias, None, None,
-                                   1e-5)
-    else:
-        side = gelu(dense_serving(side, d1.weight, d1.bias))
-        side = gelu(dense_serving(side, d2.weight, d2.bias))
-        out = dense(side, d3.weight, d3.bias)
+    out = bert_explainer_mlp(model.s_attn_explainer, side)
     if cfg.explainer_normalize:
         out = normalize_shapley_explanation(out, grand, null)
     return out[:, 1:, :].transpose(1, 2)

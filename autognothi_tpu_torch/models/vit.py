@@ -1,8 +1,12 @@
-"""ViT building blocks (port of the parts of `autognothi_tpu/models/vit.py`
-that the LTT ViT runs: the pre-norm layer, the embeddings, the explainer
-head), and the vanilla ViT classifier's parameters and init
-(`init_vit_classifier`, as flat numpy dicts), which the LTT ViT recipe's
-conversion of a base model builds on.
+"""The vanilla ViT family (port of `autognothi_tpu/models/vit.py`): the
+pre-norm layer, the embeddings and the explainer head the LTT ViT runs
+too, and the vanilla towers: classifier, surrogate (the classifier's
+architecture), explainer (a backbone, `explainer_attn_num_layers` more
+pre-norm layers, the first without `layernorm_before`, and the LayerNorm
++ MLP head) and final (the three towers under `classifier.`,
+`surrogate.` and `explainer.`, with the `surrogate_null` buffer).  The
+inits return flat numpy dicts (`init_vit_classifier`, ...); a section's
+module is `vanilla_vit_model(cfg, section)`.
 
 Modules hold parameters under exactly the JAX flat names, e.g.
 `attention.self.query.weight` or `layernorm_before.bias`, so a JAX
@@ -18,7 +22,7 @@ with dropout, whose attention is the masked attention op in mode "1".
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +32,7 @@ from ..ops import gates
 from ..ops.attention_block import attention_block
 from ..ops.head_block import explainer_head_block
 from ..ops.mlp_block import mlp_block
+from ..ops.shapley import normalize_shapley_explanation
 from .common import (dense, dense_serving, dropout, fused_dims_ok, gelu,
                      init_embedding, init_layer_norm, init_linear,
                      layer_norm, pallas_mode,
@@ -212,21 +217,118 @@ def fill_embeddings(emb: ViTEmbeddings, generator: torch.Generator) -> None:
         proj.bias.copy_(b)
 
 
-class ViTClassifier(nn.Module):
-    """The vanilla ViT classifier's parameters under the JAX names
-    (`init_vit_classifier`): `vit.embeddings.*`, `vit.encoder.layers.{i}.*`,
-    `vit.layernorm.*`, `classifier.*`."""
+class ViTBackbone(nn.Module):
+    """The `vit.` section (`init_vit_backbone`): `embeddings.*`,
+    `encoder.layers.{i}.*` and the final `layernorm.*`."""
 
     def __init__(self, cfg: VanillaViTConfig):
         super().__init__()
-        self.vit = nn.Module()
-        self.vit.embeddings = ViTEmbeddings(cfg)
-        self.vit.encoder = nn.Module()
-        self.vit.encoder.layers = nn.ModuleList(
+        self.embeddings = ViTEmbeddings(cfg)
+        self.encoder = nn.Module()
+        self.encoder.layers = nn.ModuleList(
             ViTLayer(cfg.hidden_size, cfg.intermediate_size)
             for _ in range(cfg.num_hidden_layers))
-        self.vit.layernorm = norm(cfg.hidden_size)
+        self.layernorm = norm(cfg.hidden_size)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        fill_embeddings(self.embeddings, generator)
+        for layer in self.encoder.layers:
+            layer.reset_parameters(generator)
+        fill_norm(self.layernorm)
+
+
+class ViTClassifier(nn.Module):
+    """The vanilla ViT classifier's (and surrogate's) parameters under the
+    JAX names (`init_vit_classifier`): `vit.embeddings.*`,
+    `vit.encoder.layers.{i}.*`, `vit.layernorm.*`, `classifier.*`."""
+
+    def __init__(self, cfg: VanillaViTConfig):
+        super().__init__()
+        self.vit = ViTBackbone(cfg)
         self.classifier = linear(cfg.num_labels, cfg.hidden_size)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.vit.reset_parameters(generator)
+        fill_linear(self.classifier, generator)
+
+
+def explainer_layers(cfg: VanillaViTConfig) -> nn.ModuleList:
+    """`explainer_attn.{i}.*`: the explainer's pre-norm layers at the trunk
+    width, the first without `layernorm_before`."""
+    return nn.ModuleList(
+        ViTLayer(cfg.hidden_size, cfg.intermediate_size, skip_ln1=(i == 0))
+        for i in range(cfg.explainer_attn_num_layers))
+
+
+def fill_explainer_head(layers: nn.ModuleList, head: nn.ModuleDict,
+                        generator: torch.Generator) -> None:
+    for layer in layers:
+        layer.reset_parameters(generator)
+    fill_norm(head["0"])
+    for k in ("1", "3", "5"):
+        fill_linear(head[k], generator)
+
+
+class ViTExplainer(nn.Module):
+    """The vanilla ViT explainer (`init_vit_explainer`): `vit.*`,
+    `explainer_attn.{i}.*` and `explainer_mlp.{0,1,3,5}.*`."""
+
+    def __init__(self, cfg: VanillaViTConfig):
+        super().__init__()
+        self.vit = ViTBackbone(cfg)
+        self.explainer_attn = explainer_layers(cfg)
+        self.explainer_mlp = explainer_mlp_head_module(
+            cfg.hidden_size, cfg.explainer_head_hidden_size, cfg.num_labels)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.vit.reset_parameters(generator)
+        fill_explainer_head(self.explainer_attn, self.explainer_mlp,
+                            generator)
+
+
+class ViTFinal(nn.Module):
+    """The vanilla ViT final (`init_vit_final`): the three towers under
+    `classifier.`, `surrogate.` and `explainer.`, and `surrogate_null`
+    <1, n_classes>."""
+
+    def __init__(self, cfg: VanillaViTConfig):
+        super().__init__()
+        self.classifier = ViTClassifier(cfg)
+        self.surrogate = ViTClassifier(cfg)
+        self.explainer = ViTExplainer(cfg)
+        self.register_buffer("surrogate_null", torch.zeros(1, cfg.num_labels))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for tower in (self.classifier, self.surrogate, self.explainer):
+            tower.reset_parameters(generator)
+        with torch.no_grad():
+            self.surrogate_null.zero_()
+
+
+VANILLA_SECTIONS = {"classifier": ViTClassifier, "surrogate": ViTClassifier,
+                    "explainer": ViTExplainer, "final": ViTFinal}
+
+
+def vanilla_vit_model(cfg: VanillaViTConfig,
+                      section: str = "final") -> nn.Module:
+    """A checkpoint section's module, created empty: fill it with an init
+    or a state dict."""
+    if section not in VANILLA_SECTIONS:
+        raise ValueError(f"unknown vanilla ViT section {section!r}")
+    return VANILLA_SECTIONS[section](cfg)
+
+
+def _flat(model: nn.Module, generator: torch.Generator
+          ) -> Dict[str, np.ndarray]:
+    model.reset_parameters(generator)
+    return {k: v.detach().numpy() for k, v in model.state_dict().items()}
+
+
+def init_vit_backbone(cfg: VanillaViTConfig, generator: torch.Generator
+                      ) -> Dict[str, np.ndarray]:
+    """A fresh `vit.` section as a flat dict of fp32 numpy arrays."""
+    return {f"vit.{k}": v
+            for k, v in _flat(ViTBackbone(cfg), generator).items()}
 
 
 def init_vit_classifier(cfg: VanillaViTConfig, generator: torch.Generator
@@ -234,13 +336,17 @@ def init_vit_classifier(cfg: VanillaViTConfig, generator: torch.Generator
     """A fresh vanilla ViT classifier as a flat dict of fp32 numpy arrays,
     drawn from `generator` with the JAX package's laws (its keys and
     shapes; not its numbers)."""
-    model = ViTClassifier(cfg)
-    fill_embeddings(model.vit.embeddings, generator)
-    for layer in model.vit.encoder.layers:
-        layer.reset_parameters(generator)
-    fill_norm(model.vit.layernorm)
-    fill_linear(model.classifier, generator)
-    return {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    return _flat(ViTClassifier(cfg), generator)
+
+
+def init_vit_explainer(cfg: VanillaViTConfig, generator: torch.Generator
+                       ) -> Dict[str, np.ndarray]:
+    return _flat(ViTExplainer(cfg), generator)
+
+
+def init_vit_final(cfg: VanillaViTConfig, generator: torch.Generator
+                   ) -> Dict[str, np.ndarray]:
+    return _flat(ViTFinal(cfg), generator)
 
 
 def explainer_mlp_head_module(d_in: int, d_hidden: int,
@@ -304,3 +410,126 @@ def explainer_mlp_head(head: nn.ModuleDict, h: torch.Tensor) -> torch.Tensor:
     h = gelu(dense_serving(h, d1.weight, d1.bias))
     h = gelu(dense_serving(h, d2.weight, d2.bias))
     return dense(h, d3.weight, d3.bias)
+
+
+# ------------------------------------------------------- vanilla towers
+
+
+def vit_encoder(vit: ViTBackbone, cfg: VanillaViTConfig, h: torch.Tensor,
+                mask: Optional[torch.Tensor], *, deterministic: bool = True,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The encoder layers in order (`:286-309`)."""
+    for layer in vit.encoder.layers:
+        h = layer(h, mask, cfg, deterministic, rng)
+    return h
+
+
+def vit_backbone(vit: ViTBackbone, cfg: VanillaViTConfig,
+                 pixels: torch.Tensor, mask: torch.Tensor, *,
+                 deterministic: bool = True,
+                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The `vit.` tower: embeddings -> encoder -> final LayerNorm; pixels
+    <B, C, H, W> or patches <B, n_patches, C*ps*ps>."""
+    h = vit_embeddings(vit.embeddings, cfg, pixels,
+                       deterministic=deterministic, rng=rng)
+    h = vit_encoder(vit, cfg, h, mask, deterministic=deterministic, rng=rng)
+    return layer_norm(h, vit.layernorm.weight, vit.layernorm.bias,
+                      cfg.layer_norm_eps)
+
+
+def _cls_probs(head: nn.Module, h: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(dense(h[:, 0, :], head.weight.to(h.dtype),
+                               head.bias.to(h.dtype)), dim=-1)
+
+
+def vit_classifier_fwd(model: ViTClassifier, cfg: VanillaViTConfig,
+                       pixels: torch.Tensor, mask: torch.Tensor, *,
+                       deterministic: bool = True,
+                       rng: Optional[torch.Generator] = None
+                       ) -> Tuple[torch.Tensor, dict]:
+    """-> (<B, n_classes> softmax probabilities, {"repr_cls": the backbone's
+    hidden states}) (`:341-355`)."""
+    h = vit_backbone(model.vit, cfg, pixels, mask,
+                     deterministic=deterministic, rng=rng)
+    return _cls_probs(model.classifier, h), {"repr_cls": h}
+
+
+# the surrogate shares the classifier's architecture
+vit_surrogate_fwd = vit_classifier_fwd
+
+
+def vit_explainer_head(model: nn.Module, cfg: VanillaViTConfig,
+                       h: torch.Tensor, mask: torch.Tensor,
+                       grand: torch.Tensor, null: torch.Tensor, *,
+                       deterministic: bool = True,
+                       rng: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+    """`model`'s explainer layers and MLP head on the backbone's output h;
+    the efficiency normalisation runs over all T tokens including CLS,
+    then CLS is dropped -> <B, n_classes, n_players> (`:413-435`)."""
+    for layer in model.explainer_attn:
+        h = layer(h, mask, cfg, deterministic, rng)
+    out = explainer_mlp_head(model.explainer_mlp, h)
+    if cfg.explainer_normalize:
+        out = normalize_shapley_explanation(out, grand, null)
+    return out[:, 1:, :].transpose(1, 2)
+
+
+def vit_explainer_fwd(model: ViTExplainer, cfg: VanillaViTConfig,
+                      pixels: torch.Tensor, mask: torch.Tensor,
+                      grand: torch.Tensor, null: torch.Tensor, *,
+                      deterministic: bool = True,
+                      rng: Optional[torch.Generator] = None
+                      ) -> Tuple[torch.Tensor, dict]:
+    """-> (attributions <B, n_classes, n_players>, {"repr_exp": the
+    backbone's hidden states}) (`:438-455`)."""
+    h = vit_backbone(model.vit, cfg, pixels, mask,
+                     deterministic=deterministic, rng=rng)
+    attr = vit_explainer_head(model, cfg, h, mask, grand, null,
+                              deterministic=deterministic, rng=rng)
+    return attr, {"repr_exp": h}
+
+
+def vit_final_fwd(model: ViTFinal, cfg: VanillaViTConfig,
+                  pixels: torch.Tensor, mask: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """-> (class probabilities, attributions, the three towers'
+    representations) (`:458-494`): the pixels' patch rearrange is done
+    once and shared by the three towers."""
+    patches = vit_patch_extract(cfg, pixels) if pixels.dim() == 4 \
+        else pixels
+    probs, obs_c = vit_classifier_fwd(model.classifier, cfg, patches, mask)
+    obs = {"repr_cls": obs_c["repr_cls"]}
+    if cfg.explainer_normalize:
+        grand, obs_s = vit_surrogate_fwd(model.surrogate, cfg, patches, mask)
+        obs["repr_srg"] = obs_s["repr_cls"]
+    else:
+        grand = torch.zeros_like(probs)
+    attr, obs_e = vit_explainer_fwd(model.explainer, cfg, patches, mask,
+                                    grand, model.surrogate_null)
+    obs["repr_exp"] = obs_e["repr_exp"]
+    return probs, attr, obs
+
+
+def vit_surrogate_coalitions_fwd(model: ViTClassifier, cfg: VanillaViTConfig,
+                                 pixels: torch.Tensor,  # <B, C, H, W>
+                                 masks: torch.Tensor,   # <B, M, 1 + P>
+                                 *, deterministic: bool = True
+                                 ) -> torch.Tensor:
+    """The surrogate over B*M coalition-masked copies of each image, the
+    patch projection and position embedding computed once per image and
+    broadcast over M -> <B, M, n_classes> (`:500-533`).  A no-grad teacher
+    sweep: eval mode only."""
+    if not deterministic:
+        raise NotImplementedError(
+            "the coalition fast path is a no-grad teacher sweep and runs "
+            "eval-mode only")
+    b, m, t = masks.shape
+    vit = model.vit
+    emb = vit_embeddings(vit.embeddings, cfg, pixels)
+    h = emb[:, None].expand(b, m, t, emb.shape[-1]).reshape(
+        b * m, t, emb.shape[-1])
+    h = vit_encoder(vit, cfg, h, masks.reshape(b * m, t))
+    h = layer_norm(h, vit.layernorm.weight, vit.layernorm.bias,
+                   cfg.layer_norm_eps)
+    return _cls_probs(model.classifier, h).reshape(b, m, -1)

@@ -47,7 +47,8 @@ from ..kernels.primitives import (EPI_WG_BIAS, EPI_WG_BIAS_RESID,
                                   layernorm_, quant_rows, rows_prep)
 from ..models.common import dense, layer_norm
 from . import gates
-from .weight_codes import float_weight, packed_bias, vec32, weight_codes
+from .weight_codes import (float_weight, identity_ln, packed_bias, vec32,
+                           weight_codes)
 
 COUNTER = LaunchCounter("attention_block")
 COUNTER_INT8 = LaunchCounter("attention_block_int8")
@@ -184,8 +185,7 @@ def attention_block_args(
         raise ValueError(f"unknown ln_position {ln_position!r}")
     h = resid.shape[-1]
     if ln is None:
-        ln_w = torch.ones(h, device=resid.device)
-        ln_b = torch.zeros(h, device=resid.device)
+        ln_w, ln_b = identity_ln(h, resid.device)
         ln_eps, ln_position = 1e-12, "none"
     else:
         ln_w, ln_b, ln_eps = ln

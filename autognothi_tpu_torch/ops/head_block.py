@@ -19,6 +19,18 @@ h2_chunk @ w3[chunk]).  On the H100, three launches:
    registers (bf16 exact, fp32 as 3xTF32) into an fp32 <tile, M, C> partial
    sum: h2 never reaches device memory;
 3. the partials summed in a fixed order with b3, then cast.
+That narrow d1 kernel takes inputs up to 128 wide (the LTT side heads;
+`csrc/int8_block.cu:ag_head_d1`).  The
+vanilla and froyo heads read the trunk's hidden state (768 at ViT-B and
+BERT-base, 384 at ViT-S, 192 at ViT-T), which the JAX gate admits as well;
+there d1 is two launches of K4's trunk tools instead (the "wide" route,
+`k3_route`): the row quantizer makes x's codes (with the LN prologue), the
+int8 GEMM's GELU epilogue (`I8_EPI_GELU_F32`) writes h in fp32, and a
+second row-quantizer pass makes h's codes and scales (the pass needs each
+row's max |h| anyway, so the GEMM raises no row maxima).  d2 and the sum
+are the narrow route's.  So the fp32 <M, inter> h reaches device memory
+once and is read once (155 MB at ViT-B B=64), where the narrow route's
+d1 would recompute a 768-deep product to keep it on chip.
 The fold's sum order differs from JAX's 4 chunks by an fp32 reordering
 only.  It takes up to `I8_MAX_FOLD` classes (the repo's heads have 2 and
 10); more raise `ValueError` on the card.  The d1 and d2 weights are
@@ -38,8 +50,9 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.build import LaunchCounter
-from ..kernels.primitives import (I8_EPI_GELU_FOLD, I8_MAX_FOLD, dispatch,
-                                  fold_planes, fold_sum, gemm_i8, head_d1)
+from ..kernels.primitives import (I8_EPI_GELU_F32, I8_EPI_GELU_FOLD,
+                                  I8_MAX_FOLD, dispatch, fold_planes,
+                                  fold_sum, gemm_i8, head_d1, quant_rows)
 from ..models.common import dense, gelu, layer_norm
 from .mlp_block import _quant_rows, int8_linear, quant_cols
 from .weight_codes import cached, identity_ln, vec32, weight_codes
@@ -82,17 +95,52 @@ def _fold_planes(w3: torch.Tensor, dtype: torch.dtype):
     return cached((w3,), ("fold", dtype), make)
 
 
+# the widest input and d1 output the narrow d1 kernel takes
+# (`csrc/int8_block.cu:ag_head_d1`)
+HEAD_D1_MAX_K, HEAD_D1_MAX_N = 128, 4096
+
+
+def k3_route(h_in: int, inter: int, classes: int) -> str:
+    """K3's route on the card for a head h_in -> inter -> inter -> classes:
+    "narrow" (d1 straight to h's codes in one launch) where the narrow d1
+    kernel takes the widths, else "wide" (d1 as the row quantizer, the
+    int8 GEMM with the fp32 GELU epilogue and the row quantizer of h).  A
+    pure function of the shapes.  Raises ValueError for more than
+    I8_MAX_FOLD classes (d2's fold) or widths that are not multiples of
+    16 (the int8 GEMM's K)."""
+    if classes > I8_MAX_FOLD:
+        raise ValueError(f"the head's d3 fold takes at most {I8_MAX_FOLD} "
+                         f"classes, got {classes}")
+    if h_in % 16 or inter % 16 or h_in < 16 or inter < 16:
+        raise ValueError(f"K3 takes widths that are multiples of 16, got "
+                         f"{h_in} -> {inter}")
+    if h_in <= HEAD_D1_MAX_K and inter <= HEAD_D1_MAX_N:
+        return "narrow"
+    return "wide"
+
+
+def _d1_wide(x2, w1, b1, ln) -> tuple:
+    """d1 on the wide route -> (h's int8 codes <M, inter>, fp32 scales)."""
+    xq, xs = quant_rows(x2, ln=ln)
+    h = gemm_i8(xq, xs, *weight_codes((w1,), w1.dtype), vec32(b1),
+                I8_EPI_GELU_F32, x2.dtype)
+    return quant_rows(h)
+
+
 def head_int8_launch(x, w1, b1, w2, b2, w3, b3, ln_w, ln_b, *, has_ln: bool,
                      ln_eps: float) -> torch.Tensor:
     """The CUDA version of K3 (launches only; no counting, no autograd):
-    d1 to h's codes, d2 with d3 folded into its epilogue, the fold's sum."""
+    d1 to h's codes on the route `k3_route` picks, d2 with d3 folded into
+    its epilogue, the fold's sum."""
     b_sz, t, h_in = x.shape
-    if w3.shape[0] > I8_MAX_FOLD:
-        raise ValueError(f"the head's d3 fold takes at most {I8_MAX_FOLD} "
-                         f"classes, got {w3.shape[0]}")
+    route = k3_route(h_in, w1.shape[0], w3.shape[0])
     x2 = x.contiguous().reshape(b_sz * t, h_in)
     ln = (vec32(ln_w), vec32(ln_b), ln_eps) if has_ln else None
-    hq, hs = head_d1(x2, *weight_codes((w1,), w1.dtype), vec32(b1), ln=ln)
+    if route == "narrow":
+        hq, hs = head_d1(x2, *weight_codes((w1,), w1.dtype), vec32(b1),
+                         ln=ln)
+    else:
+        hq, hs = _d1_wide(x2, w1, b1, ln)
     part = gemm_i8(hq, hs, *weight_codes((w2,), w2.dtype), vec32(b2),
                    I8_EPI_GELU_FOLD, x.dtype, fold=_fold_planes(w3, x.dtype),
                    classes=w3.shape[0])

@@ -10,25 +10,32 @@ from __future__ import annotations
 import os
 import pathlib
 import zipfile
-from typing import Dict, Mapping, Union
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
+from .models.bert import VanillaBertConfig, vanilla_bert_model
+from .models.froyo_bert import FroyoBertConfig, froyo_bert_model
+from .models.froyo_vit import FroyoViTConfig, froyo_vit_model
 from .models.ltt_bert import LttBert, LttBertConfig
 from .models.ltt_vit import LttViT, LttViTConfig
+from .models.vit import VanillaViTConfig, vanilla_vit_model
 
-MODELS = {LttViTConfig: LttViT, LttBertConfig: LttBert}
+# the model config's type -> (config, section) -> the section's module
+MODELS = {LttViTConfig: LttViT, LttBertConfig: LttBert,
+          VanillaViTConfig: vanilla_vit_model,
+          VanillaBertConfig: vanilla_bert_model,
+          FroyoViTConfig: froyo_vit_model, FroyoBertConfig: froyo_bert_model}
 
 
-def from_jax_params(flat: Mapping[str, np.ndarray],
-                    cfg: Union[LttViTConfig, LttBertConfig],
+def from_jax_params(flat: Mapping[str, np.ndarray], cfg: Any,
                     device: torch.device,
                     dtype: torch.dtype = torch.float32,
                     section: str = "final") -> torch.nn.Module:
-    """A flat JAX parameter dict of a checkpoint section ("surrogate",
-    "explainer" or "final") -> its LTT ViT or LTT BERT model (by the
-    config's type) on `device`, in eval mode.  Strict: every key must land
+    """A flat JAX parameter dict of a checkpoint section ("classifier",
+    "surrogate", "explainer" or "final") -> its model (by the config's
+    type, `MODELS`) on `device`, in eval mode.  Strict: every key must land
     on a parameter of the same shape, and the model must have no
     parameter the dict lacks."""
     model = MODELS[type(cfg)](cfg, section)

@@ -13,7 +13,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
-PORTED_NET_KINDS = ("ltt_vit", "ltt_bert")
+PORTED_NET_KINDS = ("ltt_vit", "ltt_bert", "vanilla_vit", "vanilla_bert",
+                    "froyo_vit", "froyo_bert")
 
 
 @dataclasses.dataclass(frozen=True)

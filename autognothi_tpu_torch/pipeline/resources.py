@@ -14,6 +14,7 @@ one; only the newest opt file is kept.  A file of the JAX package's
 
 from __future__ import annotations
 
+import importlib
 import os
 import pathlib
 from typing import Any, Dict, List, Mapping, Optional, Tuple
@@ -26,23 +27,20 @@ from ..data.loader import (DatasetLoader, load_cv_samples, load_nlp_samples,
 from ..params import from_jax_params, load_params_file, save_params
 from ..recipes.types import ModelRecipe
 from ..utils.strings import ranged_modulo_test
-from .config import Config_Dataset, Config_Train, ExpConfig
+from .config import (PORTED_NET_KINDS, Config_Dataset, Config_Train,
+                     ExpConfig)
 from .training import AdamW
 
 
 def get_recipe(config: ExpConfig) -> Tuple[ModelRecipe, Any]:
-    """-> (recipe, the model config built from `net.params`)."""
-    if config.net.kind == "ltt_vit":
-        from ..recipes.ltt_vit import ltt_vit_recipe
-
-        recipe = ltt_vit_recipe()
-    elif config.net.kind == "ltt_bert":
-        from ..recipes.ltt_bert import ltt_bert_recipe
-
-        recipe = ltt_bert_recipe()
-    else:
-        raise NotImplementedError(
-            f"net kind {config.net.kind!r} is not ported yet")
+    """-> (recipe, the model config built from `net.params`): the recipe
+    of net kind <kind> is `recipes/<kind>.py:<kind>_recipe()`."""
+    kind = config.net.kind
+    if kind not in PORTED_NET_KINDS:
+        raise NotImplementedError(f"net kind {kind!r} is not ported yet")
+    recipe = getattr(importlib.import_module(f"..recipes.{kind}",
+                                             __package__),
+                     f"{kind}_recipe")()
     if config.net.version != recipe.version:
         raise ValueError(
             f"mismatch recipe version: (config) {config.net.version} != "

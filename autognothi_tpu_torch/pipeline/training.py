@@ -170,8 +170,11 @@ def make_train_step(loss_fn: Callable[..., Tuple[torch.Tensor, object]]
         with record_function("forward"):
             loss, aux = loss_fn(model, *batch)
         with record_function("backward"):
-            grads = torch.autograd.grad(loss, list(trainable.values()),
-                                        allow_unused=True)
+            # a section that trains nothing (the vanilla classifier) has
+            # no graph to differentiate
+            grads = torch.autograd.grad(
+                loss, list(trainable.values()),
+                allow_unused=True) if trainable else ()
         with record_function("adamw"):
             opt.update(params, dict(zip(trainable, grads)), lr, update_mask)
         return loss.detach(), _detached(aux)

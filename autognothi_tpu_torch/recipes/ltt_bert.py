@@ -21,11 +21,11 @@ from ..models.ltt_bert import (LttBert, LttBertConfig, init_ltt_bert,
                                ltt_bert_progressive,
                                ltt_bert_surrogate_coalitions_fwd,
                                ltt_bert_surrogate_fwd, ltt_bert_trainable)
-from ..params import from_jax_params, to_flat
+from ..params import to_flat
 from ..utils.surgery import New, merge_param_dicts
 from . import vanilla_bert as vb
-from .types import (Flat, ModelRecipe, ModelRecipe_Measurements,
-                    ModelRecipe_Training)
+from . import vanilla_vit as vv
+from .types import Flat, ModelRecipe, null_values
 
 
 def n_players(cfg: LttBertConfig) -> int:
@@ -113,12 +113,6 @@ def conv_explainer_final(cfg: LttBertConfig, misc: vb.BertMisc,
     null ids with every player on (`:89-134`).  The JAX package runs this
     on the host; the port runs the surrogate forward on `device`, the rest
     is surgery on the host."""
-    srg = from_jax_params(surrogate, cfg, device, section="surrogate")
-    with torch.no_grad():
-        nil_xs = torch.from_numpy(vb.null_ids(cfg, misc)).to(device)
-        surrogate_null, _ = fw_surrogate(
-            cfg, srg, nil_xs, torch.ones((1, n_players(cfg)),
-                                         dtype=torch.int32, device=device))
     rules_cls = {
         "bert.embeddings.{_}": ...,
         "bert.encoder.layers.{_}": ...,
@@ -157,7 +151,9 @@ def conv_explainer_final(cfg: LttBertConfig, misc: vb.BertMisc,
         (rules_srg, surrogate),
         (rules_exp, explainer),
         ({"surrogate_null": ...},
-         {"surrogate_null": surrogate_null.float().cpu().numpy()}),
+         {"surrogate_null": null_values(fw_surrogate, cfg, surrogate,
+                                        vb.null_ids(cfg, misc), n_players(cfg),
+                                        device)}),
         into=dst,
     )
 
@@ -236,10 +232,7 @@ def ltt_bert_recipe() -> ModelRecipe:
         n_players=n_players,
         gen_input=vb.gen_input,
         gen_null=vb.null_ids,
-        training=ModelRecipe_Training(
-            support_classifier=True, support_surrogate=True,
-            support_explainer=True, exp_variant_duo=False,
-            exp_variant_kernel_shap=False),
+        training=vv.TRAINING,
         fw_surrogate=fw_surrogate,
         fw_explainer=fw_explainer,
         fw_final=fw_final,
@@ -256,18 +249,7 @@ def ltt_bert_recipe() -> ModelRecipe:
         conv_surrogate_explainer=conv_surrogate_explainer,
         conv_explainer_final=conv_explainer_final,
         fw_classifier=fw_classifier,
-        measurements=ModelRecipe_Measurements(
-            verify_final_coherency=True,
-            allow_accuracy=True,
-            allow_faithfulness=True,
-            allow_cls_acc=True,
-            allow_performance_cls=True,
-            allow_performance_srg_exp=True,
-            allow_performance_fin=True,
-            allow_train_resources=True,
-            allow_dual_task_similarity=False,
-            allow_branches_cka=True,
-        ),
+        measurements=vv.MEASUREMENTS,
         fw_classifier_repr=fw_classifier_repr,
         fw_explainer_repr=fw_explainer_repr,
     )

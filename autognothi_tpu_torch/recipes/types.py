@@ -103,6 +103,23 @@ class ModelRecipe:
                                                     torch.Tensor]]] = None
 
 
+def null_values(fw_surrogate: Callable, cfg: Any, surrogate: Flat,
+                nil_xs: np.ndarray, n_players: int,
+                device: torch.device) -> np.ndarray:
+    """`fw_surrogate` of the surrogate section `surrogate` on the null input
+    `nil_xs` <1, ...> with every player on, run on `device` -> <1,
+    n_classes> fp32: the final's `surrogate_null`, which the JAX package's
+    conversions replay on the host."""
+    from ..params import from_jax_params
+
+    srg = from_jax_params(surrogate, cfg, device, section="surrogate")
+    with torch.no_grad():
+        null, _ = fw_surrogate(
+            cfg, srg, torch.from_numpy(nil_xs).to(device),
+            torch.ones((1, n_players), dtype=torch.int32, device=device))
+    return null.float().cpu().numpy()
+
+
 def surrogate_coalition_values(recipe: ModelRecipe, m_config: Any,
                                srg_model: Model, xs: torch.Tensor,
                                masks_bmp: torch.Tensor) -> torch.Tensor:

@@ -28,7 +28,13 @@ Phases, each printing its own lines:
      chain) and its int8 split (K8q, 2 tiles, one launch each); the ladder
      (768 -> 2 x 96, "add", post-norm); the int8 head without LN (96 ->
      3072 -> 3072 -> 2); the masked attention op at <4, 12, 512, 64>, both
-     modes (T = 512 at d = 64 walks the keys in chunks);
+     modes (T = 512 at d = 64 walks the keys in chunks).  The vanilla
+     towers' shapes: the explainer's first layer at the trunk width,
+     attention without LN (K6, K1; BERT's "add" K6 and, in bf16, K1), and
+     K3's wide route on a 768-wide input (768 -> 3072 -> 3072 -> 10 with
+     LN; BERT's -> 2 without).  `[k3-wide]`: that route alone at <64, 197,
+     768> (fp32, bf16) and <8, 512, 768>, its CUDA-event and device ms and
+     launches beside its bound and `torch._int_mm` on the same products;
   3. the slice through `serve`: a random LTT ViT-B/16@224 final (seeded
      torch.Generator) saved as `final-epoch-0.ckpt`, served on the card at
      batch 8, once on the fp32 path and once with AUTOGNOTHI_INT8=1; each
@@ -132,7 +138,8 @@ Phases, each printing its own lines:
      (384, 12), d = 16, 16, 32; F7), its route, launches and device time,
      against its plain version.
   7. the reports through `run_all`: a fresh copy of phase 6's experiment
-     (the same widths, depth and data) with eval blocks (faithfulness at
+     (the same widths and data, 6 of the 12 layers: `RUN_ALL_LAYERS`)
+     with eval blocks (faithfulness at
      16 stops over the 8 test images: 10 classes x 16 stops x 2 = 320
      coalitions an image; accuracy at 5 masked counts; cls_acc at every
      explainer epoch; performance over 2 loops at batch 1; train resources
@@ -178,6 +185,27 @@ Phases, each printing its own lines:
      stage-time]`); a surrogate step at dropout 0.1 (no kernel in its
      differentiated forward, kernels in its teacher); the performance and
      train-resources numbers.
+
+  9. and 10. the vanilla and froyo towers of ViT-B/16@224 (9) and
+     BERT-base@512 (10), the shipped `vit_base_imagenette_vanilla` and
+     `bert_base_tayp_vanilla` `net.params` (random_init, dropout 0,
+     full depth; faithfulness at 8 stops, one performance loop): a
+     random vanilla final served fp32 and W8A8 (phase 3's requests; 37
+     attention and 37 MLP blocks a slab, the W8A8 head on K3's wide
+     route), then `fw_final` at B = 8 on the other paths (ViT mode "1";
+     BERT int8 with bf16 parameters, bf16, mode "1"), each against its
+     plain forward with its kernel calls (`VANILLA_COUNTS`), timed and
+     profiled; `run_all` through `cli_main` with phase 6's / phase 8's
+     data and blocks: each stage's kernel calls, coherency 0.0 / 0.0, the
+     six reports, a second `measure_all` that launches nothing, the
+     quality gate fp32 / W8A8 / mode "1", cls_acc and accuracy against
+     plain, each stage's step against plain with its kernel calls and the
+     plain recomputes its backward runs (`primitives.RECOMPUTES`), the
+     steps' ms and spans; a froyo `train_all`, its final served fp32 and
+     W8A8 (13 + 13 blocks a slab), its steps against plain (the
+     backward recomputes the explainer layer's two ops, no trunk op) and
+     the explainer step timed against plain.  Each phase prints its
+     seconds (`[phase]` lines).
 
 Any failure raises, exits non-zero and prints no result.  The last three
 lines are the card, the kernel table (JSON) and the status line (JSON).
@@ -523,6 +551,22 @@ def op_cases(dev, dtype, b, random_mask):
                       lb.ladder_attention,
                       functools.partial(_ladder_attention_plain, mode=mode),
                       (qkvs, mrow, 12, mode), {}))
+    # the vanilla towers: the explainer's first layer at the trunk
+    # width, attention without LN1 (K6, K1), and the head on the trunk's
+    # 768-wide hidden state (K3's wide route, F11)
+    for name, (op, plain) in attn.items():
+        ws = [t for _ in range(4) for t in lin(768, 768)]
+        cases.append((name, "trunk 768 no-LN", op,
+                      _plain(ab.attention_block_args, plain),
+                      (act(b, T, 768), mask, tuple(ws), 12, "mul"), {}))
+    (w1, b1), (w2, b2), (w3, b3) = lin(3072, 768), lin(3072, 3072), \
+        lin(10, 3072)
+    lnw, lnb, _ = ln(768)
+    cases.append(("head_block", "768-3072-3072-10 wide",
+                  hb.explainer_head_block,
+                  _plain(hb.explainer_head_block_args, hb.head_int8_plain),
+                  (act(b, T, 768), w1, b1, w2, b2, w3, b3, lnw, lnb, 1e-5),
+                  {}))
     return cases
 
 
@@ -630,6 +674,20 @@ def bert_op_cases(dev, dtype, b, random_mask):
         cases.append((mlp_name, "side 96/384 LN-epi", op, _under_plain(op),
                       (act(b, t, s), w1, b1, w2, b2),
                       dict(ln=ln_s, ln_position="epilogue")))
+    # the vanilla towers: the explainer's first layer at the trunk
+    # width, attention without its LN (`ident_ln1`; K6, and K1 in bf16),
+    # and the head on the trunk's 768-wide hidden state (K3's wide route)
+    ws = tuple(x for _ in range(4) for x in lin(h, h))
+    for name, op in attn:
+        cases.append((name, "trunk 768 add no-LN", op, _under_plain(op),
+                      (act(b, t, h), bias, ws, 12, "add"),
+                      dict(ln=None, ln_position="epilogue")))
+    (w1, b1), (w2, b2), (w3, b3) = lin(3072, h), lin(3072, 3072), lin(2, 3072)
+    cases.append(("head_block", "768-3072-3072-2 no-LN wide",
+                  hb.explainer_head_block,
+                  _under_plain(hb.explainer_head_block),
+                  (act(b, t, h), w1, b1, w2, b2, w3, b3, None, None, 1e-5),
+                  {}))
     return cases
 
 
@@ -913,11 +971,13 @@ def bert_requests():
     return [("texts x3", "texts", CORPUS[:3]), ("texts x9", "texts", CORPUS[:9])]
 
 
-def phase_serve(dev, exp: pathlib.Path, int8: bool, model: str = "vit"):
+def phase_serve(dev, exp: pathlib.Path, int8: bool, model: str = "vit",
+                per_slab: dict = None, tag: str = None):
     """Serve the experiment on one path; -> (kernel calls, service, the
     responses by request label).  Three slabs of 8 (1 + 2), their kernel
-    calls against the path's table, the responses against the plain
-    forward of the same module on the same path."""
+    calls against the path's table (the LTT finals' unless `per_slab` is
+    given), the responses against the plain forward of the same module on
+    the same path."""
     import numpy as np
     import torch
 
@@ -926,12 +986,13 @@ def phase_serve(dev, exp: pathlib.Path, int8: bool, model: str = "vit"):
 
     path = "int8" if int8 else "fp32"
     if model == "vit":
-        per_slab = INT8_COUNTS if int8 else FP32_COUNTS
+        table = INT8_COUNTS if int8 else FP32_COUNTS
         requests, n_labels, n_players = vit_requests(), 10, 196
     else:
-        per_slab = BERT_COUNTS[path]
+        table = BERT_COUNTS[path]
         requests, n_labels, n_players = bert_requests(), 2, T_BERT - 1
-    tag = f"serve {model} {path}"
+    per_slab = per_slab or table
+    tag = tag or f"serve {model} {path}"
     env = ExpEnv(exp)
     with int8_mode(int8):
         t0 = time.perf_counter()
@@ -1812,6 +1873,7 @@ class StageCase:
                                                             make_train_step)
 
         cfg = cfg or self.cfg
+        is_ltt = self.recipe.progressive_trainable is not None
         model = copy.deepcopy(self.models[stage])
         trainable = self.recipe.trainable(cfg, stage)
         for name, p in model.named_parameters():
@@ -1821,7 +1883,7 @@ class StageCase:
         ones = {k: 1.0 for k in params}
         depth = cfg.num_hidden_layers
         if stage == "classifier":
-            step = make_train_step(classifier_loss(self.recipe, cfg, True))
+            step = make_train_step(classifier_loss(self.recipe, cfg, is_ltt))
             return lambda: step(model, opt, 5e-5, ones, self.xs, self.ones,
                                 self.labels, generator, depth, self.w)[0]
         if stage == "explainer":
@@ -1831,7 +1893,7 @@ class StageCase:
             return lambda: step(model, opt, self.models["surrogate"],
                                 self.null, xs, generator, 5e-5, ones, depth,
                                 masks=self.masks)
-        step = make_train_step(surrogate_loss(self.recipe, cfg, True))
+        step = make_train_step(surrogate_loss(self.recipe, cfg, is_ltt))
         teacher = surrogate_teacher(self.recipe, cfg)
         cls = self.models["classifier"]
 
@@ -2497,8 +2559,9 @@ def time_library_int8(name: str, args: tuple, card: str) -> float:
 def check_int8_launches(name: str, tag: str, kernels: dict,
                         launches: float, post_ln: bool) -> None:
     """K4: the narrow design (`mlp_narrow_kernel`) one launch, the trunk
-    design at most three and BERT's post-norm LN; K3 at most three, none
-    of `csrc/gemm.cu`'s (`gemm_tc_kernel`); neither a copy or fill."""
+    design at most three and BERT's post-norm LN; K3 at most three on its
+    narrow route (`head_d1_kernel`), five on the wide one, none of
+    `csrc/gemm.cu`'s (`gemm_tc_kernel`); neither a copy or fill."""
     if name == "mlp_block_int8":
         if any("mlp_narrow_kernel" in k for k in kernels):
             check(launches == 1, f"K4 {tag}: {launches} launches per call "
@@ -2508,7 +2571,10 @@ def check_int8_launches(name: str, tag: str, kernels: dict,
                   f"K4 {tag}: {launches} launches per call on the trunk "
                   f"design")
     else:
-        check(launches <= 3, f"K3 {tag}: {launches} launches per call")
+        narrow = any("head_d1_kernel" in k for k in kernels)
+        check(launches <= (3 if narrow else 5),
+              f"K3 {tag}: {launches} launches per call on the "
+              f"{'narrow' if narrow else 'wide'} route")
         check(not any("gemm_tc_kernel" in k for k in kernels),
               f"K3 {tag}: a csrc/gemm.cu kernel among {sorted(kernels)}")
     check(not any(w in k.lower() for k in kernels
@@ -2598,9 +2664,11 @@ CURVES = ("insertion", "deletion", "insertion_non_ok", "deletion_non_ok")
 # an argmax that flips between kernel and plain forwards is explained when
 # the plain forward's two best classes lie within this of each other
 FLIP_MARGIN = 1e-3
-# the cut that keeps phase 7 inside the time limit: ViT-B/16@224 widths,
-# 8 test images at 16 faithfulness stops (10 classes x 16 stops x 2
-# directions = 320 coalitions an image)
+# the cut that keeps phase 7 inside the time limit: ViT-B/16@224 widths
+# at 6 of the 12 layers (phases 9 and 10 run the vanilla towers at full
+# depth beside it), 8 test images at 16 faithfulness stops (10 classes x
+# 16 stops x 2 directions = 320 coalitions an image)
+RUN_ALL_LAYERS = 6
 RUN_ALL_EVAL = {
     "eval_accuracy": {"dataset": None, "batch_size": TRAIN_B,
                       "resolution": 5},
@@ -2618,9 +2686,10 @@ RUN_ALL_EVAL = {
 def write_run_all_experiment(tmp: pathlib.Path) -> pathlib.Path:
     """Phase 6's experiment (random_init LTT ViT-B/16@224 on `cv_samples`
     at 224 px, 2 train and 1 test batch of TRAIN_B) in a fresh directory,
-    with the eval blocks of RUN_ALL_EVAL."""
+    at RUN_ALL_LAYERS, with the eval blocks of RUN_ALL_EVAL."""
     exp = write_train_all_experiment(tmp, name="run_all")
     hp = json.loads((exp / ".hparams.json").read_text())
+    hp["net"]["params"]["num_hidden_layers"] = RUN_ALL_LAYERS
     hp.update(copy.deepcopy(RUN_ALL_EVAL))
     (exp / ".hparams.json").write_text(json.dumps(hp, indent=2))
     return exp
@@ -2775,6 +2844,131 @@ def check_report_equal(exp: pathlib.Path, report: str, got: dict,
           f"{FLIP_MARGIN:g} of a tie in the plain forward", flush=True)
 
 
+def run_report_gate(dev, exp: pathlib.Path, faith_kernels: dict,
+                    texts: dict, card: str, tag: str) -> dict:
+    """The quality gate (faithfulness with the kernels against the plain
+    versions on the card: fp32, W8A8, mode "1"; each kernel run launching
+    `faith_kernels[path]`), then cls_acc and accuracy against the plain
+    run; -> the kernel calls of the W8A8 and mode "1" faithfulness runs."""
+    import torch
+
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.measure_accuracy import \
+        measure_accuracy
+    from autognothi_tpu_torch.pipeline.measure_cls_acc import \
+        measure_cls_acc
+    from autognothi_tpu_torch.pipeline.measure_faithfulness import \
+        measure_faithfulness
+    from autognothi_tpu_torch.pipeline.reports import to_json
+
+    total: dict = {}
+    kernel_faith = {"fp32": json.loads(texts["faithfulness.json"])}
+    for path in ("fp32", "int8", "mode 1"):
+        pallas, int8 = FAITH_ENV[path]
+        with report_env(pallas, int8):
+            if path != "fp32":
+                torch.cuda.synchronize()
+                reset_counts()
+                t1 = time.perf_counter()
+                with ExpEnv(exp) as env:
+                    kernel_faith[path] = to_json(measure_faithfulness(
+                        env, device="cuda"))
+                torch.cuda.synchronize()
+                run = {k: v for k, v in read_counts().items() if v}
+                print(f"{tag} faithfulness {path}: "
+                      f"{time.perf_counter() - t1:.2f} s, kernel calls "
+                      f"{run} | {card}", flush=True)
+                check(all(run.get(k, 0) > 0 for k in faith_kernels[path]),
+                      f"faithfulness {path} launched no "
+                      f"{faith_kernels[path]} kernel: {run}")
+                total = _scaled((1, total), (1, run))
+            t1 = time.perf_counter()
+            with plain_ops(), ExpEnv(exp) as env:
+                plain = to_json(measure_faithfulness(env, device="cuda"))
+            plain_s = time.perf_counter() - t1
+        got = kernel_faith[path]
+        worst, curve, points = faith_drift(got, plain)
+        print(f"{tag} quality gate, faithfulness {path}: AUCs "
+              + ", ".join(f"{c} {got[c]['auc']:.6f} (plain "
+                          f"{plain[c]['auc']:.6f})" for c in CURVES)
+              + f"; worst AUC drift {worst:.3e} on {curve} (limit "
+              f"{FAITH_TOL[path]:g}); largest curve-point drift "
+              f"{points:.3e}; plain run {plain_s:.2f} s | {card}",
+              flush=True)
+        check(worst <= FAITH_TOL[path],
+              f"faithfulness {path}: AUC drift {worst:.3e} on {curve} "
+              f"above {FAITH_TOL[path]:g}")
+    for report, fn in (("cls_acc", measure_cls_acc),
+                       ("accuracy", measure_accuracy)):
+        with report_env("2", False), plain_ops(), ExpEnv(exp) as env:
+            want = to_json(fn(env, device="cuda"))
+        check_report_equal(exp, report, json.loads(texts[f"{report}.json"]),
+                           want, dev, tag=tag)
+    return total
+
+
+def check_report_files(exp: pathlib.Path, calls: dict, seconds: dict,
+                       kernels: tuple, card: str, tag: str) -> dict:
+    """The six files run_all wrote, each report's seconds and kernel calls
+    (each launched every one of `kernels`), then a second `measure_all`
+    that reloads them and launches nothing; -> the reports' texts."""
+    import torch
+
+    from autognothi_tpu_torch.cli import main as cli_main
+
+    reports = exp / ".reports"
+    files = tuple(sorted(p.name for p in reports.iterdir()))
+    check(files == REPORT_FILES, f"run_all wrote {files}")
+    for name in REPORT_FNS:
+        got = calls.get(name, {})
+        print(f"{tag} {name}: {seconds.get(name, 0.0):.2f} s, kernel calls "
+              f"{got} | {card}", flush=True)
+        check(all(got.get(k, 0) > 0 for k in kernels),
+              f"{name} launched no {kernels} kernel: {got}")
+    texts = {n: (reports / n).read_text() for n in files}
+    stamps = {n: (reports / n).stat().st_mtime_ns for n in files}
+    reset_counts()
+    with report_env("2", False):
+        cli_main(["measure_all", str(exp), "--device", "cuda"])
+    torch.cuda.synchronize()
+    again = {k: v for k, v in read_counts().items() if v}
+    check(not again and all((reports / n).read_text() == texts[n]
+                            and (reports / n).stat().st_mtime_ns == stamps[n]
+                            for n in files),
+          f"the second measure_all recomputed: kernel calls {again}")
+    print(f"{tag} second measure_all: the six reports reloaded, nothing "
+          f"computed (0 kernel calls, files unchanged)", flush=True)
+    return texts
+
+
+def print_resource_reports(texts: dict, card: str, tag: str,
+                           batch: int) -> None:
+    """The performance report's ms/sample, GFLOPs and MiB per stage and
+    the train resources' seconds and MiB per step, each checked above 0."""
+    perf = json.loads(texts["performance.json"])
+    for stage in ("classifier", "surrogate", "explainer", "final"):
+        r = perf[stage]
+        check(r["time_avg"] > 0 and r["gflops"] > 0 and r["mem_mib"] > 0,
+              f"performance {stage}: {r}")
+        print(f"{tag} performance {stage}: {r['time_avg'] * 1e3:.3f} "
+              f"ms/sample (std {r['time_std'] * 1e3:.3f}, batch 1, "
+              f"{len(r['time'])} samples), {r['gflops']:.3f} GFLOPs, "
+              f"{r['params_all']:.3f} M params ({r['params_trainable']:.3f} "
+              f"M trainable), {r['mem_mib']:.1f} MiB ({r['mem_estimator']}) "
+              f"| {card}", flush=True)
+    trn = json.loads(texts["train_resources.json"])
+    print(f"{tag} train_resources: init {trn['init_tm']:.3f} s, "
+          f"{trn['init_mem']:.1f} MiB; surrogate step "
+          f"{trn['srg_tm']['avg'] * 1e3:.3f} ms/sample, "
+          f"{trn['srg_mem']['avg']:.1f} MiB; explainer step "
+          f"{trn['exp_tm']['avg'] * 1e3:.3f} ms/sample, "
+          f"{trn['exp_mem']['avg']:.1f} MiB ({trn['mem_estimator']}, batch "
+          f"{batch}) | {card}", flush=True)
+    check(trn["srg_tm"]["avg"] > 0 and trn["exp_tm"]["avg"] > 0
+          and trn["srg_mem"]["avg"] > 0 and trn["exp_mem"]["avg"] > 0,
+          f"train_resources: {trn}")
+
+
 def phase_run_all(dev, tmp: pathlib.Path, card: str) -> dict:
     """`python -m autognothi_tpu_torch run_all <exp> --device cuda` through
     `cli_main` on a fresh random_init LTT ViT-B/16@224 experiment: the six
@@ -2787,14 +2981,6 @@ def phase_run_all(dev, tmp: pathlib.Path, card: str) -> dict:
     import torch
 
     from autognothi_tpu_torch.cli import main as cli_main
-    from autognothi_tpu_torch.pipeline.env import ExpEnv
-    from autognothi_tpu_torch.pipeline.measure_accuracy import \
-        measure_accuracy
-    from autognothi_tpu_torch.pipeline.measure_cls_acc import \
-        measure_cls_acc
-    from autognothi_tpu_torch.pipeline.measure_faithfulness import \
-        measure_faithfulness
-    from autognothi_tpu_torch.pipeline.reports import to_json
 
     exp = write_run_all_experiment(tmp)
     calls: dict = {}
@@ -2807,94 +2993,13 @@ def phase_run_all(dev, tmp: pathlib.Path, card: str) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     total = {k: v for k, v in read_counts().items() if v}
-    reports = exp / ".reports"
-    files = tuple(sorted(p.name for p in reports.iterdir()))
-    print(f"[run_all] train_all + measure_all in {seconds:.1f} s: "
-          f"{', '.join(files)} | {card}", flush=True)
-    check(files == REPORT_FILES, f"run_all wrote {files}")
-    for name in REPORT_FNS:
-        got = calls.get(name, {})
-        print(f"[run_all] {name}: {report_seconds.get(name, 0.0):.2f} s, "
-              f"kernel calls {got}", flush=True)
-        check(all(got.get(k, 0) > 0 for k in FP32_REPORT_KERNELS),
-              f"{name} launched no {FP32_REPORT_KERNELS} kernel: {got}")
-    texts = {n: (reports / n).read_text() for n in files}
-    stamps = {n: (reports / n).stat().st_mtime_ns for n in files}
-    reset_counts()
-    with report_env("2", False):
-        cli_main(["measure_all", str(exp), "--device", "cuda"])
-    torch.cuda.synchronize()
-    again = {k: v for k, v in read_counts().items() if v}
-    check(not again and all((reports / n).read_text() == texts[n]
-                            and (reports / n).stat().st_mtime_ns == stamps[n]
-                            for n in files),
-          f"the second measure_all recomputed: kernel calls {again}")
-    print("[run_all] second measure_all: the six reports reloaded, nothing "
-          "computed (0 kernel calls, files unchanged)", flush=True)
-
-    # the quality gate: faithfulness on the same checkpoints, kernels
-    # against plain versions on the card
-    kernel_faith = {"fp32": json.loads(texts["faithfulness.json"])}
-    for path in ("fp32", "int8", "mode 1"):
-        pallas, int8 = FAITH_ENV[path]
-        with report_env(pallas, int8):
-            if path != "fp32":
-                torch.cuda.synchronize()
-                reset_counts()
-                with ExpEnv(exp) as env:
-                    kernel_faith[path] = to_json(measure_faithfulness(
-                        env, device="cuda"))
-                torch.cuda.synchronize()
-                run = {k: v for k, v in read_counts().items() if v}
-                print(f"[run_all] faithfulness {path}: kernel calls {run}",
-                      flush=True)
-                check(all(run.get(k, 0) > 0 for k in FAITH_KERNELS[path]),
-                      f"faithfulness {path} launched no "
-                      f"{FAITH_KERNELS[path]} kernel: {run}")
-                total = _scaled((1, total), (1, run))
-            with plain_ops(), ExpEnv(exp) as env:
-                plain = to_json(measure_faithfulness(env, device="cuda"))
-        got = kernel_faith[path]
-        worst, curve, points = faith_drift(got, plain)
-        print(f"[run_all] quality gate, faithfulness {path}: AUCs "
-              + ", ".join(f"{c} {got[c]['auc']:.6f} (plain "
-                          f"{plain[c]['auc']:.6f})" for c in CURVES)
-              + f"; worst AUC drift {worst:.3e} on {curve} (limit "
-              f"{FAITH_TOL[path]:g}); largest curve-point drift "
-              f"{points:.3e} | {card}", flush=True)
-        check(worst <= FAITH_TOL[path],
-              f"faithfulness {path}: AUC drift {worst:.3e} on {curve} "
-              f"above {FAITH_TOL[path]:g}")
-
-    for report, fn in (("cls_acc", measure_cls_acc),
-                       ("accuracy", measure_accuracy)):
-        with report_env("2", False), plain_ops(), ExpEnv(exp) as env:
-            want = to_json(fn(env, device="cuda"))
-        check_report_equal(exp, report,
-                           json.loads(texts[f"{report}.json"]), want, dev)
-
-    perf = json.loads(texts["performance.json"])
-    for stage in ("classifier", "surrogate", "explainer", "final"):
-        r = perf[stage]
-        check(r["time_avg"] > 0 and r["gflops"] > 0 and r["mem_mib"] > 0,
-              f"performance {stage}: {r}")
-        print(f"[run_all] performance {stage}: {r['time_avg'] * 1e3:.3f} "
-              f"ms/sample (std {r['time_std'] * 1e3:.3f}, batch 1, "
-              f"{len(r['time'])} samples), {r['gflops']:.3f} GFLOPs, "
-              f"{r['params_all']:.3f} M params ({r['params_trainable']:.3f} "
-              f"M trainable), {r['mem_mib']:.1f} MiB ({r['mem_estimator']}) "
-              f"| {card}", flush=True)
-    trn = json.loads(texts["train_resources.json"])
-    print(f"[run_all] train_resources: init {trn['init_tm']:.3f} s, "
-          f"{trn['init_mem']:.1f} MiB; surrogate step "
-          f"{trn['srg_tm']['avg'] * 1e3:.3f} ms/sample, "
-          f"{trn['srg_mem']['avg']:.1f} MiB; explainer step "
-          f"{trn['exp_tm']['avg'] * 1e3:.3f} ms/sample, "
-          f"{trn['exp_mem']['avg']:.1f} MiB ({trn['mem_estimator']}, batch "
-          f"{TRAIN_B}) | {card}", flush=True)
-    check(trn["srg_tm"]["avg"] > 0 and trn["exp_tm"]["avg"] > 0
-          and trn["srg_mem"]["avg"] > 0 and trn["exp_mem"]["avg"] > 0,
-          f"train_resources: {trn}")
+    print(f"[run_all] train_all + measure_all in {seconds:.1f} s | {card}",
+          flush=True)
+    texts = check_report_files(exp, calls, report_seconds,
+                               FP32_REPORT_KERNELS, card, "[run_all]")
+    total = _scaled((1, total), (1, run_report_gate(
+        dev, exp, FAITH_KERNELS, texts, card, "[run_all]")))
+    print_resource_reports(texts, card, "[run_all]", TRAIN_B)
     torch.cuda.empty_cache()
     return total
 
@@ -3089,14 +3194,6 @@ def phase_bert_run_all(dev, tmp: pathlib.Path, card: str) -> dict:
     import torch
 
     from autognothi_tpu_torch.cli import main as cli_main
-    from autognothi_tpu_torch.pipeline.env import ExpEnv
-    from autognothi_tpu_torch.pipeline.measure_accuracy import \
-        measure_accuracy
-    from autognothi_tpu_torch.pipeline.measure_cls_acc import \
-        measure_cls_acc
-    from autognothi_tpu_torch.pipeline.measure_faithfulness import \
-        measure_faithfulness
-    from autognothi_tpu_torch.pipeline.reports import to_json
 
     tag = "[bert run_all]"
     exp = write_bert_run_all_experiment(tmp)
@@ -3159,97 +3256,13 @@ def phase_bert_run_all(dev, tmp: pathlib.Path, card: str) -> dict:
         total = _scaled((1, total), (1, serve_final(
             dev, exp, texts=[x for x in CORPUS[:3]], tag=tag)))
 
-    reports = exp / ".reports"
-    files = tuple(sorted(p.name for p in reports.iterdir()))
-    check(files == REPORT_FILES, f"run_all wrote {files}")
-    for name in REPORT_FNS:
-        got = calls.get(name, {})
-        print(f"{tag} {name}: {report_seconds.get(name, 0.0):.2f} s, "
-              f"kernel calls {got} | {card}", flush=True)
-        check(all(got.get(k, 0) > 0 for k in FP32_REPORT_KERNELS),
-              f"{name} launched no {FP32_REPORT_KERNELS} kernel: {got}")
-    texts = {n: (reports / n).read_text() for n in files}
-    stamps = {n: (reports / n).stat().st_mtime_ns for n in files}
-    reset_counts()
-    with report_env("2", False):
-        cli_main(["measure_all", str(exp), "--device", "cuda"])
-    torch.cuda.synchronize()
-    again = {k: v for k, v in read_counts().items() if v}
-    check(not again and all((reports / n).read_text() == texts[n]
-                            and (reports / n).stat().st_mtime_ns == stamps[n]
-                            for n in files),
-          f"the second measure_all recomputed: kernel calls {again}")
-    print(f"{tag} second measure_all: the six reports reloaded, nothing "
-          f"computed (0 kernel calls, files unchanged)", flush=True)
-
-    kernel_faith = {"fp32": json.loads(texts["faithfulness.json"])}
-    for path in ("fp32", "int8", "mode 1"):
-        pallas, int8 = FAITH_ENV[path]
-        with report_env(pallas, int8):
-            if path != "fp32":
-                torch.cuda.synchronize()
-                reset_counts()
-                t1 = time.perf_counter()
-                with ExpEnv(exp) as env:
-                    kernel_faith[path] = to_json(measure_faithfulness(
-                        env, device="cuda"))
-                torch.cuda.synchronize()
-                run = {k: v for k, v in read_counts().items() if v}
-                print(f"{tag} faithfulness {path}: "
-                      f"{time.perf_counter() - t1:.2f} s, kernel calls "
-                      f"{run} | {card}", flush=True)
-                check(all(run.get(k, 0) > 0
-                          for k in BERT_FAITH_KERNELS[path]),
-                      f"faithfulness {path} launched no "
-                      f"{BERT_FAITH_KERNELS[path]} kernel: {run}")
-                total = _scaled((1, total), (1, run))
-            t1 = time.perf_counter()
-            with plain_ops(), ExpEnv(exp) as env:
-                plain = to_json(measure_faithfulness(env, device="cuda"))
-            plain_s = time.perf_counter() - t1
-        got = kernel_faith[path]
-        worst, curve, points = faith_drift(got, plain)
-        print(f"{tag} quality gate, faithfulness {path}: AUCs "
-              + ", ".join(f"{c} {got[c]['auc']:.6f} (plain "
-                          f"{plain[c]['auc']:.6f})" for c in CURVES)
-              + f"; worst AUC drift {worst:.3e} on {curve} (limit "
-              f"{FAITH_TOL[path]:g}); largest curve-point drift "
-              f"{points:.3e}; plain run {plain_s:.2f} s | {card}",
-              flush=True)
-        check(worst <= FAITH_TOL[path],
-              f"faithfulness {path}: AUC drift {worst:.3e} on {curve} "
-              f"above {FAITH_TOL[path]:g}")
-
-    for report, fn in (("cls_acc", measure_cls_acc),
-                       ("accuracy", measure_accuracy)):
-        with report_env("2", False), plain_ops(), ExpEnv(exp) as env:
-            want = to_json(fn(env, device="cuda"))
-        check_report_equal(exp, report, json.loads(texts[f"{report}.json"]),
-                           want, dev, tag=tag)
-
-    perf = json.loads(texts["performance.json"])
-    for stage in ("classifier", "surrogate", "explainer", "final"):
-        r = perf[stage]
-        check(r["time_avg"] > 0 and r["gflops"] > 0 and r["mem_mib"] > 0,
-              f"performance {stage}: {r}")
-        print(f"{tag} performance {stage}: {r['time_avg'] * 1e3:.3f} "
-              f"ms/sample (std {r['time_std'] * 1e3:.3f}, batch 1, "
-              f"{len(r['time'])} samples), {r['gflops']:.3f} GFLOPs, "
-              f"{r['params_all']:.3f} M params ({r['params_trainable']:.3f} "
-              f"M trainable), {r['mem_mib']:.1f} MiB ({r['mem_estimator']}) "
-              f"| {card}", flush=True)
-    trn = json.loads(texts["train_resources.json"])
-    print(f"{tag} train_resources: init {trn['init_tm']:.3f} s, "
-          f"{trn['init_mem']:.1f} MiB; surrogate step "
-          f"{trn['srg_tm']['avg'] * 1e3:.3f} ms/sample, "
-          f"{trn['srg_mem']['avg']:.1f} MiB; explainer step "
-          f"{trn['exp_tm']['avg'] * 1e3:.3f} ms/sample, "
-          f"{trn['exp_mem']['avg']:.1f} MiB ({trn['mem_estimator']}, batch "
-          f"{BERT_RUN_ALL_EVAL['eval_train_resources']['batch_size']}) | "
-          f"{card}", flush=True)
-    check(trn["srg_tm"]["avg"] > 0 and trn["exp_tm"]["avg"] > 0
-          and trn["srg_mem"]["avg"] > 0 and trn["exp_mem"]["avg"] > 0,
-          f"train_resources: {trn}")
+    texts = check_report_files(exp, calls, report_seconds,
+                               FP32_REPORT_KERNELS, card, tag)
+    total = _scaled((1, total), (1, run_report_gate(
+        dev, exp, BERT_FAITH_KERNELS, texts, card, tag)))
+    print_resource_reports(
+        texts, card, tag,
+        BERT_RUN_ALL_EVAL["eval_train_resources"]["batch_size"])
 
     phase_bert_dropout_step(case, dev, card)
     phase_stage_timing(case, card, (
@@ -3392,6 +3405,506 @@ def phase_long_and_narrow(dev, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------- vanilla and froyo towers
+
+# the shipped experiments whose `net.params` phases 9 and 10 run (full
+# width and depth, random_init, dropout 0)
+TOWER_EXP = {"vit": REPO / "experiments" / "vit_base_imagenette_vanilla"
+             / ".hparams.json",
+             "bert": REPO / "experiments" / "bert_base_tayp_vanilla"
+             / ".hparams.json"}
+TOWER_NAME = {"vit": "ViT-B/16@224", "bert": "BERT-base@512"}
+# the eval blocks: phase 7's (ViT) and phase 8's (BERT), cut to 8
+# faithfulness stops (ViT 160 coalitions an image, BERT 32 a sentence,
+# each held against plain three times over) and one performance loop to
+# keep the script inside half its time limit
+TOWER_EVAL = {
+    family: dict(copy.deepcopy(blocks),
+                 eval_faithfulness=dict(blocks["eval_faithfulness"],
+                                        resolution=8),
+                 eval_performance=dict(blocks["eval_performance"], loops=1))
+    for family, blocks in (("vit", RUN_ALL_EVAL),
+                           ("bert", BERT_RUN_ALL_EVAL))}
+# kernel calls per slab (or per fw_final) of a vanilla final: three
+# 12-layer towers and the explainer's layer, 37 attention and 37 MLP
+# blocks, and the head.  ViT: fp32 K6 + K7; W8A8 K1 + K4 (trunk design)
+# and K3 on its wide route; mode "1" K9.  BERT-base@512 (the JAX gates,
+# F4): fp32 K6 + K7 (the fp32 split only reorders a sum); W8A8 with fp32
+# parameters a float attention (K6) and the 2-tile K8q, with bf16
+# parameters K1 and K8q; bf16 without int8 K6 and the 2-tile K8 chain
+VANILLA_COUNTS = {
+    ("vit", "fp32"): {"attention_block": 37, "mlp_block": 37},
+    ("vit", "int8"): {"attention_block_int8": 37, "mlp_block_int8": 37,
+                      "head_block": 1},
+    ("vit", "mode 1"): {"masked_attention": 37},
+    ("bert", "fp32"): {"attention_block": 37, "mlp_block": 37},
+    ("bert", "int8"): {"attention_block": 37, "mlp_block_int8_tiled": 74,
+                       "head_block": 1},
+    ("bert", "int8 bf16"): {"attention_block_int8": 37,
+                            "mlp_block_int8_tiled": 74, "head_block": 1},
+    ("bert", "bf16"): {"attention_block": 37, "mlp_block_tiled": 74},
+    ("bert", "mode 1"): {"masked_attention": 37},
+}
+# a froyo final runs one trunk and the explainer's layer: 13 of each block
+FROYO_COUNTS = {
+    ("vit", "fp32"): {"attention_block": 13, "mlp_block": 13},
+    ("vit", "int8"): {"attention_block_int8": 13, "mlp_block_int8": 13,
+                      "head_block": 1},
+    ("bert", "fp32"): {"attention_block": 13, "mlp_block": 13},
+    ("bert", "int8"): {"attention_block": 13, "mlp_block_int8_tiled": 26,
+                       "head_block": 1},
+}
+# one forward of a 12-layer tower, by family and arithmetic: fp32, and the
+# int8 teacher's (ViT K1 + K4; BERT-base@512 with fp32 parameters K6 and
+# the 2-tile K8q)
+TOWER_FWD = {("vit", "fp32"): {"attention_block": 12, "mlp_block": 12},
+             ("vit", "int8"): {"attention_block_int8": 12,
+                               "mlp_block_int8": 12},
+             ("bert", "fp32"): {"attention_block": 12, "mlp_block": 12},
+             ("bert", "int8"): {"attention_block": 12,
+                                "mlp_block_int8_tiled": 24}}
+EXPLAINER_LAYER = {"attention_block": 1, "mlp_block": 1}
+# the kernels faithfulness launches on each path (its surrogate's
+# coalitions and the final)
+TOWER_FAITH_KERNELS = {
+    "vit": {"fp32": ("attention_block", "mlp_block"),
+            "int8": ("attention_block_int8", "mlp_block_int8",
+                     "head_block"),
+            "mode 1": ("masked_attention",)},
+    "bert": {"fp32": ("attention_block", "mlp_block"),
+             "int8": ("attention_block", "mlp_block_int8_tiled",
+                      "head_block"),
+             "mode 1": ("masked_attention",)},
+}
+
+
+def tower_step_counts(family: str, stage: str, teacher: str) -> dict:
+    """The kernel calls of one vanilla step at 12 layers: the classifier
+    one forward (it trains nothing); the surrogate its teacher (the
+    classifier, in the arithmetic AUTOGNOTHI_INT8 picks) and its own
+    forward; the explainer its teacher's coalitions and v_1 and its own
+    forward (the tower and its layer)."""
+    fwd, teach = TOWER_FWD[(family, "fp32")], TOWER_FWD[(family, teacher)]
+    if stage == "classifier":
+        return fwd
+    if stage == "surrogate":
+        return _scaled((1, fwd), (1, teach))
+    return _scaled((2, teach), (1, fwd), (1, EXPLAINER_LAYER))
+
+
+def write_tower_experiment(tmp: pathlib.Path, family: str, kind: str,
+                           name: str) -> pathlib.Path:
+    """A `random_init` experiment of net kind `kind` with the shipped
+    `net.params` of TOWER_EXP[family] (dropout 0).  ViT: phase 6's data
+    and training blocks (`cv_samples` at 224 px, 2 train and 1 test batch
+    of TRAIN_B, explainer M = TRAIN_M) and phase 7's eval blocks; BERT:
+    `nlp_samples` with a `build_vocab` vocabulary, the shipped training
+    blocks at one epoch each and phase 8's eval blocks."""
+    from autognothi_tpu_torch import RECIPE_VERSION
+    from autognothi_tpu_torch.data.tokenizer import (WordPieceTokenizer,
+                                                     build_vocab)
+
+    hp = json.loads(TOWER_EXP[family].read_text())
+    hp["net"].update(kind=kind, version=RECIPE_VERSION,
+                     base_model="random_init",
+                     params=dict(hp["net"]["params"],
+                                 attention_probs_dropout_prob=0.0,
+                                 hidden_dropout_prob=0.0))
+    hp["seed"] = SEED
+    if family == "vit":
+        hp["dataset"] = {"kind": "cv_samples", "train_size": 2 * TRAIN_B,
+                         "test_size": TRAIN_B, "img_px_size": 224,
+                         "num_classes": 10, "seed": SEED}
+        every = {"ckpt_when": "_:%1==0", "lr": 5e-5, "batch_size": TRAIN_B}
+        hp["train_classifier"] = {"epochs": 1, **every}
+        hp["train_surrogate"] = {"epochs": 1, **every}
+        hp["train_explainer"] = {"epochs": 1, **every,
+                                 "n_mask_samples": TRAIN_M,
+                                 "lambda_efficiency": 0.0,
+                                 "lambda_norm": 0.0}
+    else:
+        hp["dataset"] = {"kind": "nlp_samples"}
+        for section in ("train_classifier", "train_surrogate",
+                        "train_explainer"):
+            hp[section].update(epochs=1, ckpt_when="_:%1==0")
+        check((hp["train_classifier"]["batch_size"],
+               hp["train_surrogate"]["batch_size"],
+               hp["train_explainer"]["batch_size"],
+               hp["train_explainer"]["n_mask_samples"])
+              == (BERT_TRAIN_B, BERT_TRAIN_B, BERT_EXP_B, BERT_M),
+              "the shipped vanilla BERT training blocks changed")
+    hp.update(copy.deepcopy(TOWER_EVAL[family]))
+    exp = tmp / name
+    exp.mkdir()
+    (exp / ".hparams.json").write_text(json.dumps(hp, indent=2))
+    if family == "bert":
+        WordPieceTokenizer(build_vocab(nlp_samples() + CORPUS)).save(
+            exp / "tokenizer")
+    return exp
+
+
+def write_tower_final(tmp: pathlib.Path, family: str) -> pathlib.Path:
+    """A random vanilla final (seeded torch.Generator, surrogate_null 0.1)
+    beside a phase 9/10 experiment."""
+    import numpy as np
+    import torch
+
+    from autognothi_tpu_torch.params import save_params
+    from autognothi_tpu_torch.pipeline.config import parse_config
+    from autognothi_tpu_torch.pipeline.resources import get_recipe
+
+    exp = write_tower_experiment(tmp, family, f"vanilla_{family}",
+                                 f"vanilla_{family}_serve")
+    recipe, cfg = get_recipe(parse_config(json.loads(
+        (exp / ".hparams.json").read_text())))
+    t0 = time.perf_counter()
+    flat = recipe.init_final(cfg, torch.Generator().manual_seed(SEED))
+    flat["surrogate_null"] = np.full_like(flat["surrogate_null"], 0.1)
+    save_params(exp / "final-epoch-0.ckpt", flat)
+    print(f"[vanilla {family}] vanilla {TOWER_NAME[family]} final: "
+          f"{sum(v.size for v in flat.values())} parameters, seed {SEED}, "
+          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+    return exp
+
+
+def phase_tower_paths(dev, family: str, service, card: str) -> dict:
+    """fw_final of the served vanilla model at batch 8 on each path the
+    serve phase does not take (ViT mode "1"; BERT int8 with bf16
+    parameters, bf16 without int8, mode "1"), each against its plain
+    forward with its kernel calls, timed in turns; one profiled forward
+    per path (the served paths' too); -> the kernel calls."""
+    import torch
+
+    model, cfg, recipe = service.model, service.m_config, service.recipe
+    gen = torch.Generator().manual_seed(SEED)
+    if family == "vit":
+        xs = torch.rand((8, 3, 224, 224), generator=gen).to(dev)
+    else:
+        xs = torch.randint(1, cfg.vocab_size, (8, T_BERT),
+                           generator=gen).to(dev)
+    model_bf16 = copy.deepcopy(model).to(torch.bfloat16) \
+        if family == "bert" else None
+
+    def forward(m, x, pallas: str, int8: bool, plain: bool):
+        def run():
+            with mock.patch.dict(os.environ, {"AUTOGNOTHI_PALLAS": pallas}), \
+                    int8_mode(int8), torch.inference_mode(), \
+                    (plain_ops() if plain else contextlib.nullcontext()):
+                return recipe.fw_final(cfg, m, x)
+        return run
+
+    paths = [("fp32", model, xs, "2", False, torch.float32),
+             ("int8", model, xs, "2", True, torch.float32),
+             ("mode 1", model, xs, "1", False, torch.float32)]
+    if family == "bert":
+        paths[2:2] = [("int8 bf16", model_bf16, xs, "2", True,
+                       torch.bfloat16),
+                      ("bf16", model_bf16, xs, "2", False, torch.bfloat16)]
+    calls_all: dict = {}
+    for label, m, x, pallas, int8, dtype in paths:
+        fw = forward(m, x, pallas, int8, False)
+        reset_counts()
+        fw()
+        torch.cuda.synchronize()
+        calls = {k: v for k, v in read_counts().items() if v}
+        want = VANILLA_COUNTS[(family, label)]
+        print(f"[vanilla {family}] fw_final {label} B=8: kernel calls "
+              f"{calls} (expected {want})", flush=True)
+        check(calls == want, f"vanilla {family} fw_final {label}: kernel "
+                             f"calls differ from the table")
+        calls_all = _scaled((1, calls_all), (1, calls))
+        time_fw_final(f"vanilla {TOWER_NAME[family]} {label}", fw,
+                      forward(m, x, pallas, int8, True), dtype, int8, card,
+                      8)
+        profile_forward(f"vanilla {TOWER_NAME[family]} {label} B=8", fw,
+                        card)
+    del model_bf16
+    torch.cuda.empty_cache()
+    return calls_all
+
+
+def phase_tower_serve(dev, tmp: pathlib.Path, card: str,
+                      family: str) -> dict:
+    """Serve a random vanilla final on the card, fp32 and W8A8 (phase 3's
+    requests), against its plain forward with the kernel calls per slab,
+    then the other paths of `phase_tower_paths`; -> the kernel calls."""
+    exp = write_tower_final(tmp, family)
+    launches, service, _ = phase_serve(
+        dev, exp, int8=False, model=family,
+        per_slab=VANILLA_COUNTS[(family, "fp32")],
+        tag=f"serve vanilla {family} fp32")
+    launches_int8, _, _ = phase_serve(
+        dev, exp, int8=True, model=family,
+        per_slab=VANILLA_COUNTS[(family, "int8")],
+        tag=f"serve vanilla {family} int8")
+    total = _scaled((1, launches), (1, launches_int8),
+                    (1, phase_tower_paths(dev, family, service, card)))
+    del service
+    return total
+
+
+def recomputes() -> int:
+    from autognothi_tpu_torch.kernels.primitives import RECOMPUTES
+
+    return RECOMPUTES.count
+
+
+def phase_tower_steps(case: StageCase, family: str, card: str,
+                      tag: str) -> dict:
+    """One step of each stage (surrogate and explainer with the fp32 and
+    the int8 teacher) with the kernels against the same step on the plain
+    versions (loss within STEP_TOL), its kernel calls against
+    `tower_step_counts` and the plain recomputes of its backward (one per
+    differentiated kernel call); -> the kernel calls by (stage,
+    teacher)."""
+    import torch
+
+    from autognothi_tpu_torch.kernels.primitives import RECOMPUTES
+
+    froyo = case.recipe.id.startswith("froyo")
+    per_step = {}
+    for stage, teacher in (("classifier", "fp32"), ("surrogate", "fp32"),
+                           ("surrogate", "int8"), ("explainer", "fp32"),
+                           ("explainer", "int8")):
+        losses, calls = {}, {}
+        for which in ("kernels", "plain"):
+            run = case.fresh(stage)
+            with train_env("2", teacher), \
+                    int8_mode(stage == "surrogate" and teacher == "int8"), \
+                    (plain_ops() if which == "plain"
+                     else contextlib.nullcontext()):
+                reset_counts()
+                RECOMPUTES.reset()
+                losses[which] = run().item()
+                torch.cuda.synchronize()
+                calls[which] = {k: v for k, v in read_counts().items() if v}
+                if which == "kernels":
+                    redone = RECOMPUTES.count
+        want = tower_step_counts(family, stage, teacher)
+        # the backward recomputes each differentiated kernel call: the
+        # whole student's, or under froyo's frozen trunk the explainer's
+        # layer only (the surrogate's head is a plain dense)
+        if stage == "classifier":
+            want_redone = 0
+        elif froyo:
+            want_redone = 2 if stage == "explainer" else 0
+        else:
+            want_redone = 2 * (12 + (stage == "explainer"))
+        rel = abs(losses["kernels"] - losses["plain"]) \
+            / max(abs(losses["plain"]), 1e-30)
+        print(f"{tag} {stage} teacher={teacher}: loss kernels "
+              f"{losses['kernels']:.8f}, plain {losses['plain']:.8f}, rel "
+              f"diff {rel:.3e} (limit {STEP_TOL[teacher]:.0e}); kernel calls "
+              f"{calls['kernels']} (expected {want}); plain recomputes in "
+              f"the backward {redone} (expected {want_redone}) | {card}",
+              flush=True)
+        check(not calls["plain"], "the plain step launched kernels")
+        check(calls["kernels"] == want,
+              f"{stage} teacher={teacher}: one step's kernel calls differ")
+        check(redone == want_redone,
+              f"{stage} teacher={teacher}: {redone} plain recomputes in "
+              f"the backward, expected {want_redone}")
+        check(rel <= STEP_TOL[teacher] and
+              all(math.isfinite(v) for v in losses.values()),
+              f"{stage} teacher={teacher}: the kernel step's loss differs "
+              f"from the plain step's")
+        per_step[(stage, teacher)] = calls["kernels"]
+    return per_step
+
+
+def coherency(exp: pathlib.Path, tag: str, card: str) -> None:
+    """The train_all log's coherency line, on the card: cls_diff and
+    exp_diff 0.0 (the final runs the same kernels on the same parameters
+    as the stages' models)."""
+    import re
+
+    log = (exp / ".log.txt").read_text()
+    diffs = re.search(r"cls_diff: (\S+), exp_diff: (\S+)", log)
+    check("current stage: 0 / 7" in log and diffs is not None
+          and "verified final model is coherent" in log,
+          "train_all did not verify the final's coherency")
+    print(f"{tag} coherency on the card: cls_diff {diffs.group(1)}, "
+          f"exp_diff {diffs.group(2)} (limit 1e-05) | {card}", flush=True)
+    check(float(diffs.group(1)) == 0.0 and float(diffs.group(2)) == 0.0,
+          "the final's coherency differences are not 0.0")
+
+
+def tower_batches(family: str) -> tuple:
+    """(classifier / surrogate batch, explainer batch, M) of the phase's
+    experiment."""
+    return (TRAIN_B, TRAIN_B, TRAIN_M) if family == "vit" \
+        else (BERT_TRAIN_B, BERT_EXP_B, BERT_M)
+
+
+def phase_tower_run_all(dev, tmp: pathlib.Path, card: str,
+                        family: str) -> dict:
+    """`python -m autognothi_tpu_torch run_all <exp> --device cuda` through
+    `cli_main` on a random_init vanilla experiment: each stage's kernel
+    calls, the coherency line (0.0 / 0.0), the six reports with their
+    seconds and kernel calls, a second `measure_all` that launches
+    nothing, the quality gate, cls_acc and accuracy against plain, the
+    steps against their plain versions with their ms/step and spans, the
+    performance and train-resources numbers; -> the kernel calls of the
+    counted paths (run_all, the W8A8 and mode "1" faithfulness runs)."""
+    import torch
+
+    from autognothi_tpu_torch.cli import main as cli_main
+
+    tag = f"[vanilla {family} run_all]"
+    exp = write_tower_experiment(tmp, family, f"vanilla_{family}",
+                                 f"vanilla_{family}_run_all")
+    stage_calls: dict = {}
+    calls: dict = {}
+    report_seconds: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with report_env("2", False), counted_stages(stage_calls), \
+            counted_reports(calls, report_seconds):
+        cli_main(["run_all", str(exp), "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    total = _scaled(*((1, c) for c in stage_calls.values()),
+                    *((1, c) for c in calls.values()))
+    print(f"{tag} vanilla {TOWER_NAME[family]}: train_all + measure_all in "
+          f"{seconds:.1f} s (the six reports "
+          f"{sum(report_seconds.values()):.1f} s) | {card}", flush=True)
+    coherency(exp, tag, card)
+    for stage in STAGES:
+        print(f"{tag} {stage}: kernel calls {stage_calls.get(stage)}",
+              flush=True)
+    check(all(stage_calls.get(s) for s in ("train_classifier",
+                                           "train_surrogate",
+                                           "train_explainer",
+                                           "conv_explainer_final")),
+          "a stage that runs forwards launched no kernel")
+    texts = check_report_files(exp, calls, report_seconds,
+                               TOWER_FAITH_KERNELS[family]["fp32"], card,
+                               tag)
+    total = _scaled((1, total), (1, run_report_gate(
+        dev, exp, TOWER_FAITH_KERNELS[family], texts, card, tag)))
+    batch, exp_b, m = tower_batches(family)
+    print_resource_reports(
+        texts, card, tag,
+        TOWER_EVAL[family]["eval_train_resources"]["batch_size"])
+    case = StageCase(dev, exp, batch, (exp_b, m))
+    phase_tower_steps(case, family, card, f"[vanilla {family} stage-step]")
+    peak0 = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    phase_stage_timing(case, card, (
+        ("surrogate", "surrogate", "fp32"),
+        ("explainer teacher=int8", "explainer", "int8")),
+        tag=f"[vanilla {family} stage-time]")
+    print(f"[vanilla {family} stage-time] peak device memory of the timed "
+          f"steps {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+          f"(earlier {peak0 / 2**20:.1f} MiB) | {card}", flush=True)
+    del case
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_froyo(dev, tmp: pathlib.Path, card: str, family: str) -> dict:
+    """`train_all` of a random_init froyo experiment (the vanilla phase's
+    widths, data and blocks) through `cli_main`: the coherency line, the
+    final served fp32 and W8A8 against its plain forward with its kernel
+    calls per slab; each stage's step against plain, whose backward
+    recomputes no frozen trunk op (`phase_tower_steps`), and the
+    explainer step timed against plain; -> the kernel calls of train_all
+    and the two serves."""
+    import torch
+
+    from autognothi_tpu_torch.cli import main as cli_main
+
+    tag = f"[froyo {family}]"
+    exp = write_tower_experiment(tmp, family, f"froyo_{family}",
+                                 f"froyo_{family}")
+    stage_calls: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with report_env("2", False), counted_stages(stage_calls):
+        cli_main(["train_all", str(exp), "--device", "cuda"])
+    torch.cuda.synchronize()
+    print(f"{tag} froyo {TOWER_NAME[family]} train_all in "
+          f"{time.perf_counter() - t0:.1f} s; kernel calls by stage "
+          f"{stage_calls} | {card}", flush=True)
+    coherency(exp, tag, card)
+    total = _scaled(*((1, c) for c in stage_calls.values()))
+    for int8 in (False, True):
+        path = "int8" if int8 else "fp32"
+        launches, _, _ = phase_serve(
+            dev, exp, int8=int8, model=family,
+            per_slab=FROYO_COUNTS[(family, path)],
+            tag=f"serve froyo {family} {path}")
+        total = _scaled((1, total), (1, launches))
+    batch, exp_b, m = tower_batches(family)
+    case = StageCase(dev, exp, batch, (exp_b, m))
+    # the frozen trunk leaves the surrogate's head where the classifier's
+    # put it: a KL of ~1e-6 is float noise relative to itself.  Biasing
+    # the head apart makes the step's loss one to hold against plain
+    with torch.no_grad():
+        bias = case.models["surrogate"].classifier.bias
+        bias.add_(torch.linspace(-1.0, 1.0, bias.numel(), device=dev))
+    phase_tower_steps(case, family, card, f"{tag} stage-step")
+    phase_stage_timing(case, card, (
+        ("froyo explainer teacher=int8", "explainer", "int8"),),
+        tag=f"{tag} stage-time")
+    del case
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_k3_wide(dev, card: str) -> None:
+    """K3's wide route (F11) alone at the vanilla heads: <64, 197, 768> ->
+    3072 -> 3072 -> 10 with LN, fp32 and bf16, and <8, 512, 768> -> 3072
+    -> 3072 -> 2 without: against its plain version, CUDA-event and device
+    ms, its launches per call, beside its bound and `torch._int_mm` (+ d3
+    on `torch.matmul`) on the same products."""
+    import torch
+
+    from autognothi_tpu_torch.ops import head_block as hb
+
+    g = torch.Generator().manual_seed(SEED + 13)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    for b, t, c, has_ln, dtype in ((B_TIME, T, 10, True, torch.float32),
+                                   (B_TIME, T, 10, True, torch.bfloat16),
+                                   (B_BERT, T_BERT, 2, False,
+                                    torch.float32)):
+        h_in, inter = 768, 3072
+        args = (rnd(b, t, h_in).to(dtype),
+                rnd(inter, h_in, scale=h_in ** -0.5), rnd(inter, scale=0.1),
+                rnd(inter, inter, scale=inter ** -0.5),
+                rnd(inter, scale=0.1), rnd(c, inter, scale=inter ** -0.5),
+                rnd(c, scale=0.1),
+                (1 + rnd(h_in, scale=0.1)) if has_ln else None,
+                rnd(h_in, scale=0.1) if has_ln else None, 1e-5)
+        label = (f"<{b}, {t}, {h_in}> -> {inter} -> {inter} -> {c} "
+                 f"{'LN' if has_ln else 'no-LN'} {str(dtype)[6:]}")
+        check(hb.k3_route(h_in, inter, c) == "wide", "K3's route")
+        with torch.inference_mode():
+            op = lambda: hb.explainer_head_block(*args)  # noqa: E731
+            tensors, static = hb.explainer_head_block_args(*args)
+            plain = lambda: hb.head_int8_plain(*tensors, **static)  # noqa
+            _, ok, msg = compare(op(), plain(), dtype, True)
+            kernels = profiled_kernels(op, 4)
+            dev_ms = sum(ms for _, ms in kernels) / 4
+            t_kern = cuda_time(op, reps=10)
+            t_plain = cuda_time(plain, reps=10)
+            t_lib = time_library_int8("head_block", args, card)
+        bound_ms, bound_by = op_bound("head_block", args)
+        names = sorted({n[:40] for n, _ in kernels})
+        print(f"[k3-wide] {label}: kernel {t_kern:.4f} ms (device "
+              f"{dev_ms:.4f}, {len(kernels) // 4} launches: "
+              f"{', '.join(names)}), plain {t_plain:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), torch._int_mm x 2 + d3 "
+              f"{t_lib:.4f} ms ({msg}) | {card}", flush=True)
+        check(ok, f"K3 wide {label}: kernel disagrees with plain")
+        check(len(kernels) <= 5 * 4, f"K3 wide {label}: "
+                                     f"{len(kernels) / 4} launches a call")
+    torch.cuda.empty_cache()
+
+
 # name -> (source, the TPU kernel it replaces: its pl.pallas_call)
 KERNELS = {
     "attention_block": ("autognothi_tpu_torch/csrc/gemm_wgmma.cu",
@@ -3438,11 +3951,21 @@ def main() -> int:
     print(f"[device] {name} | nvidia-smi: {card} | torch {torch.__version__}"
           f" cuda {torch.version.cuda} | python {sys.version.split()[0]}",
           flush=True)
-    phase_device()
-    worst = phase_kernels(dev)
-    worst = phase_kernels(dev, bert_op_cases, B_BERT_CHECK, worst,
-                          BERT_CALLS_PER_OP)
+    phase_seconds = {}
+
+    def timed(label, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        phase_seconds[label] = time.perf_counter() - t0
+        print(f"[phase] {label}: {phase_seconds[label]:.1f} s", flush=True)
+        return out
+
+    timed("1 device and build", phase_device)
+    worst = timed("2 kernels vs plain, ViT shapes", phase_kernels, dev)
+    worst = timed("2 kernels vs plain, BERT shapes", phase_kernels, dev,
+                  bert_op_cases, B_BERT_CHECK, worst, BERT_CALLS_PER_OP)
     with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
         exp = write_experiment(pathlib.Path(tmp))
         launches, service, got_fp32 = phase_serve(dev, exp, int8=False)
         launches_int8, _, got_int8 = phase_serve(dev, exp, int8=True)
@@ -3460,45 +3983,70 @@ def main() -> int:
                     print(f"[serve {model}] {label:9s} {what:12s} "
                           f"max|int8 - fp32| = {diff.max():.3e} (W8A8 vs "
                           f"fp32 path, not held)", flush=True)
+        print(f"[phase] 3 serve LTT: {time.perf_counter() - t0:.1f} s",
+              flush=True)
         train_exp = write_train_experiment(pathlib.Path(tmp))
         case = TrainCase(dev, train_exp)
-        per_step = phase_train_steps(case)
-        launches_train = phase_train_cli(train_exp, per_step)
-        launches_all = phase_train_all(dev, pathlib.Path(tmp), per_step,
-                                       card)
-        launches_reports = phase_run_all(dev, pathlib.Path(tmp), card)
-        launches_bert_run_all = phase_bert_run_all(dev, pathlib.Path(tmp),
-                                                   card)
+        per_step = timed("4 train steps", phase_train_steps, case)
+        launches_train = timed("4 train_explainer CLI", phase_train_cli,
+                               train_exp, per_step)
+        launches_all = timed("6 LTT ViT train_all", phase_train_all, dev,
+                             pathlib.Path(tmp), per_step, card)
+        launches_reports = timed("7 LTT ViT run_all", phase_run_all, dev,
+                                 pathlib.Path(tmp), card)
+        launches_bert_run_all = timed("8 LTT BERT run_all",
+                                      phase_bert_run_all, dev,
+                                      pathlib.Path(tmp), card)
+        # phases 9 (ViT-B/16@224) and 10 (BERT-base@512): the vanilla and
+        # froyo towers
+        launches_towers: dict = {}
+        for n, family in ((9, "vit"), (10, "bert")):
+            for what, fn in (("serve vanilla", phase_tower_serve),
+                             ("run_all vanilla", phase_tower_run_all),
+                             ("train_all + serve froyo", phase_froyo)):
+                launches_towers = _scaled(
+                    (1, launches_towers),
+                    (1, timed(f"{n} {what} {family}", fn, dev,
+                              pathlib.Path(tmp), card, family)))
         # every main path was driven from counts of 0: serve fp32 and int8
         # (ViT and BERT), train_explainer in pallas modes "2" and "1",
         # train_all's seven stages and its served final, run_all's stages
         # and six reports, faithfulness in W8A8 and in mode "1", for the
-        # LTT ViT (phases 6, 7) and the LTT BERT (phase 8)
+        # LTT ViT (phases 6, 7) and the LTT BERT (phase 8), and the
+        # vanilla and froyo towers' serves, run_all and train_all (phases
+        # 9, 10)
         for k in launches:
             launches[k] += (launches_int8[k] + launches_bert[k]
                             + launches_bert_int8[k]
                             + launches_train.get(k, 0)
                             + launches_all.get(k, 0)
                             + launches_reports.get(k, 0)
-                            + launches_bert_run_all.get(k, 0))
-        per_op = phase_timing(dev, card, service)
+                            + launches_bert_run_all.get(k, 0)
+                            + launches_towers.get(k, 0))
+        per_op = timed("5 timing, ViT", phase_timing, dev, card, service)
         # the ViT shapes keep their rows; K8q and the bf16 float chain run
         # only at BERT's.  The four BERT forwards counted there are main
         # paths too (bf16 parameters drive the float chain)
-        bert_rows, bert_calls = phase_bert_timing(dev, card, bert_service)
+        bert_rows, bert_calls = timed("5 timing, BERT", phase_bert_timing,
+                                      dev, card, bert_service)
         for k, row in bert_rows.items():
             per_op.setdefault(k, row)
         for k, v in bert_calls.items():
             launches[k] += v
-        phase_yardsticks(dev, card)
-        phase_float_gemm(dev, card)
-        phase_block_launches(dev, card)
-        phase_ladder_route(dev, card)
-        phase_long_and_narrow(dev, card)
-        phase_split_chains(dev, card)
-        phase_k4_teacher(dev, card)
-        phase_int8_gemm(dev, card)
-        phase_train_timing(case, card)
+        for label, fn, args in (
+                ("5 yardsticks", phase_yardsticks, (dev, card)),
+                ("5 float GEMM", phase_float_gemm, (dev, card)),
+                ("5 block launches", phase_block_launches, (dev, card)),
+                ("6 ladder route", phase_ladder_route, (dev, card)),
+                ("7 long and narrow", phase_long_and_narrow, (dev, card)),
+                ("5 split chains", phase_split_chains, (dev, card)),
+                ("5 K4 teacher", phase_k4_teacher, (dev, card)),
+                ("2 K3 wide", phase_k3_wide, (dev, card)),
+                ("5 int8 GEMM", phase_int8_gemm, (dev, card)),
+                ("5 train timing", phase_train_timing, (case, card))):
+            timed(label, fn, *args)
+    print(f"[phase] all phases: {sum(phase_seconds.values()):.1f} s of "
+          f"timed phases", flush=True)
 
     # fp32's worst error; the bf16-only float chain its bf16 worst
     kernels = [dict(name=k, route="cuda", source=source, replaces=replaces,

@@ -1411,6 +1411,31 @@ def config_mlp_widths():
     return sorted(widths)
 
 
+def config_head_shapes():
+    """Every explainer head (T, h_in, inter, classes) of a configuration of
+    the repo (`experiments/*/.hparams.json`): the vanilla and froyo heads on
+    the trunk's hidden state, the LTT heads on the side's, at the
+    configuration's token count (the ViT's patches + CLS, BERT's
+    `max_position_embeddings`)."""
+    import json
+    import pathlib
+
+    shapes = set()
+    root = pathlib.Path(__file__).resolve().parents[1] / "experiments"
+    for path in sorted(root.glob("*/.hparams.json")):
+        net = json.loads(path.read_text())["net"]["params"]
+        t = net.get("max_position_embeddings") or \
+            (net["img_px_size"] // net["img_patch_size"]) ** 2 + 1
+        if "explainer_head_hidden_size" in net:
+            shapes.add((t, net["hidden_size"],
+                        net["explainer_head_hidden_size"], net["num_labels"]))
+        if "explainer_s_head_hidden_size" in net:
+            shapes.add((t, net["s_attn_hidden_size"],
+                        net["explainer_s_head_hidden_size"],
+                        net["num_labels"]))
+    return sorted(shapes)
+
+
 def _k4_weights(g, dev, h, inter):
     return (_rand(g, dev, inter, h, scale=h ** -0.5), _rand(g, dev, inter),
             _rand(g, dev, h, inter, scale=inter ** -0.5), _rand(g, dev, h))
@@ -1555,6 +1580,59 @@ def test_k3_head_at_full_width(dev, c, has_ln, dtype):
         assert _int8_flip_share(got, want, dtype) <= 1e-2
     names = _launched_per_call(op)
     assert len(names) <= 3, names
+    assert not any("gemm_tc_kernel" in s for s in names), names
+    assert not _copies(names), names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("has_ln", [True, False])
+@pytest.mark.parametrize("h_in,inter,c", [(768, 3072, 10), (192, 768, 10),
+                                          (768, 3072, 2)])
+def test_k3_wide_route(dev, h_in, inter, c, has_ln, dtype):
+    """K3 at the vanilla heads' inputs (F11: ViT-B and BERT-base 768 ->
+    3072, ViT-T 192 -> 768), on 2 x 197 rows, with and without LN, takes
+    the wide route: d1 as the row quantizer, the int8 GEMM with the fp32
+    GELU epilogue and the row quantizer of h, whose codes and scales are
+    `quant_rows`' of the same h bit for bit; the head within the int8
+    bounds of its plain version, one counted call, five launches, none of
+    them `csrc/gemm.cu`'s and no copy."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+    from autognothi_tpu_torch.ops import head_block as hb
+    from autognothi_tpu_torch.ops.weight_codes import vec32, weight_codes
+
+    assert hb.k3_route(h_in, inter, c) == "wide"
+    g = torch.Generator().manual_seed(106)
+    b, t = 2, 197
+    x = _rand(g, dev, b, t, h_in).to(dtype)
+    ws = (_rand(g, dev, inter, h_in, scale=h_in ** -0.5), _rand(g, dev, inter),
+          _rand(g, dev, inter, inter, scale=inter ** -0.5),
+          _rand(g, dev, inter), _rand(g, dev, c, inter, scale=inter ** -0.5),
+          _rand(g, dev, c))
+    ln = ((1 + _rand(g, dev, h_in, scale=0.1), _rand(g, dev, h_in, scale=0.1))
+          if has_ln else (None, None))
+    x2 = x.reshape(b * t, h_in)
+    ln_k = (vec32(ln[0]), vec32(ln[1]), 1e-5) if has_ln else None
+    hq, hs = hb._d1_wide(x2, ws[0], ws[1], ln_k)
+    q1, s1 = weight_codes((ws[0],), ws[0].dtype)
+    xq, xs = kp.quant_rows(x2, ln=ln_k)
+    h = kp.gemm_i8(xq, xs, q1, s1, vec32(ws[1]), kp.I8_EPI_GELU_F32, dtype)
+    want_q, want_s = kp.quant_rows(h)
+    assert torch.equal(hq, want_q) and torch.equal(hs, want_s)
+
+    def op():
+        return hb.explainer_head_block(x, *ws, *ln, 1e-5)
+
+    before = hb.COUNTER.count
+    got = op()
+    assert hb.COUNTER.count == before + 1 and got.shape == (b, t, c)
+    tensors, static = hb.explainer_head_block_args(x, *ws, *ln, 1e-5)
+    want = hb.head_int8_plain(*tensors, **static)
+    _close_int8(got, want, dtype)
+    if dtype == torch.float32:
+        assert _int8_flip_share(got, want, dtype) <= 1e-2
+    names = _launched_per_call(op)
+    assert len(names) == 5, names
+    assert sum("quant_rows_kernel" in s for s in names) == 2, names
     assert not any("gemm_tc_kernel" in s for s in names), names
     assert not _copies(names), names
 

@@ -28,9 +28,10 @@ import torch
 import autognothi_tpu.ops.head_block as j_hb
 import autognothi_tpu.ops.mlp_block as j_mb
 from autognothi_tpu_torch.kernels.primitives import I8_MAX_FOLD
+from autognothi_tpu_torch.ops import gates
 from autognothi_tpu_torch.ops import head_block as hb
 from autognothi_tpu_torch.ops import mlp_block as mb
-from tests.test_torch_port_cuda import config_mlp_widths
+from tests.test_torch_port_cuda import config_head_shapes, config_mlp_widths
 from tests.test_torch_port_ops import _np
 
 TOL, TOL_FLIPPED = 2e-5, 1e-2
@@ -199,4 +200,73 @@ def test_explainer_head_block_matches_jax_at_full_width(int8_codes, c,
         interpret=True)
     assert got.shape == (1, t, c)
     assert [c_.shape for c_ in CODES["port"]] == [(t, h_in), (t, inter)]
+    _hold_rows(got.numpy(), want, t)
+
+
+# ------------------------------------------------ K3's route (F11)
+
+
+@pytest.mark.parametrize("t,h_in,inter,c", config_head_shapes()
+                         + [(197, 96, 3072, 10)])
+def test_k3_route_covers_every_head_the_jax_gate_admits(t, h_in, inter, c):
+    """Every head of the repo's configurations (and the LTT ViT-B side
+    head) that the JAX gate sends to the fused int8 head gets a route on
+    the card, and none raises: the LTT side heads (96 wide) the narrow
+    one-launch d1, the vanilla and froyo heads on the trunk's 192 to 768
+    wide hidden state the wide d1.  The port's gate is the JAX one."""
+    tile = gates.head_token_tile(t, h_in, inter, c)
+    assert tile == j_hb._pick_tile(t, h_in, inter, c)
+    if tile is None:  # ViT-L's 1024 -> 4096: the eager W8A8 denses
+        assert (h_in, inter) == (1024, 4096)
+        return
+    route = hb.k3_route(h_in, inter, c)
+    assert route == ("narrow" if h_in <= 128 else "wide")
+    assert hb.k3_route(int(h_in), int(inter), int(c)) == route
+
+
+def test_k3_route_table():
+    """The shapes of the vanilla paths: ViT-B and BERT-base 768 -> 3072
+    (F11: the narrow d1 refused any K past 128), ViT-S 384, ViT-T 192, the
+    LTT sides' 96; more than I8_MAX_FOLD classes or a width that is not a
+    multiple of 16 raise."""
+    assert hb.k3_route(768, 3072, 10) == "wide"
+    assert hb.k3_route(768, 3072, 2) == "wide"
+    assert hb.k3_route(384, 1536, 10) == "wide"
+    assert hb.k3_route(192, 768, 10) == "wide"
+    assert hb.k3_route(96, 3072, 10) == "narrow"
+    assert hb.k3_route(128, 4096, 2) == "narrow"
+    with pytest.raises(ValueError, match="at most"):
+        hb.k3_route(768, 3072, I8_MAX_FOLD + 1)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        hb.k3_route(100, 3072, 10)
+
+
+@pytest.mark.parametrize("h_in,inter", [(192, 768), (768, 3072)])
+@pytest.mark.parametrize("has_ln", [True, False])
+def test_explainer_head_block_matches_jax_at_wide_inputs(int8_codes,
+                                                         monkeypatch, h_in,
+                                                         inter, has_ln):
+    """K3 at the vanilla heads' inputs (192 -> 768 -> 768 and 768 -> 3072
+    -> 3072, 10 classes, with and without LN), 64 tokens, under
+    AUTOGNOTHI_INT8=1, against the JAX int8 kernel in interpret mode."""
+    monkeypatch.setenv("AUTOGNOTHI_INT8", "1")
+    rng = np.random.RandomState(33)
+    t, c = 64, 10
+    x = _np(rng, 1, t, h_in)
+    ws = (_np(rng, inter, h_in, scale=h_in ** -0.5),
+          _np(rng, inter, scale=0.1),
+          _np(rng, inter, inter, scale=inter ** -0.5),
+          _np(rng, inter, scale=0.1), _np(rng, c, inter, scale=inter ** -0.5),
+          _np(rng, c, scale=0.1))
+    lnw, lnb = 1 + _np(rng, h_in, scale=0.1), _np(rng, h_in, scale=0.1)
+    with torch.inference_mode():
+        got = hb.explainer_head_block(
+            _t(x), *map(_t, ws), _t(lnw) if has_ln else None,
+            _t(lnb) if has_ln else None, 1e-5)
+    want = j_hb.explainer_head_block(
+        _j(x), *map(_j, ws), _j(lnw) if has_ln else None,
+        _j(lnb) if has_ln else None, 1e-5, use_pallas=True, quant="int8",
+        interpret=True)
+    assert got.shape == (1, t, c)
+    assert [q.shape for q in CODES["port"]] == [(t, h_in), (t, inter)]
     _hold_rows(got.numpy(), want, t)

@@ -396,12 +396,12 @@ def test_report_verbs_refuse_what_is_not_ported(tmp_path):
     from autognothi_tpu_torch.cli import REPORTS, main
 
     hp = _ltt_vit_hparams()
-    hp["net"]["kind"] = "vanilla_bert"
+    hp["net"]["kind"] = "kernel_shap_bert"
     bert = tmp_path / "bert"
     bert.mkdir()
     (bert / ".hparams.json").write_text(json.dumps(hp))
     for verb in (*REPORTS, "measure_all", "run_all"):
-        with pytest.raises(NotImplementedError, match="vanilla_bert"):
+        with pytest.raises(NotImplementedError, match="kernel_shap_bert"):
             main([verb, str(bert), "--device", "cpu"])
     vit = tmp_path / "vit"
     vit.mkdir()

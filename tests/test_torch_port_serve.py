@@ -124,7 +124,10 @@ def test_import_graph_is_free_of_jax_and_the_jax_package():
                 "pipeline.measure_train_resources", "pipeline.reports",
                 "ops.cka", "utils.flops", "utils.units", "utils.functional",
                 "parallel.mesh", "recipes.ltt_bert", "recipes.vanilla_bert",
-                "models.ltt_bert", "models.bert", "data.loader"):
+                "models.ltt_bert", "models.bert", "data.loader",
+                "recipes.vanilla_vit", "recipes.froyo_vit",
+                "recipes.froyo_bert", "models.vit", "models.froyo_vit",
+                "models.froyo_bert"):
         assert f"autognothi_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
@@ -224,7 +227,7 @@ def test_unported_verbs_and_kinds_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main(["export_final", str(tmp_path)])
     hp = _ltt_vit_hparams()
-    hp["net"]["kind"] = "vanilla_vit"
+    hp["net"]["kind"] = "duo_vanilla_vit"
     with pytest.raises(NotImplementedError, match="not ported yet"):
         parse_config(hp)
     hp["net"]["kind"] = "ltt_vit"

@@ -571,10 +571,10 @@ def test_training_verbs_refuse_what_is_not_ported(tmp_path):
     from autognothi_tpu_torch.cli import TRAINING, main
 
     hp = _ltt_vit_hparams()
-    hp["net"]["kind"] = "vanilla_bert"
+    hp["net"]["kind"] = "kernel_shap_bert"
     bert = _write_exp(tmp_path / "a", hp)
     for verb in TRAINING:
-        with pytest.raises(NotImplementedError, match="vanilla_bert"):
+        with pytest.raises(NotImplementedError, match="kernel_shap_bert"):
             main([verb, str(bert), "--device", "cpu"])
     hp = _ltt_vit_hparams()
     hp["net"]["base_model"] = "gg_vit_base"
