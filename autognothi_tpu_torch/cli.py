@@ -1,6 +1,6 @@
 """Command shell of the port: the same verbs and flags as
 `autognothi_tpu/cli.py`.  `serve`, the seven `train_all` verbs,
-`train_all` itself, the six reports, `measure_all` and `run_all`
+`train_all` itself, the seven reports, `measure_all` and `run_all`
 (`train_all`, then `measure_all`) run; the other verbs are not ported yet
 and raise.
 
@@ -13,9 +13,10 @@ and raise.
     python -m autognothi_tpu_torch measure_faithfulness <experiment_dir> \\
         --device cuda
 
-Every verb takes the LTT, vanilla and froyo towers of both families
-(`net.kind` "ltt_vit", "ltt_bert", "vanilla_vit", "vanilla_bert",
-"froyo_vit", "froyo_bert"); another net kind raises.  A
+Every verb takes every net kind of the JAX package (`pipeline/
+config.py:NET_KINDS`: the LTT, vanilla, froyo and duo towers of both
+families and the KernelSHAP BERT), each as far as its recipe allows (the
+dual-task report for the duo kinds, only faithfulness for KernelSHAP).  A
 report verb reads its cached `<exp>/.reports/<name>.json` where there is
 one (`--resolution` on `measure_faithfulness` recomputes and writes
 nothing, as in the JAX package).  Every verb runs on `--device`, "cuda" by default, which raises
@@ -30,13 +31,10 @@ import pathlib
 import sys
 from typing import List, Optional
 
-from .pipeline.config import PORTED_NET_KINDS
-
 NOT_PORTED = (
     "preload_all", "pretrain_classifier", "estimate_train_time",
-    "measure_dual_task_similarity", "run_image_explanation",
-    "run_text_explanation", "export_final", "__show_fridge__",
-    "__preview_text_shapley__",
+    "run_image_explanation", "run_text_explanation", "export_final",
+    "__show_fridge__", "__preview_text_shapley__",
 )
 # the training pipeline's verbs -> (module, function); the trainers run in
 # an env forked with their stage's logger block
@@ -50,8 +48,6 @@ TRAINING = {
     "conv_explainer_final": ("train_all", None),
     "train_all": ("train_all", None),
 }
-# the net kinds the training verbs take
-TRAINING_NET_KINDS = PORTED_NET_KINDS
 # the report verbs -> (module, report class, cached file); `measure_all`
 # and `run_all` run them all
 REPORTS = {
@@ -68,12 +64,13 @@ REPORTS = {
                                 "train_resources.json"),
     "measure_branches_cka": ("measure_branches_cka",
                              "MeasureBranchesCkaReport", "branches_cka.json"),
+    "measure_dual_task_similarity": ("measure_dual_task_similarity",
+                                     "MeasureDualTaskSimilarityReport",
+                                     "dual_task_similarity.json"),
 }
 MEASURE_ALL_FLAGS = ("accuracy", "faithfulness", "cls_acc", "performance",
                      "train_resources", "branches_cka",
                      "dual_task_similarity")
-# the net kinds the report verbs take
-REPORT_NET_KINDS = PORTED_NET_KINDS
 
 
 def _device(p: argparse.ArgumentParser) -> None:
@@ -139,10 +136,6 @@ def _train(env, command: str, device: str) -> None:
 
     from .pipeline.training import INTERRUPT_EXIT_CODE, TrainingInterrupted
 
-    if env.config.net.kind not in TRAINING_NET_KINDS:
-        raise NotImplementedError(
-            f"{command}: training net kind {env.config.net.kind!r} is not "
-            f"ported yet (ported: {', '.join(TRAINING_NET_KINDS)})")
     module, logger = TRAINING[command]
     fn = getattr(importlib.import_module(f".pipeline.{module}", __package__),
                  command)
@@ -165,11 +158,6 @@ def _measure(env, args) -> None:
 
     from .utils.devices import resolve_device
 
-    if env.config.net.kind not in REPORT_NET_KINDS:
-        raise NotImplementedError(
-            f"{args.command}: the reports of net kind "
-            f"{env.config.net.kind!r} are not ported yet (ported: "
-            f"{', '.join(REPORT_NET_KINDS)})")
     resolve_device(args.device)
     if args.command in ("measure_all", "run_all"):
         from .pipeline.measure_all import measure_all

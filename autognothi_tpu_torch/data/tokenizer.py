@@ -1,18 +1,23 @@
-"""WordPiece tokenizer, BERT-uncased semantics (port of the pure-Python
-part of `autognothi_tpu/data/tokenizer.py`).
+"""WordPiece tokenizer, BERT-uncased semantics (port of
+`autognothi_tpu/data/tokenizer.py`).
 
 Reads `<experiment>/tokenizer/vocab.txt`: lowercasing, accent stripping,
 whitespace and punctuation splitting, greedy longest-match WordPiece with
 the `##` continuation, [CLS] ... [SEP] framing, padded or truncated to the
-model's length.  The JAX package may also load a Hugging Face tokenizer
-or a native WordPiece core; the port runs this algorithm only (the
+model's length.  `encode_batch` runs the native C++ core
+(`native/wordpiece.cpp`, built at first use) where every text is ASCII
+without a NUL, and this pure-Python algorithm otherwise; both give the
+same ids, and `ENCODES` counts the texts each path encoded.  The JAX
+package may also load a Hugging Face tokenizer; the port does not (the
 machine with the card has no `transformers`).  `build_vocab` derives a
 vocabulary from a corpus.
 """
 
 from __future__ import annotations
 
+import ctypes
 import pathlib
+import threading
 import unicodedata
 from collections import Counter
 from typing import Dict, Iterable, List, Optional, Tuple
@@ -21,6 +26,21 @@ import numpy as np
 
 PAD, UNK, CLS, SEP, MASK = "[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"
 SPECIALS = [PAD, UNK, CLS, SEP, MASK]
+
+# texts encoded by each path of `encode_batch` in this process
+ENCODES = {"native": 0, "python": 0}
+_encodes_lock = threading.Lock()
+
+
+def _count(path: str, n: int) -> None:
+    with _encodes_lock:
+        ENCODES[path] += n
+
+
+def reset_encodes() -> None:
+    with _encodes_lock:
+        for k in ENCODES:
+            ENCODES[k] = 0
 
 
 def _basic_tokenize(text: str) -> List[str]:
@@ -57,6 +77,49 @@ class WordPieceTokenizer:
         self.unk_id = self.token_to_id[UNK]
         self.cls_id = self.token_to_id[CLS]
         self.sep_id = self.token_to_id[SEP]
+        self._native = None
+        self._native_handle = None
+
+    def _native_tokenizer(self) -> Optional[int]:
+        """The C++ core's handle for this vocabulary, built and loaded at
+        first use; None where the core is unavailable."""
+        if self._native is not None:
+            return self._native_handle
+        from ..native import build_and_load
+
+        self._native = build_and_load("wordpiece") or False
+        if self._native:
+            lib = self._native
+            lib.wp_create.restype = ctypes.c_void_p
+            lib.wp_create.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+            lib.wp_encode_batch.restype = ctypes.c_int64
+            lib.wp_encode_batch.argtypes = [
+                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int64)]
+            lib.wp_destroy.argtypes = [ctypes.c_void_p]
+            blob = "\n".join(self.vocab).encode("utf-8")
+            self._native_handle = lib.wp_create(blob, len(blob)) or None
+        return self._native_handle
+
+    def encode_batch_native(self, texts: List[str],
+                            max_length: int) -> Optional[np.ndarray]:
+        """The C++ batch encode -> ids <B, max_length> int64; None where
+        the core is unavailable, a text is not ASCII (the Python path
+        strips accents, which ASCII never needs) or holds a NUL (the
+        record separator of the wire blob), or the core encoded fewer
+        texts than asked (`:66-112` of the JAX module)."""
+        if not all(t.isascii() and "\x00" not in t for t in texts):
+            return None
+        handle = self._native_tokenizer()
+        if handle is None:
+            return None
+        blob = b"\x00".join(t.encode() for t in texts) + b"\x00"
+        out = np.empty((len(texts), max_length), dtype=np.int64)
+        got = self._native.wp_encode_batch(
+            handle, blob, len(blob), len(texts), max_length,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+        return out if got == len(texts) else None
 
     @property
     def vocab_size(self) -> int:
@@ -142,5 +205,12 @@ def load_tokenizer(path: pathlib.Path) -> WordPieceTokenizer:
 
 def encode_batch(tokenizer: WordPieceTokenizer, texts: List[str],
                  max_length: int) -> np.ndarray:
-    """-> input_ids <B, max_length> int64."""
+    """-> input_ids <B, max_length> int64: the native core where it takes
+    the batch, else the Python path (the same ids)."""
+    texts = list(texts)
+    native = tokenizer.encode_batch_native(texts, max_length)
+    if native is not None:
+        _count("native", len(texts))
+        return native
+    _count("python", len(texts))
     return np.stack([tokenizer.encode(t, max_length)[0] for t in texts])

@@ -16,9 +16,13 @@ import numpy as np
 import torch
 
 from .models.bert import VanillaBertConfig, vanilla_bert_model
+from .models.duo_bert import DuoVanillaBertConfig, duo_bert_model
+from .models.duo_vit import DuoVanillaViTConfig, duo_vit_model
 from .models.froyo_bert import FroyoBertConfig, froyo_bert_model
 from .models.froyo_vit import FroyoViTConfig, froyo_vit_model
 from .models.ltt_bert import LttBert, LttBertConfig
+from .models.kernel_shap_bert import (KernelShapBertConfig,
+                                      kernel_shap_bert_model)
 from .models.ltt_vit import LttViT, LttViTConfig
 from .models.vit import VanillaViTConfig, vanilla_vit_model
 
@@ -26,7 +30,17 @@ from .models.vit import VanillaViTConfig, vanilla_vit_model
 MODELS = {LttViTConfig: LttViT, LttBertConfig: LttBert,
           VanillaViTConfig: vanilla_vit_model,
           VanillaBertConfig: vanilla_bert_model,
-          FroyoViTConfig: froyo_vit_model, FroyoBertConfig: froyo_bert_model}
+          FroyoViTConfig: froyo_vit_model, FroyoBertConfig: froyo_bert_model,
+          DuoVanillaViTConfig: duo_vit_model,
+          DuoVanillaBertConfig: duo_bert_model,
+          KernelShapBertConfig: kernel_shap_bert_model}
+
+
+def _host_array(v: Any) -> np.ndarray:
+    """A writable copy: integer arrays as they are, any other as fp32."""
+    v = np.asarray(v)
+    return np.array(v, dtype=None if np.issubdtype(v.dtype, np.integer)
+                    else np.float32)
 
 
 def from_jax_params(flat: Mapping[str, np.ndarray], cfg: Any,
@@ -37,18 +51,19 @@ def from_jax_params(flat: Mapping[str, np.ndarray], cfg: Any,
     "surrogate", "explainer" or "final") -> its model (by the config's
     type, `MODELS`) on `device`, in eval mode.  Strict: every key must land
     on a parameter of the same shape, and the model must have no
-    parameter the dict lacks."""
+    parameter the dict lacks.  Float arrays load as fp32 and are cast to
+    `dtype`; integer buffers (KernelSHAP's `Xs_train`) keep their type."""
     model = MODELS[type(cfg)](cfg, section)
-    state = {k: torch.from_numpy(np.array(v, dtype=np.float32))
-             for k, v in flat.items()}
+    state = {k: torch.from_numpy(_host_array(v)) for k, v in flat.items()}
     model.load_state_dict(state, strict=True)
     return model.to(device=device, dtype=dtype).eval()
 
 
 def to_flat(model: torch.nn.Module) -> Dict[str, np.ndarray]:
-    """The inverse, for any section: state dict -> flat dict of fp32 numpy
-    arrays under the JAX names."""
-    return {k: v.detach().float().cpu().numpy()
+    """The inverse, for any section: state dict -> flat dict of numpy
+    arrays under the JAX names, fp32 (integer buffers keep their type)."""
+    return {k: (v.detach().float() if v.is_floating_point()
+                else v.detach()).cpu().numpy()
             for k, v in model.state_dict().items()}
 
 

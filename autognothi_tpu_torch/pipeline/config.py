@@ -6,15 +6,18 @@ config.py:232-246`), the three optional wandb blocks (`logger_classifier`,
 `logger_surrogate`, `logger_explainer`, `:288-325`) and the seven eval
 blocks of the reports (`eval_accuracy` ... `eval_dual_task_similarity`,
 `:249-285`: every field required, `dataset` may be null).  Each block is
-None where the file has none; a stage that needs it raises."""
+None where the file has none; a stage that needs it raises.  `net.kind`
+is one of the JAX package's nine net kinds (NET_KINDS); another raises a
+ValueError naming it, as the JAX package's schema does."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional
 
-PORTED_NET_KINDS = ("ltt_vit", "ltt_bert", "vanilla_vit", "vanilla_bert",
-                    "froyo_vit", "froyo_bert")
+NET_KINDS = ("ltt_vit", "ltt_bert", "vanilla_vit", "vanilla_bert",
+             "froyo_vit", "froyo_bert", "duo_vanilla_vit", "duo_vanilla_bert",
+             "kernel_shap_bert")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,8 +177,7 @@ _BLOCKS = {
 
 
 def parse_config(raw: Dict[str, Any]) -> ExpConfig:
-    """Validate the fields the port reads; raise on a net kind it cannot
-    run yet."""
+    """Validate the fields the port reads; raise on an unknown net kind."""
     try:
         net = raw["net"]
         dataset = raw.get("dataset")
@@ -191,8 +193,8 @@ def parse_config(raw: Dict[str, Any]) -> ExpConfig:
                for name, (cls, required) in _BLOCKS.items()})
     except (KeyError, TypeError, ValueError) as err:
         raise ValueError(f"malformed .hparams.json: {err!r}") from err
-    if cfg.net.kind not in PORTED_NET_KINDS:
-        raise NotImplementedError(
-            f"net kind {cfg.net.kind!r} is not ported yet (ported: "
-            f"{', '.join(PORTED_NET_KINDS)})")
+    if cfg.net.kind not in NET_KINDS:
+        raise ValueError(
+            f"malformed .hparams.json: unknown net kind {cfg.net.kind!r} "
+            f"(known: {', '.join(NET_KINDS)})")
     return cfg

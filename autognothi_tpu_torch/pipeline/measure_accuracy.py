@@ -44,7 +44,7 @@ def measure_accuracy(env: ExpEnv, d_loader: Optional[DatasetLoader] = None,
     env.log("[[[ measuring model accuracy ]]]")
     config = env.config
     recipe, m_config = get_recipe(config)
-    if recipe.measurements is None or not recipe.measurements.allow_accuracy:
+    if not recipe.measurements.allow_accuracy:
         raise ValueError("unsupported recipe action")
     if config.eval_accuracy is None:
         raise ValueError("the experiment config has no eval_accuracy")

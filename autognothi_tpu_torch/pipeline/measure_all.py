@@ -7,10 +7,8 @@
 A report is read from `<exp>/.reports/<name>.json` where that file exists
 (validated by `reports.load_report`, never recomputed), else computed and
 written there.  The order is the JAX package's: accuracy, faithfulness,
-cls_acc, performance, train_resources, branches_cka, dual-task similarity.
-Dual-task similarity is not ported: it runs for no recipe of the port
-(their `allow_dual_task_similarity` is False), and a recipe that allowed it
-would raise before anything is measured.
+cls_acc, performance, train_resources, branches_cka, dual-task similarity
+(the duo recipes').
 """
 
 from __future__ import annotations
@@ -23,6 +21,8 @@ from .measure_accuracy import MeasureAccuracyReport, measure_accuracy
 from .measure_branches_cka import (MeasureBranchesCkaReport,
                                    measure_branches_cka)
 from .measure_cls_acc import MeasureClsAccReport, measure_cls_acc
+from .measure_dual_task_similarity import (MeasureDualTaskSimilarityReport,
+                                           measure_dual_task_similarity)
 from .measure_faithfulness import (MeasureFaithfulnessReport,
                                    measure_faithfulness)
 from .measure_performance import (MeasurePerformanceReport,
@@ -60,13 +60,6 @@ def measure_all(env: ExpEnv, run_accuracy: bool = True,
                 device: str = "cuda") -> None:
     recipe, _ = get_recipe(env.config)
     meas = recipe.measurements
-    if meas is None:
-        raise NotImplementedError(
-            f"recipe {recipe.id!r} has no measurements in the port yet")
-    if meas.allow_dual_task_similarity is not False \
-            and run_dual_task_similarity:
-        raise NotImplementedError(
-            "the dual-task similarity report is not ported yet")
 
     def run_report(t_report: Type[TReport], filename: str,
                    run: Callable[[], TReport], recipe_allow: bool,
@@ -98,6 +91,8 @@ def measure_all(env: ExpEnv, run_accuracy: bool = True,
     run_report(MeasureBranchesCkaReport, "branches_cka.json",
                lambda: measure_branches_cka(env, device=device),
                meas.allow_branches_cka, run_branches_cka)
-    if meas.allow_dual_task_similarity is not False:
-        env.log("[[[ skip: dual_task_similarity ]]]")
+    run_report(MeasureDualTaskSimilarityReport, "dual_task_similarity.json",
+               lambda: measure_dual_task_similarity(env, device=device),
+               meas.allow_dual_task_similarity is not False,
+               run_dual_task_similarity)
     env.log("[[[ done all measurements ]]]")

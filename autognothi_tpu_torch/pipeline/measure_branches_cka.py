@@ -73,8 +73,7 @@ def measure_branches_cka(env: ExpEnv,
     env.log("loading models...")
     config = env.config
     recipe, m_config = get_recipe(config)
-    if recipe.measurements is None or \
-            not recipe.measurements.allow_branches_cka:
+    if not recipe.measurements.allow_branches_cka:
         raise ValueError("unsupported recipe action")
     if recipe.fw_classifier_repr is None or recipe.fw_explainer_repr is None:
         raise ValueError("recipe lacks representation observers")

@@ -41,7 +41,7 @@ def measure_cls_acc(env: ExpEnv, d_loader: Optional[DatasetLoader] = None,
     env.log("[[[ measuring classifier accuracy ]]]")
     config = env.config
     recipe, m_config = get_recipe(config)
-    if recipe.measurements is None or not recipe.measurements.allow_cls_acc:
+    if not recipe.measurements.allow_cls_acc:
         raise ValueError("unsupported recipe action")
     if config.eval_cls_acc is None:
         raise ValueError("the experiment config has no eval_cls_acc")

@@ -94,8 +94,7 @@ def measure_faithfulness(env: ExpEnv,
     env.log("loading final model...")
     config = env.config
     recipe, m_config = get_recipe(config)
-    if recipe.measurements is None or \
-            not recipe.measurements.allow_faithfulness:
+    if not recipe.measurements.allow_faithfulness:
         raise ValueError("unsupported recipe action")
     if config.eval_faithfulness is None:
         raise ValueError("the experiment config has no eval_faithfulness")

@@ -159,8 +159,6 @@ def measure_performance(env: ExpEnv,
     env.log("loading models...")
     config = env.config
     recipe, m_config = get_recipe(config)
-    if recipe.measurements is None:
-        raise ValueError("unsupported recipe action")
     if config.eval_performance is None:
         raise ValueError("the experiment config has no eval_performance")
     dev = resolve_device(device)

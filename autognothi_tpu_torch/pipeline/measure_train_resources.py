@@ -95,8 +95,7 @@ def measure_train_resources(env: ExpEnv,
     env.log("loading models...")
     config = env.config
     recipe, m_config = get_recipe(config)
-    if recipe.measurements is None or \
-            not recipe.measurements.allow_train_resources:
+    if not recipe.measurements.allow_train_resources:
         raise ValueError("unsupported recipe action")
     if config.eval_train_resources is None:
         raise ValueError("the experiment config has no eval_train_resources")

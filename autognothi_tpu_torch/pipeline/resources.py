@@ -27,7 +27,7 @@ from ..data.loader import (DatasetLoader, load_cv_samples, load_nlp_samples,
 from ..params import from_jax_params, load_params_file, save_params
 from ..recipes.types import ModelRecipe
 from ..utils.strings import ranged_modulo_test
-from .config import (PORTED_NET_KINDS, Config_Dataset, Config_Train,
+from .config import (NET_KINDS, Config_Dataset, Config_Train,
                      ExpConfig)
 from .training import AdamW
 
@@ -36,8 +36,8 @@ def get_recipe(config: ExpConfig) -> Tuple[ModelRecipe, Any]:
     """-> (recipe, the model config built from `net.params`): the recipe
     of net kind <kind> is `recipes/<kind>.py:<kind>_recipe()`."""
     kind = config.net.kind
-    if kind not in PORTED_NET_KINDS:
-        raise NotImplementedError(f"net kind {kind!r} is not ported yet")
+    if kind not in NET_KINDS:
+        raise ValueError(f"unknown net kind {kind!r}")
     recipe = getattr(importlib.import_module(f"..recipes.{kind}",
                                              __package__),
                      f"{kind}_recipe")()

@@ -10,10 +10,12 @@ npz format.
 The step is `parallel/train_step.py:make_explainer_train_step`.  Each
 epoch draws its coalition (and dropout) masks from a generator on the
 training device seeded with `derive_seed(seed, "train_explainer[epoch=e]
-[train|test]")`.  The duo and KernelSHAP variants and pipeline-parallel
-training (AUTOGNOTHI_PP, AUTOGNOTHI_PP_TP above 1) are not ported and
-raise.  With AUTOGNOTHI_CKPT_OPT=1 the optimizer state is checkpointed
-beside each epoch and reloaded on resume.
+[train|test]")`.  The duo recipes train with `train_duo_explainer.py`
+(the joint classification + Shapley loss), the KernelSHAP recipe with
+`train_kernel_shap_explainer.py` (k-means), as in the JAX package.
+Pipeline-parallel training (AUTOGNOTHI_PP, AUTOGNOTHI_PP_TP above 1) is
+not ported and raises.  With AUTOGNOTHI_CKPT_OPT=1 the optimizer state is
+checkpointed beside each epoch and reloaded on resume.
 """
 
 from __future__ import annotations
@@ -45,10 +47,14 @@ def train_explainer(env: ExpEnv, device: str = "cuda") -> None:
     if not recipe.training.support_explainer:
         env.log("[[[ skip: explainer cannot be trained ]]]")
         return
-    if recipe.training.exp_variant_duo or \
-            recipe.training.exp_variant_kernel_shap:
-        raise NotImplementedError(
-            "the duo and KernelSHAP explainer trainers are not ported yet")
+    if recipe.training.exp_variant_duo:
+        from .train_duo_explainer import train_duo_explainer
+
+        return train_duo_explainer(env, device=device)
+    if recipe.training.exp_variant_kernel_shap:
+        from .train_kernel_shap_explainer import train_kernel_shap_explainer
+
+        return train_kernel_shap_explainer(env, device=device)
     refuse_pipeline_parallel()
     t_cfg = config.train_explainer
     if t_cfg is None:

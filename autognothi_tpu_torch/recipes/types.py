@@ -27,11 +27,21 @@ class ModelRecipe_Training:
 
 
 @dataclasses.dataclass(frozen=True)
+class ModelRecipe_Measurements_DualTaskSimilarity:
+    """The duo recipes' dual-task report (`:49-56`): `grad_probe` is
+    (cfg, model, xs, mask, grand, null, zs, masks_bmp, v_0, v_s, v_1) ->
+    (the classification loss's and the Shapley loss's gradients with
+    respect to the embedding output, each <B, T, H>)."""
+    allow: bool
+    grad_probe: Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelRecipe_Measurements:
     """Whether `train_all` checks the final's coherency, and which reports
     `measure_all` runs (`autognothi_tpu/recipes/types.py:59-70`).
-    `allow_dual_task_similarity` is False or, in the JAX package, the duo
-    recipes' gradient probe; the port's recipes set it False."""
+    `allow_dual_task_similarity` is False or the duo recipes'
+    `ModelRecipe_Measurements_DualTaskSimilarity`."""
     verify_final_coherency: bool
     allow_accuracy: bool = False
     allow_faithfulness: bool = False
@@ -68,33 +78,35 @@ class ModelRecipe:
     fw_surrogate_coalitions: Optional[Callable[..., torch.Tensor]]
     # (cfg, section) -> name -> bool: which parameters a section trains
     trainable: Callable[[Any, str], Callable[[str], bool]]
+    # fresh layouts :: (cfg, generator) -> Flat
+    init_classifier: Callable[[Any, torch.Generator], Flat]
+    init_surrogate: Callable[[Any, torch.Generator], Flat]
+    init_explainer: Callable[[Any, torch.Generator], Flat]
+    init_final: Callable[[Any, torch.Generator], Flat]
+    # the conversion chain; `generator` draws the New() parameters:
+    #   (cfg, bundle, generator) -> Flat
+    conv_pretrained_classifier: Callable[..., Flat]
+    #   (cfg, misc, classifier, generator) -> Flat
+    conv_classifier_surrogate: Callable[..., Flat]
+    #   (cfg, misc, surrogate, generator) -> Flat
+    conv_surrogate_explainer: Callable[..., Flat]
+    #   (cfg, misc, classifier, surrogate, explainer, generator, device)
+    #   -> Flat; `device` runs its surrogate forward of the null input
+    conv_explainer_final: Callable[..., Flat]
+    # (cfg, model, xs, mask <B, P>, **kw) -> (side probabilities, trunk
+    # probabilities)
+    fw_classifier: Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+    measurements: ModelRecipe_Measurements
+    # True where fw_final runs on the host (KernelSHAP's numpy WLS, whose
+    # classifier sweep runs on the model's device): the consumers call it
+    # as it is (the JAX package only skips jit and mesh placement for it)
+    fw_final_host: bool = False
     # LTT progressive training: (cfg, section, unfrozen) -> name filter
     progressive_trainable: Optional[
         Callable[[Any, str, int], Callable[[str], bool]]] = None
     # (experiment dir, cfg) -> the `misc` the data adapters take (the BERT
     # tokenizer); None -> misc is None
     load_misc: Optional[Callable[[Any, Any], Any]] = None
-    # the training stages; None where the recipe does not train yet.
-    # fresh layouts :: (cfg, generator) -> Flat
-    init_classifier: Optional[Callable[[Any, torch.Generator], Flat]] = None
-    init_surrogate: Optional[Callable[[Any, torch.Generator], Flat]] = None
-    init_explainer: Optional[Callable[[Any, torch.Generator], Flat]] = None
-    init_final: Optional[Callable[[Any, torch.Generator], Flat]] = None
-    # the conversion chain; `generator` draws the New() parameters:
-    #   (cfg, bundle, generator) -> Flat
-    conv_pretrained_classifier: Optional[Callable[..., Flat]] = None
-    #   (cfg, misc, classifier, generator) -> Flat
-    conv_classifier_surrogate: Optional[Callable[..., Flat]] = None
-    #   (cfg, misc, surrogate, generator) -> Flat
-    conv_surrogate_explainer: Optional[Callable[..., Flat]] = None
-    #   (cfg, misc, classifier, surrogate, explainer, generator, device)
-    #   -> Flat; `device` runs its surrogate forward of the null input
-    conv_explainer_final: Optional[Callable[..., Flat]] = None
-    # (cfg, model, xs, mask <B, P>, **kw) -> (side probabilities, trunk
-    # probabilities)
-    fw_classifier: Optional[Callable[..., Tuple[torch.Tensor,
-                                                torch.Tensor]]] = None
-    measurements: Optional[ModelRecipe_Measurements] = None
     # representation observers (the CKA report):
     # (cfg, model, xs, mask[, grand, null]) -> (out, hidden <B, T, H>)
     fw_classifier_repr: Optional[Callable[..., Tuple[torch.Tensor,

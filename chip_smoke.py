@@ -164,7 +164,8 @@ Phases, each printing its own lines:
 
   8. LTT BERT training and reports through `run_all`: a `random_init`
      experiment with experiments/bert_base_tayp_ltt's `net.params` (full
-     depth and width, dropout 0) on the bundled `nlp_samples` (24
+     width, 6 of the 12 layers: `BERT_RUN_ALL_LAYERS`, dropout 0) on the
+     bundled `nlp_samples` (24
      sentences) with a `build_vocab` vocabulary, the shipped training
      blocks at one epoch each (classifier and surrogate batch 8, the
      surrogate progressive; explainer batch 4 x M = 2; lr 5e-5) and the
@@ -189,7 +190,9 @@ Phases, each printing its own lines:
   9. and 10. the vanilla and froyo towers of ViT-B/16@224 (9) and
      BERT-base@512 (10), the shipped `vit_base_imagenette_vanilla` and
      `bert_base_tayp_vanilla` `net.params` (random_init, dropout 0,
-     full depth; faithfulness at 8 stops, one performance loop): a
+     full depth but `run_all` at 6 of the 12 layers,
+     `TOWER_RUN_ALL_LAYERS`; faithfulness at 8 stops, one performance
+     loop): a
      random vanilla final served fp32 and W8A8 (phase 3's requests; 37
      attention and 37 MLP blocks a slab, the W8A8 head on K3's wide
      route), then `fw_final` at B = 8 on the other paths (ViT mode "1";
@@ -201,11 +204,36 @@ Phases, each printing its own lines:
      quality gate fp32 / W8A8 / mode "1", cls_acc and accuracy against
      plain, each stage's step against plain with its kernel calls and the
      plain recomputes its backward runs (`primitives.RECOMPUTES`), the
-     steps' ms and spans; a froyo `train_all`, its final served fp32 and
-     W8A8 (13 + 13 blocks a slab), its steps against plain (the
-     backward recomputes the explainer layer's two ops, no trunk op) and
-     the explainer step timed against plain.  Each phase prints its
-     seconds (`[phase]` lines).
+     steps' ms and spans; a froyo `train_all` at 6 layers, its final
+     served fp32 and W8A8 (7 + 7 blocks a slab), its steps against
+     plain (the backward recomputes the explainer layer's two ops, no
+     trunk op) and the explainer step timed against plain.  Each phase
+     prints its seconds (`[phase]` lines).
+
+  11. the duo towers of both families (`vit_base_imagenette_vanilla` and
+     `bert_base_tayp_duo_vanilla` `net.params`, random_init, dropout 0):
+     a random duo final served fp32 and W8A8 at full depth (25 attention
+     and 25 MLP blocks a slab, `DUO_COUNTS`; duo BERT's head gives raw
+     logits), `fw_final` at B = 8 on the other paths, timed and profiled;
+     `run_all` through `cli_main` at 6 of the 12 layers
+     (`TOWER_RUN_ALL_LAYERS`) with phase 9's / 10's data and blocks: the
+     duo explainer trainer, no coherency check (as in the JAX recipe),
+     the seven reports, a second `measure_all` that launches nothing, the
+     quality gate, cls_acc and accuracy against plain, the dual-task
+     similarity against its plain run on the same masks
+     (`DUAL_TASK_TOL`), the duo explainer step (fp32 and int8 teacher)
+     against plain with its kernel calls and plain recomputes, timed with
+     its spans.
+  12. a random KernelSHAP BERT-base@512 (the shipped `net.params`, full
+     depth, 1024 coalitions over 2 background rows: `KSHAP_SAMPLES`):
+     `train_all` through `cli_main` (k-means on the host), the host final
+     served at batch 2 for a `texts` request of 2 rows, fp32 and W8A8,
+     its classifier slabs' kernel calls (`KSHAP_COUNTS`) and its
+     probabilities and attributions against the plain versions on the
+     card, the faithfulness quality gate over one input of 512 tokens,
+     one profiled explained row per path.  Then the native WordPiece
+     core: its build seconds and the texts it encoded over the run
+     (`phase_native`; the run fails if it did not load or encoded none).
 
 Any failure raises, exits non-zero and prints no result.  The last three
 lines are the card, the kernel table (JSON) and the status line (JSON).
@@ -972,12 +1000,14 @@ def bert_requests():
 
 
 def phase_serve(dev, exp: pathlib.Path, int8: bool, model: str = "vit",
-                per_slab: dict = None, tag: str = None):
+                per_slab: dict = None, tag: str = None,
+                probabilities: bool = True):
     """Serve the experiment on one path; -> (kernel calls, service, the
     responses by request label).  Three slabs of 8 (1 + 2), their kernel
     calls against the path's table (the LTT finals' unless `per_slab` is
     given), the responses against the plain forward of the same module on
-    the same path."""
+    the same path; `probabilities`: the logits are a softmax's (not the
+    duo BERT's raw logits)."""
     import numpy as np
     import torch
 
@@ -1035,7 +1065,8 @@ def phase_serve(dev, exp: pathlib.Path, int8: bool, model: str = "vit",
                   f"{label}: logits {logits.shape}")
             check(attr.shape == (n, n_labels, n_players),
                   f"{label}: attr {attr.shape}")
-            check(bool(np.abs(logits.sum(-1) - 1).max() < 1e-4),
+            check(not probabilities
+                  or bool(np.abs(logits.sum(-1) - 1).max() < 1e-4),
                   f"{label}: probabilities do not sum to 1")
             if kind == "texts":
                 xs = torch.from_numpy(service.gen_input(rows, [0] * n)[0])
@@ -1886,6 +1917,17 @@ class StageCase:
             step = make_train_step(classifier_loss(self.recipe, cfg, is_ltt))
             return lambda: step(model, opt, 5e-5, ones, self.xs, self.ones,
                                 self.labels, generator, depth, self.w)[0]
+        if stage == "explainer" and self.recipe.training.exp_variant_duo:
+            # the duo step: cross-entropy on the explainer's head + Shapley
+            from autognothi_tpu_torch.pipeline.train_duo_explainer import \
+                make_duo_explainer_steps
+
+            step, _ = make_duo_explainer_steps(self.recipe, cfg,
+                                               self.n_players, self.m)
+            xs, zs = self.xs[:self.exp_b], self.labels[:self.exp_b]
+            return lambda: step(model, opt, self.models["surrogate"],
+                                self.null, xs, zs, generator, 5e-5, ones,
+                                masks=self.masks)[0]
         if stage == "explainer":
             step = make_explainer_train_step(self.recipe, cfg,
                                              self.n_players, self.m)
@@ -1931,6 +1973,12 @@ def _scaled(*terms) -> dict:
         for k, v in counts.items():
             out[k] = out.get(k, 0) + n * v
     return {k: v for k, v in out.items() if v}
+
+
+def _depth(counts: dict, layers: int) -> dict:
+    """Kernel calls counted for 12-layer towers (12 a layer's op per tower,
+    plus fewer than 12 side layers' or heads') at `layers` layers."""
+    return {k: v // 12 * layers + v % 12 for k, v in counts.items()}
 
 
 def phase_stage_steps(case: StageCase) -> dict:
@@ -1989,7 +2037,7 @@ def phase_stage_timing(case: StageCase, card: str,
     import torch
 
     from autognothi_tpu_torch.parallel import train_step
-    from autognothi_tpu_torch.pipeline import training
+    from autognothi_tpu_torch.pipeline import train_duo_explainer, training
 
     reps = 3
     for label, stage, teacher in runs:
@@ -2016,7 +2064,9 @@ def phase_stage_timing(case: StageCase, card: str,
             timer = SpanTimer()
             with train_env("2", teacher), ctx, \
                     mock.patch.object(training, "record_function", timer), \
-                    mock.patch.object(train_step, "record_function", timer):
+                    mock.patch.object(train_step, "record_function", timer), \
+                    mock.patch.object(train_duo_explainer, "record_function",
+                                      timer):
                 steps[which]()
             spans = timer.totals()
             print(f"{tag} {label} {which:7s} step split (CUDA "
@@ -2026,7 +2076,7 @@ def phase_stage_timing(case: StageCase, card: str,
 
 
 def serve_final(dev, exp: pathlib.Path, texts: list = None,
-                tag: str = "[train_all]") -> dict:
+                tag: str = "[train_all]", layers: int = 12) -> dict:
     """`serve` from the experiment's final-epoch-0.ckpt: one `images`
     request of 3 rows (or, for a BERT experiment, the `texts` given),
     held against the plain forward of the served model at the serve gate;
@@ -2072,7 +2122,8 @@ def serve_final(dev, exp: pathlib.Path, texts: list = None,
         print(f"{tag} served final, {label} x{len(rows)}, {what} "
               f"{tuple(mine.shape)} vs plain forward: {msg}", flush=True)
         check(ok, f"the served final's {what} differ from the plain forward")
-    check(calls == want_calls, f"the served request's kernel calls {calls}")
+    check(calls == _depth(want_calls, layers),
+          f"the served request's kernel calls {calls}")
     return calls
 
 
@@ -2644,6 +2695,8 @@ REPORT_FNS = ("measure_accuracy", "measure_faithfulness", "measure_cls_acc",
 REPORT_FILES = ("accuracy.json", "branches_cka.json", "cls_acc.json",
                 "faithfulness.json", "performance.json",
                 "train_resources.json")
+# the duo recipes' seventh report
+DUAL_TASK = ("measure_dual_task_similarity", "dual_task_similarity.json")
 # the kernels each report launches on the fp32 path (pallas mode "2"):
 # every forward it runs is the float blocks' K6 + K7 and the ladder K5
 FP32_REPORT_KERNELS = ("attention_block", "mlp_block", "ladder_block")
@@ -2726,7 +2779,7 @@ def counted_reports(calls: dict, seconds: dict):
         return run
 
     with contextlib.ExitStack() as stack:
-        for name in REPORT_FNS:
+        for name in REPORT_FNS + DUAL_TASK[:1]:
             stack.enter_context(mock.patch.object(ma, name,
                                                   wrap(name, getattr(ma,
                                                                      name))))
@@ -2908,18 +2961,21 @@ def run_report_gate(dev, exp: pathlib.Path, faith_kernels: dict,
 
 
 def check_report_files(exp: pathlib.Path, calls: dict, seconds: dict,
-                       kernels: tuple, card: str, tag: str) -> dict:
-    """The six files run_all wrote, each report's seconds and kernel calls
-    (each launched every one of `kernels`), then a second `measure_all`
-    that reloads them and launches nothing; -> the reports' texts."""
+                       kernels: tuple, card: str, tag: str,
+                       dual_task: bool = False) -> dict:
+    """The six files run_all wrote (seven with `dual_task`), each report's
+    seconds and kernel calls (each launched every one of `kernels`), then
+    a second `measure_all` that reloads them and launches nothing; -> the
+    reports' texts."""
     import torch
 
     from autognothi_tpu_torch.cli import main as cli_main
 
     reports = exp / ".reports"
     files = tuple(sorted(p.name for p in reports.iterdir()))
-    check(files == REPORT_FILES, f"run_all wrote {files}")
-    for name in REPORT_FNS:
+    want_files = tuple(sorted(REPORT_FILES + DUAL_TASK[1:] * dual_task))
+    check(files == want_files, f"run_all wrote {files}")
+    for name in REPORT_FNS + DUAL_TASK[:1] * dual_task:
         got = calls.get(name, {})
         print(f"{tag} {name}: {seconds.get(name, 0.0):.2f} s, kernel calls "
               f"{got} | {card}", flush=True)
@@ -2936,8 +2992,8 @@ def check_report_files(exp: pathlib.Path, calls: dict, seconds: dict,
                             and (reports / n).stat().st_mtime_ns == stamps[n]
                             for n in files),
           f"the second measure_all recomputed: kernel calls {again}")
-    print(f"{tag} second measure_all: the six reports reloaded, nothing "
-          f"computed (0 kernel calls, files unchanged)", flush=True)
+    print(f"{tag} second measure_all: the {len(files)} reports reloaded, "
+          f"nothing computed (0 kernel calls, files unchanged)", flush=True)
     return texts
 
 
@@ -3007,9 +3063,13 @@ def phase_run_all(dev, tmp: pathlib.Path, card: str) -> dict:
 # ------------------------------------------------------- LTT BERT run_all
 
 BERT_TRAIN_B, BERT_EXP_B, BERT_M = 8, 4, 2  # the shipped training blocks
+# the cut that keeps the script nearer half its time limit: phase 8 at 6
+# of the 12 layers (BERT-base@512 widths; phase 3 serves the full depth)
+BERT_RUN_ALL_LAYERS = 6
 # phase 8's eval blocks: experiments/bert_base_tayp_ltt's, cut where
-# marked to keep the phase inside the time limit (widths and depth are the
-# shipped ones; the data is the 24 bundled sentences)
+# marked to keep the phase inside the time limit (widths are the shipped
+# ones, the depth BERT_RUN_ALL_LAYERS; the data is the 24 bundled
+# sentences)
 BERT_RUN_ALL_EVAL = {
     "eval_accuracy": {"dataset": None, "batch_size": 8, "resolution": 8},
     # raised from the shipped 4 stops to 16: 2 classes x 16 stops x 2
@@ -3046,7 +3106,8 @@ def nlp_samples() -> list:
 
 def write_bert_run_all_experiment(tmp: pathlib.Path) -> pathlib.Path:
     """A `random_init` LTT BERT-base@512 experiment (experiments/
-    bert_base_tayp_ltt's `net.params`, full depth and width, dropout 0) on
+    bert_base_tayp_ltt's `net.params`, full width, BERT_RUN_ALL_LAYERS
+    deep, dropout 0) on
     `nlp_samples`, with a `build_vocab` vocabulary over the port's copy of
     the sample set under `<exp>/tokenizer/` (`vocab_size` stays the
     shipped 30,522, as in phase 3), the shipped training blocks at one
@@ -3059,7 +3120,8 @@ def write_bert_run_all_experiment(tmp: pathlib.Path) -> pathlib.Path:
     hp["net"].update(version=RECIPE_VERSION, base_model="random_init",
                      params=dict(hp["net"]["params"],
                                  attention_probs_dropout_prob=0.0,
-                                 hidden_dropout_prob=0.0))
+                                 hidden_dropout_prob=0.0,
+                                 num_hidden_layers=BERT_RUN_ALL_LAYERS))
     hp["dataset"] = {"kind": "nlp_samples"}
     hp["seed"] = SEED
     for section in ("train_classifier", "train_surrogate",
@@ -3109,6 +3171,7 @@ def phase_bert_stage_steps(case: StageCase, card: str) -> dict:
 
     per_step = {}
     for (stage, teacher), want in BERT_STEP_COUNTS.items():
+        want = _depth(want, case.cfg.num_hidden_layers)
         losses, calls = {}, {}
         for which in ("kernels", "plain"):
             run = case.fresh(stage)
@@ -3218,7 +3281,8 @@ def phase_bert_run_all(dev, tmp: pathlib.Path, card: str) -> dict:
           "train_all did not verify the final's coherency")
     check("freeze side branches exc. first 1 layers" in log,
           "the surrogate stage did not train progressively")
-    print(f"{tag} LTT BERT-base@512 on nlp_samples "
+    print(f"{tag} LTT BERT-base@512 at {BERT_RUN_ALL_LAYERS} layers on "
+          f"nlp_samples "
           f"({len(nlp_samples())} sentences): "
           f"train_all + measure_all in {seconds:.1f} s (the six reports "
           f"{sum(report_seconds.values()):.1f} s); coherency on the card: "
@@ -3244,8 +3308,8 @@ def phase_bert_run_all(dev, tmp: pathlib.Path, card: str) -> dict:
         # train and eval steps alike: the teacher and the explainer forward
         "train_explainer": _scaled(
             (2 * batches["explainer"], per_step[("explainer", "int8")]),
-            (1, NULL_COUNTS["2"])),
-        "conv_explainer_final": FINAL_COUNTS,
+            (1, _depth(NULL_COUNTS["2"], BERT_RUN_ALL_LAYERS))),
+        "conv_explainer_final": _depth(FINAL_COUNTS, BERT_RUN_ALL_LAYERS),
     }
     for stage in STAGES:
         print(f"{tag} {stage}: kernel calls {stage_calls.get(stage)} "
@@ -3254,7 +3318,8 @@ def phase_bert_run_all(dev, tmp: pathlib.Path, card: str) -> dict:
               f"{stage}: kernel calls differ from its steps' and forwards'")
     with report_env("2", False):
         total = _scaled((1, total), (1, serve_final(
-            dev, exp, texts=[x for x in CORPUS[:3]], tag=tag)))
+            dev, exp, texts=[x for x in CORPUS[:3]], tag=tag,
+            layers=BERT_RUN_ALL_LAYERS)))
 
     texts = check_report_files(exp, calls, report_seconds,
                                FP32_REPORT_KERNELS, card, tag)
@@ -3414,6 +3479,11 @@ TOWER_EXP = {"vit": REPO / "experiments" / "vit_base_imagenette_vanilla"
              "bert": REPO / "experiments" / "bert_base_tayp_vanilla"
              / ".hparams.json"}
 TOWER_NAME = {"vit": "ViT-B/16@224", "bert": "BERT-base@512"}
+# the duo BERT's shipped experiment (the same `net.params`); the repo ships
+# no duo ViT experiment, so phase 11 takes the vanilla ViT's
+DUO_EXP = {"vit": TOWER_EXP["vit"],
+           "bert": REPO / "experiments" / "bert_base_tayp_duo_vanilla"
+           / ".hparams.json"}
 # the eval blocks: phase 7's (ViT) and phase 8's (BERT), cut to 8
 # faithfulness stops (ViT 160 coalitions an image, BERT 32 a sentence,
 # each held against plain three times over) and one performance loop to
@@ -3445,6 +3515,22 @@ VANILLA_COUNTS = {
     ("bert", "bf16"): {"attention_block": 37, "mlp_block_tiled": 74},
     ("bert", "mode 1"): {"masked_attention": 37},
 }
+# a duo final runs the surrogate's tower and the duo explainer's (its
+# trunk and its layer): 25 attention and 25 MLP blocks a slab, and the head
+DUO_COUNTS = {
+    ("vit", "fp32"): {"attention_block": 25, "mlp_block": 25},
+    ("vit", "int8"): {"attention_block_int8": 25, "mlp_block_int8": 25,
+                      "head_block": 1},
+    ("vit", "mode 1"): {"masked_attention": 25},
+    ("bert", "fp32"): {"attention_block": 25, "mlp_block": 25},
+    ("bert", "int8"): {"attention_block": 25, "mlp_block_int8_tiled": 50,
+                       "head_block": 1},
+    ("bert", "int8 bf16"): {"attention_block_int8": 25,
+                            "mlp_block_int8_tiled": 50, "head_block": 1},
+    ("bert", "bf16"): {"attention_block": 25, "mlp_block_tiled": 50},
+    ("bert", "mode 1"): {"masked_attention": 25},
+}
+TOWER_COUNTS = {"vanilla": VANILLA_COUNTS, "duo": DUO_COUNTS}
 # a froyo final runs one trunk and the explainer's layer: 13 of each block
 FROYO_COUNTS = {
     ("vit", "fp32"): {"attention_block": 13, "mlp_block": 13},
@@ -3478,13 +3564,15 @@ TOWER_FAITH_KERNELS = {
 }
 
 
-def tower_step_counts(family: str, stage: str, teacher: str) -> dict:
-    """The kernel calls of one vanilla step at 12 layers: the classifier
-    one forward (it trains nothing); the surrogate its teacher (the
+def tower_step_counts(family: str, stage: str, teacher: str,
+                      layers: int = 12) -> dict:
+    """The kernel calls of one vanilla (or duo) step: the classifier one
+    forward (it trains nothing); the surrogate its teacher (the
     classifier, in the arithmetic AUTOGNOTHI_INT8 picks) and its own
     forward; the explainer its teacher's coalitions and v_1 and its own
     forward (the tower and its layer)."""
-    fwd, teach = TOWER_FWD[(family, "fp32")], TOWER_FWD[(family, teacher)]
+    fwd = _depth(TOWER_FWD[(family, "fp32")], layers)
+    teach = _depth(TOWER_FWD[(family, teacher)], layers)
     if stage == "classifier":
         return fwd
     if stage == "surrogate":
@@ -3493,23 +3581,27 @@ def tower_step_counts(family: str, stage: str, teacher: str) -> dict:
 
 
 def write_tower_experiment(tmp: pathlib.Path, family: str, kind: str,
-                           name: str) -> pathlib.Path:
+                           name: str, layers: int = None) -> pathlib.Path:
     """A `random_init` experiment of net kind `kind` with the shipped
-    `net.params` of TOWER_EXP[family] (dropout 0).  ViT: phase 6's data
-    and training blocks (`cv_samples` at 224 px, 2 train and 1 test batch
-    of TRAIN_B, explainer M = TRAIN_M) and phase 7's eval blocks; BERT:
-    `nlp_samples` with a `build_vocab` vocabulary, the shipped training
-    blocks at one epoch each and phase 8's eval blocks."""
+    `net.params` of TOWER_EXP[family] (DUO_EXP for a duo kind; dropout 0;
+    `layers` deep where given).  ViT: phase 6's data and training blocks
+    (`cv_samples` at 224 px, 2 train and 1 test batch of TRAIN_B,
+    explainer M = TRAIN_M) and phase 7's eval blocks; BERT: `nlp_samples`
+    with a `build_vocab` vocabulary, the shipped training blocks at one
+    epoch each and phase 8's eval blocks; a duo kind adds the dual-task
+    block at the eval batch."""
     from autognothi_tpu_torch import RECIPE_VERSION
     from autognothi_tpu_torch.data.tokenizer import (WordPieceTokenizer,
                                                      build_vocab)
 
-    hp = json.loads(TOWER_EXP[family].read_text())
+    duo = kind.startswith("duo")
+    hp = json.loads((DUO_EXP if duo else TOWER_EXP)[family].read_text())
+    params = dict(hp["net"]["params"], attention_probs_dropout_prob=0.0,
+                  hidden_dropout_prob=0.0)
+    if layers is not None:
+        params["num_hidden_layers"] = layers
     hp["net"].update(kind=kind, version=RECIPE_VERSION,
-                     base_model="random_init",
-                     params=dict(hp["net"]["params"],
-                                 attention_probs_dropout_prob=0.0,
-                                 hidden_dropout_prob=0.0))
+                     base_model="random_init", params=params)
     hp["seed"] = SEED
     if family == "vit":
         hp["dataset"] = {"kind": "cv_samples", "train_size": 2 * TRAIN_B,
@@ -3534,6 +3626,10 @@ def write_tower_experiment(tmp: pathlib.Path, family: str, kind: str,
               == (BERT_TRAIN_B, BERT_TRAIN_B, BERT_EXP_B, BERT_M),
               "the shipped vanilla BERT training blocks changed")
     hp.update(copy.deepcopy(TOWER_EVAL[family]))
+    if duo:
+        hp["eval_dual_task_similarity"] = {
+            "dataset": None,
+            "batch_size": hp["eval_faithfulness"]["batch_size"]}
     exp = tmp / name
     exp.mkdir()
     (exp / ".hparams.json").write_text(json.dumps(hp, indent=2))
@@ -3543,9 +3639,10 @@ def write_tower_experiment(tmp: pathlib.Path, family: str, kind: str,
     return exp
 
 
-def write_tower_final(tmp: pathlib.Path, family: str) -> pathlib.Path:
-    """A random vanilla final (seeded torch.Generator, surrogate_null 0.1)
-    beside a phase 9/10 experiment."""
+def write_tower_final(tmp: pathlib.Path, family: str,
+                      kind: str = "vanilla") -> pathlib.Path:
+    """A random vanilla (or duo) final (seeded torch.Generator,
+    surrogate_null 0.1) beside a phase 9/10 (11) experiment."""
     import numpy as np
     import torch
 
@@ -3553,26 +3650,30 @@ def write_tower_final(tmp: pathlib.Path, family: str) -> pathlib.Path:
     from autognothi_tpu_torch.pipeline.config import parse_config
     from autognothi_tpu_torch.pipeline.resources import get_recipe
 
-    exp = write_tower_experiment(tmp, family, f"vanilla_{family}",
-                                 f"vanilla_{family}_serve")
+    net_kind = f"{kind}_{family}" if kind == "vanilla" \
+        else f"duo_vanilla_{family}"
+    exp = write_tower_experiment(tmp, family, net_kind,
+                                 f"{kind}_{family}_serve")
     recipe, cfg = get_recipe(parse_config(json.loads(
         (exp / ".hparams.json").read_text())))
     t0 = time.perf_counter()
     flat = recipe.init_final(cfg, torch.Generator().manual_seed(SEED))
     flat["surrogate_null"] = np.full_like(flat["surrogate_null"], 0.1)
     save_params(exp / "final-epoch-0.ckpt", flat)
-    print(f"[vanilla {family}] vanilla {TOWER_NAME[family]} final: "
+    print(f"[{kind} {family}] {kind} {TOWER_NAME[family]} final: "
           f"{sum(v.size for v in flat.values())} parameters, seed {SEED}, "
           f"written in {time.perf_counter() - t0:.1f} s", flush=True)
     return exp
 
 
-def phase_tower_paths(dev, family: str, service, card: str) -> dict:
-    """fw_final of the served vanilla model at batch 8 on each path the
-    serve phase does not take (ViT mode "1"; BERT int8 with bf16
+def phase_tower_paths(dev, family: str, service, card: str,
+                      kind: str = "vanilla") -> dict:
+    """fw_final of the served vanilla (or duo) model at batch 8 on each
+    path the serve phase does not take (ViT mode "1"; BERT int8 with bf16
     parameters, bf16 without int8, mode "1"), each against its plain
-    forward with its kernel calls, timed in turns; one profiled forward
-    per path (the served paths' too); -> the kernel calls."""
+    forward with its kernel calls (TOWER_COUNTS[kind]), timed in turns;
+    one profiled forward per path (the served paths' too); -> the kernel
+    calls."""
     import torch
 
     model, cfg, recipe = service.model, service.m_config, service.recipe
@@ -3607,38 +3708,41 @@ def phase_tower_paths(dev, family: str, service, card: str) -> dict:
         fw()
         torch.cuda.synchronize()
         calls = {k: v for k, v in read_counts().items() if v}
-        want = VANILLA_COUNTS[(family, label)]
-        print(f"[vanilla {family}] fw_final {label} B=8: kernel calls "
+        want = TOWER_COUNTS[kind][(family, label)]
+        print(f"[{kind} {family}] fw_final {label} B=8: kernel calls "
               f"{calls} (expected {want})", flush=True)
-        check(calls == want, f"vanilla {family} fw_final {label}: kernel "
+        check(calls == want, f"{kind} {family} fw_final {label}: kernel "
                              f"calls differ from the table")
         calls_all = _scaled((1, calls_all), (1, calls))
-        time_fw_final(f"vanilla {TOWER_NAME[family]} {label}", fw,
+        time_fw_final(f"{kind} {TOWER_NAME[family]} {label}", fw,
                       forward(m, x, pallas, int8, True), dtype, int8, card,
                       8)
-        profile_forward(f"vanilla {TOWER_NAME[family]} {label} B=8", fw,
+        profile_forward(f"{kind} {TOWER_NAME[family]} {label} B=8", fw,
                         card)
     del model_bf16
     torch.cuda.empty_cache()
     return calls_all
 
 
-def phase_tower_serve(dev, tmp: pathlib.Path, card: str,
-                      family: str) -> dict:
-    """Serve a random vanilla final on the card, fp32 and W8A8 (phase 3's
-    requests), against its plain forward with the kernel calls per slab,
-    then the other paths of `phase_tower_paths`; -> the kernel calls."""
-    exp = write_tower_final(tmp, family)
+def phase_tower_serve(dev, tmp: pathlib.Path, card: str, family: str,
+                      kind: str = "vanilla") -> dict:
+    """Serve a random vanilla (or duo) final on the card, fp32 and W8A8
+    (phase 3's requests), against its plain forward with the kernel calls
+    per slab, then the other paths of `phase_tower_paths`; -> the kernel
+    calls.  The duo BERT's head gives raw logits."""
+    exp = write_tower_final(tmp, family, kind)
+    probs = not (kind == "duo" and family == "bert")
     launches, service, _ = phase_serve(
         dev, exp, int8=False, model=family,
-        per_slab=VANILLA_COUNTS[(family, "fp32")],
-        tag=f"serve vanilla {family} fp32")
+        per_slab=TOWER_COUNTS[kind][(family, "fp32")],
+        tag=f"serve {kind} {family} fp32", probabilities=probs)
     launches_int8, _, _ = phase_serve(
         dev, exp, int8=True, model=family,
-        per_slab=VANILLA_COUNTS[(family, "int8")],
-        tag=f"serve vanilla {family} int8")
+        per_slab=TOWER_COUNTS[kind][(family, "int8")],
+        tag=f"serve {kind} {family} int8", probabilities=probs)
     total = _scaled((1, launches), (1, launches_int8),
-                    (1, phase_tower_paths(dev, family, service, card)))
+                    (1, phase_tower_paths(dev, family, service, card,
+                                          kind)))
     del service
     return total
 
@@ -3649,10 +3753,17 @@ def recomputes() -> int:
     return RECOMPUTES.count
 
 
+ALL_STAGE_STEPS = (("classifier", "fp32"), ("surrogate", "fp32"),
+                   ("surrogate", "int8"), ("explainer", "fp32"),
+                   ("explainer", "int8"))
+
+
 def phase_tower_steps(case: StageCase, family: str, card: str,
-                      tag: str) -> dict:
-    """One step of each stage (surrogate and explainer with the fp32 and
-    the int8 teacher) with the kernels against the same step on the plain
+                      tag: str, stages: tuple = ALL_STAGE_STEPS,
+                      layers: int = 12) -> dict:
+    """One step of each (stage, teacher) of `stages` (by default the
+    classifier, then the surrogate and explainer with the fp32 and the
+    int8 teacher) with the kernels against the same step on the plain
     versions (loss within STEP_TOL), its kernel calls against
     `tower_step_counts` and the plain recomputes of its backward (one per
     differentiated kernel call); -> the kernel calls by (stage,
@@ -3663,9 +3774,7 @@ def phase_tower_steps(case: StageCase, family: str, card: str,
 
     froyo = case.recipe.id.startswith("froyo")
     per_step = {}
-    for stage, teacher in (("classifier", "fp32"), ("surrogate", "fp32"),
-                           ("surrogate", "int8"), ("explainer", "fp32"),
-                           ("explainer", "int8")):
+    for stage, teacher in stages:
         losses, calls = {}, {}
         for which in ("kernels", "plain"):
             run = case.fresh(stage)
@@ -3680,7 +3789,7 @@ def phase_tower_steps(case: StageCase, family: str, card: str,
                 calls[which] = {k: v for k, v in read_counts().items() if v}
                 if which == "kernels":
                     redone = RECOMPUTES.count
-        want = tower_step_counts(family, stage, teacher)
+        want = tower_step_counts(family, stage, teacher, layers)
         # the backward recomputes each differentiated kernel call: the
         # whole student's, or under froyo's frozen trunk the explainer's
         # layer only (the surrogate's head is a plain dense)
@@ -3689,7 +3798,7 @@ def phase_tower_steps(case: StageCase, family: str, card: str,
         elif froyo:
             want_redone = 2 if stage == "explainer" else 0
         else:
-            want_redone = 2 * (12 + (stage == "explainer"))
+            want_redone = 2 * (layers + (stage == "explainer"))
         rel = abs(losses["kernels"] - losses["plain"]) \
             / max(abs(losses["plain"]), 1e-30)
         print(f"{tag} {stage} teacher={teacher}: loss kernels "
@@ -3736,23 +3845,35 @@ def tower_batches(family: str) -> tuple:
         else (BERT_TRAIN_B, BERT_EXP_B, BERT_M)
 
 
-def phase_tower_run_all(dev, tmp: pathlib.Path, card: str,
-                        family: str) -> dict:
+# the cut that keeps the script nearer half its time limit: the vanilla
+# and duo towers' run_all at 6 of the 12 layers (as phase 7); their served
+# finals and timed forwards stay at full depth
+TOWER_RUN_ALL_LAYERS = 6
+
+
+def phase_tower_run_all(dev, tmp: pathlib.Path, card: str, family: str,
+                        kind: str = "vanilla",
+                        layers: int = TOWER_RUN_ALL_LAYERS) -> dict:
     """`python -m autognothi_tpu_torch run_all <exp> --device cuda` through
-    `cli_main` on a random_init vanilla experiment: each stage's kernel
-    calls, the coherency line (0.0 / 0.0), the six reports with their
-    seconds and kernel calls, a second `measure_all` that launches
-    nothing, the quality gate, cls_acc and accuracy against plain, the
-    steps against their plain versions with their ms/step and spans, the
+    `cli_main` on a random_init vanilla (or duo) experiment at `layers` of
+    the 12 layers: each stage's kernel calls, the coherency line (0.0 /
+    0.0; the duo recipes check none, as the JAX package's), the six
+    reports (seven for duo) with their seconds and kernel calls, a second
+    `measure_all` that launches nothing, the quality gate, cls_acc and
+    accuracy against plain (and duo's dual-task similarity), the steps
+    against their plain versions with their ms/step and spans (duo: the
+    duo explainer step only, the other stages are the vanilla ones), the
     performance and train-resources numbers; -> the kernel calls of the
     counted paths (run_all, the W8A8 and mode "1" faithfulness runs)."""
     import torch
 
     from autognothi_tpu_torch.cli import main as cli_main
 
-    tag = f"[vanilla {family} run_all]"
-    exp = write_tower_experiment(tmp, family, f"vanilla_{family}",
-                                 f"vanilla_{family}_run_all")
+    duo = kind == "duo"
+    tag = f"[{kind} {family} run_all]"
+    net_kind = f"duo_vanilla_{family}" if duo else f"vanilla_{family}"
+    exp = write_tower_experiment(tmp, family, net_kind,
+                                 f"{kind}_{family}_run_all", layers)
     stage_calls: dict = {}
     calls: dict = {}
     report_seconds: dict = {}
@@ -3765,10 +3886,19 @@ def phase_tower_run_all(dev, tmp: pathlib.Path, card: str,
     seconds = time.perf_counter() - t0
     total = _scaled(*((1, c) for c in stage_calls.values()),
                     *((1, c) for c in calls.values()))
-    print(f"{tag} vanilla {TOWER_NAME[family]}: train_all + measure_all in "
-          f"{seconds:.1f} s (the six reports "
-          f"{sum(report_seconds.values()):.1f} s) | {card}", flush=True)
-    coherency(exp, tag, card)
+    print(f"{tag} {kind} {TOWER_NAME[family]} at {layers} layers: train_all "
+          f"+ measure_all in {seconds:.1f} s (the {len(report_seconds)} "
+          f"reports {sum(report_seconds.values()):.1f} s) | {card}",
+          flush=True)
+    if duo:
+        log = (exp / ".log.txt").read_text()
+        check("train duo explainer" in log and "skipped: net recipe does "
+              "not support this" in log, "the duo train_all log")
+        print(f"{tag} the duo explainer trainer ran; coherency skipped (the "
+              f"final has no classifier tower, as in the JAX recipe)",
+              flush=True)
+    else:
+        coherency(exp, tag, card)
     for stage in STAGES:
         print(f"{tag} {stage}: kernel calls {stage_calls.get(stage)}",
               flush=True)
@@ -3779,27 +3909,66 @@ def phase_tower_run_all(dev, tmp: pathlib.Path, card: str,
           "a stage that runs forwards launched no kernel")
     texts = check_report_files(exp, calls, report_seconds,
                                TOWER_FAITH_KERNELS[family]["fp32"], card,
-                               tag)
+                               tag, dual_task=duo)
     total = _scaled((1, total), (1, run_report_gate(
         dev, exp, TOWER_FAITH_KERNELS[family], texts, card, tag)))
+    if duo:
+        dual_task_gate(exp, texts, card, tag)
     batch, exp_b, m = tower_batches(family)
     print_resource_reports(
         texts, card, tag,
         TOWER_EVAL[family]["eval_train_resources"]["batch_size"])
     case = StageCase(dev, exp, batch, (exp_b, m))
-    phase_tower_steps(case, family, card, f"[vanilla {family} stage-step]")
+    phase_tower_steps(case, family, card, f"[{kind} {family} stage-step]",
+                      stages=(ALL_STAGE_STEPS[3:] if duo
+                              else ALL_STAGE_STEPS), layers=layers)
     peak0 = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     phase_stage_timing(case, card, (
-        ("surrogate", "surrogate", "fp32"),
-        ("explainer teacher=int8", "explainer", "int8")),
-        tag=f"[vanilla {family} stage-time]")
-    print(f"[vanilla {family} stage-time] peak device memory of the timed "
+        (("explainer teacher=int8", "explainer", "int8"),) if duo else (
+            ("surrogate", "surrogate", "fp32"),
+            ("explainer teacher=int8", "explainer", "int8"))),
+        tag=f"[{kind} {family} stage-time]")
+    print(f"[{kind} {family} stage-time] peak device memory of the timed "
           f"steps {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
           f"(earlier {peak0 / 2**20:.1f} MiB) | {card}", flush=True)
     del case
     torch.cuda.empty_cache()
     return total
+
+
+# the dual-task report's cos_sim_avg, kernels against plain on the same
+# masks (both draw them from the same seeded CPU generators): the kernel
+# ops' backward recomputes the plain versions, so the two runs' gradients
+# differ only through the saved activations (fp32, ~1e-6 relative a
+# layer); a cosine of two such gradients moves by about as much
+DUAL_TASK_TOL = 1e-4
+
+
+def dual_task_gate(exp: pathlib.Path, texts: dict, card: str,
+                   tag: str) -> None:
+    """The dual-task report with the kernels (run_all's file) against the
+    same report on the plain versions: each epoch's cos_sim_avg and
+    cos_sim_std within DUAL_TASK_TOL."""
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.measure_dual_task_similarity import \
+        measure_dual_task_similarity
+    from autognothi_tpu_torch.pipeline.reports import to_json
+
+    got = json.loads(texts[DUAL_TASK[1]])
+    t0 = time.perf_counter()
+    with report_env("2", False), plain_ops(), ExpEnv(exp) as env:
+        want = to_json(measure_dual_task_similarity(env, device="cuda"))
+    worst = max(abs(a - b) for key in ("cos_sim_avg", "cos_sim_std")
+                for a, b in zip(got[key], want[key]))
+    print(f"{tag} dual-task similarity: epochs {got['epochs']}, cos_sim_avg "
+          f"kernels {got['cos_sim_avg']} plain {want['cos_sim_avg']}, std "
+          f"{got['cos_sim_std']} / {want['cos_sim_std']}; worst drift "
+          f"{worst:.3e} (limit {DUAL_TASK_TOL:g}); plain run "
+          f"{time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    check(got["epochs"] == want["epochs"] and worst <= DUAL_TASK_TOL
+          and all(math.isfinite(v) for v in got["cos_sim_avg"]),
+          f"dual-task similarity: kernels {got} against plain {want}")
 
 
 def phase_froyo(dev, tmp: pathlib.Path, card: str, family: str) -> dict:
@@ -3815,8 +3984,9 @@ def phase_froyo(dev, tmp: pathlib.Path, card: str, family: str) -> dict:
     from autognothi_tpu_torch.cli import main as cli_main
 
     tag = f"[froyo {family}]"
+    layers = TOWER_RUN_ALL_LAYERS
     exp = write_tower_experiment(tmp, family, f"froyo_{family}",
-                                 f"froyo_{family}")
+                                 f"froyo_{family}", layers)
     stage_calls: dict = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3832,7 +4002,7 @@ def phase_froyo(dev, tmp: pathlib.Path, card: str, family: str) -> dict:
         path = "int8" if int8 else "fp32"
         launches, _, _ = phase_serve(
             dev, exp, int8=int8, model=family,
-            per_slab=FROYO_COUNTS[(family, path)],
+            per_slab=_depth(FROYO_COUNTS[(family, path)], layers),
             tag=f"serve froyo {family} {path}")
         total = _scaled((1, total), (1, launches))
     batch, exp_b, m = tower_batches(family)
@@ -3843,13 +4013,272 @@ def phase_froyo(dev, tmp: pathlib.Path, card: str, family: str) -> dict:
     with torch.no_grad():
         bias = case.models["surrogate"].classifier.bias
         bias.add_(torch.linspace(-1.0, 1.0, bias.numel(), device=dev))
-    phase_tower_steps(case, family, card, f"{tag} stage-step")
+    phase_tower_steps(case, family, card, f"{tag} stage-step",
+                      layers=layers)
     phase_stage_timing(case, card, (
         ("froyo explainer teacher=int8", "explainer", "int8"),),
         tag=f"{tag} stage-time")
     del case
     torch.cuda.empty_cache()
     return total
+
+
+# --------------------------------------------------- duo towers (11)
+
+
+def phase_duo(dev, tmp: pathlib.Path, card: str, family: str) -> dict:
+    """Phase 11 for one family: the served duo final (fp32, W8A8, then the
+    other paths at B = 8) and `run_all` of a duo experiment with the
+    dual-task gate and the duo explainer steps; -> the kernel calls."""
+    return _scaled(
+        (1, phase_tower_serve(dev, tmp, card, family, "duo")),
+        (1, phase_tower_run_all(dev, tmp, card, family, "duo")))
+
+
+# ----------------------------------------------- KernelSHAP BERT (12)
+
+KSHAP_EXP = REPO / "experiments" / "bert_base_tayp_kernel_shap" \
+    / ".hparams.json"
+# the cut of the shipped 2048 coalition samples over 16 background rows
+# (~32,800 classifier rows of 512 tokens a sentence): 1024 over 2.  With
+# 512 players 1024 rows are every singleton and its complement, which
+# `_sample_coalitions` enumerates exactly, so the WLS is determined and the
+# kernels-against-plain comparison well posed: 2 + 1 + 2 x 1024 = 2051
+# rows a sentence, ~200 TFLOP
+KSHAP_SAMPLES, KSHAP_DATA = 1024, 2
+# classifier slabs of 64 rows per explained sentence: the background, the
+# input, the 2048 composed rows
+KSHAP_SLABS = 1 + 1 + 2 * KSHAP_SAMPLES // 64
+# kernel calls per slab of the classifier sweep: fp32 K6 + K7 a layer;
+# W8A8 with fp32 parameters a float attention (K6, the JAX budget) and the
+# 2-tile K8q
+KSHAP_COUNTS = {"fp32": {"attention_block": 12, "mlp_block": 12},
+                "int8": {"attention_block": 12, "mlp_block_int8_tiled": 24}}
+KSHAP_FAITH_KERNELS = {"fp32": ("attention_block", "mlp_block"),
+                       "int8": ("attention_block", "mlp_block_int8_tiled")}
+
+
+def write_kernel_shap_experiment(tmp: pathlib.Path) -> pathlib.Path:
+    """A `random_init` KernelSHAP BERT-base@512 experiment (the shipped
+    `net.params`, full depth, dropout 0, the sample cut KSHAP_SAMPLES /
+    KSHAP_DATA) on `nlp_samples` with a `build_vocab` vocabulary; the
+    classifier and surrogate at 0 epochs (the shipped surrogate's 5 stop
+    `train_all`: F12), the explainer (k-means) at 1."""
+    from autognothi_tpu_torch import RECIPE_VERSION
+    from autognothi_tpu_torch.data.tokenizer import (WordPieceTokenizer,
+                                                     build_vocab)
+
+    hp = json.loads(KSHAP_EXP.read_text())
+    hp["net"].update(version=RECIPE_VERSION, base_model="random_init",
+                     params=dict(hp["net"]["params"],
+                                 attention_probs_dropout_prob=0.0,
+                                 hidden_dropout_prob=0.0,
+                                 kernel_shap_n_samples=KSHAP_SAMPLES,
+                                 kernel_shap_data_size=KSHAP_DATA))
+    hp["dataset"] = {"kind": "nlp_samples"}
+    hp["seed"] = SEED
+    hp["train_classifier"].update(epochs=0)
+    hp["train_surrogate"].update(epochs=0)
+    hp["train_explainer"].update(epochs=1, ckpt_when="_:%1==0")
+    exp = tmp / "kernel_shap_bert"
+    exp.mkdir()
+    (exp / ".hparams.json").write_text(json.dumps(hp, indent=2))
+    WordPieceTokenizer(build_vocab(nlp_samples() + CORPUS)).save(
+        exp / "tokenizer")
+    return exp
+
+
+def serve_host_final(dev, exp: pathlib.Path, int8: bool, card: str,
+                     tag: str) -> dict:
+    """Serve the KernelSHAP final at batch 2 (the host final) and answer a
+    `texts` request of 2 rows: its classifier slabs' kernel calls, its wall
+    time, and its probabilities and attributions against the same final
+    on the plain versions on the card (the serve gate); -> the request's
+    kernel calls."""
+    import numpy as np
+    import torch
+
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.serve import serve_in_thread
+
+    path = "int8" if int8 else "fp32"
+    texts = CORPUS[:2]
+    env = ExpEnv(exp)
+    with int8_mode(int8):
+        t0 = time.perf_counter()
+        server, service, thread = serve_in_thread(env, port=0, batch_size=2,
+                                                  device="cuda")
+        up = time.perf_counter() - t0
+        port = server.server_address[1]
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            got = _post(port, {"texts": texts})
+            served = time.perf_counter() - t0
+            calls = {k: v for k, v in read_counts().items() if v}
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+            thread.join(timeout=60)
+        check(not thread.is_alive(), "server thread did not stop")
+        env.close()
+        xs = torch.from_numpy(service.gen_input(texts, [0, 0])[0]).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with plain_ops(), torch.inference_mode():
+            ref = service.recipe.fw_final(service.m_config, service.model, xs)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    slabs = 1 + len(texts) * KSHAP_SLABS
+    want = {k: v * slabs for k, v in KSHAP_COUNTS[path].items()}
+    print(f"{tag} served {path} `texts` x{len(texts)} through the host "
+          f"final: server up in {up:.1f} s (a warmup slab of 2 explained), "
+          f"request {served:.2f} s ({len(texts) / served:.3f} expl/s), "
+          f"plain versions {plain_s:.2f} s ({len(texts) / plain_s:.3f} "
+          f"expl/s); kernel calls {calls} (expected {want}: {slabs} "
+          f"classifier slabs of 64 x 512, {KSHAP_SLABS} an explained row, "
+          f"{ {k: v * KSHAP_SLABS for k, v in KSHAP_COUNTS[path].items()} } "
+          f"a row) | {card}", flush=True)
+    check(calls == want, f"{tag} {path}: kernel calls differ")
+    for what, want_t in (("logits", ref[0]), ("attributions", ref[1])):
+        mine = torch.from_numpy(np.asarray(got[what], np.float32))
+        check(mine.shape == want_t.shape, f"served {what} "
+                                          f"{tuple(mine.shape)}")
+        _, ok, msg = compare(mine, want_t.cpu(), torch.float32, int8,
+                             whole=True)
+        rel = (mine - want_t.cpu()).abs().max().item() \
+            / max(want_t.abs().max().item(), 1e-30)
+        print(f"{tag} {path} {what} {tuple(mine.shape)} served vs plain: "
+              f"{msg}; relative to max|ref| {rel:.3e} (max|ref| "
+              f"{want_t.abs().max().item():.3e})", flush=True)
+        check(ok, f"{tag} {path} {what}: served differs from plain")
+    check(np.abs(np.asarray(got["logits"]).sum(-1) - 1).max() < 1e-4,
+          "KernelSHAP probabilities do not sum to 1")
+    return calls
+
+
+def long_text_loader():
+    """One test input of more than 511 tokens (the sample sentences
+    joined, twice) labelled as the first: every player holds a token where
+    the background rows hold padding.  A padded input's padding players
+    are tied by symmetry, and float noise orders them: on the first
+    sample sentence (15 tokens) the fp32 AUCs moved by 2.2e-3 between the
+    kernel and plain runs on the H100, over the 1e-3 gate."""
+    from autognothi_tpu_torch.data.loader import DatasetLoader
+
+    samples = json.loads((REPO / "autognothi_tpu_torch" / "data"
+                          / "nlp_samples.json").read_text())
+    item = ([" ".join(nlp_samples() * 2)], [samples[0]["targets"]])
+    item = (*item, list(item[0]), list(item[1]))
+    return DatasetLoader(train_raw=lambda b: iter([item]),
+                         test_raw=lambda b: iter([item]))
+
+
+def phase_kernel_shap(dev, tmp: pathlib.Path, card: str) -> dict:
+    """Phase 12: `train_all` of a random KernelSHAP BERT-base@512 through
+    `cli_main` (k-means on the host), the host final served fp32 and W8A8
+    against plain, the faithfulness quality gate on the host final over
+    one input that fills the 512 tokens (`long_text_loader`; fp32 within
+    1e-3, W8A8 within 5e-3), and one profiled explained row per path; ->
+    the kernel calls."""
+    import numpy as np
+    import torch
+
+    from autognothi_tpu_torch.cli import main as cli_main
+    from autognothi_tpu_torch.params import load_params_file
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.measure_faithfulness import \
+        measure_faithfulness
+    from autognothi_tpu_torch.pipeline.reports import to_json
+    from autognothi_tpu_torch.pipeline.resources import (get_recipe,
+                                                         load_epoch_model,
+                                                         load_misc)
+
+    tag = "[kernel_shap]"
+    exp = write_kernel_shap_experiment(tmp)
+    stage_calls: dict = {}
+    t0 = time.perf_counter()
+    with report_env("2", False), counted_stages(stage_calls):
+        cli_main(["train_all", str(exp), "--device", "cuda"])
+    log = (exp / ".log.txt").read_text()
+    xs_train = load_params_file(exp / "final-epoch-0.ckpt")[
+        "explainer.Xs_train"]
+    print(f"{tag} KernelSHAP BERT-base@512 train_all in "
+          f"{time.perf_counter() - t0:.1f} s (k-means on the host); kernel "
+          f"calls by stage {stage_calls}; Xs_train {xs_train.shape} "
+          f"{xs_train.dtype}, {int((xs_train != 0).sum())} non-pad ids | "
+          f"{card}", flush=True)
+    check(f"> compressed data: ({KSHAP_DATA}, {T_BERT})" in log
+          and "all stages ok" in log and xs_train.dtype == np.int32
+          and (xs_train != 0).any(), "KernelSHAP train_all")
+    total: dict = {}
+    for int8 in (False, True):
+        total = _scaled((1, total), (1, serve_host_final(
+            dev, exp, int8, card, f"{tag} serve")))
+    loader = long_text_loader()
+    for path, int8 in (("fp32", False), ("int8", True)):
+        with report_env("2", int8):
+            reset_counts()
+            t1 = time.perf_counter()
+            with ExpEnv(exp) as env:
+                got = to_json(measure_faithfulness(env, d_loader=loader,
+                                                   device="cuda"))
+            torch.cuda.synchronize()
+            kernel_s = time.perf_counter() - t1
+            run = {k: v for k, v in read_counts().items() if v}
+            t1 = time.perf_counter()
+            with plain_ops(), ExpEnv(exp) as env:
+                want = to_json(measure_faithfulness(env, d_loader=loader,
+                                                    device="cuda"))
+            plain_s = time.perf_counter() - t1
+        worst, curve, points = faith_drift(got, want)
+        print(f"{tag} quality gate, faithfulness {path} (1 input of 511 "
+              f"players): AUCs "
+              + ", ".join(f"{c} {got[c]['auc']:.6f} (plain "
+                          f"{want[c]['auc']:.6f})" for c in CURVES)
+              + f"; worst AUC drift {worst:.3e} on {curve} (limit "
+              f"{FAITH_TOL[path]:g}); largest curve-point drift "
+              f"{points:.3e}; kernels {kernel_s:.2f} s, plain {plain_s:.2f} "
+              f"s; kernel calls {run} | {card}", flush=True)
+        check(all(run.get(k, 0) > 0 for k in KSHAP_FAITH_KERNELS[path]),
+              f"KernelSHAP faithfulness {path} launched {run}")
+        check(worst <= FAITH_TOL[path],
+              f"KernelSHAP faithfulness {path}: AUC drift {worst:.3e}")
+        total = _scaled((1, total), (1, run))
+    with ExpEnv(exp) as env:
+        recipe, cfg = get_recipe(env.config)
+        _, model = load_epoch_model(env, recipe, "final", dev)
+        xs = torch.from_numpy(recipe.gen_input(
+            cfg, load_misc(env, recipe, cfg))(CORPUS[:1], [0])[0]).to(dev)
+    for path, int8 in (("fp32", False), ("int8", True)):
+        with int8_mode(int8), torch.inference_mode():
+            profile_forward(f"KernelSHAP BERT-base@512 {path}, one explained "
+                            f"row ({KSHAP_SLABS} slabs of 64 x 512)",
+                            lambda: recipe.fw_final(cfg, model, xs), card)
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_native() -> None:
+    """The native WordPiece core on this host: loaded (built by this run
+    or found under `build/native/`), and the texts each path encoded over
+    the whole run; fails where the core did not load or encoded nothing."""
+    from autognothi_tpu_torch import native
+    from autognothi_tpu_torch.data.tokenizer import ENCODES
+
+    lib = native.library_path("wordpiece")
+    built = native.build_seconds.get("wordpiece")
+    print(f"[native] wordpiece core {lib.relative_to(REPO)}: "
+          + (f"built by g++ in {built:.2f} s" if built is not None
+             else "loaded from an earlier build")
+          + f"; texts encoded natively {ENCODES['native']}, by the Python "
+          f"path {ENCODES['python']}", flush=True)
+    check(native._libs.get("wordpiece") is not None,
+          f"the native WordPiece core did not load: "
+          f"{native.build_errors.get('wordpiece')}")
+    check(ENCODES["native"] > 0, "no text went through the native core")
 
 
 def phase_k3_wide(dev, card: str) -> None:
@@ -4008,13 +4437,25 @@ def main() -> int:
                     (1, launches_towers),
                     (1, timed(f"{n} {what} {family}", fn, dev,
                               pathlib.Path(tmp), card, family)))
+        # phases 11 (the duo towers of both families) and 12 (KernelSHAP
+        # BERT-base@512)
+        for family in ("vit", "bert"):
+            launches_towers = _scaled(
+                (1, launches_towers),
+                (1, timed(f"11 duo {family}", phase_duo, dev,
+                          pathlib.Path(tmp), card, family)))
+        launches_towers = _scaled(
+            (1, launches_towers),
+            (1, timed("12 KernelSHAP BERT", phase_kernel_shap, dev,
+                      pathlib.Path(tmp), card)))
         # every main path was driven from counts of 0: serve fp32 and int8
         # (ViT and BERT), train_explainer in pallas modes "2" and "1",
         # train_all's seven stages and its served final, run_all's stages
         # and six reports, faithfulness in W8A8 and in mode "1", for the
-        # LTT ViT (phases 6, 7) and the LTT BERT (phase 8), and the
-        # vanilla and froyo towers' serves, run_all and train_all (phases
-        # 9, 10)
+        # LTT ViT (phases 6, 7) and the LTT BERT (phase 8), the vanilla
+        # and froyo towers' serves, run_all and train_all (phases 9, 10),
+        # the duo towers' serves and run_all (11), KernelSHAP's serves and
+        # faithfulness (12)
         for k in launches:
             launches[k] += (launches_int8[k] + launches_bert[k]
                             + launches_bert_int8[k]
@@ -4045,6 +4486,7 @@ def main() -> int:
                 ("5 int8 GEMM", phase_int8_gemm, (dev, card)),
                 ("5 train timing", phase_train_timing, (case, card))):
             timed(label, fn, *args)
+    phase_native()
     print(f"[phase] all phases: {sum(phase_seconds.values()):.1f} s of "
           f"timed phases", flush=True)
 

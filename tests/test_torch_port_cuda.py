@@ -2027,3 +2027,192 @@ def test_bert_int8_teacher_sweep_against_plain(dev, monkeypatch):
     for x, y in zip(got, want):
         err = (x - y).abs().max().item()
         assert err <= 1e-2 * max(1.0, y.abs().max().item()), err
+
+
+# ------------------------------------------- the duo and KernelSHAP paths
+
+
+def _shipped_params(name: str, **overrides) -> dict:
+    import json
+    import pathlib
+
+    hp = json.loads((pathlib.Path(__file__).resolve().parents[1]
+                     / "experiments" / name / ".hparams.json").read_text())
+    return dict(hp["net"]["params"], attention_probs_dropout_prob=0.0,
+                hidden_dropout_prob=0.0, **overrides)
+
+
+def _duo(dev, family: str, layers: int = 2):
+    """A random duo final and its explainer at the shipped widths
+    (ViT-B/16@224, BERT-base@512), `layers` deep, dropout 0, and two
+    inputs."""
+    import numpy as np
+
+    from autognothi_tpu_torch.params import from_jax_params
+    from autognothi_tpu_torch.recipes import (duo_vanilla_bert,
+                                              duo_vanilla_vit)
+
+    recipe = (duo_vanilla_vit.duo_vanilla_vit_recipe() if family == "vit"
+              else duo_vanilla_bert.duo_vanilla_bert_recipe())
+    name = "vit_base_imagenette_vanilla" if family == "vit" \
+        else "bert_base_tayp_duo_vanilla"
+    cfg = recipe.t_config(**_shipped_params(name, num_hidden_layers=layers))
+    flat = recipe.init_final(cfg, torch.Generator().manual_seed(50))
+    flat["surrogate_null"] = np.full_like(flat["surrogate_null"], 0.1)
+    final = from_jax_params(flat, cfg, dev, section="final")
+    explainer = from_jax_params(
+        {k[len("explainer."):]: v for k, v in flat.items()
+         if k.startswith("explainer.")}, cfg, dev, section="explainer")
+    g = torch.Generator().manual_seed(51)
+    if family == "vit":
+        xs = torch.rand((2, 3, 224, 224), generator=g)
+    else:
+        xs = torch.randint(5, cfg.vocab_size, (2, 512), generator=g)
+        xs[:, 0] = 2
+    return recipe, cfg, final, explainer, xs.to(dev)
+
+
+def _all_counts():
+    from autognothi_tpu_torch.ops import attention_block as ab
+    from autognothi_tpu_torch.ops import head_block as hb
+    from autognothi_tpu_torch.ops import mlp_block as mb
+
+    return {c.name: c.count for c in (ab.COUNTER, ab.COUNTER_INT8,
+                                      mb.COUNTER, mb.COUNTER_INT8,
+                                      mb.COUNTER_INT8_TILED, hb.COUNTER)}
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("family", ["vit", "bert"])
+def test_duo_final_against_plain(dev, family, int8, monkeypatch):
+    """The duo final (2 layers a tower at full width: 5 attention and 5
+    MLP blocks, the explainer's layer among them) fp32 and W8A8 with the
+    kernels against its plain versions: fp32 within 1e-4, W8A8 within the
+    int8 bound; duo BERT's outputs are raw logits, duo ViT's sum to 1."""
+    monkeypatch.setenv("AUTOGNOTHI_PALLAS", "2")
+    monkeypatch.setenv("AUTOGNOTHI_INT8", "1" if int8 else "0")
+    recipe, cfg, final, _, xs = _duo(dev, family)
+    before = _all_counts()
+    with torch.no_grad():
+        got = recipe.fw_final(cfg, final, xs)
+    torch.cuda.synchronize()
+    calls = {k: v - before[k] for k, v in _all_counts().items()
+             if v - before[k]}
+    blocks = 5
+    if not int8:
+        assert calls == {"attention_block": blocks, "mlp_block": blocks}
+    elif family == "vit":
+        assert calls == {"attention_block_int8": blocks,
+                         "mlp_block_int8": blocks, "head_block": 1}, calls
+    else:  # the JAX budget: a float attention and the 2-tile K8q
+        assert calls == {"attention_block": blocks,
+                         "mlp_block_int8_tiled": 2 * blocks,
+                         "head_block": 1}, calls
+    _route_plain(monkeypatch)
+    with torch.no_grad():
+        want = recipe.fw_final(cfg, final, xs)
+    assert got[1].shape == (2, cfg.num_labels,
+                            196 if family == "vit" else 511)
+    for g, w in zip(got, want):
+        (_close_int8 if int8 else _close)(g, w, torch.float32)
+    sums = got[0].sum(-1)
+    if family == "vit":
+        assert (sums - 1).abs().max().item() < 1e-4
+    else:
+        assert (sums - 1).abs().max().item() > 1e-3
+
+
+@pytest.mark.parametrize("family", ["vit", "bert"])
+def test_duo_grad_probe_against_plain(dev, family, monkeypatch):
+    """The dual-task probe (two `torch.autograd.grad` calls through the
+    kernel ops, whose backward recomputes the plain versions) against the
+    probe on the plain versions: each gradient within 1e-4 x its max."""
+    monkeypatch.setenv("AUTOGNOTHI_PALLAS", "2")
+    monkeypatch.setenv("AUTOGNOTHI_INT8", "0")
+    recipe, cfg, _, explainer, xs = _duo(dev, family)
+    explainer.requires_grad_(False)
+    p = recipe.n_players(cfg)
+    g = torch.Generator().manual_seed(52)
+    c = cfg.num_labels
+    ones = torch.ones((2, p), dtype=torch.int32, device=dev)
+    v_1 = torch.softmax(torch.randn(2, c, generator=g), -1).to(dev)
+    null = torch.full((1, c), 1.0 / c, device=dev)
+    zs = torch.randint(0, c, (2,), generator=g).to(dev)
+    masks = torch.randint(0, 2, (2, 3, p), generator=g,
+                          dtype=torch.int32).to(dev)
+    v_s = torch.softmax(torch.randn(6, c, generator=g), -1).to(dev)
+    probe = recipe.measurements.allow_dual_task_similarity.grad_probe
+    args = (cfg, explainer, xs, ones, v_1, null, zs, masks, null, v_s, v_1)
+    before = _all_counts()
+    got = probe(*args)
+    torch.cuda.synchronize()
+    assert _all_counts()["attention_block"] > before["attention_block"]
+    _route_plain(monkeypatch)
+    want = probe(*args)
+    for x, y in zip(got, want):
+        assert x.shape == y.shape == (2, xs.shape[1] if family == "bert"
+                                      else 197, cfg.hidden_size)
+        err = (x - y).abs().max().item()
+        assert err <= 1e-4 * y.abs().max().item(), err
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_kernel_shap_classifier_slab_against_plain(dev, int8, monkeypatch):
+    """One slab of KernelSHAP's classifier sweep (64 composed rows of 512
+    tokens at BERT-base width, 2 layers) with the kernels against plain:
+    fp32 K6 + K7 a layer, W8A8 (fp32 parameters) K6 + two K8q tiles."""
+    import numpy as np
+
+    from autognothi_tpu_torch.params import from_jax_params
+    from autognothi_tpu_torch.recipes.kernel_shap_bert import (
+        CLASSIFIER_SLAB, classifier_on_rows, kernel_shap_bert_recipe)
+
+    monkeypatch.setenv("AUTOGNOTHI_PALLAS", "2")
+    monkeypatch.setenv("AUTOGNOTHI_INT8", "1" if int8 else "0")
+    recipe = kernel_shap_bert_recipe()
+    cfg = recipe.t_config(**_shipped_params(
+        "bert_base_tayp_kernel_shap", num_hidden_layers=2))
+    flat = recipe.init_final(cfg, torch.Generator().manual_seed(53))
+    model = from_jax_params(flat, cfg, dev, section="final")
+    rows = np.random.RandomState(54).randint(
+        5, cfg.vocab_size, (CLASSIFIER_SLAB, 512)).astype(np.int64)
+    before = _all_counts()
+    got = classifier_on_rows(cfg, model.classifier)(rows)
+    torch.cuda.synchronize()
+    calls = {k: v - before[k] for k, v in _all_counts().items()
+             if v - before[k]}
+    assert calls == ({"attention_block": 2, "mlp_block_int8_tiled": 4}
+                     if int8 else {"attention_block": 2, "mlp_block": 2}), \
+        calls
+    _route_plain(monkeypatch)
+    want = classifier_on_rows(cfg, model.classifier)(rows)
+    assert got.shape == want.shape == (CLASSIFIER_SLAB, 2)
+    (_close_int8 if int8 else _close)(torch.from_numpy(got),
+                                      torch.from_numpy(want), torch.float32)
+
+
+def test_k3_wide_route_bert_head_bf16_at_512(dev):
+    """K3's wide route at the duo BERT's head in bf16: <8, 512, 768> ->
+    3072 -> 3072 -> 2 without LN, against its plain version within the
+    bf16 int8 bound, five launches."""
+    from autognothi_tpu_torch.ops import head_block as hb
+
+    g = torch.Generator().manual_seed(55)
+    h_in, inter, c = 768, 3072, 2
+    x = _rand(g, dev, 8, 512, h_in).to(torch.bfloat16)
+    ws = tuple(w.to(torch.bfloat16) for w in (
+        _rand(g, dev, inter, h_in, scale=h_in ** -0.5), _rand(g, dev, inter),
+        _rand(g, dev, inter, inter, scale=inter ** -0.5),
+        _rand(g, dev, inter), _rand(g, dev, c, inter, scale=inter ** -0.5),
+        _rand(g, dev, c)))
+    assert hb.k3_route(h_in, inter, c) == "wide"
+
+    def op():
+        return hb.explainer_head_block(x, *ws, None, None, 1e-5)
+
+    got = op()
+    tensors, static = hb.explainer_head_block_args(x, *ws, None, None, 1e-5)
+    want = hb.head_int8_plain(*tensors, **static)
+    assert got.shape == (8, 512, c)
+    _close_int8(got, want, torch.bfloat16)
+    assert len(_launched_per_call(op)) == 5

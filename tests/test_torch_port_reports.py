@@ -395,30 +395,49 @@ def test_run_all_cli_on_the_cpu(tmp_path):
 def test_report_verbs_refuse_what_is_not_ported(tmp_path):
     from autognothi_tpu_torch.cli import REPORTS, main
 
+    # every net kind of the JAX package is ported: an unknown kind raises
+    # a ValueError naming it, as the JAX package's schema does
     hp = _ltt_vit_hparams()
-    hp["net"]["kind"] = "kernel_shap_bert"
-    bert = tmp_path / "bert"
-    bert.mkdir()
-    (bert / ".hparams.json").write_text(json.dumps(hp))
+    hp["net"]["kind"] = "quadro_vit"
+    unknown = tmp_path / "unknown"
+    unknown.mkdir()
+    (unknown / ".hparams.json").write_text(json.dumps(hp))
     for verb in (*REPORTS, "measure_all", "run_all"):
-        with pytest.raises(NotImplementedError, match="kernel_shap_bert"):
-            main([verb, str(bert), "--device", "cpu"])
+        with pytest.raises(ValueError, match="quadro_vit"):
+            main([verb, str(unknown), "--device", "cpu"])
     vit = tmp_path / "vit"
     vit.mkdir()
     (vit / ".hparams.json").write_text(json.dumps(_ltt_vit_hparams()))
     with pytest.raises(NotImplementedError, match="--dataset"):
         main(["measure_accuracy", str(vit), "--device", "cpu", "--dataset",
               "imagenette"])
-    with pytest.raises(NotImplementedError, match="dual-task"):
-        from autognothi_tpu_torch.pipeline import measure_all as ma
-        from autognothi_tpu_torch.pipeline.env import ExpEnv
-        from autognothi_tpu_torch.recipes import ltt_vit
+    # the dual-task report is ported: measure_all runs it for a recipe
+    # that allows it, and writes the file the JAX schema loads
+    from autognothi_tpu.pipeline.measure_dual_task_similarity import \
+        MeasureDualTaskSimilarityReport as JaxDualTask
+    from autognothi_tpu_torch.pipeline import measure_all as ma
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.recipes import ltt_vit
 
-        recipe = ltt_vit.ltt_vit_recipe()
-        duo = dataclasses.replace(recipe, measurements=dataclasses.replace(
-            recipe.measurements, allow_dual_task_similarity=True))
-        with mock.patch.object(ma, "get_recipe", lambda cfg: (duo, None)):
-            ma.measure_all(ExpEnv(vit), device="cpu")
+    recipe = ltt_vit.ltt_vit_recipe()
+    duo = dataclasses.replace(recipe, measurements=dataclasses.replace(
+        recipe.measurements, allow_dual_task_similarity=True))
+    ran = []
+    report = ma.MeasureDualTaskSimilarityReport(
+        epochs=[0, 1], cos_sim_avg=[0.25, 0.5], cos_sim_std=[0.0, 0.125])
+    with mock.patch.object(ma, "get_recipe", lambda cfg: (duo, None)), \
+            mock.patch.object(ma, "measure_dual_task_similarity",
+                              lambda env, device: ran.append(device)
+                              or report):
+        ma.measure_all(ExpEnv(vit), device="cpu", **{
+            f"run_{f}": f == "dual_task_similarity"
+            for f in ("accuracy", "faithfulness", "cls_acc", "performance",
+                      "train_resources", "branches_cka",
+                      "dual_task_similarity")})
+    assert ran == ["cpu"]
+    written = json.loads((vit / ".reports" / "dual_task_similarity.json")
+                         .read_text())
+    assert JaxDualTask.model_validate(written).cos_sim_std == [0.0, 0.125]
     if not torch.cuda.is_available():  # --device defaults to cuda
         for verb in (*REPORTS, "measure_all", "run_all"):
             with pytest.raises(RuntimeError, match="cuda"):

@@ -127,7 +127,13 @@ def test_import_graph_is_free_of_jax_and_the_jax_package():
                 "models.ltt_bert", "models.bert", "data.loader",
                 "recipes.vanilla_vit", "recipes.froyo_vit",
                 "recipes.froyo_bert", "models.vit", "models.froyo_vit",
-                "models.froyo_bert"):
+                "models.froyo_bert", "native", "ops.kernel_shap",
+                "models.duo_vit", "models.duo_bert",
+                "models.kernel_shap_bert", "recipes.duo_vanilla_vit",
+                "recipes.duo_vanilla_bert", "recipes.kernel_shap_bert",
+                "pipeline.train_duo_explainer",
+                "pipeline.train_kernel_shap_explainer",
+                "pipeline.measure_dual_task_similarity"):
         assert f"autognothi_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
@@ -226,9 +232,11 @@ def test_unported_verbs_and_kinds_raise(tmp_path):
 
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main(["export_final", str(tmp_path)])
+    # every net kind of the JAX package is ported: an unknown kind raises
+    # a ValueError naming it, as the JAX package's schema does
     hp = _ltt_vit_hparams()
-    hp["net"]["kind"] = "duo_vanilla_vit"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    hp["net"]["kind"] = "quadro_vit"
+    with pytest.raises(ValueError, match="quadro_vit"):
         parse_config(hp)
     hp["net"]["kind"] = "ltt_vit"
     assert parse_config(hp).net.params["s_attn_hidden_size"] == 16

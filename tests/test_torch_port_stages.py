@@ -570,12 +570,14 @@ def test_a_jax_written_opt_file_is_refused(tmp_path):
 def test_training_verbs_refuse_what_is_not_ported(tmp_path):
     from autognothi_tpu_torch.cli import TRAINING, main
 
+    # every net kind of the JAX package is ported: an unknown kind raises
+    # a ValueError naming it, as the JAX package's schema does
     hp = _ltt_vit_hparams()
-    hp["net"]["kind"] = "kernel_shap_bert"
-    bert = _write_exp(tmp_path / "a", hp)
+    hp["net"]["kind"] = "quadro_vit"
+    unknown = _write_exp(tmp_path / "a", hp)
     for verb in TRAINING:
-        with pytest.raises(NotImplementedError, match="kernel_shap_bert"):
-            main([verb, str(bert), "--device", "cpu"])
+        with pytest.raises(ValueError, match="quadro_vit"):
+            main([verb, str(unknown), "--device", "cpu"])
     hp = _ltt_vit_hparams()
     hp["net"]["base_model"] = "gg_vit_base"
     hub = _write_exp(tmp_path / "b", hp)

@@ -377,6 +377,8 @@ def run_all_and_check(fam: Family, exp: pathlib.Path):
         assert line in log, line
     assert sorted(p.name for p in (exp / ".reports").iterdir()) == NAMES
     for module, cls, name in REPORTS.values():
+        if name not in NAMES:  # the dual-task report, the duo recipes'
+            continue
         got = json.loads((exp / ".reports" / name).read_text())
         if name == "train_resources.json":  # null memory cells on the CPU
             got = dict(got, init_mem=1.0,
