@@ -1,8 +1,6 @@
 """Command shell of the port: the same verbs and flags as
-`autognothi_tpu/cli.py`.  `serve`, the seven `train_all` verbs,
-`train_all` itself, the seven reports, `measure_all` and `run_all`
-(`train_all`, then `measure_all`) run; the other verbs are not ported yet
-and raise.
+`autognothi_tpu/cli.py`.  Every verb runs but `export_final` (and `serve
+--artifact`), which raise as not ported yet.
 
     python -m autognothi_tpu_torch serve <experiment_dir> --device cuda \\
         --port 8321 --batch-size 8 --window 0.0
@@ -11,17 +9,29 @@ and raise.
     python -m autognothi_tpu_torch measure_all <experiment_dir> \\
         --device cuda --no-run-performance
     python -m autognothi_tpu_torch measure_faithfulness <experiment_dir> \\
-        --device cuda
+        --device cuda [--dataset KIND]
+    python -m autognothi_tpu_torch run_image_explanation <experiment_dir> \\
+        --into out.json [--limit N] [--dataset KIND] --device cuda
+    python -m autognothi_tpu_torch run_text_explanation <experiment_dir> \\
+        --into out.json [--limit N] [--dataset KIND] --device cuda
+    python -m autognothi_tpu_torch __preview_text_shapley__ <experiment_dir>
+    python -m autognothi_tpu_torch __show_fridge__ <experiment_dir>
+    python -m autognothi_tpu_torch estimate_train_time <experiment_dir>
+    python -m autognothi_tpu_torch pretrain_classifier <experiment_dir>
+    python -m autognothi_tpu_torch preload_all
 
 Every verb takes every net kind of the JAX package (`pipeline/
 config.py:NET_KINDS`: the LTT, vanilla, froyo and duo towers of both
 families and the KernelSHAP BERT), each as far as its recipe allows (the
 dual-task report for the duo kinds, only faithfulness for KernelSHAP).  A
 report verb reads its cached `<exp>/.reports/<name>.json` where there is
-one (`--resolution` on `measure_faithfulness` recomputes and writes
-nothing, as in the JAX package).  Every verb runs on `--device`, "cuda" by default, which raises
-on a host without a card.  A trainer stopped by SIGTERM at a batch
-boundary exits with 75.
+one; `--resolution` on `measure_faithfulness` and `--dataset` (another
+dataset kind, at the JAX package's sizes: `resources.load_id_dataset`)
+recompute and write nothing, as in the JAX package.  Every verb that
+runs a model (all but `preload_all`, which checks the local caches and
+downloads nothing) runs on `--device`, "cuda" by default, which raises on
+a host without a card.  A trainer stopped by SIGTERM at a batch boundary
+exits with 75.
 """
 
 from __future__ import annotations
@@ -31,11 +41,16 @@ import pathlib
 import sys
 from typing import List, Optional
 
-NOT_PORTED = (
-    "preload_all", "pretrain_classifier", "estimate_train_time",
-    "run_image_explanation", "run_text_explanation", "export_final",
-    "__show_fridge__", "__preview_text_shapley__",
-)
+NOT_PORTED = ("export_final",)
+# the demos and the other verbs -> (module, takes --dataset)
+DEMOS = {
+    "run_image_explanation": ("run_image_explanation", True),
+    "run_text_explanation": ("run_text_explanation", True),
+    "__preview_text_shapley__": ("preview_text_shapley", True),
+    "__show_fridge__": ("show_fridge", False),
+    "estimate_train_time": ("estimate_train_time", False),
+    "pretrain_classifier": ("pretrain_classifier", False),
+}
 # the training pipeline's verbs -> (module, function); the trainers run in
 # an env forked with their stage's logger block
 TRAINING = {
@@ -111,14 +126,20 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("model_path", type=pathlib.Path)
         _device(p)
 
-    for name in REPORTS:
+    for name in (*REPORTS, *DEMOS):
         p = sub.add_parser(name)
         p.add_argument("model_path", type=pathlib.Path)
         _device(p)
-        p.add_argument("--dataset", default=None, type=str,
-                       help="another dataset kind (not ported yet)")
+        if name in REPORTS or DEMOS[name][1]:
+            p.add_argument("--dataset", default=None, type=str,
+                           help="another dataset kind, at the JAX "
+                                "package's sizes (not cached)")
         if name == "measure_faithfulness":
             p.add_argument("--resolution", default=None, type=int)
+        if name in ("run_image_explanation", "run_text_explanation"):
+            p.add_argument("--into", type=pathlib.Path, required=True)
+            p.add_argument("--limit", default=None, type=int)
+    sub.add_parser("preload_all")
     p = sub.add_parser("measure_all")
     p.add_argument("model_path", type=pathlib.Path)
     _device(p)
@@ -170,21 +191,70 @@ def _measure(env, args) -> None:
                     **{f"run_{f}": getattr(args, f"run_{f}")
                        for f in MEASURE_ALL_FLAGS})
         return
-    if args.dataset is not None:
-        raise NotImplementedError(
-            f"{args.command} --dataset: loading another dataset kind is not "
-            f"ported yet")
     from .pipeline.measure_all import load_or_run_report
 
     module, cls, filename = REPORTS[args.command]
     mod = importlib.import_module(f".pipeline.{module}", __package__)
     fn = getattr(mod, args.command)
+    loader = _override_loader(args, env.config)
     resolution = getattr(args, "resolution", None)
-    if resolution is not None:  # a one-off run: not cached
-        fn(env, resolution=resolution, device=args.device)
+    kw = {} if resolution is None else {"resolution": resolution}
+    if loader is not None or kw:  # a one-off run: not cached
+        fn(env, loader, device=args.device, **kw)
         return
     load_or_run_report(env, getattr(mod, cls), filename,
                        lambda: fn(env, device=args.device))
+
+
+def _override_loader(args, config):
+    """`--dataset` -> its DatasetLoader, or None (the config's)."""
+    if getattr(args, "dataset", None) is None:
+        return None
+    from .pipeline.resources import load_id_dataset
+
+    return load_id_dataset(args.dataset,
+                           config.net.params.get("img_px_size"))
+
+
+def _demo(env, args) -> None:
+    """A demo or one of the other model verbs, on `--device` (checked
+    first, before any file is read).  Each verb's function is its
+    module's namesake."""
+    import importlib
+
+    from .utils.devices import resolve_device
+
+    resolve_device(args.device)
+    module, takes_dataset = DEMOS[args.command]
+    fn = getattr(importlib.import_module(f".pipeline.{module}", __package__),
+                 module)
+    pos = (_override_loader(args, env.config),) if takes_dataset else ()
+    if hasattr(args, "into"):
+        pos += (args.into, args.limit)
+    if module == "show_fridge":  # reads checkpoints only
+        fn(env)
+    elif module == "pretrain_classifier":
+        with env.fork(lambda ec: ec.logger_classifier) as stage_env:
+            fn(stage_env, device=args.device)
+    else:
+        fn(env, *pos, device=args.device)
+
+
+def preload_all() -> None:
+    """Check that every dataset and base model the JAX package would fetch
+    is in a local cache; the port downloads nothing, so one FileNotFoundError
+    names everything that is missing."""
+    from .data.loader import preload_all_datasets
+    from .zoo.loader import preload_all_params
+
+    missing = []
+    for check in (preload_all_datasets, preload_all_params):
+        try:
+            check()
+        except FileNotFoundError as err:
+            missing.append(str(err))
+    if missing:
+        raise FileNotFoundError("\n".join(missing))
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -192,10 +262,16 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.command in NOT_PORTED:
         raise NotImplementedError(
             f"command {args.command!r} is not ported yet")
+    if args.command == "preload_all":
+        preload_all()
+        return
     from .pipeline.env import ExpEnv
 
     env = ExpEnv(args.model_path)
     try:
+        if args.command in DEMOS:
+            _demo(env, args)
+            return
         if args.command in TRAINING:
             _train(env, args.command, args.device)
             return

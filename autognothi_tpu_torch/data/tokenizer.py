@@ -125,6 +125,14 @@ class WordPieceTokenizer:
     def vocab_size(self) -> int:
         return len(self.vocab)
 
+    @property
+    def all_special_ids(self) -> List[int]:
+        return [self.token_to_id[t] for t in SPECIALS]
+
+    def decode(self, token_id: int) -> str:
+        """One id -> its vocabulary entry (a `##` piece keeps its `##`)."""
+        return self.vocab[int(token_id)]
+
     @classmethod
     def load(cls, path: pathlib.Path) -> "WordPieceTokenizer":
         path = pathlib.Path(path)

@@ -15,6 +15,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
+from ..data.loader import CvTransforms
+
 NET_KINDS = ("ltt_vit", "ltt_bert", "vanilla_vit", "vanilla_bert",
              "froyo_vit", "froyo_bert", "duo_vanilla_vit", "duo_vanilla_bert",
              "kernel_shap_bert")
@@ -33,8 +35,9 @@ class Config_Dataset:
     """`kind` and its fields, as `autognothi_tpu/pipeline/config.py:37-77`:
     `cv_samples` (train_size, test_size, img_px_size, num_classes, seed =
     1234), `nlp_samples` and `yelp_polarity_mini` (none), `yelp_polarity`
-    (train_size, test_size, test_seed).  `imagenette` is not loaded by the
-    port."""
+    (train_size, test_size, test_seed), `imagenette` (train_size,
+    test_size, test_seed, and `transforms`, required, parsed into a
+    `data.loader.CvTransforms`)."""
     kind: str
     fields: Dict[str, Any]
 
@@ -138,8 +141,10 @@ class ExpConfig:
 def _dataset(raw: Optional[Dict[str, Any]]) -> Optional[Config_Dataset]:
     if raw is None:
         return None
-    return Config_Dataset(kind=str(raw["kind"]),
-                          fields={k: v for k, v in raw.items() if k != "kind"})
+    fields = {k: v for k, v in raw.items() if k != "kind"}
+    if raw["kind"] == "imagenette":
+        fields["transforms"] = CvTransforms.from_dict(raw["transforms"])
+    return Config_Dataset(kind=str(raw["kind"]), fields=fields)
 
 
 def _section(raw: Dict[str, Any], name: str, cls, required: tuple):

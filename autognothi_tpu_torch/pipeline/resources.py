@@ -22,7 +22,8 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from ..data.loader import (DatasetLoader, load_cv_samples, load_nlp_samples,
+from ..data.loader import (CvTransforms, DatasetLoader, load_cv_samples,
+                           load_imagenette, load_nlp_samples,
                            load_yelp_polarity, load_yelp_polarity_mini)
 from ..params import from_jax_params, load_params_file, save_params
 from ..recipes.types import ModelRecipe
@@ -49,7 +50,7 @@ def get_recipe(config: ExpConfig) -> Tuple[ModelRecipe, Any]:
 
 
 DATASET_KINDS = ("cv_samples", "nlp_samples", "yelp_polarity_mini",
-                 "yelp_polarity")
+                 "yelp_polarity", "imagenette")
 
 
 def load_misc(env, recipe: ModelRecipe, m_config: Any) -> Any:
@@ -60,8 +61,33 @@ def load_misc(env, recipe: ModelRecipe, m_config: Any) -> Any:
     return recipe.load_misc(env.model_path, m_config)
 
 
+def load_id_dataset(kind: str,
+                    img_px_size: Optional[int] = None) -> DatasetLoader:
+    """A dataset named on the command line (`--dataset`), at the JAX
+    package's sizes (`:84-102`): the whole of `yelp_polarity` and of
+    `imagenette` (resized to the model's `img_px_size`), test seed 42;
+    `cv_samples` at its defaults and the model's `img_px_size`."""
+    if kind == "nlp_samples":
+        return load_nlp_samples()
+    if kind == "yelp_polarity_mini":
+        return load_yelp_polarity_mini()
+    if kind == "yelp_polarity":
+        return load_yelp_polarity(train_size=560000, test_size=38000,
+                                  test_seed=42)
+    if kind in ("imagenette", "cv_samples") and img_px_size is None:
+        raise ValueError(f"dataset {kind!r} needs the model's img_px_size")
+    if kind == "imagenette":
+        return load_imagenette(
+            train_size=9469, test_size=3925, test_seed=42,
+            transforms=CvTransforms(resize={"height": img_px_size,
+                                            "width": img_px_size}))
+    if kind == "cv_samples":
+        return load_cv_samples(img_px_size=img_px_size)
+    raise ValueError(f"unknown dataset kind: {kind}")
+
+
 def load_cfg_dataset(cfg: Optional[Config_Dataset]) -> DatasetLoader:
-    """The experiment's dataset (`:112-130`); `imagenette` is not ported."""
+    """The experiment's dataset (`:105-130`)."""
     if cfg is None:
         raise ValueError("the experiment config has no dataset block")
     f = cfg.fields
@@ -79,9 +105,13 @@ def load_cfg_dataset(cfg: Optional[Config_Dataset]) -> DatasetLoader:
         return load_yelp_polarity(train_size=int(f["train_size"]),
                                   test_size=int(f["test_size"]),
                                   test_seed=int(f["test_seed"]))
-    raise NotImplementedError(
-        f"dataset kind {cfg.kind!r} is not ported yet (ported: "
-        f"{', '.join(DATASET_KINDS)})")
+    if cfg.kind == "imagenette":
+        return load_imagenette(train_size=int(f["train_size"]),
+                               test_size=int(f["test_size"]),
+                               test_seed=int(f["test_seed"]),
+                               transforms=f["transforms"])
+    raise ValueError(f"unknown dataset kind {cfg.kind!r} (known: "
+                     f"{', '.join(DATASET_KINDS)})")
 
 
 # --------------------------------------------------------- checkpoint I/O

@@ -12,6 +12,11 @@ to the bases that need no download).
 - The Hugging Face hub bases (`gg_vit_*`, `bert_tayp`, `prj_bert_*`,
   `gg_bert_*`) need the hub's checkpoints and `transformers`; the port
   loads neither, so naming one raises, saying what is missing.
+
+`save_local_ft` writes an `ft_*` base into the same store, as the JAX
+package writes it (`pretrain_classifier`), so a base written by either
+package loads in the other.  `preload_all_params` downloads nothing: it
+checks the bases the JAX package would fetch and raises, naming them.
 """
 
 from __future__ import annotations
@@ -79,3 +84,36 @@ def load_params(base_model: str, num_labels: int
             f"loads neither (use base_model 'random_init' or a local "
             f"'ft_*' store)")
     raise ValueError(f"unknown base model: {base_model}")
+
+
+def save_local_ft(name: str, params: Dict[str, Any],
+                  tokenizer=None) -> pathlib.Path:
+    """Write a fine-tuned classifier (a flat dict) into the store as the
+    `ft_*` base `name` (`autognothi_tpu/zoo/loader.py:77-98`): its
+    `params.npz` atomically (a temporary file, then a rename, so that a
+    kill mid-write leaves no truncated file for the existence probe to
+    accept), and the tokenizer's `vocab.txt` under `tokenizer/`."""
+    store = _STORE / name
+    store.mkdir(parents=True, exist_ok=True)
+    arrays = {k: np.asarray(v) for k, v in params.items()}
+    target, tmp = store / "params.npz", store / "params.npz.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, target)
+    finally:
+        tmp.unlink(missing_ok=True)
+    if tokenizer is not None:
+        tokenizer.save(store / "tokenizer")
+    return store
+
+
+def preload_all_params() -> None:
+    """The JAX package fetches every hub base here (`:138-140`); the port
+    downloads nothing and loads none of them, so it raises, naming them
+    all (a local `ft_*` store is what the port loads instead)."""
+    raise FileNotFoundError(
+        "the Hugging Face base models are not in a local store the port "
+        "reads (it downloads nothing and loads no hub checkpoint): "
+        + ", ".join(f"{k} ({v})" for k, v in HUB_IDS.items())
+        + f"; a fine-tuned 'ft_*' base is read from {_STORE}")

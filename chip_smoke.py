@@ -164,7 +164,7 @@ Phases, each printing its own lines:
 
   8. LTT BERT training and reports through `run_all`: a `random_init`
      experiment with experiments/bert_base_tayp_ltt's `net.params` (full
-     width, 6 of the 12 layers: `BERT_RUN_ALL_LAYERS`, dropout 0) on the
+     width, 4 of the 12 layers: `BERT_RUN_ALL_LAYERS`, dropout 0) on the
      bundled `nlp_samples` (24
      sentences) with a `build_vocab` vocabulary, the shipped training
      blocks at one epoch each (classifier and surrogate batch 8, the
@@ -190,7 +190,7 @@ Phases, each printing its own lines:
   9. and 10. the vanilla and froyo towers of ViT-B/16@224 (9) and
      BERT-base@512 (10), the shipped `vit_base_imagenette_vanilla` and
      `bert_base_tayp_vanilla` `net.params` (random_init, dropout 0,
-     full depth but `run_all` at 6 of the 12 layers,
+     full depth but `run_all` at 4 of the 12 layers,
      `TOWER_RUN_ALL_LAYERS`; faithfulness at 8 stops, one performance
      loop): a
      random vanilla final served fp32 and W8A8 (phase 3's requests; 37
@@ -204,7 +204,7 @@ Phases, each printing its own lines:
      quality gate fp32 / W8A8 / mode "1", cls_acc and accuracy against
      plain, each stage's step against plain with its kernel calls and the
      plain recomputes its backward runs (`primitives.RECOMPUTES`), the
-     steps' ms and spans; a froyo `train_all` at 6 layers, its final
+     steps' ms and spans; a froyo `train_all` at 4 layers, its final
      served fp32 and W8A8 (7 + 7 blocks a slab), its steps against
      plain (the backward recomputes the explainer layer's two ops, no
      trunk op) and the explainer step timed against plain.  Each phase
@@ -215,7 +215,7 @@ Phases, each printing its own lines:
      a random duo final served fp32 and W8A8 at full depth (25 attention
      and 25 MLP blocks a slab, `DUO_COUNTS`; duo BERT's head gives raw
      logits), `fw_final` at B = 8 on the other paths, timed and profiled;
-     `run_all` through `cli_main` at 6 of the 12 layers
+     `run_all` through `cli_main` at 4 of the 12 layers
      (`TOWER_RUN_ALL_LAYERS`) with phase 9's / 10's data and blocks: the
      duo explainer trainer, no coherency check (as in the JAX recipe),
      the seven reports, a second `measure_all` that launches nothing, the
@@ -231,9 +231,27 @@ Phases, each printing its own lines:
      its classifier slabs' kernel calls (`KSHAP_COUNTS`) and its
      probabilities and attributions against the plain versions on the
      card, the faithfulness quality gate over one input of 512 tokens,
-     one profiled explained row per path.  Then the native WordPiece
-     core: its build seconds and the texts it encoded over the run
-     (`phase_native`; the run fails if it did not load or encoded none).
+     one profiled explained row per path.
+  13. a random vanilla ViT-L/16@224 (`vit_large_imagenette_vanilla`'s
+     `net.params`: hidden 1024, 16 heads, all 24 layers, MLP 4096, head
+     4096; random_init, dropout 0): the routes the JAX gates pick at T =
+     197 (`vit_large_routes`), the final served fp32 and W8A8 (phase 3's
+     requests, 73 attention and 73 MLP blocks a slab: `VANILLA_COUNTS`),
+     `fw_final` at B = 8 on W8A8 with bf16 parameters, bf16 and mode "1",
+     each path against its plain forward, timed (expl/s) and profiled;
+     each op at its ViT-L shape against plain with its device ms,
+     launches, bound and library time (`[vit-l op]`); the image demo
+     (`run_image_explanation` over 64 `cv_samples` images at 224 px, the
+     kernels against plain, `[image demo]`).
+  14. the demos and the other verbs through `cli_main` on phases 8's and
+     9's checkpoints (`run_text_explanation --limit 2`, the Shapley
+     preview of one sentence with the kernels against plain,
+     `__show_fridge__`, `estimate_train_time`, `pretrain_classifier` into
+     a temporary zoo store and a second experiment's conversion from it,
+     `preload_all`; `[demos]` lines).  Then the native cores: WordPiece's
+     build seconds and the texts it encoded over the run, the image
+     core's resize against the numpy grid (`phase_native`; the run fails
+     if a core did not load or WordPiece encoded none).
 
 Any failure raises, exits non-zero and prints no result.  The last three
 lines are the card, the kernel table (JSON) and the status line (JSON).
@@ -1015,7 +1033,7 @@ def phase_serve(dev, exp: pathlib.Path, int8: bool, model: str = "vit",
     from autognothi_tpu_torch.pipeline.serve import serve_in_thread
 
     path = "int8" if int8 else "fp32"
-    if model == "vit":
+    if model.startswith("vit"):
         table = INT8_COUNTS if int8 else FP32_COUNTS
         requests, n_labels, n_players = vit_requests(), 10, 196
     else:
@@ -1199,56 +1217,69 @@ I8_GEMM_PRODUCTS = (("K1 qkv", 2304, 768, "bias"),
                     ("K2 w2", 768, 3072, "resid"))
 
 
-def profiled_kernels(fn, reps: int, tries: int = 5) -> list:
+# Profiled windows that lost device events and were profiled again
+# (`profiled_kernels`), and the most calls a kept window needed ahead of
+# it, printed at the end of the run
+PROFILE_LOSSES = {"windows": 0, "lead": 0}
+# the window's bounds: an int16 fill, which no op of the port launches
+PROFILE_MARK = "FillFunctor<short"
+
+
+def profiled_kernels(fn, reps: int, tries: int = 10) -> list:
     """The device kernels of `reps` calls of `fn` after one warmup call, as
-    (name, device ms) in launch order.  The profiler runs a warmup window
-    before the one it keeps, and the kept window's calls are bracketed by
-    two fills (`torch.zeros`), dropped where they stand first and last: the
-    first or last event of a window is now and then lost.  Every call
-    launches the same kernels, so a window where a kernel is seen a number
-    of times that is not a whole multiple of the calls (or no kernel at
-    all) lost events: it is profiled again, and after `tries` such
-    windows this raises."""
+    (name, device ms) in launch order.  One profiler session runs `lead`
+    calls, an int16 fill, the `reps` calls kept and a second fill; the
+    kept window is what lies between the fills.  On the H100's host, late
+    in a long process, a session loses its first device events, as many
+    as a few calls' worth and the same number on every try, and now and
+    then all of them; the lead calls take that loss.  Every call launches
+    the same kernels, so a session whose fills are not both seen, or
+    whose window sees a kernel a number of times that is not a whole
+    multiple of the calls (or no kernel at all), lost events: it is
+    profiled again with twice the lead, and after `tries` such sessions
+    this raises."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile
 
-    def window():
-        torch.zeros(1, device="cuda")
-        for _ in range(reps):
-            fn()
-        torch.zeros(1, device="cuda")
-        torch.cuda.synchronize()
+    def mark():
+        torch.zeros(1, dtype=torch.int16, device="cuda")
 
     fn()
     counts: dict = {}
-    for _ in range(tries):
+    lead = reps
+    for attempt in range(tries):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            for _ in range(2):
-                window()
-                prof.step()
-        # the step's own annotation ("ProfilerStep#") is no kernel
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                fn()
+            mark()
+            for _ in range(reps):
+                fn()
+            mark()
+            torch.cuda.synchronize()
         events = sorted((e for e in prof.events()
                          if e.device_type == DeviceType.CUDA
-                         and e.name not in SPANS
-                         and not e.name.startswith("ProfilerStep")),
+                         and e.name not in SPANS),
                         key=lambda e: e.time_range.start)
-        for end in (0, -1):
-            if events and "FillFunctor" in events[end].name:
-                events.pop(end)
+        marks = [i for i, e in enumerate(events) if PROFILE_MARK in e.name]
         counts = {}
-        for e in events:
-            counts[e.name] = counts.get(e.name, 0) + 1
+        if len(marks) == 2:
+            events = events[marks[0] + 1:marks[1]]
+            for e in events:
+                counts[e.name] = counts.get(e.name, 0) + 1
         if counts and all(n % reps == 0 for n in counts.values()):
+            PROFILE_LOSSES["lead"] = max(PROFILE_LOSSES["lead"], lead)
             return [(e.name, e.time_range.elapsed_us() / 1e3)
                     for e in events]
-        print(f"[profile] device events per kernel in a window of {reps} "
-              f"calls: {counts}", file=sys.stderr, flush=True)
+        PROFILE_LOSSES["windows"] += 1
+        print(f"[profile] {len(marks)} of 2 bounds and device events per "
+              f"kernel in a window of {reps} calls after {lead} (try "
+              f"{attempt + 1}): {counts}", file=sys.stderr, flush=True)
+        lead *= 2
     raise RuntimeError(f"the profiler lost device events in {tries} "
-                       f"windows; the last: {counts}")
+                       f"sessions; the last: {counts}")
 
 
 def device_time(fn, reps: int) -> float:
@@ -3063,9 +3094,9 @@ def phase_run_all(dev, tmp: pathlib.Path, card: str) -> dict:
 # ------------------------------------------------------- LTT BERT run_all
 
 BERT_TRAIN_B, BERT_EXP_B, BERT_M = 8, 4, 2  # the shipped training blocks
-# the cut that keeps the script nearer half its time limit: phase 8 at 6
+# the cut that keeps the script nearer half its time limit: phase 8 at 4
 # of the 12 layers (BERT-base@512 widths; phase 3 serves the full depth)
-BERT_RUN_ALL_LAYERS = 6
+BERT_RUN_ALL_LAYERS = 4
 # phase 8's eval blocks: experiments/bert_base_tayp_ltt's, cut where
 # marked to keep the phase inside the time limit (widths are the shipped
 # ones, the depth BERT_RUN_ALL_LAYERS; the data is the 24 bundled
@@ -3478,7 +3509,10 @@ TOWER_EXP = {"vit": REPO / "experiments" / "vit_base_imagenette_vanilla"
              / ".hparams.json",
              "bert": REPO / "experiments" / "bert_base_tayp_vanilla"
              / ".hparams.json"}
-TOWER_NAME = {"vit": "ViT-B/16@224", "bert": "BERT-base@512"}
+TOWER_EXP["vit_large"] = (REPO / "experiments"
+                          / "vit_large_imagenette_vanilla" / ".hparams.json")
+TOWER_NAME = {"vit": "ViT-B/16@224", "bert": "BERT-base@512",
+              "vit_large": "ViT-L/16@224"}
 # the duo BERT's shipped experiment (the same `net.params`); the repo ships
 # no duo ViT experiment, so phase 11 takes the vanilla ViT's
 DUO_EXP = {"vit": TOWER_EXP["vit"],
@@ -3494,7 +3528,8 @@ TOWER_EVAL = {
                                         resolution=8),
                  eval_performance=dict(blocks["eval_performance"], loops=1))
     for family, blocks in (("vit", RUN_ALL_EVAL),
-                           ("bert", BERT_RUN_ALL_EVAL))}
+                           ("bert", BERT_RUN_ALL_EVAL),
+                           ("vit_large", RUN_ALL_EVAL))}
 # kernel calls per slab (or per fw_final) of a vanilla final: three
 # 12-layer towers and the explainer's layer, 37 attention and 37 MLP
 # blocks, and the head.  ViT: fp32 K6 + K7; W8A8 K1 + K4 (trunk design)
@@ -3514,6 +3549,15 @@ VANILLA_COUNTS = {
                             "mlp_block_int8_tiled": 74, "head_block": 1},
     ("bert", "bf16"): {"attention_block": 37, "mlp_block_tiled": 74},
     ("bert", "mode 1"): {"masked_attention": 37},
+    # ViT-L/16@224 (phase 13): 3 x 24 + 1 = 73 blocks of each kind, the
+    # routes of VIT_L_ROUTES
+    ("vit_large", "fp32"): {"attention_block": 73, "mlp_block": 73},
+    ("vit_large", "int8"): {"attention_block_int8": 73,
+                            "mlp_block_int8_tiled": 146},
+    ("vit_large", "int8 bf16"): {"attention_block_int8": 73,
+                                 "mlp_block_int8": 73},
+    ("vit_large", "bf16"): {"attention_block": 73, "mlp_block_tiled": 146},
+    ("vit_large", "mode 1"): {"masked_attention": 73},
 }
 # a duo final runs the surrogate's tower and the duo explainer's (its
 # trunk and its layer): 25 attention and 25 MLP blocks a slab, and the head
@@ -3603,7 +3647,7 @@ def write_tower_experiment(tmp: pathlib.Path, family: str, kind: str,
     hp["net"].update(kind=kind, version=RECIPE_VERSION,
                      base_model="random_init", params=params)
     hp["seed"] = SEED
-    if family == "vit":
+    if family.startswith("vit"):
         hp["dataset"] = {"kind": "cv_samples", "train_size": 2 * TRAIN_B,
                          "test_size": TRAIN_B, "img_px_size": 224,
                          "num_classes": 10, "seed": SEED}
@@ -3650,8 +3694,9 @@ def write_tower_final(tmp: pathlib.Path, family: str,
     from autognothi_tpu_torch.pipeline.config import parse_config
     from autognothi_tpu_torch.pipeline.resources import get_recipe
 
-    net_kind = f"{kind}_{family}" if kind == "vanilla" \
-        else f"duo_vanilla_{family}"
+    arch = "vit" if family.startswith("vit") else family
+    net_kind = f"{kind}_{arch}" if kind == "vanilla" \
+        else f"duo_vanilla_{arch}"
     exp = write_tower_experiment(tmp, family, net_kind,
                                  f"{kind}_{family}_serve")
     recipe, cfg = get_recipe(parse_config(json.loads(
@@ -3669,8 +3714,9 @@ def write_tower_final(tmp: pathlib.Path, family: str,
 def phase_tower_paths(dev, family: str, service, card: str,
                       kind: str = "vanilla") -> dict:
     """fw_final of the served vanilla (or duo) model at batch 8 on each
-    path the serve phase does not take (ViT mode "1"; BERT int8 with bf16
-    parameters, bf16 without int8, mode "1"), each against its plain
+    path the serve phase does not take (ViT mode "1"; BERT-base and ViT-L
+    int8 with bf16 parameters, bf16 without int8, mode "1"), each against
+    its plain
     forward with its kernel calls (TOWER_COUNTS[kind]), timed in turns;
     one profiled forward per path (the served paths' too); -> the kernel
     calls."""
@@ -3678,13 +3724,15 @@ def phase_tower_paths(dev, family: str, service, card: str,
 
     model, cfg, recipe = service.model, service.m_config, service.recipe
     gen = torch.Generator().manual_seed(SEED)
-    if family == "vit":
+    if family.startswith("vit"):
         xs = torch.rand((8, 3, 224, 224), generator=gen).to(dev)
     else:
         xs = torch.randint(1, cfg.vocab_size, (8, T_BERT),
                            generator=gen).to(dev)
+    # the bf16 paths (BERT-base and ViT-L): bf16 parameters, and pixels
     model_bf16 = copy.deepcopy(model).to(torch.bfloat16) \
-        if family == "bert" else None
+        if family != "vit" else None
+    xs16 = xs.to(torch.bfloat16) if xs.is_floating_point() else xs
 
     def forward(m, x, pallas: str, int8: bool, plain: bool):
         def run():
@@ -3697,10 +3745,11 @@ def phase_tower_paths(dev, family: str, service, card: str,
     paths = [("fp32", model, xs, "2", False, torch.float32),
              ("int8", model, xs, "2", True, torch.float32),
              ("mode 1", model, xs, "1", False, torch.float32)]
-    if family == "bert":
-        paths[2:2] = [("int8 bf16", model_bf16, xs, "2", True,
+    if model_bf16 is not None:
+        paths[2:2] = [("int8 bf16", model_bf16, xs16, "2", True,
                        torch.bfloat16),
-                      ("bf16", model_bf16, xs, "2", False, torch.bfloat16)]
+                      ("bf16", model_bf16, xs16, "2", False,
+                       torch.bfloat16)]
     calls_all: dict = {}
     for label, m, x, pallas, int8, dtype in paths:
         fw = forward(m, x, pallas, int8, False)
@@ -3725,12 +3774,14 @@ def phase_tower_paths(dev, family: str, service, card: str,
 
 
 def phase_tower_serve(dev, tmp: pathlib.Path, card: str, family: str,
-                      kind: str = "vanilla") -> dict:
-    """Serve a random vanilla (or duo) final on the card, fp32 and W8A8
-    (phase 3's requests), against its plain forward with the kernel calls
-    per slab, then the other paths of `phase_tower_paths`; -> the kernel
-    calls.  The duo BERT's head gives raw logits."""
-    exp = write_tower_final(tmp, family, kind)
+                      kind: str = "vanilla",
+                      exp: pathlib.Path = None) -> dict:
+    """Serve a random vanilla (or duo) final on the card (`exp`'s, else a
+    new one), fp32 and W8A8 (phase 3's requests), against its plain
+    forward with the kernel calls per slab, then the other paths of
+    `phase_tower_paths`; -> the kernel calls.  The duo BERT's head gives
+    raw logits."""
+    exp = exp or write_tower_final(tmp, family, kind)
     probs = not (kind == "duo" and family == "bert")
     launches, service, _ = phase_serve(
         dev, exp, int8=False, model=family,
@@ -3846,9 +3897,9 @@ def tower_batches(family: str) -> tuple:
 
 
 # the cut that keeps the script nearer half its time limit: the vanilla
-# and duo towers' run_all at 6 of the 12 layers (as phase 7); their served
-# finals and timed forwards stay at full depth
-TOWER_RUN_ALL_LAYERS = 6
+# and duo towers' run_all (and froyo's train_all) at 4 of the 12 layers;
+# their served finals and timed forwards stay at full depth
+TOWER_RUN_ALL_LAYERS = 4
 
 
 def phase_tower_run_all(dev, tmp: pathlib.Path, card: str, family: str,
@@ -4279,6 +4330,40 @@ def phase_native() -> None:
           f"the native WordPiece core did not load: "
           f"{native.build_errors.get('wordpiece')}")
     check(ENCODES["native"] > 0, "no text went through the native core")
+    phase_native_imageproc()
+
+
+def phase_native_imageproc() -> None:
+    """The native image core on this host: loaded (built by this run or
+    found under `build/native/`), its resize of an odd-sized image to 224
+    x 224 against the numpy grid (within 1e-5: fp32 against float64) and
+    both paths' ms; fails where the core did not load."""
+    import numpy as np
+
+    from autognothi_tpu_torch import native
+    from autognothi_tpu_torch.data import loader
+
+    lib = loader._native_imageproc()
+    check(lib is not None, f"the native image core did not load: "
+                           f"{native.build_errors.get('imageproc')}")
+    built = native.build_seconds.get("imageproc")
+    img = np.random.RandomState(SEED).rand(3, 500, 375).astype(np.float32)
+    times = {}
+    for name, fn in (("native", loader._resize_chw),
+                     ("numpy", loader._resize_chw_numpy)):
+        t0 = time.perf_counter()
+        for _ in range(10):
+            out = fn(img, 224, 224)
+        times[name] = ((time.perf_counter() - t0) * 100, out)
+    err = float(np.abs(times["native"][1] - times["numpy"][1]).max())
+    print(f"[native] image core "
+          f"{native.library_path('imageproc').relative_to(REPO)}: "
+          + (f"built by g++ in {built:.2f} s" if built is not None
+             else "loaded from an earlier build")
+          + f"; resize <3, 500, 375> -> 224 x 224: {times['native'][0]:.2f}"
+          f" ms, numpy {times['numpy'][0]:.2f} ms (host), max|native - "
+          f"numpy| {err:.2e} (limit 1e-05)", flush=True)
+    check(err <= 1e-5, "the native resize differs from the numpy grid")
 
 
 def phase_k3_wide(dev, card: str) -> None:
@@ -4332,6 +4417,431 @@ def phase_k3_wide(dev, card: str) -> None:
         check(len(kernels) <= 5 * 4, f"K3 wide {label}: "
                                      f"{len(kernels) / 4} launches a call")
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------- phase 13: ViT-L/16@224
+
+VIT_L_T, VIT_L_H, VIT_L_HEADS, VIT_L_INTER, VIT_L_B = 197, 1024, 16, 4096, 8
+# the image demo's test set: `cv_samples` at 224 px in 10 balanced classes
+DEMO_IMAGES = 64
+
+
+def vit_large_routes() -> dict:
+    """The JAX gates' choice for each ViT-L block at T = 197 (`ops/
+    gates.py`): -> {path: text}, printed, and the tile counts checked
+    against the kernel-call table."""
+    import torch
+
+    from autognothi_tpu_torch.ops import gates
+
+    t, h, inter = VIT_L_T, VIT_L_H, VIT_L_INTER
+    routes = {}
+    for label, dtype, quant in (("fp32", torch.float32, "none"),
+                                ("int8", torch.float32, "int8"),
+                                ("int8 bf16", torch.bfloat16, "int8"),
+                                ("bf16", torch.bfloat16, "none")):
+        tiles = gates.mlp_block_tiles(t, h, inter, dtype, quant)
+        fits = gates.attention_block_fits(t, h, dtype, quant)
+        routes[label] = (tiles, fits)
+    head = gates.head_token_tile(t, h, VIT_L_INTER, 10)
+    check(routes == {"fp32": (4, False), "int8": (2, True),
+                     "int8 bf16": (1, True), "bf16": (2, True)}
+          and head is None, f"the ViT-L gates moved: {routes}, head {head}")
+    return {"fp32": "attention K6 (JAX: its XLA block, the weights do not "
+                    "fit), MLP K7 (JAX: 4 float tiles, the same sum)",
+            "int8": "attention K1, MLP K8q in 2 tiles",
+            "int8 bf16": "attention K1, MLP K4 in one pass",
+            "bf16": "attention K6, MLP the K8 chain in 2 tiles",
+            "mode 1": "every attention core K9",
+            "int8 head": "eager W8A8 denses (no token tile fits), no K3"}
+
+
+def vit_large_op_cases(dev):
+    """(name, tag, op, plain, args, kwargs, dtype) of each kernel op on the
+    ViT-L paths at its shape (B = 8, T = 197, 1024 wide, 16 heads, MLP
+    4096; the ops' gates choose the route, and the plain version is the
+    same op with its kernels routed to their plain versions)."""
+    import torch
+
+    from autognothi_tpu_torch.ops import attention_block as ab
+    from autognothi_tpu_torch.ops import flash_attention as fa
+    from autognothi_tpu_torch.ops import mlp_block as mb
+
+    g = torch.Generator().manual_seed(SEED + 15)
+    b, t, h, inter = VIT_L_B, VIT_L_T, VIT_L_H, VIT_L_INTER
+
+    def lin(d_out, d_in):
+        bound_ = d_in ** -0.5
+        return ((torch.rand(d_out, d_in, generator=g) * 2 - 1) * bound_
+                ).to(dev), ((torch.rand(d_out, generator=g) * 2 - 1)
+                            * bound_).to(dev)
+
+    ln = ((1 + 0.1 * torch.randn(h, generator=g)).to(dev),
+          (0.1 * torch.randn(h, generator=g)).to(dev), 1e-12)
+    x32 = torch.randn((b, t, h), generator=g).to(dev)
+    ws = tuple(x for _ in range(4) for x in lin(h, h))
+    (w1, b1), (w2, b2) = lin(inter, h), lin(h, inter)
+    mask = torch.ones(b, t, device=dev)
+    cases = []
+    for name, quant, dtype, path in (
+            ("attention_block", "none", torch.float32, "fp32"),
+            ("attention_block", "none", torch.bfloat16, "bf16"),
+            ("attention_block_int8", "int8", torch.float32, "W8A8"),
+            ("attention_block_int8", "int8", torch.bfloat16,
+             "W8A8 bf16 params")):
+        op = functools.partial(ab.attention_block, quant=quant)
+        w = tuple(x.to(dtype) for x in ws)
+        cases.append((name, f"<{b},{t},{h}> {VIT_L_HEADS} heads LN {path}",
+                      op, _under_plain(op),
+                      (x32.to(dtype), mask, w, VIT_L_HEADS, "mul"),
+                      dict(ln=ln, ln_position="prologue"), dtype))
+    for name, quant, dtype, path in (
+            ("mlp_block", "none", torch.float32, "fp32 one pass"),
+            ("mlp_block_int8_tiled", "int8", torch.float32,
+             "W8A8 2 tiles"),
+            ("mlp_block_int8", "int8", torch.bfloat16,
+             "W8A8 bf16 params one pass"),
+            ("mlp_block_tiled", "none", torch.bfloat16, "bf16 2 tiles")):
+        op = functools.partial(mb.mlp_block, quant=quant)
+        cases.append((name, f"{h}/{inter} LN {path}", op, _under_plain(op),
+                      (x32.to(dtype), w1.to(dtype), b1.to(dtype),
+                       w2.to(dtype), b2.to(dtype)),
+                      dict(ln=ln, ln_position="prologue"), dtype))
+    d = h // VIT_L_HEADS
+    q, k, v = (torch.randn((b, VIT_L_HEADS, t, d), generator=g).to(dev)
+               for _ in range(3))
+    keep = (torch.rand(b, t, generator=g) > 0.4).float()
+    keep[:, 0] = 1
+    rows = {"mul": keep.to(dev),
+            "add": ((1 - keep) * torch.finfo(torch.float32).min).to(dev)}
+    for mode in ("add", "mul"):
+        op = functools.partial(fa.masked_attention, mode=mode)
+        cases.append(("masked_attention",
+                      f"<{b},{VIT_L_HEADS},{t},{d}> {mode}", op,
+                      _under_plain(op), (q, k, v, rows[mode]), {},
+                      torch.float32))
+    return cases
+
+
+def time_library_float(args: tuple, card: str) -> float:
+    """The K8 chain's two products on bf16 `torch.matmul` (x W1^T, h
+    W2^T), device ms per call: the yardstick, timed here only."""
+    import torch
+
+    x, w1, w2 = args[0], args[1], args[3]
+    x2 = x.reshape(-1, x.shape[-1])
+    hid = torch.randn((x2.shape[0], w1.shape[0]),
+                      generator=torch.Generator().manual_seed(SEED)
+                      ).to(x.device, x.dtype)
+
+    def run():
+        torch.matmul(x2, w1.T)
+        torch.matmul(hid, w2.T)
+    ms = device_time(run, 10)
+    print(f"[vit-l op] mlp_block_tiled library yardstick torch.matmul x 2 "
+          f"bf16: device {ms:.4f} ms | {card}", flush=True)
+    return ms
+
+
+def phase_vit_large_ops(dev, card: str) -> None:
+    """Each kernel op of the ViT-L paths at its shape: its route (the op's
+    counter and no other), against its plain version, CUDA-event ms of
+    kernel and plain, device ms and launches a call, its bound and the
+    library's time where one call computes the same (`torch._int_mm` on
+    K8q's and K4's products, SDPA for K9's "add", bf16 `torch.matmul` for
+    K8's)."""
+    import torch
+
+    for name, tag, op, plain, args, kw, dtype in vit_large_op_cases(dev):
+        with torch.inference_mode():
+            reset_counts()
+            got = op(*args, **kw)
+            torch.cuda.synchronize()
+            calls = {k: v for k, v in read_counts().items() if v}
+            check(set(calls) == {name},
+                  f"ViT-L {name} {tag}: the op went to {calls}")
+            _, ok, msg = compare(got, plain(*args, **kw), dtype,
+                                 name in INT8_OPS)
+            kernels = profiled_kernels(lambda: op(*args, **kw), 4)
+            dev_ms = sum(ms for _, ms in kernels) / 4
+            t_kern = cuda_time(lambda: op(*args, **kw), reps=10)
+            t_plain = cuda_time(lambda: plain(*args, **kw), reps=10)
+            t_lib = None
+            if name == "masked_attention" and tag.endswith(" add"):
+                t_lib = time_library_attention(args, card)
+            elif name in ("mlp_block_int8", "mlp_block_int8_tiled"):
+                t_lib = time_library_int8(name, args, card)
+            elif name == "mlp_block_tiled":
+                t_lib = time_library_float(args, card)
+        bound_ms, bound_by = op_bound(name, args)
+        print(f"[vit-l op] {name:20s} {tag}: kernel {t_kern:.4f} ms "
+              f"(device {dev_ms:.4f}, {len(kernels) // 4} launches), plain "
+              f"{t_plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+              + (f", library {t_lib:.4f} ms" if t_lib is not None else "")
+              + f" ({msg}) | {card}", flush=True)
+        check(ok, f"ViT-L {name} {tag}: kernel disagrees with plain")
+    torch.cuda.empty_cache()
+
+
+def phase_image_demo(exp: pathlib.Path, card: str) -> dict:
+    """`run_image_explanation` of the ViT-L final over DEMO_IMAGES
+    `cv_samples` test images at 224 px, 10 classes, with the kernels and
+    then plain: the same items, their attributions within the serve
+    gate (fp32), the JPEGs equal; at least one item.  Where Pillow is
+    missing on this host the verb refuses before loading a model, and
+    its device part (`explain_images`) runs instead; -> the kernel calls
+    of the kernels' run."""
+    import numpy as np
+    import torch
+
+    from autognothi_tpu_torch.data.loader import load_cv_samples
+    from autognothi_tpu_torch.pipeline import run_image_explanation as rie
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+
+    loader = load_cv_samples(train_size=TRAIN_B, test_size=DEMO_IMAGES,
+                             img_px_size=224, num_classes=10, seed=SEED)
+    try:
+        rie.require_pillow()
+        pil = True
+    except ImportError as err:
+        pil = False
+        print(f"[image demo] {err}: the verb refused before loading a "
+              f"model; its device part runs, and the JPEG field is not "
+              f"written on this host", flush=True)
+    got, calls, seconds = {}, {}, {}
+    for which in ("kernels", "plain"):
+        env = ExpEnv(exp)
+        reset_counts()
+        t0 = time.perf_counter()
+        with (plain_ops() if which == "plain" else contextlib.nullcontext()):
+            if pil:
+                into = exp / f"image_explanation_{which}.json"
+                rie.run_image_explanation(env, loader, into, None,
+                                          device="cuda")
+                items = json.loads(into.read_text())["items"]
+                got[which] = [(v["image"], np.asarray(v["explanation"],
+                                                      np.float32))
+                              for _, v in sorted(items.items(),
+                                                 key=lambda kv: int(kv[0]))]
+            else:
+                got[which] = [(i, attr) for i, _, attr in
+                              rie.explain_images(env, loader, None, "cuda")]
+        torch.cuda.synchronize()
+        seconds[which] = time.perf_counter() - t0
+        if which == "kernels":
+            calls = {k: v for k, v in read_counts().items() if v}
+        env.close()
+    kern, plain = got["kernels"], got["plain"]
+    check(len(kern) >= 1, "the image demo kept no image")
+    check([k for k, _ in kern] == [k for k, _ in plain],
+          "the image demo kept other items (or JPEGs) with the kernels "
+          "than plain")
+    worst = max((float(np.abs(a - b).max()), float(np.abs(b).max()))
+                for (_, a), (_, b) in zip(kern, plain))
+    lim = TOL["float32"] * max(1.0, worst[1])
+    print(f"[image demo] ViT-L/16@224 over {DEMO_IMAGES} cv_samples test "
+          f"images: {len(kern)} items kept (prediction = label), the same "
+          f"with the kernels and plain{'' if pil else ' (test indices)'}; "
+          f"max|kernel-plain| attribution {worst[0]:.3e} (limit {lim:.3e});"
+          f" JPEG field {'written, equal' if pil else 'not written'}; "
+          f"{seconds['kernels']:.1f} s with the kernels, "
+          f"{seconds['plain']:.1f} s plain; kernel calls {calls} | {card}",
+          flush=True)
+    check(worst[0] <= lim, "the image demo's attributions differ from "
+                           "plain")
+    check(calls == _scaled((DEMO_IMAGES, VANILLA_COUNTS[("vit_large",
+                                                         "fp32")])),
+          f"the image demo's kernel calls {calls}")
+    return calls
+
+
+def phase_vit_large(dev, tmp: pathlib.Path, card: str) -> dict:
+    """Phase 13: a random vanilla ViT-L/16@224 final at the published
+    widths and all 24 layers, served fp32 and W8A8 (fp32 parameters;
+    phase 3's `images` and `images_u8` requests, 3 slabs of 8, each held
+    against the plain forward), `fw_final` at B = 8 on W8A8 with bf16
+    parameters, bf16 and mode "1" against plain, every path timed
+    (expl/s) and profiled, with the routes the JAX gates chose and the
+    kernel calls a slab (`VANILLA_COUNTS`); each op at its ViT-L shape
+    (`phase_vit_large_ops`); the image demo (`phase_image_demo`); -> the
+    kernel calls of the served, forwarded and demo paths."""
+    import torch
+
+    for path, route in vit_large_routes().items():
+        print(f"[vit-l] route {path}: {route}", flush=True)
+    exp = write_tower_final(tmp, "vit_large")
+    total = phase_tower_serve(dev, tmp, card, "vit_large", exp=exp)
+    phase_vit_large_ops(dev, card)
+    total = _scaled((1, total), (1, phase_image_demo(exp, card)))
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------- phase 14: demos and verbs
+
+DEMO_REPS = 8  # the Shapley preview's repetitions, the JAX default
+
+
+def counted(fn, *args, **kwargs):
+    """-> (fn's result, the kernel calls it made from counts of 0, its
+    seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return (out, {k: v for k, v in read_counts().items() if v},
+            time.perf_counter() - t0)
+
+
+def one_sentence_loader(text: str, label: int):
+    from autognothi_tpu_torch.data.loader import DatasetLoader
+
+    def it(batch_size: int):
+        yield [text], [label], [text], [label]
+
+    return DatasetLoader(train_raw=it, test_raw=it)
+
+
+def phase_demos(dev, tmp: pathlib.Path, card: str) -> dict:
+    """Phase 14: the demos and the other verbs through `cli_main` on the
+    checkpoints phases 8 and 9 wrote (the LTT BERT-base@512 and the
+    vanilla ViT-B/16@224, at their cut depths): `run_text_explanation
+    --limit 2`; `__preview_text_shapley__` on one sentence with
+    DEMO_REPS permutations, its Shapley values with the kernels against
+    plain; `__show_fridge__`; `estimate_train_time` (the cached train
+    resources report); `pretrain_classifier` of a 2-layer vanilla ViT into
+    a temporary zoo store, and a second experiment's
+    `conv_pretrained_classifier` loading that base bit for bit;
+    `preload_all`, which names what is not in the local caches; -> the
+    kernel calls of the counted verbs."""
+    import numpy as np
+    import torch
+
+    from autognothi_tpu_torch.cli import main as cli_main
+    from autognothi_tpu_torch.params import load_params_file
+    from autognothi_tpu_torch.pipeline import preview_text_shapley as pts
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.zoo import loader as zoo
+
+    bert, vit = tmp / "ltt_bert_run_all", tmp / "vanilla_vit_run_all"
+    for exp in (bert, vit):
+        check((exp / "final-epoch-0.ckpt").exists(),
+              f"phase 14 needs {exp.name}'s final")
+    total: dict = {}
+
+    into = tmp / "text_explanation.json"
+    _, calls, sec = counted(cli_main, [
+        "run_text_explanation", str(bert), "--into", str(into), "--limit",
+        "2", "--device", "cuda"])
+    items = json.loads(into.read_text())["items"]
+    check(all(isinstance(t, str) and math.isfinite(a)
+              for pairs in items.values() for t, a in pairs),
+          "run_text_explanation wrote a malformed item")
+    print(f"[demos] run_text_explanation --limit 2 (LTT BERT-base@512 at "
+          f"{BERT_RUN_ALL_LAYERS} layers): {len(items)} items (prediction ="
+          f" label), {sum(len(p) for p in items.values())} tokens, "
+          f"{sec:.1f} s; kernel calls {calls} | {card}", flush=True)
+    check(len(calls) > 0, "run_text_explanation launched no kernel")
+    total = _scaled((1, total), (1, calls))
+
+    sample = json.loads((REPO / "autognothi_tpu_torch" / "data"
+                         / "nlp_samples.json").read_text())[0]
+    env = ExpEnv(bert)
+    svs: dict = {}
+    for which in ("kernels", "plain"):
+        got = []
+
+        def record(*args, **kwargs):
+            out = montecarlo(*args, **kwargs)
+            got.append(out)
+            return out
+
+        montecarlo = pts.montecarlo_shapley
+        with mock.patch.object(pts, "montecarlo_shapley", record), \
+                (plain_ops() if which == "plain"
+                 else contextlib.nullcontext()):
+            _, calls, sec = counted(
+                pts.preview_text_shapley, env,
+                one_sentence_loader(sample["inputs"], sample["targets"]),
+                reps=DEMO_REPS, device="cuda")
+        svs[which] = (got[0], calls, sec)
+    env.close()
+    (sv, v0, vn), calls, sec = svs["kernels"]
+    (sv_p, v0_p, vn_p), _, sec_p = svs["plain"]
+    scale = max(1.0, float(np.abs(sv_p).max()))
+    drift = max(float(np.abs(a - b).max())
+                for a, b in ((sv, sv_p), (v0, v0_p), (vn, vn_p)))
+    lim = TOL["float32"] * scale
+    print(f"[demos] __preview_text_shapley__ one sentence, {DEMO_REPS} "
+          f"permutations of {sv.shape[1]} players ({DEMO_REPS} x "
+          f"{sv.shape[1] + 1} coalition rows): {sec:.1f} s with the "
+          f"kernels, {sec_p:.1f} s plain; max|kernel-plain| of sv, v0, vN "
+          f"{drift:.3e} (limit {lim:.3e}); kernel calls {calls} | {card}",
+          flush=True)
+    check(drift <= lim and np.isfinite(sv).all(),
+          "the Shapley preview's values differ from plain")
+    total = _scaled((1, total), (1, calls))
+
+    for exp in (bert, vit):
+        _, calls, sec = counted(cli_main, ["__show_fridge__", str(exp),
+                                           "--device", "cuda"])
+        check(not calls, "__show_fridge__ launched a kernel")
+    print(f"[demos] __show_fridge__ printed the freeze tables of "
+          f"{bert.name} and {vit.name}", flush=True)
+
+    _, calls, sec = counted(cli_main, ["estimate_train_time", str(vit),
+                                       "--device", "cuda"])
+    lines = [ln.split("] ", 1)[-1] for ln in
+             (vit / ".log.txt").read_text().splitlines()
+             if "> surrogate:" in ln or "> explainer:" in ln][-2:]
+    print(f"[demos] estimate_train_time (the cached train resources "
+          f"report): {lines} | {card}", flush=True)
+    check(len(lines) == 2 and not calls,
+          "estimate_train_time did not estimate from the cached report")
+
+    store = tmp / "zoo"
+    ft = write_tower_experiment(tmp, "vit", "vanilla_vit", "ft_vit_smoke",
+                                layers=2)
+    with mock.patch.object(zoo, "_STORE", store):
+        _, calls, sec = counted(cli_main, ["pretrain_classifier", str(ft),
+                                           "--device", "cuda"])
+        exported = load_params_file(store / "ft_vit_smoke" / "params.npz")
+        check((store / "ft_vit_smoke" / "model.json").exists(),
+              "pretrain_classifier wrote no model.json")
+        user = write_tower_experiment(tmp, "vit", "vanilla_vit",
+                                      "vit_from_ft", layers=2)
+        hp = json.loads((user / ".hparams.json").read_text())
+        hp["net"]["base_model"] = "ft_vit_smoke"
+        (user / ".hparams.json").write_text(json.dumps(hp, indent=2))
+        cli_main(["conv_pretrained_classifier", str(user), "--device",
+                  "cuda"])
+    got = load_params_file(user / "classifier-epoch-0.ckpt")
+    same = sorted(got) == sorted(exported) and all(
+        np.array_equal(got[k], exported[k]) for k in exported)
+    print(f"[demos] pretrain_classifier (vanilla ViT-B/16@224 at 2 layers, "
+          f"every parameter trained, 1 epoch): {len(exported)} tensors "
+          f"into the zoo store in {sec:.1f} s, kernel calls {calls}; a "
+          f"second experiment's conv_pretrained_classifier loaded them "
+          f"{'bit for bit' if same else 'WITH DIFFERENCES'} | {card}",
+          flush=True)
+    check(same, "the ft_ base did not load bit for bit")
+    check(calls.get("attention_block") and calls.get("mlp_block"),
+          "pretrain_classifier's training launched no K6 or K7")
+    total = _scaled((1, total), (1, calls))
+
+    try:
+        cli_main(["preload_all"])
+        missing = None
+    except FileNotFoundError as err:
+        missing = str(err)
+    print(f"[demos] preload_all (downloads nothing): "
+          f"{(missing or 'every set and base is cached').splitlines()[0]}"
+          f" ...", flush=True)
+    torch.cuda.empty_cache()
+    return total
 
 
 # name -> (source, the TPU kernel it replaces: its pl.pallas_call)
@@ -4448,6 +4958,13 @@ def main() -> int:
             (1, launches_towers),
             (1, timed("12 KernelSHAP BERT", phase_kernel_shap, dev,
                       pathlib.Path(tmp), card)))
+        # phases 13 (the vanilla ViT-L/16@224) and 14 (the demos and the
+        # other verbs, on phases 8's and 9's checkpoints)
+        for label, fn in (("13 ViT-L vanilla", phase_vit_large),
+                          ("14 demos and verbs", phase_demos)):
+            launches_towers = _scaled(
+                (1, launches_towers),
+                (1, timed(label, fn, dev, pathlib.Path(tmp), card)))
         # every main path was driven from counts of 0: serve fp32 and int8
         # (ViT and BERT), train_explainer in pallas modes "2" and "1",
         # train_all's seven stages and its served final, run_all's stages
@@ -4455,7 +4972,9 @@ def main() -> int:
         # LTT ViT (phases 6, 7) and the LTT BERT (phase 8), the vanilla
         # and froyo towers' serves, run_all and train_all (phases 9, 10),
         # the duo towers' serves and run_all (11), KernelSHAP's serves and
-        # faithfulness (12)
+        # faithfulness (12), the ViT-L final's serves, paths and image demo
+        # (13), the text demo, the Shapley preview and pretrain_classifier
+        # (14)
         for k in launches:
             launches[k] += (launches_int8[k] + launches_bert[k]
                             + launches_bert_int8[k]
@@ -4489,6 +5008,9 @@ def main() -> int:
     phase_native()
     print(f"[phase] all phases: {sum(phase_seconds.values()):.1f} s of "
           f"timed phases", flush=True)
+    print(f"[profile] {PROFILE_LOSSES['windows']} profiled sessions lost "
+          f"device events and were profiled again; the most calls a kept "
+          f"window needed ahead of it: {PROFILE_LOSSES['lead']}", flush=True)
 
     # fp32's worst error; the bf16-only float chain its bf16 worst
     kernels = [dict(name=k, route="cuda", source=source, replaces=replaces,

@@ -622,8 +622,13 @@ def test_nlp_loaders_match_jax(tmp_path, monkeypatch):
         load_cfg_dataset(Config_Dataset(
             "yelp_polarity", {"train_size": 8, "test_size": 4,
                               "test_seed": 42}))
-    with pytest.raises(NotImplementedError, match="imagenette"):
-        load_cfg_dataset(Config_Dataset("imagenette", {}))
+    # imagenette: likewise no local cache here (the loader is held
+    # against the JAX one in tests/test_torch_port_cv_data.py)
+    with pytest.raises(FileNotFoundError, match="imagenette"):
+        load_cfg_dataset(Config_Dataset(
+            "imagenette", {"train_size": 8, "test_size": 4,
+                           "test_seed": 42,
+                           "transforms": p_loader.CvTransforms()}))
 
 
 # ------------------------------------------------------- through the CLI

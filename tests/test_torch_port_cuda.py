@@ -2216,3 +2216,131 @@ def test_k3_wide_route_bert_head_bf16_at_512(dev):
     assert got.shape == (8, 512, c)
     _close_int8(got, want, torch.bfloat16)
     assert len(_launched_per_call(op)) == 5
+
+
+# -------------------------------- ViT-L/16@224 (1024 wide, 16 heads)
+
+_VIT_L = dict(b=8, t=197, h=1024, heads=16, inter=4096)
+# (op counter, quant, dtype) of each block on the served ViT-L's paths:
+# the JAX gates' routes at T = 197 (`ops/gates.py`)
+_VIT_L_BLOCKS = {
+    "K6 fp32": ("attention_block", "none", torch.float32),
+    "K6 bf16": ("attention_block", "none", torch.bfloat16),
+    "K1 fp32": ("attention_block_int8", "int8", torch.float32),
+    "K1 bf16": ("attention_block_int8", "int8", torch.bfloat16),
+    "K7 fp32": ("mlp_block", "none", torch.float32),
+    "K8q 2 tiles fp32": ("mlp_block_int8_tiled", "int8", torch.float32),
+    "K4 bf16": ("mlp_block_int8", "int8", torch.bfloat16),
+    "K8 2 tiles bf16": ("mlp_block_tiled", "none", torch.bfloat16),
+}
+
+
+def _vit_l_counts():
+    from autognothi_tpu_torch.ops import flash_attention as fa
+    from autognothi_tpu_torch.ops import mlp_block as mb
+
+    return dict(_all_counts(), **{c.name: c.count
+                                  for c in (mb.COUNTER_TILED, fa.COUNTER)})
+
+
+@pytest.mark.parametrize("case", list(_VIT_L_BLOCKS))
+def test_vit_large_blocks_against_plain(dev, case, monkeypatch):
+    """Each block of the ViT-L paths at B = 8, T = 197, 1024 wide, 16
+    heads, MLP 4096, LN prologue: the route the gate picks (its counter
+    and no other: the MLP chains one launch a tile), within the float or
+    int8 bounds of its plain version."""
+    from autognothi_tpu_torch.ops import attention_block as ab
+    from autognothi_tpu_torch.ops import mlp_block as mb
+
+    name, quant, dtype = _VIT_L_BLOCKS[case]
+    b, t, h, heads, inter = (_VIT_L[k] for k in ("b", "t", "h", "heads",
+                                                  "inter"))
+    g = torch.Generator().manual_seed(150)
+    x = _rand(g, dev, b, t, h).to(dtype)
+    ln = (1 + _rand(g, dev, h, scale=0.1), _rand(g, dev, h, scale=0.1), 1e-12)
+    if name.startswith("attention"):
+        ws = tuple(_rand(g, dev, *s, scale=h ** -0.5).to(dtype)
+                   for s in [(h, h), (h,)] * 4)
+        mask = _mask(g, dev, b, t, True)
+        op = lambda: ab.attention_block(x, mask, ws, heads, "mul", ln=ln,  # noqa
+                                        ln_position="prologue", quant=quant)
+    else:
+        ws = (_rand(g, dev, inter, h, scale=h ** -0.5).to(dtype),
+              _rand(g, dev, inter, scale=0.1).to(dtype),
+              _rand(g, dev, h, inter, scale=inter ** -0.5).to(dtype),
+              _rand(g, dev, h, scale=0.1).to(dtype))
+        op = lambda: mb.mlp_block(x, *ws, ln=ln, ln_position="prologue",  # noqa
+                                  quant=quant)
+    before = _vit_l_counts()
+    got = op()
+    torch.cuda.synchronize()
+    calls = {k: v - before[k] for k, v in _vit_l_counts().items()
+             if v - before[k]}
+    assert calls == {name: 2 if "2 tiles" in case else 1}, calls
+    _route_plain(monkeypatch)
+    want = op()
+    (_close_int8 if quant == "int8" else _close)(got, want, dtype)
+    if quant == "int8" and dtype == torch.float32:
+        assert _int8_flip_share(got, want, dtype) <= 1e-2
+
+
+@pytest.mark.parametrize("mode", ["mul", "add"])
+def test_vit_large_masked_attention_against_plain(dev, mode):
+    """K9 at ViT-L's <8, 16, 197, 64> (mode "1"), fp32."""
+    from autognothi_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(151)
+    q, k, v = (_rand(g, dev, 8, 16, 197, 64) for _ in range(3))
+    keep = _mask(g, dev, 8, 197, True)
+    row = keep if mode == "mul" else (1 - keep) * torch.finfo(
+        torch.float32).min
+    before = fa.COUNTER.count
+    got = fa.masked_attention(q, k, v, row, mode=mode)
+    assert fa.COUNTER.count == before + 1
+    _close(got, fa.masked_attention_plain(q, k, v, row, mode=mode),
+           torch.float32)
+
+
+@pytest.mark.parametrize("path", ["fp32", "int8", "int8 bf16", "bf16",
+                                  "mode 1"])
+def test_vit_large_final_against_plain(dev, path, monkeypatch):
+    """A random vanilla ViT-L/16@224 final, 2 layers a tower (7 attention
+    and 7 MLP blocks), at B = 2 on each served path against its plain
+    versions: the kernel calls of the path's routes, fp32 within 1e-4,
+    W8A8 within the int8 bound, bf16 within 3e-2; the W8A8 head is the
+    eager denses (no K3)."""
+    import numpy as np
+
+    from autognothi_tpu_torch.params import from_jax_params
+    from autognothi_tpu_torch.recipes import vanilla_vit
+
+    monkeypatch.setenv("AUTOGNOTHI_PALLAS", "1" if path == "mode 1" else "2")
+    monkeypatch.setenv("AUTOGNOTHI_INT8", "1" if "int8" in path else "0")
+    recipe = vanilla_vit.vanilla_vit_recipe()
+    cfg = recipe.t_config(**_shipped_params("vit_large_imagenette_vanilla",
+                                            num_hidden_layers=2))
+    flat = recipe.init_final(cfg, torch.Generator().manual_seed(152))
+    flat["surrogate_null"] = np.full_like(flat["surrogate_null"], 0.1)
+    dtype = torch.bfloat16 if "bf16" in path else torch.float32
+    final = from_jax_params(flat, cfg, dev, dtype, section="final")
+    xs = torch.rand((2, 3, 224, 224),
+                    generator=torch.Generator().manual_seed(153)
+                    ).to(dev, dtype)
+    before = _vit_l_counts()
+    with torch.no_grad():
+        got = recipe.fw_final(cfg, final, xs)
+    torch.cuda.synchronize()
+    calls = {k: v - before[k] for k, v in _vit_l_counts().items()
+             if v - before[k]}
+    assert calls == {
+        "fp32": {"attention_block": 7, "mlp_block": 7},
+        "int8": {"attention_block_int8": 7, "mlp_block_int8_tiled": 14},
+        "int8 bf16": {"attention_block_int8": 7, "mlp_block_int8": 7},
+        "bf16": {"attention_block": 7, "mlp_block_tiled": 14},
+        "mode 1": {"masked_attention": 7}}[path], calls
+    _route_plain(monkeypatch)
+    with torch.no_grad():
+        want = recipe.fw_final(cfg, final, xs)
+    assert got[1].shape == (2, 10, 196)
+    for g, w in zip(got, want):
+        (_close_int8 if "int8" in path else _close)(g, w, dtype)

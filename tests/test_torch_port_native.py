@@ -100,9 +100,10 @@ def test_library_lies_under_build_never_beside_the_source(tokenizer):
     assert lib.exists()
     assert lib.parent.parent == REPO / "build" / "native"
     assert not list(native.HERE.glob("*.so"))
+    # only sources beside the loader: the WordPiece and the image cores
     assert sorted(p.name for p in native.HERE.iterdir()
                   if p.suffix != ".pyc" and p.name != "__pycache__") == \
-        ["__init__.py", "wordpiece.cpp"]
+        ["__init__.py", "imageproc.cpp", "wordpiece.cpp"]
     # the build is keyed by the source: another source, another directory
     with mock.patch.object(native, "FLAGS", native.FLAGS + ("-g",)):
         assert native.library_path("wordpiece") != lib

@@ -584,10 +584,14 @@ def test_training_verbs_refuse_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="transformers"):
         main(["train_all", str(hub), "--device", "cpu"])
     assert not (hub / "classifier-epoch-0.ckpt").exists()
+    # imagenette is read from its local `datasets` cache only, which this
+    # package's data directory does not hold
     hp = _ltt_vit_hparams()
-    hp["dataset"] = {"kind": "imagenette", "train_size": 8, "test_size": 4}
+    hp["dataset"] = {"kind": "imagenette", "train_size": 8, "test_size": 4,
+                     "test_seed": 1,
+                     "transforms": {"resize": {"height": 16, "width": 16}}}
     data = _write_exp(tmp_path / "c", hp)
-    with pytest.raises(NotImplementedError, match="imagenette"):
+    with pytest.raises(FileNotFoundError, match="imagenette"):
         main(["train_all", str(data), "--device", "cpu"])
     if not torch.cuda.is_available():  # --device defaults to cuda
         for verb in TRAINING:
