@@ -1,6 +1,6 @@
 """Command shell of the port: the same verbs and flags as
-`autognothi_tpu/cli.py`.  Every verb runs but `export_final` (and `serve
---artifact`), which raise as not ported yet.
+`autognothi_tpu/cli.py`.  Every verb runs; `export_final --data-parallel
+N` past 1 (a mesh-sharded artifact) raises as not ported yet.
 
     python -m autognothi_tpu_torch serve <experiment_dir> --device cuda \\
         --port 8321 --batch-size 8 --window 0.0
@@ -19,6 +19,11 @@
     python -m autognothi_tpu_torch estimate_train_time <experiment_dir>
     python -m autognothi_tpu_torch pretrain_classifier <experiment_dir>
     python -m autognothi_tpu_torch preload_all
+    python -m autognothi_tpu_torch export_final <experiment_dir> \\
+        --into final.agx --batch-size 8 [--kernels --platforms cuda] \\
+        --device cuda
+    python -m autognothi_tpu_torch serve <experiment_dir> --device cuda \\
+        --artifact final.agx
 
 Every verb takes every net kind of the JAX package (`pipeline/
 config.py:NET_KINDS`: the LTT, vanilla, froyo and duo towers of both
@@ -41,7 +46,7 @@ import pathlib
 import sys
 from typing import List, Optional
 
-NOT_PORTED = ("export_final",)
+NOT_PORTED: tuple = ()
 # the demos and the other verbs -> (module, takes --dataset)
 DEMOS = {
     "run_image_explanation": ("run_image_explanation", True),
@@ -119,7 +124,36 @@ def build_parser() -> argparse.ArgumentParser:
                    type=float, help="device-side dequant offset for "
                                     "images_u8 payloads")
     p.add_argument("--artifact", default=None, type=pathlib.Path,
-                   help="an export artifact (not ported yet)")
+                   help="serve an export_final artifact (program+weights) "
+                        "instead of the experiment's checkpoints; a fixed-"
+                        "batch artifact dictates the slab size")
+
+    p = sub.add_parser("export_final")
+    p.add_argument("model_path", type=pathlib.Path)
+    _device(p)
+    p.add_argument("--into", type=pathlib.Path, required=True)
+    p.add_argument("--batch-size", dest="batch_size", default=8, type=int,
+                   help="0 = batch-polymorphic artifact (one program serves "
+                        "any batch; plain path only)")
+    p.add_argument("--platforms", default="cuda,cpu", type=str,
+                   help="comma list of the devices the artifact runs on "
+                        "(default: one file serves cuda AND cpu)")
+    p.add_argument("--kernels", action="store_true",
+                   help="embed the kernel ops (+int8 when AUTOGNOTHI_INT8=1):"
+                        " full serving throughput, but the artifact pins to "
+                        "--platforms cuda")
+
+    def _positive(v: str) -> int:
+        n = int(v)
+        if n < 1:
+            raise argparse.ArgumentTypeError(
+                f"--data-parallel must be >= 1, got {n}")
+        return n
+
+    p.add_argument("--data-parallel", dest="data_parallel", default=1,
+                   type=_positive,
+                   help="a mesh-sharded artifact for N devices (not ported "
+                        "yet past 1)")
 
     for name in TRAINING:
         p = sub.add_parser(name)
@@ -278,6 +312,16 @@ def main(argv: Optional[List[str]] = None) -> None:
         if args.command in REPORTS or args.command in ("measure_all",
                                                        "run_all"):
             _measure(env, args)
+            return
+        if args.command == "export_final":
+            from .pipeline.export import export_final
+
+            export_final(env, args.into, args.batch_size,
+                         platforms=[s for s in args.platforms.split(",")
+                                    if s],
+                         kernels=args.kernels,
+                         data_parallel=args.data_parallel,
+                         device=args.device)
             return
         from .pipeline.serve import serve
 

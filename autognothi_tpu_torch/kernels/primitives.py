@@ -783,7 +783,16 @@ def dispatch(launch: Callable, plain: Callable, counter,
 
     Where no gradient is wanted (grad mode off, as in a no-grad teacher
     sweep, or no input requiring one) the call skips the autograd
-    function, so no input is kept for a backward."""
+    function, so no input is kept for a backward.
+
+    Under `torch.export` the call is the op's custom op
+    (`kernels/library.py`), whose CUDA implementation is `launch`, counted,
+    and whose CPU implementation is `plain`: the same routes, at the
+    exported program's run time."""
+    if torch.compiler.is_exporting():
+        from .library import call
+
+        return call(launch, tensors, static)
     device = tensors[0].device
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in tensors)

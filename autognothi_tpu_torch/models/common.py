@@ -22,6 +22,7 @@ __all__ = [
     "dense_serving",
     "fused_dims_ok",
     "pallas_mode",
+    "pallas_override",
     "quant_mode",
     "quant_override",
     "layer_norm",
@@ -57,11 +58,35 @@ def pallas_mode() -> str:
         and no active dropout;
     "0": the plain math everywhere, the numerical reference.
     Each op takes its plain version for CPU tensors and its kernel for CUDA
-    tensors, in every mode."""
-    flag = os.environ.get("AUTOGNOTHI_PALLAS", "auto")
+    tensors, in every mode.  The innermost `pallas_override` scope
+    replaces the environment variable."""
+    flag = (_PALLAS_OVERRIDE[-1] if _PALLAS_OVERRIDE
+            else os.environ.get("AUTOGNOTHI_PALLAS", "auto"))
     if flag in ("0", "1"):
         return flag
     return "2"
+
+
+_PALLAS_OVERRIDE: list = []
+
+
+class pallas_override:
+    """A scope that forces `pallas_mode()` ("0", "1", "2" or "auto") for the
+    code it runs, as `quant_override` does for the quant mode: the export
+    pins its trace to the plain math ("0") or to the kernel ops ("2"),
+    whatever AUTOGNOTHI_PALLAS says."""
+
+    def __init__(self, mode: str):
+        if mode not in ("0", "1", "2", "auto"):
+            raise ValueError(f"unknown pallas mode {mode!r}")
+        self.mode = mode
+
+    def __enter__(self):
+        _PALLAS_OVERRIDE.append(self.mode)
+        return self
+
+    def __exit__(self, *exc):
+        _PALLAS_OVERRIDE.pop()
 
 
 def fused_dims_ok(hidden: int) -> bool:

@@ -342,15 +342,26 @@ class _Int8Chain:
 
 
 def mlp_tile_int8_launch(x, resid, w1, b1, w2, b2, *,
-                         chain: _Int8Chain) -> torch.Tensor:
+                         chain: Optional[_Int8Chain] = None) -> torch.Tensor:
     """The CUDA version of the next tile of a K8q chain (launches only; no
     counting, no autograd).  The kernels read the codes of the tile's
     weight slices (w1 ... b2 are the plain version's and the gradient's)
     from the chain: the W1 product's epilogue writes the fp32 GELU
     intermediate and its per-row max |.|, and the W2 product quantizes the
-    intermediate as it loads it, with the residual epilogue."""
+    intermediate as it loads it, with the residual epilogue.  Without a
+    chain (an exported program's tile op, which shares nothing with the
+    other tiles' calls) the tile makes x's codes itself, one more row
+    quantizer launch, and takes its slices' codes by `weight_codes`, once
+    per weight version: the codes and scales the chain's one lookup
+    holds for them (per output channel of each slice)."""
     b_sz, t, h = resid.shape
-    xq, xs, q1, s1, b1_k, q2, s2, b2_k, amax = chain.next_tile(x)
+    if chain is None:
+        amax = torch.empty(b_sz * t, device=x.device, dtype=torch.float32)
+        xq, xs = quant_rows(x.reshape(b_sz * t, h), zero=amax)
+        (q1, s1), (q2, s2) = (weight_codes((w,), x.dtype) for w in (w1, w2))
+        b1_k, b2_k = vec32(b1), vec32(b2)
+    else:
+        xq, xs, q1, s1, b1_k, q2, s2, b2_k, amax = chain.next_tile(x)
     inter = gemm_i8(xq, xs, q1, s1, b1_k, I8_EPI_GELU_F32_AMAX, x.dtype,
                     amax=amax)
     out = gemm_i8_qa(inter, amax, q2, s2, b2_k, x.dtype,
@@ -366,11 +377,15 @@ def _chain_ln_launch(x, w, b, *, eps: float) -> torch.Tensor:
                      (vec32(w), vec32(b), eps)).reshape(b_sz, t, h)
 
 
+def _chain_ln_plain(x, w, b, *, eps: float) -> torch.Tensor:
+    return layer_norm(x, w, b, eps)
+
+
 def _chain_ln(x, w, b, eps: float) -> torch.Tensor:
     """The LayerNorm before or after a split chain: `layer_norm` for CPU
     tensors, the row pass on the card."""
-    return dispatch(_chain_ln_launch, lambda *ts, eps: layer_norm(*ts, eps),
-                    COUNTER_CHAIN_LN, (x, w, b), dict(eps=eps))
+    return dispatch(_chain_ln_launch, _chain_ln_plain, COUNTER_CHAIN_LN,
+                    (x, w, b), dict(eps=eps))
 
 
 def _tiled(tile, resid, w1, b1, w2, b2, ln_w, ln_b, *, ln_position: str,

@@ -28,6 +28,15 @@ plain torch function on the bits).
 A write that bypasses the version counter (through `.data`) is not seen;
 nothing in the port writes weights that way.  Inference tensors have no
 version counter: their codes are computed at each call.
+
+Under `torch.export` (`torch.compiler.is_exporting()`) nothing is cached
+and no key is read (a traced tensor has no data pointer): each function
+computes its result from the traced weights, so what it makes is a part
+of the exported program, computed from the program's weight arguments at
+each call, as the JAX program quantizes its weight arguments.  The
+kernel ops' own lookups run inside their custom ops
+(`kernels/library.py`), at the program's run time, on its real weights,
+and cache as on the live path.
 """
 
 from __future__ import annotations
@@ -73,8 +82,9 @@ def cached(sources: Sequence[torch.Tensor], tag: tuple,
            make: Callable[[], object]):
     """`make()`, computed once per version of the `sources` (keyed with
     `tag`, the rest of what the result depends on)."""
-    if any(w.is_inference() for w in sources):
-        return make()  # no version counter to key on
+    if torch.compiler.is_exporting() or any(w.is_inference()
+                                            for w in sources):
+        return make()  # traced, or no version counter to key on
     owners, where, state = _key_state(sources)
     key = (tag, where)
     with _lock:
@@ -159,13 +169,21 @@ def zero_bias(b: torch.Tensor) -> torch.Tensor:
     return cached((b,), ("zeros",), make)
 
 
-@functools.lru_cache(maxsize=None)
 def identity_ln(n: int, device: torch.device
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ones, zeros) fp32 <n> on `device`: the LayerNorm vectors an op
     without LN hands its kernel and plain version, made once (outside
     inference mode, so a forward that differentiates may save them), not
-    at every call."""
+    at every call; made in the program under export."""
+    if torch.compiler.is_exporting():
+        return (torch.ones(n, device=device),
+                torch.zeros(n, device=device))
+    return _identity_ln(n, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _identity_ln(n: int, device: torch.device
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     with torch.inference_mode(False), torch.no_grad():
         return (torch.ones(n, device=device),
                 torch.zeros(n, device=device))

@@ -12,6 +12,10 @@
     GET  /healthz
     GET  /statz                             # slab occupancy + latency
 
+    python -m autognothi_tpu_torch serve <experiment_dir> --device cuda \\
+        --artifact final.agx        # an `export_final` artifact instead of
+                                    # the checkpoints
+
 Requests coalesce into fixed-size slabs through `MicroBatcher` (a port of
 the JAX package's framework-free batcher).  Its dispatcher thread
 launches every slab on PyTorch's current stream; its completer thread
@@ -39,9 +43,6 @@ class ExplainService:
                  window_s: float = 0.0,
                  u8_dequant: Tuple[float, float] = (1.0 / 255.0, 0.0),
                  artifact=None, device: str = "cuda"):
-        if artifact is not None:
-            raise NotImplementedError(
-                "serving an export artifact (--artifact) is not ported yet")
         self.env = env
         self.device = resolve_device(device)
         self.recipe, self.m_config = get_recipe(env.config)
@@ -51,8 +52,12 @@ class ExplainService:
         self.gen_input = self.recipe.gen_input(self.m_config, self.misc)
         self._row_shape = tuple(
             self.recipe.gen_null(self.m_config, self.misc).shape[1:])
-        _, self.model = load_epoch_model(env, self.recipe, "final",
-                                         self.device)
+        self.artifact = None
+        if artifact is None:
+            _, self.model = load_epoch_model(env, self.recipe, "final",
+                                             self.device)
+        else:
+            batch_size = self._load_artifact(artifact, batch_size)
         self.batch_size = batch_size
         self.u8_scale, self.u8_offset = (float(v) for v in u8_dequant)
         self._batcher = MicroBatcher(
@@ -60,13 +65,42 @@ class ExplainService:
             finalize=lambda outs: tuple(o.float().cpu().numpy()
                                         for o in outs))
 
+    def _load_artifact(self, artifact, batch_size: int) -> int:
+        """Serve an `export_final` artifact: the program and its weights are
+        the deployment unit, no checkpoint is read.  A fixed-batch artifact
+        sets the slab size, a symbolic one keeps `batch_size`; -> the slab
+        size.  An artifact of another experiment's rows fails here, at
+        startup, not in the dispatcher at the first request."""
+        from .export import load_exported
+
+        call = load_exported(artifact, device=str(self.device))
+        null = np.asarray(self.recipe.gen_null(self.m_config, self.misc))
+        if tuple(call.in_shape[1:]) != self._row_shape or \
+                call.in_dtype != null.dtype:
+            raise RuntimeError(
+                f"artifact {artifact} expects rows {tuple(call.in_shape[1:])} "
+                f"{call.in_dtype}, but this experiment's model takes "
+                f"{null.shape[1:]} {null.dtype} — it was exported from a "
+                "different experiment/config")
+        if call.in_shape[0] is not None:
+            batch_size = call.in_shape[0]
+        self.artifact, self.model = call, None
+        self.env.log(f"[[[ serving artifact {artifact}: input "
+                     f"{call.in_shape} {call.in_dtype}, platforms "
+                     f"{call.platforms}, kernels {call.meta['kernels']}, "
+                     f"quant {call.meta['quant']} (batch {batch_size}) ]]]")
+        return batch_size
+
     def _run_slab(self, slab: np.ndarray):
-        """One fixed-size slab through fw_final; returns device tensors
-        (the completer thread copies them to the host)."""
+        """One fixed-size slab through fw_final (or the artifact's program);
+        returns device tensors (the completer thread copies them to the
+        host)."""
         with torch.inference_mode():
             xs = torch.as_tensor(np.ascontiguousarray(slab)).to(self.device)
             if xs.dtype == torch.uint8:
                 xs = xs.float() * self.u8_scale + self.u8_offset
+            if self.artifact is not None:
+                return self.artifact(xs)
             return self.recipe.fw_final(self.m_config, self.model, xs)
 
     def close(self) -> None:

@@ -138,7 +138,7 @@ Phases, each printing its own lines:
      (384, 12), d = 16, 16, 32; F7), its route, launches and device time,
      against its plain version.
   7. the reports through `run_all`: a fresh copy of phase 6's experiment
-     (the same widths and data, 6 of the 12 layers: `RUN_ALL_LAYERS`)
+     (the same widths and data, 4 of the 12 layers: `RUN_ALL_LAYERS`)
      with eval blocks (faithfulness at
      16 stops over the 8 test images: 10 classes x 16 stops x 2 = 320
      coalitions an image; accuracy at 5 masked counts; cls_acc at every
@@ -252,6 +252,17 @@ Phases, each printing its own lines:
      build seconds and the texts it encoded over the run, the image
      core's resize against the numpy grid (`phase_native`; the run fails
      if a core did not load or WordPiece encoded none).
+  15. (run right after phase 3, on its finals) `export_final` and `serve
+     --artifact`: the `--kernels` artifacts (the kernel ops as
+     `torch.library` custom ops) of the LTT ViT-B/16@224 final, fp32 and
+     W8A8, and of the LTT BERT-base@512 final, W8A8, at B = 8, each
+     served from its file with phase 3's requests: kernel calls a slab
+     equal to phase 3's tables, every answer bit-identical to phase 3's
+     live serving; the default artifact (the plain math, one file for
+     cuda and cpu) loaded on the card and on the CPU, each within 1e-5 of
+     the live plain forward (pallas mode "0") there, and a symbolic-batch
+     one at B = 3 and 8; export and load seconds, bytes, and expl/s of
+     each artifact against its live path at B = 8 (`[export]` lines).
 
 Any failure raises, exits non-zero and prints no result.  The last three
 lines are the card, the kernel table (JSON) and the status line (JSON).
@@ -1017,6 +1028,54 @@ def bert_requests():
     return [("texts x3", "texts", CORPUS[:3]), ("texts x9", "texts", CORPUS[:9])]
 
 
+def serve_requests(exp: pathlib.Path, requests: list, per_slab: dict,
+                   tag: str, artifact: pathlib.Path = None):
+    """Serve the experiment's final (or `artifact`, an `export_final`
+    artifact) on the card at batch 8 and post `requests`; the counts set
+    to 0 just before the requests and read just after -> (kernel calls,
+    service, the responses by request label).  Three slabs of 8 (1 + 2),
+    their kernel calls against `per_slab`."""
+    import numpy as np
+
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.serve import serve_in_thread
+
+    env = ExpEnv(exp)
+    t0 = time.perf_counter()
+    server, service, thread = serve_in_thread(env, port=0, batch_size=8,
+                                              device="cuda",
+                                              artifact=artifact)
+    port = server.server_address[1]
+    print(f"[{tag}] server up on the card in "
+          f"{time.perf_counter() - t0:.1f} s (warmup slabs run)",
+          flush=True)
+    try:
+        check(_get(port, "/healthz") == {"status": "ok"}, "healthz")
+        slabs0 = _get(port, "/statz")["slabs"]
+        for c in counters().values():
+            c.reset()
+        got = {label: _post(port, {kind: np.asarray(rows).tolist()
+                                   if kind != "texts" else rows})
+               for label, kind, rows in requests}
+        launches = {name: c.count for name, c in counters().items()}
+        slabs = _get(port, "/statz")["slabs"] - slabs0
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "server thread did not stop")
+    env.close()
+
+    expected = {name: per_slab.get(name, 0) * slabs for name in launches}
+    print(f"[{tag}] {slabs} slabs; kernel calls {launches} "
+          f"(expected {expected})", flush=True)
+    check(slabs == 3, f"expected 3 slabs (1 + 2), got {slabs}")
+    check(launches == expected,
+          f"{tag} kernel call counts differ from {per_slab} per slab")
+    return launches, service, got
+
+
 def phase_serve(dev, exp: pathlib.Path, int8: bool, model: str = "vit",
                 per_slab: dict = None, tag: str = None,
                 probabilities: bool = True):
@@ -1029,9 +1088,6 @@ def phase_serve(dev, exp: pathlib.Path, int8: bool, model: str = "vit",
     import numpy as np
     import torch
 
-    from autognothi_tpu_torch.pipeline.env import ExpEnv
-    from autognothi_tpu_torch.pipeline.serve import serve_in_thread
-
     path = "int8" if int8 else "fp32"
     if model.startswith("vit"):
         table = INT8_COUNTS if int8 else FP32_COUNTS
@@ -1041,40 +1097,8 @@ def phase_serve(dev, exp: pathlib.Path, int8: bool, model: str = "vit",
         requests, n_labels, n_players = bert_requests(), 2, T_BERT - 1
     per_slab = per_slab or table
     tag = tag or f"serve {model} {path}"
-    env = ExpEnv(exp)
     with int8_mode(int8):
-        t0 = time.perf_counter()
-        server, service, thread = serve_in_thread(env, port=0, batch_size=8,
-                                                  device="cuda")
-        port = server.server_address[1]
-        print(f"[{tag}] server up on the card in "
-              f"{time.perf_counter() - t0:.1f} s (warmup slabs run)",
-              flush=True)
-        try:
-            check(_get(port, "/healthz") == {"status": "ok"}, "healthz")
-            slabs0 = _get(port, "/statz")["slabs"]
-            for c in counters().values():
-                c.reset()
-            got = {label: _post(port, {kind: np.asarray(rows).tolist()
-                                       if kind != "texts" else rows})
-                   for label, kind, rows in requests}
-            launches = {name: c.count for name, c in counters().items()}
-            slabs = _get(port, "/statz")["slabs"] - slabs0
-        finally:
-            server.shutdown()
-            server.server_close()
-            service.close()
-            thread.join(timeout=60)
-        check(not thread.is_alive(), "server thread did not stop")
-        env.close()
-
-        expected = {name: per_slab.get(name, 0) * slabs for name in launches}
-        print(f"[{tag}] {slabs} slabs; kernel calls {launches} "
-              f"(expected {expected})", flush=True)
-        check(slabs == 3, f"expected 3 slabs (1 + 2), got {slabs}")
-        check(launches == expected,
-              f"{tag} kernel call counts differ from {per_slab} per slab")
-
+        launches, service, got = serve_requests(exp, requests, per_slab, tag)
         for label, kind, rows in requests:
             logits = np.asarray(got[label]["logits"], np.float32)
             attr = np.asarray(got[label]["attributions"], np.float32)
@@ -2749,10 +2773,13 @@ CURVES = ("insertion", "deletion", "insertion_non_ok", "deletion_non_ok")
 # the plain forward's two best classes lie within this of each other
 FLIP_MARGIN = 1e-3
 # the cut that keeps phase 7 inside the time limit: ViT-B/16@224 widths
-# at 6 of the 12 layers (phases 9 and 10 run the vanilla towers at full
-# depth beside it), 8 test images at 16 faithfulness stops (10 classes x
-# 16 stops x 2 directions = 320 coalitions an image)
-RUN_ALL_LAYERS = 6
+# at 4 of the 12 layers (6 until phase 15 came; phase 3 serves the full
+# depth), 8 test images at 16 faithfulness stops (10 classes x 16 stops x
+# 2 directions = 320 coalitions an image).  The towers' run_all stays at 4
+# (TOWER_RUN_ALL_LAYERS): at 3 the vanilla ViT surrogate step's loss is
+# ~5e-5, a KL between near-identical heads, whose float noise passes the
+# step gate's 1e-4 relative bound
+RUN_ALL_LAYERS = 4
 RUN_ALL_EVAL = {
     "eval_accuracy": {"dataset": None, "batch_size": TRAIN_B,
                       "resolution": 5},
@@ -4844,6 +4871,168 @@ def phase_demos(dev, tmp: pathlib.Path, card: str) -> dict:
     return total
 
 
+# the `--kernels` artifacts of phase 15: (label, model, W8A8), each served
+# from its file and held against phase 3's live serving of the same final
+EXPORT_PATHS = (("vit fp32", "vit", False), ("vit int8", "vit", True),
+                ("bert int8", "bert", True))
+EXPORT_TOL = 1e-5  # the default (plain) artifact against the live plain path
+
+
+def export_timed(exp: pathlib.Path, into: pathlib.Path, card: str,
+                 tag: str, **kw) -> dict:
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.export import export_final
+
+    env = ExpEnv(exp)
+    t0 = time.perf_counter()
+    meta = export_final(env, into, **kw)
+    seconds = time.perf_counter() - t0
+    env.close()
+    print(f"[export] {tag}: export {seconds:.2f} s, {meta['bytes']} bytes "
+          f"({meta['n_params']} tensors, batch {meta['batch_size']}, "
+          f"platforms {meta['platforms']}, quant {meta['quant']}) | {card}",
+          flush=True)
+    return meta
+
+
+def load_timed(path: pathlib.Path, device: str, card: str, tag: str):
+    from autognothi_tpu_torch.pipeline.export import load_exported
+
+    t0 = time.perf_counter()
+    fw = load_exported(path, device=device)
+    print(f"[export] {tag}: load on {device} "
+          f"{time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    return fw
+
+
+def drift(got: dict, want: dict) -> float:
+    """The largest |difference| between two sets of served responses."""
+    import numpy as np
+
+    return max(float(np.abs(np.asarray(got[label][what], np.float32)
+                            - np.asarray(want[label][what], np.float32)
+                            ).max())
+               for label in want for what in ("logits", "attributions"))
+
+
+def rates_in_turns(fns: dict, b: int, card: str, tag: str) -> None:
+    """expl/s of the two forwards of `fns` (live first) with CUDA events,
+    in the order live, artifact, artifact, live."""
+    live, art = fns
+    rates = {live: [], art: []}
+    for which in (live, art, art, live):
+        rates[which].append(b / (cuda_time(fns[which], reps=3) / 1e3))
+    print(f"[export] {tag} B={b} expl/s: "
+          + "; ".join(f"{k} {' '.join(f'{v:.2f}' for v in vals)}"
+                      for k, vals in rates.items()) + f" | {card}",
+          flush=True)
+
+
+def phase_export(dev, tmp: pathlib.Path, card: str, exps: dict,
+                 services: dict, live_got: dict) -> dict:
+    """`export_final` and `serve --artifact` on the card (phase 15).  The
+    `--kernels` artifacts of phase 3's LTT ViT-B/16@224 final (fp32 and
+    W8A8) and LTT BERT-base@512 final (W8A8) at B = 8, each served from
+    its file: the same requests as phase 3, kernel calls a slab equal to
+    the live tables, every answer bit-identical to phase 3's live serving
+    (the same kernels on the same inputs).  The default artifact (the
+    plain math, one file for cuda and cpu) of the ViT final, loaded on the
+    card and on the CPU and held against the live plain forward (pallas
+    mode "0") there within EXPORT_TOL; a symbolic-batch one at B = 3 and
+    8.  Export and load seconds, bytes, and expl/s of each artifact
+    against its live path at B = 8 (CUDA events, in turns) -> the kernel
+    calls of the three served artifacts."""
+    import numpy as np
+    import torch
+
+    from autognothi_tpu_torch.models.common import pallas_override
+
+    launches: dict = {}
+    inputs = {
+        "vit": torch.rand((8, 3, 224, 224),
+                          generator=torch.Generator().manual_seed(SEED)
+                          ).to(dev),
+        "bert": torch.randint(1, services["bert"].m_config.vocab_size,
+                              (8, T_BERT), generator=torch.Generator(
+                              ).manual_seed(SEED)).to(dev)}
+    for label, model, int8 in EXPORT_PATHS:
+        art = tmp / f"{label.replace(' ', '_')}.agx"
+        with int8_mode(int8):
+            meta = export_timed(exps[model], art, card, f"{label} --kernels",
+                                batch_size=8, platforms=["cuda"],
+                                kernels=True)
+        check(meta["quant"] == ("int8" if int8 else "none") and
+              meta["kernels"], f"{label}: exported {meta}")
+        path = "int8" if int8 else "fp32"
+        per_slab = (BERT_COUNTS[path] if model == "bert" else
+                    INT8_COUNTS if int8 else FP32_COUNTS)
+        requests = bert_requests() if model == "bert" else vit_requests()
+        calls, service, got = serve_requests(
+            exps[model], requests, per_slab, f"artifact {label}",
+            artifact=art)
+        launches = _scaled((1, launches), (1, calls))
+        err = drift(got, live_got[label])
+        print(f"[export] {label} served from the artifact vs phase 3's "
+              f"live serving: max|diff| = {err:.3e} (bit-identical: "
+              f"{err == 0.0}) | {card}", flush=True)
+        check(err == 0.0, f"{label}: the artifact's answers differ from "
+                          f"live serving by {err:.3e}")
+        live = services[model]
+        xs = inputs[model]
+
+        def fw_live(live=live, xs=xs, int8=int8):
+            with int8_mode(int8), torch.inference_mode():
+                return live.recipe.fw_final(live.m_config, live.model, xs)
+
+        rates_in_turns({"live": fw_live,
+                        "artifact": lambda f=service.artifact, xs=xs: f(xs)},
+                       8, card, f"{label} --kernels")
+        del service
+        art.unlink()
+        torch.cuda.empty_cache()
+
+    # the default artifact: fixed B = 8, and symbolic
+    live = services["vit"]
+    xs = inputs["vit"]
+
+    def fw_plain(m=live.model, x=xs):
+        with pallas_override("0"), torch.inference_mode():
+            return live.recipe.fw_final(live.m_config, m, x)
+
+    for batch in (8, 0):
+        art = tmp / f"default_{batch}.agx"
+        tag = f"vit default B={batch or 'symbolic'}"
+        meta = export_timed(exps["vit"], art, card, tag, batch_size=batch)
+        check(meta["platforms"] == ["cuda", "cpu"] and not meta["kernels"],
+              f"{tag}: exported {meta}")
+        fw = load_timed(art, "cuda", card, tag)
+        for b in ((8,) if batch else (3, 8)):
+            got, want = fw(xs[:b]), fw_plain(x=xs[:b])
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            print(f"[export] {tag} on the card at B={b} vs the live plain "
+                  f"forward: max|diff| = {err:.3e} (gate {EXPORT_TOL}) | "
+                  f"{card}", flush=True)
+            check(err <= EXPORT_TOL, f"{tag} B={b}: {err:.3e} from plain")
+        if batch:
+            rates_in_turns({"live plain": fw_plain,
+                            "artifact": lambda f=fw: f(xs)}, 8, card, tag)
+            fw_cpu = load_timed(art, "cpu", card, tag)
+            model_cpu = copy.deepcopy(live.model).cpu()
+            got = fw_cpu(xs.cpu())
+            want = fw_plain(m=model_cpu, x=xs.cpu())
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            print(f"[export] {tag} on the CPU at B=8 vs the live plain "
+                  f"forward there: max|diff| = {err:.3e} (gate "
+                  f"{EXPORT_TOL})", flush=True)
+            check(err <= EXPORT_TOL, f"{tag} on the CPU: {err:.3e}")
+            check(np.isfinite(got[1].numpy()).all(), f"{tag}: not finite")
+            del fw_cpu, model_cpu
+        del fw
+        art.unlink()
+        torch.cuda.empty_cache()
+    return launches
+
+
 # name -> (source, the TPU kernel it replaces: its pl.pallas_call)
 KERNELS = {
     "attention_block": ("autognothi_tpu_torch/csrc/gemm_wgmma.cu",
@@ -4924,6 +5113,14 @@ def main() -> int:
                           f"fp32 path, not held)", flush=True)
         print(f"[phase] 3 serve LTT: {time.perf_counter() - t0:.1f} s",
               flush=True)
+        # phase 15: the `--kernels` artifacts of these finals served from
+        # their files, and the default artifact on the card and the CPU
+        launches_export = timed(
+            "15 export and serve --artifact", phase_export, dev,
+            pathlib.Path(tmp), card, {"vit": exp, "bert": bert_exp},
+            {"vit": service, "bert": bert_service},
+            {"vit fp32": got_fp32, "vit int8": got_int8,
+             "bert int8": got_bert_int8})
         train_exp = write_train_experiment(pathlib.Path(tmp))
         case = TrainCase(dev, train_exp)
         per_step = timed("4 train steps", phase_train_steps, case)
@@ -4982,7 +5179,8 @@ def main() -> int:
                             + launches_all.get(k, 0)
                             + launches_reports.get(k, 0)
                             + launches_bert_run_all.get(k, 0)
-                            + launches_towers.get(k, 0))
+                            + launches_towers.get(k, 0)
+                            + launches_export.get(k, 0))
         per_op = timed("5 timing, ViT", phase_timing, dev, card, service)
         # the ViT shapes keep their rows; K8q and the bf16 float chain run
         # only at BERT's.  The four BERT forwards counted there are main

@@ -2344,3 +2344,189 @@ def test_vit_large_final_against_plain(dev, path, monkeypatch):
     assert got[1].shape == (2, 10, 196)
     for g, w in zip(got, want):
         (_close_int8 if "int8" in path else _close)(g, w, dtype)
+
+
+# ------------------------------------------ the export's custom ops (M9)
+
+_EXPORT_INT8_OPS = ("attention_block_int8", "mlp_block_int8",
+                    "mlp_block_int8_tiled", "mlp_ladder_block", "head_block")
+
+
+def _vit_op_args(name, g, dev):
+    """(tensors, static) of export op `name` at the LTT ViT-B/16@224 shapes
+    (B = 2, T = 197: trunk 768 / 3072 in 12 heads, side 96 / 384 in 12
+    heads of d = 8, head 96 -> 3072 -> 3072 -> 10), from the ops' own
+    `*_args` functions."""
+    from autognothi_tpu_torch.ops import (attention_block as ab,
+                                          head_block as hb,
+                                          ladder_block as lb,
+                                          mlp_block as mb)
+
+    b, t, h, inter, s, heads = 2, 197, 768, 3072, 96, 12
+
+    def r(*shape, scale=0.05):
+        return _rand(g, dev, *shape, scale=scale)
+
+    def branch():
+        return {"map_w": r(s, h), "map_b": r(s), "ln1_w": 1 + r(s),
+                "ln1_b": r(s), "wq": r(s, s), "bq": r(s), "wk": r(s, s),
+                "bk": r(s), "wv": r(s, s), "bv": r(s), "wo": r(s, s),
+                "bo": r(s), "ln2_w": 1 + r(s), "ln2_b": r(s),
+                "w1": r(4 * s, s), "b1": r(4 * s), "w2": r(s, 4 * s),
+                "b2": r(s)}
+
+    x = r(b, t, h, scale=1.0)
+    mask = _mask(g, dev, b, t, True)
+    ln = (1 + r(h), r(h), 1e-12)
+    sides = [r(b, t, s, scale=1.0) for _ in range(2)]
+    if name in ("attention_block", "attention_block_int8"):
+        return ab.attention_block_args(x, mask, [r(*sh) for sh in
+                                                 [(h, h), (h,)] * 4],
+                                       heads, "mul", ln, "prologue")
+    if name in ("mlp_block", "mlp_block_int8"):
+        return mb.mlp_block_args(x, r(inter, h), r(inter), r(h, inter),
+                                 r(h), ln, "prologue")
+    if name in ("mlp_block_tiled", "mlp_block_int8_tiled"):
+        w1, w2 = r(inter, h), r(h, inter)  # the first of two tiles
+        return (x, r(b, t, h, scale=1.0), w1[:inter // 2], r(inter // 2),
+                w2[:, :inter // 2], r(h)), {}
+    if name == "chain_layer_norm":
+        return (x, 1 + r(h), r(h)), dict(eps=1e-12)
+    if name == "ladder_block":
+        return lb.ladder_block_args(x, sides, mask, [branch(), branch()],
+                                    heads, "mul", True, 1e-12)
+    if name == "mlp_ladder_block":
+        trunk = dict(zip(lb.TRUNK_MLP_KEYS, (r(inter, h), r(inter),
+                                             r(h, inter), r(h), 1 + r(h),
+                                             r(h))))
+        return lb.mlp_ladder_block_args(x, sides, mask, trunk,
+                                        [branch(), branch()], heads, "mul",
+                                        1e-12)
+    if name == "ladder_attention":
+        return (mask, *(r(b, t, s, scale=1.0) for _ in range(6))), dict(
+            n_heads=heads, mode="mul")
+    if name == "head_block":
+        return hb.explainer_head_block_args(
+            sides[0], r(inter, s), r(inter), r(inter, inter), r(inter),
+            r(10, inter), r(10), 1 + r(s), r(s), 1e-12)
+    if name == "masked_attention":
+        q, k, v = (r(b, heads, t, 64, scale=1.0) for _ in range(3))
+        return (q, k, v, (1 - mask) * torch.finfo(torch.float32).min), \
+            dict(mode="add")
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", [
+    "attention_block", "attention_block_int8", "mlp_block", "mlp_block_int8",
+    "mlp_block_tiled", "mlp_block_int8_tiled", "chain_layer_norm",
+    "ladder_block", "mlp_ladder_block", "ladder_attention", "head_block",
+    "masked_attention"])
+def test_export_op_cuda_registration_against_plain(dev, name):
+    """Each `autognothi::*` custom op (the export's `--kernels` program) on
+    CUDA tensors: one launch counted on its counter, its outputs the
+    fake implementation's shapes and dtypes, within the kernel tolerance of
+    its plain version, and equal to the live launcher's."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from autognothi_tpu_torch.kernels import library
+
+    op = library.OPS[name]
+    launch, plain, counter = op.resolve()
+    tensors, static = _vit_op_args(name, torch.Generator().manual_seed(160),
+                                   dev)
+    custom = getattr(torch.ops.autognothi, name)
+    before = counter.count
+    with torch.inference_mode():
+        got = custom(list(tensors), **static)
+        live = launch(*tensors, **static)
+        want = plain(*tensors, **static)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    live = list(live) if isinstance(live, tuple) else [live]
+    want = list(want) if isinstance(want, tuple) else [want]
+    with FakeTensorMode(allow_non_fake_inputs=False) as mode:
+        fakes = custom([mode.from_tensor(x) for x in tensors], **static)
+    assert [(f.shape, f.dtype, f.stride()) for f in fakes] == \
+        [(x.shape, x.dtype, x.stride()) for x in got]
+    close = _close_int8 if name in _EXPORT_INT8_OPS else _close
+    for g_, l_, w_ in zip(got, live, want):
+        assert torch.equal(g_, l_), name
+        close(g_, w_, torch.float32)
+
+
+def _export_counts() -> dict:
+    from autognothi_tpu_torch.kernels import library
+
+    return {name: op.resolve()[2].count for name, op in library.OPS.items()}
+
+
+def test_w8a8_kernels_artifact_bit_identical_to_live_serving(dev, tmp_path,
+                                                             monkeypatch):
+    """A random LTT ViT-B/16@224 final (2 of the 12 layers, full widths)
+    exported with `--kernels` under AUTOGNOTHI_INT8=1 and served from the
+    artifact at B = 8: the kernel calls of a slab are the live path's, and
+    every answer equals live serving's bit for bit."""
+    import json
+    import pathlib
+
+    import numpy as np
+
+    from autognothi_tpu_torch import RECIPE_VERSION
+    from autognothi_tpu_torch.models.ltt_vit import (LttViTConfig,
+                                                     init_ltt_vit_final)
+    from autognothi_tpu_torch.params import save_params, to_flat
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.export import export_final
+    from autognothi_tpu_torch.pipeline.serve import ExplainService
+
+    monkeypatch.setenv("AUTOGNOTHI_INT8", "1")
+    monkeypatch.delenv("AUTOGNOTHI_PALLAS", raising=False)
+    params = dict(_shipped_params("vit_base_imagenette_vanilla"))
+    params = {k: params[k] for k in ("hidden_size", "intermediate_size",
+                                     "num_attention_heads",
+                                     "layer_norm_eps", "img_channels",
+                                     "img_px_size", "img_patch_size")}
+    params.update(attention_probs_dropout_prob=0.0, hidden_dropout_prob=0.0,
+                  num_hidden_layers=2, num_labels=10,
+                  explainer_s_attn_num_layers=1,
+                  explainer_s_head_hidden_size=3072,
+                  explainer_normalize=True, s_attn_hidden_size=96,
+                  s_attn_intermediate_size=384)
+    hp = json.loads((pathlib.Path(__file__).resolve().parents[1]
+                     / "experiments" / "vit_base_imagenette_vanilla"
+                     / ".hparams.json").read_text())
+    hp["net"] = {"kind": "ltt_vit", "version": RECIPE_VERSION,
+                 "base_model": "random_init", "params": params}
+    exp = tmp_path / "ltt_vit"
+    exp.mkdir()
+    (exp / ".hparams.json").write_text(json.dumps(hp))
+    model = init_ltt_vit_final(LttViTConfig(**params),
+                               torch.Generator().manual_seed(161))
+    save_params(exp / "final-epoch-0.ckpt", to_flat(model))
+    rng = np.random.RandomState(162)
+    payloads = [{"images": rng.rand(3, 3, 224, 224).tolist()},
+                {"images_u8": rng.randint(0, 256, (9, 3, 224, 224)
+                                          ).tolist()}]
+    with ExpEnv(exp) as env:
+        meta = export_final(env, tmp_path / "k.agx", 8, platforms=["cuda"],
+                            kernels=True)
+        assert meta["quant"] == "int8"
+        answers, calls = [], []
+        for artifact in (None, tmp_path / "k.agx"):
+            service = ExplainService(env, batch_size=8, device="cuda",
+                                     artifact=artifact)
+            try:
+                service.warmup()
+                before = _export_counts()
+                answers.append([service.explain(p) for p in payloads])
+                torch.cuda.synchronize()
+                calls.append({k: v - before[k]
+                              for k, v in _export_counts().items()})
+            finally:
+                service.close()
+    assert calls[0] == calls[1], calls
+    assert calls[0]["attention_block_int8"] == 3 * 3  # 3 slabs x 3
+    for live, art in zip(*answers):
+        for key in ("logits", "attributions"):
+            assert np.array_equal(np.asarray(live[key]),
+                                  np.asarray(art[key])), key

@@ -3,7 +3,8 @@ the CPU load the same JAX-written `final-epoch-0.ckpt` of a mini LTT ViT
 and answer the same `images` / `images_u8` requests; logits and
 attributions agree to atol 1e-5.  Plus the port's serving contract: its
 import graph is free of JAX, it never falls back from CUDA to the CPU, it
-drains on SIGTERM, and unported verbs and kinds raise."""
+drains on SIGTERM, and what is not ported raises (export_final
+--data-parallel past 1) or names itself (an unknown net kind)."""
 
 import json
 import pathlib
@@ -138,7 +139,8 @@ def test_import_graph_is_free_of_jax_and_the_jax_package():
                 "pipeline.pretrain_classifier",
                 "pipeline.run_text_explanation",
                 "pipeline.preview_text_shapley",
-                "pipeline.run_image_explanation", "zoo.loader"):
+                "pipeline.run_image_explanation", "zoo.loader",
+                "pipeline.export", "kernels.library"):
         assert f"autognothi_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
@@ -165,11 +167,11 @@ def test_every_jax_verb_is_ported_or_refused():
     jax_verbs, port_verbs = verbs(jax_parser()), verbs(build_parser())
     assert jax_verbs == port_verbs
     ported = {"serve", *TRAINING, *REPORTS, *DEMOS, "measure_all",
-              "run_all", "preload_all"}
+              "run_all", "preload_all", "export_final"}
     assert ported | set(NOT_PORTED) == jax_verbs
     assert not ported & set(NOT_PORTED)
-    # every verb is ported but the export (M9)
-    assert set(NOT_PORTED) == {"export_final"}
+    # every verb is ported (the export since M9)
+    assert set(NOT_PORTED) == set()
     assert {"__show_fridge__", "__preview_text_shapley__"} <= set(DEMOS)
 
 
@@ -238,8 +240,12 @@ def test_unported_verbs_and_kinds_raise(tmp_path):
     from autognothi_tpu_torch.cli import main
     from autognothi_tpu_torch.pipeline.config import parse_config
 
+    # a mesh-sharded artifact waits for the multi-device slice (M10)
+    exp = _write_exp(tmp_path)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(["export_final", str(tmp_path)])
+        main(["export_final", str(exp), "--into", str(tmp_path / "a.agx"),
+              "--data-parallel", "2", "--device", "cpu"])
+    assert not (tmp_path / "a.agx").exists()
     # every net kind of the JAX package is ported: an unknown kind raises
     # a ValueError naming it, as the JAX package's schema does
     hp = _ltt_vit_hparams()
@@ -248,15 +254,6 @@ def test_unported_verbs_and_kinds_raise(tmp_path):
         parse_config(hp)
     hp["net"]["kind"] = "ltt_vit"
     assert parse_config(hp).net.params["s_attn_hidden_size"] == 16
-
-
-def test_serve_artifact_is_not_ported(tmp_path):
-    from autognothi_tpu_torch.pipeline.env import ExpEnv
-    from autognothi_tpu_torch.pipeline.serve import ExplainService
-
-    with ExpEnv(_write_exp(tmp_path)) as env:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            ExplainService(env, artifact=tmp_path / "a.bin", device="cpu")
 
 
 def test_port_reads_no_environment_switch():
