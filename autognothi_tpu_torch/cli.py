@@ -1,6 +1,5 @@
 """Command shell of the port: the same verbs and flags as
-`autognothi_tpu/cli.py`.  Every verb runs; `export_final --data-parallel
-N` past 1 (a mesh-sharded artifact) raises as not ported yet.
+`autognothi_tpu/cli.py`; every verb runs.
 
     python -m autognothi_tpu_torch serve <experiment_dir> --device cuda \\
         --port 8321 --batch-size 8 --window 0.0
@@ -37,6 +36,15 @@ runs a model (all but `preload_all`, which checks the local caches and
 downloads nothing) runs on `--device`, "cuda" by default, which raises on
 a host without a card.  A trainer stopped by SIGTERM at a batch boundary
 exits with 75.
+
+Several devices take one process each, started with AUTOGNOTHI_DIST_COORD=
+host:port, AUTOGNOTHI_DIST_NPROCS=N and AUTOGNOTHI_DIST_PROC_ID=i (or
+AUTOGNOTHI_DIST_COORD=auto under torchrun): `main` initializes the
+process group first (`parallel/distributed.py`; NCCL for cuda, gloo for
+cpu), and `--device cuda` is then the rank's own card.  The trainers and
+the reports run data-parallel, `serve` answers on rank 0 with each slab
+split over the ranks, `export_final --data-parallel N` writes an artifact
+that N ranks serve.
 """
 
 from __future__ import annotations
@@ -152,8 +160,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     p.add_argument("--data-parallel", dest="data_parallel", default=1,
                    type=_positive,
-                   help="a mesh-sharded artifact for N devices (not ported "
-                        "yet past 1)")
+                   help="a mesh-sharded artifact: N ranks each run "
+                        "batch / N rows of every slab")
 
     for name in TRAINING:
         p = sub.add_parser(name)
@@ -299,6 +307,14 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.command == "preload_all":
         preload_all()
         return
+    from .parallel.distributed import (distributed_env_configured,
+                                       maybe_initialize_distributed,
+                                       process_info)
+
+    # before any device is chosen: "cuda" is then the rank's own card
+    engaged = maybe_initialize_distributed(device=args.device)
+    if distributed_env_configured():
+        print(f"[distributed] {process_info()}", file=sys.stderr)
     from .pipeline.env import ExpEnv
 
     env = ExpEnv(args.model_path)
@@ -331,6 +347,10 @@ def main(argv: Optional[List[str]] = None) -> None:
               artifact=args.artifact, device=args.device)
     finally:
         env.close()
+        if engaged:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

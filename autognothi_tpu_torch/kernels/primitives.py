@@ -775,7 +775,8 @@ def dispatch(launch: Callable, plain: Callable, counter,
              grad: Optional[Callable] = None):
     """The one routing rule of every kernel op: CPU tensors take the plain
     version; CUDA tensors launch the kernel (and count the call), with the
-    plain version as the gradient; any other device raises.
+    plain version as the gradient; any other device raises, and so does a
+    tensor-parallel weight shard (`parallel/tp.py`).
 
     `grad`, when given, is the function whose autograd is the gradient on
     both devices (the int8 ops: the unquantized math, as the JAX package's
@@ -789,6 +790,12 @@ def dispatch(launch: Callable, plain: Callable, counter,
     (`kernels/library.py`), whose CUDA implementation is `launch`, counted,
     and whose CPU implementation is `plain`: the same routes, at the
     exported program's run time."""
+    if any(getattr(t, "tp_shard", None) is not None for t in tensors):
+        raise ValueError(
+            f"{getattr(counter, 'name', 'kernel op')}: a tensor-parallel "
+            "shard of a weight reached a kernel op, which would compute on "
+            "a partial sum; a sharded model runs pallas mode \"0\" "
+            "(parallel.mesh.mesh_safe_pallas)")
     if torch.compiler.is_exporting():
         from .library import call
 

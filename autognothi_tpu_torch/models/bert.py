@@ -38,6 +38,7 @@ from ..ops.attention_block import attention_block
 from ..ops.head_block import explainer_head_block
 from ..ops.mlp_block import mlp_block
 from ..ops.shapley import normalize_shapley_explanation
+from ..parallel.tp import dense_col, dense_row
 from .common import (additive_mask_bias, dense, dense_serving, dropout,
                      fused_dims_ok, gelu, init_embedding, layer_norm,
                      pallas_mode, quant_mode, self_attention)
@@ -142,7 +143,9 @@ class BertLayer(nn.Module):
     def forward(self, h: torch.Tensor, mask_bias: Optional[torch.Tensor],
                 cfg: VanillaBertConfig, deterministic: bool = True,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        """mask_bias <B, 1, 1, T> (`additive_mask_bias`)."""
+        """mask_bias <B, 1, 1, T> (`additive_mask_bias`).  The unfused
+        math runs tensor-parallel where the layer's weights are sharded
+        (`parallel/tp.py`)."""
         heads, eps = cfg.num_attention_heads, cfg.layer_norm_eps
         sa = self.attention.get_submodule("self")
         out_dense = self.attention.output.dense
@@ -171,14 +174,15 @@ class BertLayer(nn.Module):
             sa.value.weight, sa.value.bias, heads, mask_bias, "additive",
             attn_dropout=cfg.attention_probs_dropout_prob, generator=rng,
             deterministic=deterministic)
-        attn_out = dropout(rng, dense(ctx, out_dense.weight, out_dense.bias),
+        attn_out = dropout(rng, dense_row(ctx, out_dense.weight,
+                                          out_dense.bias),
                            cfg.hidden_dropout_prob, deterministic) + h
         if ln1 is not None:
             attn_out = layer_norm(attn_out, ln1.weight, ln1.bias, eps)
-        inter = gelu(dense(attn_out, self.intermediate.dense.weight,
-                           self.intermediate.dense.bias))
-        out = dropout(rng, dense(inter, self.output.dense.weight,
-                                 self.output.dense.bias),
+        inter = gelu(dense_col(attn_out, self.intermediate.dense.weight,
+                               self.intermediate.dense.bias))
+        out = dropout(rng, dense_row(inter, self.output.dense.weight,
+                                     self.output.dense.bias),
                       cfg.hidden_dropout_prob, deterministic)
         return layer_norm(out + attn_out, ln2.weight, ln2.bias, eps)
 

@@ -16,6 +16,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.tp import copy_to_model, tp_shard
+
 __all__ = [
     "additive_mask_bias",
     "dense",
@@ -231,8 +233,16 @@ def self_attention(
 
     In pallas mode "1", with a mask and no active attention dropout, the
     scores, mask, softmax and P.V run as the masked attention op (K9);
-    the plain math below is mode "0"/"2"'s and the numerical reference."""
+    the plain math below is mode "0"/"2"'s and the numerical reference.
+
+    Under tensor parallelism (Q/K/V sharded by `parallel.mesh.
+    shard_params`) the rank computes its heads, n_heads / model of them,
+    on h passed through f (`parallel/tp.py`)."""
     head_dim = h.shape[-1] // n_heads
+    shard = tp_shard(wq)
+    if shard is not None:
+        h = copy_to_model(h, shard.group)
+        n_heads //= shard.size
     q = split_heads(dense(h, wq, bq), n_heads)
     k = split_heads(dense(h, wk, bk), n_heads)
     v = split_heads(dense(h, wv, bv), n_heads)

@@ -33,6 +33,7 @@ from ..ops.attention_block import attention_block
 from ..ops.head_block import explainer_head_block
 from ..ops.mlp_block import mlp_block
 from ..ops.shapley import normalize_shapley_explanation
+from ..parallel.tp import dense_col, dense_row
 from .common import (dense, dense_serving, dropout, fused_dims_ok, gelu,
                      init_embedding, init_layer_norm, init_linear,
                      layer_norm, pallas_mode,
@@ -155,7 +156,9 @@ class ViTLayer(nn.Module):
         (`fused_dims_ok`), the fused attention-block and MLP-block ops
         (their int8 versions in int8 mode); otherwise the unfused,
         unquantized math with dropout, whose `self_attention` takes the
-        masked attention op in mode "1"."""
+        masked attention op in mode "1", and which runs tensor-parallel
+        where `parallel.mesh.shard_params` sharded the layer's weights
+        (`parallel/tp.py`)."""
         heads, eps = cfg.num_attention_heads, cfg.layer_norm_eps
         dropout_off = deterministic or (
             cfg.attention_probs_dropout_prob == 0.0
@@ -178,13 +181,14 @@ class ViTLayer(nn.Module):
             "multiplicative", attn_dropout=cfg.attention_probs_dropout_prob,
             generator=rng, deterministic=deterministic)
         out = self.attention.output.dense
-        h = h + dropout(rng, dense(ctx, out.weight, out.bias),
+        h = h + dropout(rng, dense_row(ctx, out.weight, out.bias),
                         cfg.hidden_dropout_prob, deterministic)
         normed = layer_norm(h, self.layernorm_after.weight,
                             self.layernorm_after.bias, eps)
-        inter = gelu(dense(normed, self.intermediate.dense.weight,
-                           self.intermediate.dense.bias))
-        out = dense(inter, self.output.dense.weight, self.output.dense.bias)
+        inter = gelu(dense_col(normed, self.intermediate.dense.weight,
+                               self.intermediate.dense.bias))
+        out = dense_row(inter, self.output.dense.weight,
+                        self.output.dense.bias)
         return h + dropout(rng, out, cfg.hidden_dropout_prob, deterministic)
 
 

@@ -1,5 +1,5 @@
 """The explainer train step, the hot loop of training (port of
-`autognothi_tpu/parallel/train_step.py` for one device).
+`autognothi_tpu/parallel/train_step.py`).
 
 One step: paired-complement coalition masks drawn from a generator (or
 given by the caller), the no-grad teacher sweep over the B*M masked
@@ -19,20 +19,43 @@ regression loss, the backward, and the AdamW update in place.
   frozen updates, and the trainable gradients are the same either way.
 - The spans "teacher", "forward", "backward" and "adamw" are
   `torch.profiler.record_function` ranges, for the step's breakdown.
+- Over a mesh (`parallel/mesh.py`) the masks are drawn for the global
+  batch on every rank from the one generator, and each rank then runs
+  the whole step on its rows along "data" (`pipeline.training.dp_split`):
+  the teacher with its kernels on a pure data mesh (as the JAX
+  `_make_teacher` runs it under shard_map), the differentiated forward in
+  pallas mode "0" (`mesh_safe_pallas`), the loss over the global weight
+  sum; then one all-reduce sums the gradients and the loss over "data",
+  and every rank applies the same AdamW update.  The step gathers
+  nothing.  A batch that does not divide "data" runs whole on every rank
+  in mode "0", as a Megatron (tensor-parallel) mesh always does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch.profiler import record_function
 
-from ..models.common import quant_override
+from ..models.common import pallas_override, quant_override
 from ..ops.shapley import loss_shapley, mask_shapley
-from ..pipeline.training import AdamW
+from ..pipeline.training import AdamW, dp_merge, dp_split
 from ..recipes.types import ModelRecipe, surrogate_coalition_values
+from .distributed import world_size
+from .mesh import axis_size, sharded_call
+
+
+def mesh_safe_pallas():
+    """Forwards that the JAX package partitions over its mesh (the
+    differentiated and eval forwards) run its XLA math there; in a world
+    of more than one rank the port's run the same arithmetic, pallas mode
+    "0".  One device keeps the kernels."""
+    if world_size() > 1:
+        return pallas_override("0")
+    return contextlib.nullcontext()
 
 
 def _teacher_quant() -> str:
@@ -59,6 +82,35 @@ def _teacher(recipe, m_config, srg_model, xs, masks):
     return v_s, v_1
 
 
+def _teacher_on(mesh, sharded: bool):
+    """The teacher's pallas scope: the kernels on the rank's rows of a pure
+    data mesh (or on one device), mode "0" wherever the JAX teacher runs
+    its XLA path (a Megatron mesh, a batch run whole on every rank)."""
+    if mesh is not None and sharded and axis_size(mesh, "model") == 1:
+        return contextlib.nullcontext()
+    return mesh_safe_pallas()
+
+
+def make_teacher(recipe, m_config, mesh=None) -> Callable:
+    """-> teacher(srg_model, xs, masks) -> (v_s, v_1) over the GLOBAL
+    batch: on a pure data mesh each rank sweeps its rows with the kernels
+    and the values are all-gathered (`sharded_call`), as the JAX
+    `_make_teacher`; otherwise the whole batch, in mode "0" past one
+    rank."""
+
+    def teacher(srg_model, xs, masks):
+        n = axis_size(mesh, "data") if mesh is not None else 1
+        if mesh is not None and axis_size(mesh, "model") == 1 and n > 1 \
+                and xs.shape[0] % n == 0 and xs.shape[0] >= n:
+            return sharded_call(
+                lambda m, x, k: _teacher(recipe, m_config, m, x, k), mesh,
+                in_axes=(None, 0, 0))(srg_model, xs, masks)
+        with mesh_safe_pallas():
+            return _teacher(recipe, m_config, srg_model, xs, masks)
+
+    return teacher
+
+
 def _sample_masks(generator: torch.Generator, b: int, n_mask_samples: int,
                   n_players: int, device: torch.device) -> torch.Tensor:
     masks = mask_shapley(generator, b * n_mask_samples, n_players)
@@ -66,8 +118,8 @@ def _sample_masks(generator: torch.Generator, b: int, n_mask_samples: int,
 
 
 def make_explainer_train_step(recipe: ModelRecipe, m_config: Any,
-                              n_players: int, n_mask_samples: int
-                              ) -> Callable:
+                              n_players: int, n_mask_samples: int,
+                              mesh=None) -> Callable:
     """-> step(model, opt, srg_model, surrogate_null, xs, generator, lr,
                update_mask, ltt_active, weights=None, masks=None) -> loss
 
@@ -75,7 +127,8 @@ def make_explainer_train_step(recipe: ModelRecipe, m_config: Any,
     and `opt` is the `AdamW` over them.  `generator` draws the coalition
     masks and then the dropout masks; `masks` <B, M, P>, when given,
     replaces the drawn coalitions (the tests and the chip smoke run hand
-    both versions the same masks).  Returns the loss, a 0-d tensor."""
+    both versions the same masks).  Returns the loss, a 0-d tensor (the
+    global batch's over a mesh: module docstring)."""
 
     def step(model: torch.nn.Module, opt: AdamW, srg_model: torch.nn.Module,
              surrogate_null: torch.Tensor, xs: torch.Tensor,
@@ -83,17 +136,22 @@ def make_explainer_train_step(recipe: ModelRecipe, m_config: Any,
              update_mask: Dict[str, float], ltt_active: Optional[int],
              weights: Optional[torch.Tensor] = None,
              masks: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b = xs.shape[0]
         if masks is None:
-            masks = _sample_masks(generator, b, n_mask_samples, n_players,
-                                  xs.device)
-        with record_function("teacher"):
+            masks = _sample_masks(generator, xs.shape[0], n_mask_samples,
+                                  n_players, xs.device)
+        share = None
+        if mesh is not None:
+            (xs, masks, weights), share = dp_split(mesh, (0, 0, 0),
+                                                   (xs, masks, weights))
+        b = xs.shape[0]
+        with record_function("teacher"), _teacher_on(mesh, share is not None):
             v_s, v_1 = _teacher(recipe, m_config, srg_model, xs, masks)
         params = dict(model.named_parameters())
         trainable = {k: p for k, p in params.items() if p.requires_grad}
         mask_1 = torch.ones((b, n_players), dtype=masks.dtype,
                             device=xs.device)
-        with record_function("forward"), quant_override("none"):
+        with record_function("forward"), mesh_safe_pallas(), \
+                quant_override("none"):
             phi, _ = recipe.fw_explainer(
                 m_config, model, xs, mask_1, v_1, surrogate_null,
                 deterministic=False, rng=generator,
@@ -101,21 +159,27 @@ def make_explainer_train_step(recipe: ModelRecipe, m_config: Any,
             loss = loss_shapley(masks, surrogate_null, v_s, v_1, phi,
                                 weights)
         with record_function("backward"):
-            grads = torch.autograd.grad(loss, list(trainable.values()),
-                                        allow_unused=True)
+            grads = torch.autograd.grad(
+                loss if share is None else loss * share,
+                list(trainable.values()), allow_unused=True)
+        loss = loss.detach()
+        if share is not None:
+            grads = tuple(torch.zeros_like(p) if g is None else g
+                          for g, p in zip(grads, trainable.values()))
+            loss, _, grads = dp_merge(mesh, share, loss, (), grads)
         with record_function("adamw"):
             opt.update(params, dict(zip(trainable, grads)), lr, update_mask)
-        return loss.detach()
+        return loss
 
     return step
 
 
 def make_explainer_eval_step(recipe: ModelRecipe, m_config: Any,
-                             n_players: int, n_mask_samples: int
-                             ) -> Callable:
+                             n_players: int, n_mask_samples: int,
+                             mesh=None) -> Callable:
     """-> eval(model, srg_model, surrogate_null, xs, generator, ltt_active,
                weights=None, masks=None) -> loss  (deterministic forward,
-    the same teacher sweep, no gradient)."""
+    the same teacher sweep, no gradient; the global loss over a mesh)."""
 
     def eval_step(model: torch.nn.Module, srg_model: torch.nn.Module,
                   surrogate_null: torch.Tensor, xs: torch.Tensor,
@@ -123,19 +187,26 @@ def make_explainer_eval_step(recipe: ModelRecipe, m_config: Any,
                   ltt_active: Optional[int],
                   weights: Optional[torch.Tensor] = None,
                   masks: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b = xs.shape[0]
         if masks is None:
-            masks = _sample_masks(generator, b, n_mask_samples, n_players,
-                                  xs.device)
-        v_s, v_1 = _teacher(recipe, m_config, srg_model, xs, masks)
-        mask_1 = torch.ones((b, n_players), dtype=masks.dtype,
+            masks = _sample_masks(generator, xs.shape[0], n_mask_samples,
+                                  n_players, xs.device)
+        share = None
+        if mesh is not None:
+            (xs, masks, weights), share = dp_split(mesh, (0, 0, 0),
+                                                   (xs, masks, weights))
+        with _teacher_on(mesh, share is not None):
+            v_s, v_1 = _teacher(recipe, m_config, srg_model, xs, masks)
+        mask_1 = torch.ones((xs.shape[0], n_players), dtype=masks.dtype,
                             device=xs.device)
         # quant pinned off as in the train step's forward
-        with torch.no_grad(), quant_override("none"):
+        with torch.no_grad(), mesh_safe_pallas(), quant_override("none"):
             phi, _ = recipe.fw_explainer(
                 m_config, model, xs, mask_1, v_1, surrogate_null,
                 **_ltt_kwargs(recipe, ltt_active))
-            return loss_shapley(masks, surrogate_null, v_s, v_1, phi,
+            loss = loss_shapley(masks, surrogate_null, v_s, v_1, phi,
                                 weights)
+        if share is not None:
+            loss, _, _ = dp_merge(mesh, share, loss, ())
+        return loss
 
     return eval_step

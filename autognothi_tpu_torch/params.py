@@ -61,10 +61,17 @@ def from_jax_params(flat: Mapping[str, np.ndarray], cfg: Any,
 
 def to_flat(model: torch.nn.Module) -> Dict[str, np.ndarray]:
     """The inverse, for any section: state dict -> flat dict of numpy
-    arrays under the JAX names, fp32 (integer buffers keep their type)."""
-    return {k: (v.detach().float() if v.is_floating_point()
-                else v.detach()).cpu().numpy()
-            for k, v in model.state_dict().items()}
+    arrays under the JAX names, fp32 (integer buffers keep their type).  A
+    tensor-parallel shard is gathered whole first (`parallel/tp.py`), so
+    the dict is the one-device model's."""
+    from .parallel.tp import gather_shard
+
+    params = dict(model.named_parameters())
+    out = {}
+    for k, v in model.state_dict().items():
+        v = gather_shard(params.get(k, v)).detach()
+        out[k] = (v.float() if v.is_floating_point() else v).cpu().numpy()
+    return out
 
 
 def save_params(file: pathlib.Path, params: Mapping[str, np.ndarray]) -> None:

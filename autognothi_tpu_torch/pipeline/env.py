@@ -3,7 +3,9 @@ directory, its config, the `.log.txt` it appends timestamped lines to, the
 per-stage loggers (`fork`, `metrics`) and the config write-back
 (`flush_cfg`).  wandb is optional: a stage whose logger block enables it
 logs there when the `wandb` package is importable, and otherwise logs its
-metrics as `METRICS:` lines, as the JAX package does without wandb."""
+metrics as `METRICS:` lines, as the JAX package does without wandb.  In a
+world of ranks (`parallel/distributed.py`) only rank 0 writes the log
+file, the config and wandb; every rank prints its lines."""
 
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import pathlib
 import threading
 from typing import Any, Callable, Dict, Optional
 
+from ..parallel.distributed import is_writer
 from ..utils.strings import flatten_dict
 from .config import LOGGERS, Config_Logger, ExpConfig, parse_config
 
@@ -45,8 +48,8 @@ class ExpEnv:
         self.config: ExpConfig = parse_config(json.loads(
             (self.model_path / ".hparams.json").read_text("utf-8")))
         self._log_lock = threading.Lock()
-        self._log_fd = open(self.model_path / ".log.txt", "a",
-                            encoding="utf-8")
+        self._log_fd = (open(self.model_path / ".log.txt", "a",
+                             encoding="utf-8") if is_writer() else None)
         self._owner = True
         self.log(f"[[[ NEW RUN: load config from "
                  f"{self.model_path.absolute().as_posix()} ]]]")
@@ -60,7 +63,7 @@ class ExpEnv:
         line = f"[{ts}] {msg}"
         print(line, flush=True)
         with self._log_lock:
-            if not self._log_fd.closed:
+            if self._log_fd is not None and not self._log_fd.closed:
                 self._log_fd.write(line + "\n")
                 self._log_fd.flush()
 
@@ -68,7 +71,7 @@ class ExpEnv:
         """-> (the stage's logger options, wandb) where wandb logs, else
         (options, None)."""
         opts = self._get_logger_opts(self.config)
-        if opts is None or not opts.wandb_enabled:
+        if opts is None or not opts.wandb_enabled or not is_writer():
             return opts, None
         return opts, _try_wandb()
 
@@ -95,13 +98,15 @@ class ExpEnv:
         return raw
 
     def flush_cfg(self) -> None:
-        """Rewrite .hparams.json in place (indented)."""
+        """Rewrite .hparams.json in place (indented); rank 0 only."""
+        if not is_writer():
+            return
         (self.model_path / ".hparams.json").write_text(
             json.dumps(self._dump(), indent=2) + "\n", "utf-8")
         self.log("[i] updated config file")
 
     def close(self) -> None:
-        if self._owner:
+        if self._owner and self._log_fd is not None:
             with self._log_lock:
                 self._log_fd.close()
 

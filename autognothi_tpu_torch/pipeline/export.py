@@ -33,9 +33,13 @@ path.  `load_exported(...).pcall(params, xs)` runs it on other weights.
   (`kernels/library.py`) whose CUDA implementation launches the
   hand-written kernel, counted as on the live path.  It needs a fixed
   `--batch-size` and `--platforms cuda`.
+- `--data-parallel N` traces the program at batch / N rows (a fixed
+  batch that N divides) and records `nr_devices` N: `load_exported` in a
+  world of N or more ranks (`parallel/distributed.py`) has ranks 0..N-1
+  each run its N-th of the rows and all-gather the outputs, as the JAX
+  package binds its first N devices; a world of fewer ranks refuses it.
 - KernelSHAP's final runs on the host (`fw_final_host`): there is no
-  program to export.  `--data-parallel N > 1` (a mesh-sharded artifact)
-  is not ported yet.
+  program to export.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ import numpy as np
 import torch
 
 from ..models.common import pallas_override, quant_mode, quant_override
+from ..parallel.mesh import gather_in
 from ..utils.devices import resolve_device
 from .env import ExpEnv
 from .resources import get_recipe, load_epoch_model, load_misc
@@ -79,14 +84,6 @@ def _unpack(blob: bytes) -> Tuple[bytes, dict]:
     return blob[16:16 + n], json.loads(blob[16 + n:])
 
 
-def _one_device(data_parallel: int) -> None:
-    if data_parallel != 1:
-        raise NotImplementedError(
-            f"export_final --data-parallel {data_parallel} (a mesh-sharded "
-            "artifact) is not ported yet: it comes with the multi-device "
-            "slice (M10); --data-parallel 1 exports for one device")
-
-
 class _Serving(torch.nn.Module):
     """The serving forward as a module: `fw(model, xs)` under the pinned
     (pallas, quant) modes; the model's parameters are the program's."""
@@ -111,22 +108,30 @@ def build_final_export(fw_final: Callable, model: torch.nn.Module,
 
     `fw_final(model, xs) -> (probs, attr)` on the model's device;
     `modes = (pallas_mode, quant_mode)` pin the compute path during the
-    trace (see `export_final`)."""
-    _one_device(data_parallel)
+    trace (see `export_final`); `data_parallel` N traces batch_size / N
+    rows, the input shape stays the global batch's."""
     device = next(model.parameters()).device
     if batch_size == 0:
         # batch-polymorphic artifact: one program serves any batch.  The
         # plain path traces with a symbolic leading dim; the kernel ops'
-        # launch shapes are static
+        # launch shapes are static, and so are a rank's rows
         if modes[0] not in ("0", ""):
             raise SystemExit("--kernels needs a fixed --batch-size "
                              "(the kernels' launch shapes are static)")
+        if data_parallel > 1:
+            raise SystemExit("a batch-polymorphic artifact cannot be "
+                             "mesh-sharded — pass a fixed --batch-size")
         example = np.repeat(null, 2, axis=0)
         batch = torch.export.Dim("batch", min=1)
         dynamic = {"xs": {0: batch}}
         in_shape = ["batch", *null.shape[1:]]
     else:
-        example = np.repeat(null, batch_size, axis=0)
+        if batch_size % data_parallel != 0:
+            raise SystemExit(
+                f"--batch-size {batch_size} is not divisible by "
+                f"--data-parallel {data_parallel}: every device must get "
+                "equal slab rows")
+        example = np.repeat(null, batch_size // data_parallel, axis=0)
         dynamic = None
         in_shape = [batch_size, *null.shape[1:]]
     xs = torch.as_tensor(np.ascontiguousarray(example)).to(device)
@@ -189,17 +194,16 @@ def export_final(env: ExpEnv, into: pathlib.Path, batch_size: int = 8,
             modes = ("2", quant_mode())
     else:
         modes = ("0", "none")
-    _one_device(data_parallel)
     dev = resolve_device(device)
     _, model = load_epoch_model(env, recipe, "final", dev)
     null = np.asarray(recipe.gen_null(m_config,
                                       load_misc(env, recipe, m_config)))
     env.log(f"[[[ export_final: batch {batch_size}, platforms "
             f"{list(platforms)}, kernels={kernels}, quant={modes[1]}, "
-            f"traced on {dev} ]]]")
+            f"data_parallel={data_parallel}, traced on {dev} ]]]")
     ep, in_shape = build_final_export(
         lambda m, xs: recipe.fw_final(m_config, m, xs), model, null,
-        batch_size, modes=modes)
+        batch_size, modes=modes, data_parallel=data_parallel)
     if not kernels and dev.type != "cpu":
         from torch.export.passes import move_to_device_pass
 
@@ -214,7 +218,7 @@ def export_final(env: ExpEnv, into: pathlib.Path, batch_size: int = 8,
         "kernels": kernels,
         "quant": modes[1],
         "n_params": len(model.state_dict()),
-        "nr_devices": 1,
+        "nr_devices": data_parallel,
     }
     blob = _pack(buf.getvalue(), meta)
     into = pathlib.Path(into)
@@ -239,10 +243,19 @@ def load_exported(path: pathlib.Path, device: str = "cuda"
     device the artifact was not exported for.
 
     The callable carries `in_shape` (None for a symbolic batch),
-    `in_dtype` (numpy), `platforms`, `meta`, `params` (the bundled
-    weights under their flat names, on the device) and `pcall(params,
-    xs)` (the program on other weights of the same names and shapes)."""
+    `in_dtype` (numpy), `platforms`, `meta`, `nr_devices`, `params` (the
+    bundled weights under their flat names, on the device) and
+    `pcall(params, xs)` (the program on other weights of the same names
+    and shapes).
+
+    An artifact of `nr_devices` N > 1 needs a world of N or more ranks
+    (a ValueError naming the N devices otherwise), and every rank of the
+    world loads it: ranks 0..N-1 each run their N-th of the rows of a
+    call (every one of them calls with the whole batch) and all-gather
+    the outputs; a rank past N-1 computes nothing and gets None."""
     program, meta = _unpack(pathlib.Path(path).read_bytes())
+    nr = int(meta.get("nr_devices", 1))
+    shard = _artifact_group(path, nr)
     dev = resolve_device(device)
     if dev.type not in meta["platforms"]:
         raise ValueError(
@@ -261,21 +274,51 @@ def load_exported(path: pathlib.Path, device: str = "cuda"
     params = {k[len(prefix):]: v for k, v in module.state_dict().items()}
 
     def pcall(weights: dict, xs):
-        xs = torch.as_tensor(xs).to(dev)
-        with torch.inference_mode():
-            return torch.func.functional_call(
-                module, {prefix + k: v for k, v in weights.items()}, (xs,))
+        return sharded(lambda x: torch.func.functional_call(
+            module, {prefix + k: v for k, v in weights.items()}, (x,)), xs)
 
     def call(xs):
+        return sharded(module, xs)
+
+    def sharded(fn, xs):
         xs = torch.as_tensor(xs).to(dev)
         with torch.inference_mode():
-            return module(xs)
+            if shard is None:
+                return fn(xs)
+            group, r = shard
+            if r >= nr:
+                return None
+            rows = xs.shape[0] // nr
+            outs = fn(xs[r * rows:(r + 1) * rows])
+            return tuple(gather_in(o, group, nr) for o in outs)
 
     call.in_shape = tuple(d if isinstance(d, int) else None
                           for d in meta["in_shape"])
     call.in_dtype = np.dtype(meta["in_dtype"])
     call.platforms = tuple(meta["platforms"])
     call.meta = meta
+    call.nr_devices = nr
     call.params = params
     call.pcall = pcall
     return call
+
+
+def _artifact_group(path, nr: int):
+    """-> None for a one-device artifact, else (the group of ranks 0..nr-1,
+    this rank); every rank of the world must call (the group is made
+    collectively)."""
+    if nr == 1:
+        return None
+    import torch.distributed as dist
+
+    from ..parallel.distributed import rank, world_size
+
+    if world_size() < nr:
+        raise ValueError(
+            f"artifact {path} was exported for {nr} devices (--data-parallel "
+            f"{nr}); this run's world has {world_size()} process(es) — "
+            f"start {nr} (AUTOGNOTHI_DIST_* or torchrun, one per device) or "
+            "re-export with a smaller --data-parallel")
+    group = (dist.group.WORLD if world_size() == nr
+             else dist.new_group(list(range(nr))))
+    return group, rank()

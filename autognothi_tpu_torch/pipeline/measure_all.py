@@ -16,6 +16,7 @@ from __future__ import annotations
 import json
 from typing import Callable, Optional, Type, TypeVar
 
+from ..parallel.distributed import agree, barrier, is_writer
 from .env import ExpEnv
 from .measure_accuracy import MeasureAccuracyReport, measure_accuracy
 from .measure_branches_cka import (MeasureBranchesCkaReport,
@@ -38,16 +39,21 @@ TReport = TypeVar("TReport")
 def load_or_run_report(env: ExpEnv, t_report: Type[TReport], filename: str,
                        run: Callable[[], TReport]) -> TReport:
     """The cached report if `<exp>/.reports/<filename>` exists, else
-    `run()`'s, written there (indented JSON, the JAX package's form)."""
+    `run()`'s, written there (indented JSON, the JAX package's form).  In
+    a world of ranks, rank 0's view of the cache decides for every rank
+    (so all run the report's collectives or none do), rank 0 writes and
+    the others wait for it."""
     f_path = env.model_path / ".reports" / filename
-    if f_path.exists():
+    if agree(f_path.exists()):
         with open(f_path, "r", encoding="utf-8") as f:
             return load_report(t_report, json.load(f))
     report = run()
-    f_path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = f_path.with_name(f_path.name + ".tmp")
-    tmp.write_text(dump_report(report), "utf-8")
-    tmp.replace(f_path)
+    if is_writer():
+        f_path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = f_path.with_name(f_path.name + ".tmp")
+        tmp.write_text(dump_report(report), "utf-8")
+        tmp.replace(f_path)
+    barrier()
     return report
 
 

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..data.loader import DatasetLoader
-from ..parallel.mesh import setup_data_parallel, sharded_call
+from ..parallel.mesh import axis_size, setup_data_parallel, sharded_call
 from ..recipes.types import surrogate_coalition_values
 from ..utils.devices import resolve_device
 from .env import ExpEnv
@@ -121,18 +121,32 @@ def measure_faithfulness(env: ExpEnv,
     mesh, place_params, place_batch = setup_data_parallel(dev)
     srg_model = place_params(srg_model)
     final_model = place_params(final_model)
-    coalition_values = sharded_call(
-        lambda m, x, f: surrogate_coalition_values(recipe, m_config, m, x, f),
-        mesh, in_axes=(None, None, 1), out_axes=0)
+    n_shards = axis_size(mesh, "data") if mesh is not None else 1
+
+    def coalition_values(m, x, f):
+        return surrogate_coalition_values(recipe, m_config, m, x, f)
+
+    if mesh is not None:
+        # each rank its share of the coalitions, the kernels per rank
+        coalition_values = sharded_call(coalition_values, mesh,
+                                        in_axes=(None, None, 1), out_axes=0)
 
     def eval_perturbed(xs: torch.Tensor, attr: torch.Tensor,
                        mask_base: int) -> np.ndarray:
         """xs <1, ...>, attr <C, P> -> <C, S> surrogate value of class c at
-        stop s (one coalition batch through the embed-once path)."""
+        stop s (one coalition batch through the embed-once path, split
+        over the data mesh)."""
         n_classes = attr.shape[0]
         masks = perturbation_masks(attr, stops, mask_base)  # <C, S, P>
-        flat = masks.reshape(1, n_classes * steps, n_players)
-        probs = coalition_values(srg_model, xs, flat)
+        total = n_classes * steps
+        flat = masks.reshape(1, total, n_players)
+        padded = -(-total // n_shards) * n_shards
+        if padded != total:
+            # edge-pad so the coalitions divide the mesh; the extra rows
+            # are recomputed copies, sliced off below
+            flat = torch.cat([flat, flat[:, -1:].expand(
+                1, padded - total, n_players)], dim=1)
+        probs = coalition_values(srg_model, xs, flat)[:total]
         probs = probs.reshape(n_classes, steps, -1)
         cls_idx = torch.arange(n_classes, device=probs.device)
         return probs[cls_idx, :, cls_idx].float().cpu().numpy()  # <C, S>

@@ -25,6 +25,7 @@ import torch
 from ..data.loader import (CvTransforms, DatasetLoader, load_cv_samples,
                            load_imagenette, load_nlp_samples,
                            load_yelp_polarity, load_yelp_polarity_mini)
+from ..parallel.distributed import barrier, is_writer
 from ..params import from_jax_params, load_params_file, save_params
 from ..recipes.types import ModelRecipe
 from ..utils.strings import ranged_modulo_test
@@ -252,13 +253,16 @@ def save_epoch_ckpt(path: pathlib.Path, section: str, cfg: Config_Train,
     retention keeps it (epoch 0, the last epoch, the `ckpt_when` cadence).
     With AUTOGNOTHI_CKPT_OPT=1 and an `opt`, its state is saved beside the
     parameters, and the previous epoch's opt file goes whatever the
-    retention: a resume only ever continues from the newest epoch."""
+    retention: a resume only ever continues from the newest epoch.  In a
+    world of ranks, rank 0 writes and every rank waits for it."""
     path = pathlib.Path(path)
-    save_params(ckpt_path(path, section, epoch), params)
-    if opt is not None and opt_ckpt_enabled():
-        save_opt_state(path, section, epoch, opt)
-    prev = epoch - 1
-    if not (prev == 0 or prev == cfg.epochs
-            or ranged_modulo_test(cfg.ckpt_when)(prev)):
-        ckpt_path(path, section, prev).unlink(missing_ok=True)
-    opt_path(path, section, prev).unlink(missing_ok=True)
+    if is_writer():
+        save_params(ckpt_path(path, section, epoch), params)
+        if opt is not None and opt_ckpt_enabled():
+            save_opt_state(path, section, epoch, opt)
+        prev = epoch - 1
+        if not (prev == 0 or prev == cfg.epochs
+                or ranged_modulo_test(cfg.ckpt_when)(prev)):
+            ckpt_path(path, section, prev).unlink(missing_ok=True)
+        opt_path(path, section, prev).unlink(missing_ok=True)
+    barrier()

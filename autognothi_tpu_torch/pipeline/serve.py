@@ -20,6 +20,17 @@ Requests coalesce into fixed-size slabs through `MicroBatcher` (a port of
 the JAX package's framework-free batcher).  Its dispatcher thread
 launches every slab on PyTorch's current stream; its completer thread
 copies the results to the host, which waits for that stream.
+
+In a world of N ranks (`parallel/distributed.py`) rank 0 owns the HTTP
+server and the batcher, and the slab batch is rounded up to a multiple of
+N.  For each slab rank 0 broadcasts a small header and then the padded
+slab; every rank runs its N-th of the rows (`parallel.mesh.
+sharded_serving_fn`, or the ranks of an `--artifact` exported with
+`--data-parallel N`) and the outputs are all-gathered.  The other ranks
+run `follow` and never bind a port; SIGTERM on rank 0 drains the slabs in
+flight and then broadcasts a stop, and every rank exits 0.  KernelSHAP's
+host final (`fw_final_host`) and a one-device artifact run on rank 0
+alone.
 """
 
 from __future__ import annotations
@@ -32,6 +43,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from ..parallel.distributed import rank, world_size
+from ..parallel.mesh import axis_size, setup_data_parallel, sharded_serving_fn
 from ..utils.devices import resolve_device
 from .batching import MicroBatcher
 from .env import ExpEnv
@@ -53,17 +66,32 @@ class ExplainService:
         self._row_shape = tuple(
             self.recipe.gen_null(self.m_config, self.misc).shape[1:])
         self.artifact = None
+        # every rank receives each slab and runs its share of it
+        self.followed = False
         if artifact is None:
             _, self.model = load_epoch_model(env, self.recipe, "final",
                                              self.device)
+            self._fw = lambda model, xs: self.recipe.fw_final(
+                self.m_config, model, xs)
+            mesh, place_params, _ = setup_data_parallel(self.device)
+            if mesh is not None and not self.recipe.fw_final_host:
+                n = axis_size(mesh, "data")
+                batch_size = -(-batch_size // n) * n
+                env.log(f"[[[ serving sharded over {n} devices "
+                        f"(batch {batch_size}) ]]]")
+                self.model = place_params(self.model)
+                self._fw = sharded_serving_fn(self._fw, mesh)
+                self.followed = True
         else:
             batch_size = self._load_artifact(artifact, batch_size)
         self.batch_size = batch_size
         self.u8_scale, self.u8_offset = (float(v) for v in u8_dequant)
-        self._batcher = MicroBatcher(
-            self._run_slab, batch_size, window_s=window_s, depth=2,
-            finalize=lambda outs: tuple(o.float().cpu().numpy()
-                                        for o in outs))
+        self._batcher = None
+        if rank() == 0:
+            self._batcher = MicroBatcher(
+                self._run_slab, batch_size, window_s=window_s, depth=2,
+                finalize=lambda outs: tuple(o.float().cpu().numpy()
+                                            for o in outs))
 
     def _load_artifact(self, artifact, batch_size: int) -> int:
         """Serve an `export_final` artifact: the program and its weights are
@@ -85,6 +113,7 @@ class ExplainService:
         if call.in_shape[0] is not None:
             batch_size = call.in_shape[0]
         self.artifact, self.model = call, None
+        self.followed = call.nr_devices > 1
         self.env.log(f"[[[ serving artifact {artifact}: input "
                      f"{call.in_shape} {call.in_dtype}, platforms "
                      f"{call.platforms}, kernels {call.meta['kernels']}, "
@@ -94,17 +123,40 @@ class ExplainService:
     def _run_slab(self, slab: np.ndarray):
         """One fixed-size slab through fw_final (or the artifact's program);
         returns device tensors (the completer thread copies them to the
-        host)."""
+        host).  On rank 0 of a followed world the slab goes to every rank
+        first."""
+        xs = torch.as_tensor(np.ascontiguousarray(slab)).to(self.device)
+        if self.followed:
+            _send(_SLAB, xs)
+        return self._forward(xs)
+
+    def _forward(self, xs: torch.Tensor):
         with torch.inference_mode():
-            xs = torch.as_tensor(np.ascontiguousarray(slab)).to(self.device)
             if xs.dtype == torch.uint8:
                 xs = xs.float() * self.u8_scale + self.u8_offset
             if self.artifact is not None:
                 return self.artifact(xs)
-            return self.recipe.fw_final(self.m_config, self.model, xs)
+            return self._fw(self.model, xs)
+
+    def follow(self) -> int:
+        """A rank past 0: run each slab rank 0 broadcasts until its stop
+        -> the number of slabs run."""
+        slabs = 0
+        while True:
+            xs = _receive(self.device)
+            if xs is None:
+                return slabs
+            self._forward(xs)
+            slabs += 1
 
     def close(self) -> None:
-        self._batcher.close()
+        """Drain the slabs in flight; then rank 0 of a followed world tells
+        the other ranks to stop."""
+        if self._batcher is not None:
+            self._batcher.close()
+            self._batcher = None
+            if world_size() > 1:
+                _send(_STOP, None, self.device)
 
     def warmup(self) -> None:
         """Run the null slab (and, for float rows, its u8 form) to the end,
@@ -152,6 +204,40 @@ class ExplainService:
                 f"from payload shape {tuple(xs.shape)}")
         logits, attr = self._batcher.submit(xs)
         return {"logits": logits.tolist(), "attributions": attr.tolist()}
+
+
+# the header rank 0 broadcasts before each slab: (op, dtype, ndim, shape)
+_STOP, _SLAB = 0, 1
+_HEADER = 8
+_DTYPES = (torch.float32, torch.uint8, torch.int64)  # images, u8, texts
+
+
+def _send(op: int, xs: torch.Tensor = None, device=None) -> None:
+    import torch.distributed as dist
+
+    header = torch.zeros(_HEADER, dtype=torch.int64,
+                         device=xs.device if xs is not None else device)
+    header[0] = op
+    if xs is not None:
+        header[1], header[2] = _DTYPES.index(xs.dtype), xs.dim()
+        header[3:3 + xs.dim()] = torch.tensor(xs.shape)
+    dist.broadcast(header, src=0)
+    if xs is not None:
+        dist.broadcast(xs.contiguous(), src=0)
+
+
+def _receive(device: torch.device):
+    """The next slab rank 0 broadcasts, or None at its stop."""
+    import torch.distributed as dist
+
+    header = torch.zeros(_HEADER, dtype=torch.int64, device=device)
+    dist.broadcast(header, src=0)
+    op, code, ndim, *shape = header.tolist()
+    if op == _STOP:
+        return None
+    xs = torch.empty(shape[:ndim], dtype=_DTYPES[code], device=device)
+    dist.broadcast(xs, src=0)
+    return xs
 
 
 def make_server(service: ExplainService, host: str = "127.0.0.1",
@@ -205,6 +291,11 @@ def serve(env: ExpEnv, host: str, port: int, batch_size: int,
     service = ExplainService(env, batch_size, window_s=window_s,
                              u8_dequant=u8_dequant, artifact=artifact,
                              device=device)
+    if rank() > 0:
+        # no port: this rank runs its share of rank 0's slabs
+        slabs = service.follow()
+        env.log(f"[[[ serve: rank {rank()} ran {slabs} slabs, stopped ]]]")
+        return
     env.log("[[[ warming up the explain step... ]]]")
     service.warmup()
     server = make_server(service, host, port)

@@ -1,5 +1,5 @@
 """Classifier training stage (port of `autognothi_tpu/pipeline/
-train_classifier.py` for one device).  For the LTT recipes the trunk is
+train_classifier.py`).  For the LTT recipes the trunk is
 frozen and the stage trains the side branch 0 and its classifier on the
 labels (progressively, one more ladder layer per epoch, when
 EXPERIMENTAL_progressive_training is set), epoch by epoch, resuming from
@@ -14,8 +14,11 @@ the side branch's probabilities.  The differentiated forward runs under
 without it the kernels, whose backward is autograd through their plain
 versions.  Dropout masks are drawn from a generator on the training
 device seeded with `derive_seed(seed, "train_classifier[epoch=e][train]")`
-(the stage draws no coalition masks).
-Pipeline-parallel training is not ported and raises.
+(the stage draws no coalition masks).  In a world of ranks the stage is
+data-parallel (`parallel/mesh.py:setup_data_parallel`,
+`training.make_train_step`), its forwards in pallas mode "0"
+(`mesh_safe_pallas`).  Pipeline-parallel training is not ported and
+raises.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import torch
 
 from ..models.common import quant_override
 from ..params import to_flat
+from ..parallel.mesh import axis_size, setup_data_parallel
+from ..parallel.train_step import mesh_safe_pallas
 from ..utils.devices import resolve_device
 from ..utils.seeding import iterative_generator, set_iterative_seed
 from .env import ExpEnv
@@ -36,7 +41,8 @@ from .resources import (get_recipe, load_cfg_dataset, load_epoch_model,
                         load_misc, maybe_restore_opt_state, save_epoch_ckpt)
 from .training import (AdamW, LossDrain, cast_input, cosine_lr,
                        cross_entropy_on_probs, filter_mask, graceful_training,
-                       make_train_step, maybe_enable_debug_nans, ones_mask,
+                       make_eval_step, make_train_step,
+                       maybe_enable_debug_nans, ones_mask,
                        pad_batch, refuse_pipeline_parallel)
 
 
@@ -46,7 +52,7 @@ def classifier_loss(recipe, m_config, is_ltt: bool):
 
     def loss_fn(model, xs, mask, labels, generator, ltt_active, weights):
         kw = {"ltt_active_layers": ltt_active} if is_ltt else {}
-        with quant_override("none"):
+        with mesh_safe_pallas(), quant_override("none"):
             probs, _ = recipe.fw_classifier(m_config, model, xs, mask,
                                             deterministic=False,
                                             rng=generator, **kw)
@@ -79,6 +85,11 @@ def train_classifier(env: ExpEnv, device: str = "cuda",
     if epoch_start >= t_cfg.epochs:
         env.log("[[[ classifier already trained ]]]")
         return
+    mesh, place_params, _ = setup_data_parallel(dev)
+    if mesh is not None:
+        env.log(f"[[[ data-parallel over {axis_size(mesh, 'data')} "
+                "devices ]]]")
+        model = place_params(model)
     trainable = ((lambda name: True) if unfreeze_all
                  else recipe.trainable(m_config, "classifier"))
     for name, p in model.named_parameters():
@@ -90,13 +101,15 @@ def train_classifier(env: ExpEnv, device: str = "cuda",
     is_ltt = recipe.progressive_trainable is not None
     full_depth = getattr(m_config, "num_hidden_layers", 0)
     loss_fn = classifier_loss(recipe, m_config, is_ltt)
-    step = make_train_step(loss_fn)
+    step = make_train_step(loss_fn, mesh, in_axes=(0, 0, 0, None, None, 0))
 
-    def eval_fwd(xs, mask, labels, weights, ltt_active):
+    def eval_loss(xs, mask, labels, ltt_active, weights):
         kw = {"ltt_active_layers": ltt_active} if is_ltt else {}
-        with torch.no_grad(), quant_override("none"):
+        with mesh_safe_pallas(), quant_override("none"):
             probs, _ = recipe.fw_classifier(m_config, model, xs, mask, **kw)
             return cross_entropy_on_probs(probs, labels, weights), probs
+
+    eval_fwd = make_eval_step(eval_loss, mesh, in_axes=(0, 0, 0, None, 0))
 
     def run_epoch(epoch: int, gen: Optional[torch.Generator], lr: float,
                   update_mask, ltt_active: int, train: bool):
@@ -131,7 +144,7 @@ def train_classifier(env: ExpEnv, device: str = "cuda",
                 loss, probs = step(model, opt, lr, update_mask, xs, mask_1,
                                    labels, gen, ltt_active, w)
             else:
-                loss, probs = eval_fwd(xs, mask_1, labels, w, ltt_active)
+                loss, probs = eval_fwd(xs, mask_1, labels, ltt_active, w)
             drain.push((loss, probs), (np.asarray(zs), batch))
         drain.flush()
         total = max(state["total"], 1)

@@ -1,5 +1,5 @@
 """Duo explainer trainer (port of `autognothi_tpu/pipeline/
-train_duo_explainer.py` for one device): the joint classification +
+train_duo_explainer.py`): the joint classification +
 Shapley objective, loss = cross-entropy on the explainer's head + the
 Shapley regression (`:82-94`), epoch by epoch, resuming from the newest
 explainer checkpoint.  `train_explainer` dispatches here for the duo
@@ -14,11 +14,16 @@ generator is seeded with `derive_seed(seed, "train_explainer[epoch=e]
 [train|test]")`; it draws the masks, then the dropout masks.  The epoch
 log lines and `env.metrics` keys are the JAX package's.  With
 AUTOGNOTHI_CKPT_OPT=1 the optimizer state is checkpointed beside each
-epoch and reloaded on resume.
+epoch and reloaded on resume.  In a world of ranks the stage is
+data-parallel: the teacher sweeps each rank's rows with its kernels and
+the values are all-gathered (`parallel/train_step.py:make_teacher`, the
+JAX `_make_teacher`), the step runs each rank's rows in pallas mode "0"
+and sums its gradients over "data" (`training.make_train_step`).
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Any, Callable, Optional
 
@@ -29,7 +34,9 @@ from torch.profiler import record_function
 from ..models.common import quant_override
 from ..ops.shapley import loss_shapley
 from ..params import to_flat
-from ..parallel.train_step import _sample_masks, _teacher
+from ..parallel.mesh import axis_size, setup_data_parallel
+from ..parallel.train_step import (_sample_masks, make_teacher,
+                                   mesh_safe_pallas)
 from ..recipes.types import ModelRecipe
 from ..utils.devices import resolve_device
 from ..utils.seeding import iterative_generator, set_iterative_seed
@@ -38,7 +45,8 @@ from .resources import (get_recipe, load_cfg_dataset, load_epoch_model,
                         load_misc, maybe_restore_opt_state, save_epoch_ckpt)
 from .training import (AdamW, LossDrain, cast_input, cosine_lr,
                        cross_entropy_on_probs, graceful_training,
-                       make_train_step, maybe_enable_debug_nans, ones_mask,
+                       make_eval_step, make_train_step,
+                       maybe_enable_debug_nans, ones_mask,
                        pad_batch, refuse_pipeline_parallel)
 
 
@@ -50,7 +58,7 @@ def duo_loss(recipe: ModelRecipe, m_config: Any, n_players: int) -> Callable:
     def loss_fn(model, xs, zs, masks, v_0, v_s, v_1, generator, weights):
         mask_1 = torch.ones((masks.shape[0], n_players), dtype=torch.int32,
                             device=xs.device)
-        with quant_override("none"):
+        with mesh_safe_pallas(), quant_override("none"):
             phi, base_ys = recipe.fw_explainer(
                 m_config, model, xs, mask_1, v_1, v_0,
                 deterministic=generator is None, rng=generator)
@@ -62,23 +70,27 @@ def duo_loss(recipe: ModelRecipe, m_config: Any, n_players: int) -> Callable:
 
 
 def make_duo_explainer_steps(recipe: ModelRecipe, m_config: Any,
-                             n_players: int, n_mask_samples: int):
+                             n_players: int, n_mask_samples: int,
+                             mesh=None):
     """-> (step, eval_step):
     step(model, opt, srg_model, surrogate_null, xs, zs, generator, lr,
          update_mask, weights=None, masks=None) -> (loss, (cls, shap, ys))
     eval_step(model, srg_model, surrogate_null, xs, zs, generator,
               weights=None, masks=None) -> the same, without a graph.
     `generator` draws the coalition masks (unless `masks` <B, M, P> is
-    given) and then the train step's dropout masks."""
+    given) and then the train step's dropout masks; over a `mesh` the
+    masks are the global batch's on every rank."""
     loss_fn = duo_loss(recipe, m_config, n_players)
-    train = make_train_step(loss_fn)
+    in_axes = (0, 0, 0, None, 0, 0, None, 0)
+    train = make_train_step(loss_fn, mesh, in_axes)
+    teacher = make_teacher(recipe, m_config, mesh)
 
     def sweep(srg_model, xs, generator, masks):
         if masks is None:
             masks = _sample_masks(generator, xs.shape[0], n_mask_samples,
                                   n_players, xs.device)
         with record_function("teacher"):
-            v_s, v_1 = _teacher(recipe, m_config, srg_model, xs, masks)
+            v_s, v_1 = teacher(srg_model, xs, masks)
         return masks, v_s, v_1
 
     def step(model: torch.nn.Module, opt: AdamW, srg_model: torch.nn.Module,
@@ -90,15 +102,20 @@ def make_duo_explainer_steps(recipe: ModelRecipe, m_config: Any,
         return train(model, opt, lr, update_mask, xs, zs, masks,
                      surrogate_null, v_s, v_1, generator, weights)
 
+    def flat_eval(model, *batch):
+        loss, aux = loss_fn(model, *batch)
+        return (loss, *aux)
+
     def eval_step(model: torch.nn.Module, srg_model: torch.nn.Module,
                   surrogate_null: torch.Tensor, xs: torch.Tensor,
                   zs: torch.Tensor, generator: Optional[torch.Generator],
                   weights: Optional[torch.Tensor] = None,
                   masks: Optional[torch.Tensor] = None):
         masks, v_s, v_1 = sweep(srg_model, xs, generator, masks)
-        with torch.no_grad():
-            return loss_fn(model, xs, zs, masks, surrogate_null, v_s, v_1,
-                           None, weights)
+        loss, *aux = make_eval_step(
+            functools.partial(flat_eval, model), mesh, in_axes)(
+                xs, zs, masks, surrogate_null, v_s, v_1, None, weights)
+        return loss, tuple(aux)
 
     return step, eval_step
 
@@ -124,6 +141,11 @@ def train_duo_explainer(env: ExpEnv, device: str = "cuda") -> None:
     if epoch_start >= t_cfg.epochs:
         env.log("[[[ explainer already trained ]]]")
         return
+    mesh, place_params, _ = setup_data_parallel(dev)
+    if mesh is not None:
+        env.log(f"[[[ data-parallel over {axis_size(mesh, 'data')} "
+                "devices ]]]")
+        model, srg_model = place_params(model), place_params(srg_model)
     srg_model.requires_grad_(False)
     trainable = recipe.trainable(m_config, "explainer")
     for name, p in model.named_parameters():
@@ -133,7 +155,7 @@ def train_duo_explainer(env: ExpEnv, device: str = "cuda") -> None:
     opt = maybe_restore_opt_state(env.model_path, "explainer", epoch_start,
                                   AdamW(params, trainable))
     step, eval_step = make_duo_explainer_steps(recipe, m_config, n_players,
-                                               t_cfg.n_mask_samples)
+                                               t_cfg.n_mask_samples, mesh)
     with torch.no_grad():
         nil_xs = torch.from_numpy(recipe.gen_null(m_config, m_misc)).to(dev)
         surrogate_null, _ = recipe.fw_surrogate(

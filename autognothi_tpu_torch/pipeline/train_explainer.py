@@ -1,5 +1,5 @@
 """Explainer training stage (port of `autognothi_tpu/pipeline/
-train_explainer.py` for one device): Shapley regression of the explainer
+train_explainer.py`): Shapley regression of the explainer
 against the masked surrogate values, epoch by epoch, resuming from the
 newest explainer checkpoint and writing one per epoch in the JAX package's
 npz format.
@@ -12,10 +12,12 @@ epoch draws its coalition (and dropout) masks from a generator on the
 training device seeded with `derive_seed(seed, "train_explainer[epoch=e]
 [train|test]")`.  The duo recipes train with `train_duo_explainer.py`
 (the joint classification + Shapley loss), the KernelSHAP recipe with
-`train_kernel_shap_explainer.py` (k-means), as in the JAX package.
-Pipeline-parallel training (AUTOGNOTHI_PP, AUTOGNOTHI_PP_TP above 1) is
-not ported and raises.  With AUTOGNOTHI_CKPT_OPT=1 the optimizer state is
-checkpointed beside each epoch and reloaded on resume.
+`train_kernel_shap_explainer.py` (k-means), as in the JAX package.  In a
+world of ranks the stage is data-parallel (`parallel/mesh.py:
+setup_data_parallel`; the step's docstring says how).  Pipeline-parallel
+training (AUTOGNOTHI_PP, AUTOGNOTHI_PP_TP above 1) is not ported and
+raises.  With AUTOGNOTHI_CKPT_OPT=1 the optimizer state is checkpointed
+beside each epoch and reloaded on resume.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import time
 import torch
 
 from ..params import to_flat
+from ..parallel.mesh import axis_size, setup_data_parallel
 from ..parallel.train_step import (make_explainer_eval_step,
                                    make_explainer_train_step)
 from ..utils.devices import resolve_device
@@ -70,6 +73,12 @@ def train_explainer(env: ExpEnv, device: str = "cuda") -> None:
     if epoch_start >= t_cfg.epochs:
         env.log("[[[ explainer already trained ]]]")
         return
+    # multi-device: replicate the models, shard the batch/coalition rows
+    mesh, place_params, _ = setup_data_parallel(dev)
+    if mesh is not None:
+        env.log(f"[[[ data-parallel over {axis_size(mesh, 'data')} "
+                "devices ]]]")
+        model, srg_model = place_params(model), place_params(srg_model)
     srg_model.requires_grad_(False)
     trainable = recipe.trainable(m_config, "explainer")
     for name, p in model.named_parameters():
@@ -79,9 +88,9 @@ def train_explainer(env: ExpEnv, device: str = "cuda") -> None:
     opt = maybe_restore_opt_state(env.model_path, "explainer", epoch_start,
                                   AdamW(params, trainable))
     step = make_explainer_train_step(recipe, m_config, n_players,
-                                     t_cfg.n_mask_samples)
+                                     t_cfg.n_mask_samples, mesh=mesh)
     eval_step = make_explainer_eval_step(recipe, m_config, n_players,
-                                         t_cfg.n_mask_samples)
+                                         t_cfg.n_mask_samples, mesh=mesh)
 
     # surrogate_null: the surrogate on the all-on null input, once
     with torch.no_grad():

@@ -1,5 +1,5 @@
 """Surrogate training stage (port of `autognothi_tpu/pipeline/
-train_surrogate.py` for one device): KL distillation of the frozen
+train_surrogate.py`): KL distillation of the frozen
 classifier under random coalition masks, epoch by epoch, resuming from the
 newest surrogate checkpoint.
 
@@ -16,7 +16,11 @@ cross-entropy metric.  Each epoch draws its masks, and then its dropout
 masks, from a generator on the training device seeded with
 `derive_seed(seed, "train_surrogate[epoch=e][train|test]")`.  With
 EXPERIMENTAL_progressive_training one more ladder layer unfreezes every
-three epochs.  Pipeline-parallel training is not ported and raises.
+three epochs.  In a world of ranks the stage is data-parallel
+(`parallel/mesh.py:setup_data_parallel`, `training.make_train_step`):
+the teacher and the student run on each rank's rows in pallas mode "0"
+(`mesh_safe_pallas`), as the JAX stage runs them on its mesh.
+Pipeline-parallel training is not ported and raises.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ import torch
 from ..models.common import quant_override
 from ..ops.shapley import loss_logits_kl_divergence, mask_purely_uniform
 from ..params import to_flat
+from ..parallel.mesh import axis_size, setup_data_parallel, sharded_eval_fn
+from ..parallel.train_step import mesh_safe_pallas
 from ..utils.devices import resolve_device
 from ..utils.seeding import iterative_generator, set_iterative_seed
 from .env import ExpEnv
@@ -37,7 +43,8 @@ from .resources import (get_recipe, load_cfg_dataset, load_epoch_model,
                         load_misc, maybe_restore_opt_state, save_epoch_ckpt)
 from .training import (AdamW, LossDrain, cast_input, cosine_lr,
                        cross_entropy_on_probs, filter_mask, graceful_training,
-                       make_train_step, maybe_enable_debug_nans, ones_mask,
+                       make_eval_step, make_train_step,
+                       maybe_enable_debug_nans, ones_mask,
                        pad_batch, refuse_pipeline_parallel)
 
 
@@ -49,7 +56,7 @@ def surrogate_loss(recipe, m_config, is_ltt: bool):
     def loss_fn(model, xs, mask, orig_ys, labels, generator, ltt_active,
                 weights):
         kw = {"ltt_active_layers": ltt_active} if is_ltt else {}
-        with quant_override("none"):
+        with mesh_safe_pallas(), quant_override("none"):
             adapt_ys, _ = recipe.fw_surrogate(m_config, model, xs, mask,
                                               deterministic=False,
                                               rng=generator, **kw)
@@ -60,14 +67,21 @@ def surrogate_loss(recipe, m_config, is_ltt: bool):
     return loss_fn
 
 
-def surrogate_teacher(recipe, m_config):
+def surrogate_teacher(recipe, m_config, mesh=None):
     """-> teacher(cls_model, xs, mask) -> the classifier's trunk
     probabilities, without a graph, in the arithmetic AUTOGNOTHI_INT8 picks
-    (no override: not the explainer step's AUTOGNOTHI_INT8_TEACHER)."""
+    (no override: not the explainer step's AUTOGNOTHI_INT8_TEACHER).  Over
+    a mesh each rank computes its rows in mode "0" and the probabilities
+    are all-gathered."""
+
+    def fw(cls_model, xs, mask):
+        return recipe.fw_classifier(m_config, cls_model, xs, mask)[1]
+
+    sharded = sharded_eval_fn(fw, mesh, in_axes=(None, 0, 0))
 
     def teacher(cls_model, xs, mask):
-        with torch.no_grad():
-            return recipe.fw_classifier(m_config, cls_model, xs, mask)[1]
+        with torch.no_grad(), mesh_safe_pallas():
+            return sharded(cls_model, xs, mask)
 
     return teacher
 
@@ -96,6 +110,11 @@ def train_surrogate(env: ExpEnv, device: str = "cuda") -> None:
     if epoch_start >= t_cfg.epochs:
         env.log("[[[ surrogate already trained ]]]")
         return
+    mesh, place_params, _ = setup_data_parallel(dev)
+    if mesh is not None:
+        env.log(f"[[[ data-parallel over {axis_size(mesh, 'data')} "
+                "devices ]]]")
+        model, cls_model = place_params(model), place_params(cls_model)
     cls_model.requires_grad_(False)
     trainable = recipe.trainable(m_config, "surrogate")
     for name, p in model.named_parameters():
@@ -106,17 +125,20 @@ def train_surrogate(env: ExpEnv, device: str = "cuda") -> None:
                                   AdamW(params, trainable))
     is_ltt = recipe.progressive_trainable is not None
     full_depth = getattr(m_config, "num_hidden_layers", 0)
-    step = make_train_step(surrogate_loss(recipe, m_config, is_ltt))
-    teacher = surrogate_teacher(recipe, m_config)
+    step = make_train_step(surrogate_loss(recipe, m_config, is_ltt), mesh,
+                           in_axes=(0, 0, 0, 0, None, None, 0))
+    teacher = surrogate_teacher(recipe, m_config, mesh)
 
-    def eval_fwd(xs, mask, orig_ys, labels, weights, ltt_active):
+    def eval_loss(xs, mask, orig_ys, labels, ltt_active, weights):
         kw = {"ltt_active_layers": ltt_active} if is_ltt else {}
-        with torch.no_grad(), quant_override("none"):
+        with mesh_safe_pallas(), quant_override("none"):
             adapt_ys, _ = recipe.fw_surrogate(m_config, model, xs, mask,
                                               **kw)
             return (loss_logits_kl_divergence(orig_ys, adapt_ys, weights),
                     cross_entropy_on_probs(adapt_ys, labels, weights),
                     adapt_ys)
+
+    eval_fwd = make_eval_step(eval_loss, mesh, in_axes=(0, 0, 0, 0, None, 0))
 
     def run_epoch(epoch: int, gen: torch.Generator, lr: float, update_mask,
                   ltt_active: int, train: bool):
@@ -158,7 +180,7 @@ def train_surrogate(env: ExpEnv, device: str = "cuda") -> None:
                                             ltt_active, w)
             else:
                 kld, cls, adapt_ys = eval_fwd(xs, mask_rand, orig_ys, labels,
-                                              w, ltt_active)
+                                              ltt_active, w)
             drain.push((kld, cls, adapt_ys), (np.asarray(zs), batch))
         drain.flush()
         total = max(state["total"], 1)

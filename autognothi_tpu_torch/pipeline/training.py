@@ -1,8 +1,9 @@
 """Shared training machinery (port of `autognothi_tpu/pipeline/training.py`):
 AdamW with the optax arithmetic and freeze masks, the train step factory
-(`make_train_step`), the cross-entropy on probabilities, the cosine
-learning rate, ragged-batch padding, the compute dtype, the deferred loss
-fetch, the anomaly switch, and the SIGTERM-graceful batch loop.
+(`make_train_step`, data-parallel over a mesh), the cross-entropy on
+probabilities, the cosine learning rate, ragged-batch padding, the compute
+dtype, the deferred loss fetch, the anomaly switch, and the
+SIGTERM-graceful batch loop.
 
 - Freezing is partitioning, as `optax.multi_transform` with `set_to_zero`
   does it: a frozen parameter gets no update and no weight decay.  The
@@ -28,6 +29,9 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch.profiler import record_function
+
+from ..parallel.mesh import (all_reduce_sum, data_rows, gather_rows,
+                             pad_to_multiple, shard_batch)
 
 # torch.optim.AdamW defaults; the reference never overrides them
 ADAMW_BETAS = (0.9, 0.999)
@@ -153,33 +157,115 @@ def cross_entropy_on_probs(probs: torch.Tensor, labels: torch.Tensor,
     return (w * nll).sum() / torch.clamp(w.sum(), min=1.0)
 
 
-def make_train_step(loss_fn: Callable[..., Tuple[torch.Tensor, object]]
-                    ) -> Callable:
+def dp_split(mesh, in_axes, batch: tuple):
+    """A data-parallel step's inputs -> (this rank's batch, its share of
+    the global weight sum), or (batch, None) where the step runs whole on
+    every rank (no mesh, or a batch that does not divide "data").
+
+    Every rank holds the global batch; each `in_axes` 0 argument gives
+    its r-th n-th part along dim 0 (rows of <B*M, ...> arguments follow
+    their batch rows), None passes whole.  The last argument is the
+    <B> weights marking real rows (None: all real).  A weighted mean over
+    the rank's rows times the share is the rank's weighted sum over the
+    GLOBAL weight sum, so the sum over ranks is the one-device value even
+    where padding rows fill a whole rank."""
+    lead = next(a for a, ax in zip(batch, in_axes) if ax == 0)
+    rows = data_rows(mesh, lead.shape[0])
+    if rows is None:
+        return batch, None
+    weights = batch[-1]
+    if weights is None:
+        weights = torch.ones(lead.shape[:1], device=lead.device)
+        batch = (*batch[:-1], weights)
+    share = weights[rows].float().sum() / torch.clamp(
+        weights.float().sum(), min=1.0)
+    return tuple(a if ax is None else shard_batch(a, mesh)
+                 for a, ax in zip(batch, in_axes)), share
+
+
+def dp_merge(mesh, share, loss: torch.Tensor, aux, grads: tuple = ()):
+    """The global (loss, aux, grads) of a data-parallel step from this
+    rank's: the loss and every 0-d aux value are weighted means, taken
+    times the share; they and the gradients are summed over "data" in one
+    all-reduce; row outputs (aux with a batch dim) are all-gathered."""
+    leaves = list(aux) if isinstance(aux, tuple) else [aux]
+    scalars = [i for i, a in enumerate(leaves)
+               if isinstance(a, torch.Tensor) and a.dim() == 0]
+    summed = all_reduce_sum(
+        [*grads, loss * share, *(leaves[i] * share for i in scalars)],
+        mesh.get_group("data"))
+    grads, loss = tuple(summed[:len(grads)]), summed[len(grads)]
+    for i, v in zip(scalars, summed[len(grads) + 1:]):
+        leaves[i] = v
+    leaves = [gather_rows(a, mesh) if isinstance(a, torch.Tensor)
+              and a.dim() > 0 else a for a in leaves]
+    return loss, (tuple(leaves) if isinstance(aux, tuple) else leaves[0]), \
+        grads
+
+
+def make_train_step(loss_fn: Callable[..., Tuple[torch.Tensor, object]],
+                    mesh=None, in_axes: Optional[tuple] = None) -> Callable:
     """-> step(model, opt, lr, update_mask, *batch) -> (loss, aux), the
     JAX `make_train_step` on a module trained in place:
     `loss_fn(model, *batch) -> (loss, aux)` (a 0-d loss with a graph), the
     gradients of the trainable parameters (those that require grad) by
     `torch.autograd.grad`, then `opt.update` with `update_mask` (which
     multiplies gradients and updates).  aux is returned detached.  The
-    spans "forward", "backward" and "adamw" are `record_function` ranges."""
+    spans "forward", "backward" and "adamw" are `record_function` ranges.
+
+    With a data `mesh` (`parallel.mesh.setup_data_parallel`) each rank
+    runs its rows of the batch (`dp_split`: `in_axes` per batch argument,
+    the last one the weights), and the gradients, the loss and the 0-d aux
+    losses are summed over "data" before the update (`dp_merge`), so every
+    rank applies the same update and the parameters stay bit-identical."""
 
     def step(model: torch.nn.Module, opt: AdamW, lr: float,
              update_mask: Mapping[str, float], *batch):
         params = dict(model.named_parameters())
         trainable = {k: p for k, p in params.items() if p.requires_grad}
+        share = None
+        if mesh is not None:
+            batch, share = dp_split(mesh, in_axes, batch)
         with record_function("forward"):
             loss, aux = loss_fn(model, *batch)
         with record_function("backward"):
             # a section that trains nothing (the vanilla classifier) has
             # no graph to differentiate
             grads = torch.autograd.grad(
-                loss, list(trainable.values()),
+                loss if share is None else loss * share,
+                list(trainable.values()),
                 allow_unused=True) if trainable else ()
+        loss, aux = loss.detach(), _detached(aux)
+        if share is not None:
+            grads = tuple(torch.zeros_like(p) if g is None else g
+                          for g, p in zip(grads, trainable.values()))
+            loss, aux, grads = dp_merge(mesh, share, loss, aux, grads)
         with record_function("adamw"):
             opt.update(params, dict(zip(trainable, grads)), lr, update_mask)
-        return loss.detach(), _detached(aux)
+        return loss, aux
 
     return step
+
+
+def make_eval_step(eval_fn: Callable[..., tuple], mesh=None,
+                   in_axes: Optional[tuple] = None) -> Callable:
+    """-> eval(*batch) -> eval_fn(*batch)'s (loss, ...) without a graph,
+    data-parallel as `make_train_step` over a mesh: the first output and
+    every other 0-d one are weighted means summed over "data", row
+    outputs are all-gathered."""
+
+    def call(*batch):
+        share = None
+        if mesh is not None:
+            batch, share = dp_split(mesh, in_axes, batch)
+        with torch.no_grad():
+            loss, *rest = eval_fn(*batch)
+        if share is None:
+            return (loss, *rest)
+        loss, rest, _ = dp_merge(mesh, share, loss, tuple(rest))
+        return (loss, *rest)
+
+    return call
 
 
 def _detached(aux):
@@ -200,17 +286,11 @@ def pad_batch(xs, zs, batch_size: int):
     if not pad_ragged():
         return xs, (None if zs is None else np.asarray(zs)), \
             np.ones((real,), np.float32)
-    target = -(-real // batch_size) * batch_size
-
-    def pad(a):
-        if a.shape[0] == target:
-            return a
-        return np.pad(a, [(0, target - a.shape[0])] + [(0, 0)] * (a.ndim - 1),
-                      mode="edge")
-
-    weights = np.zeros((target,), np.float32)
+    xs = pad_to_multiple(xs, batch_size)
+    zs_p = None if zs is None else pad_to_multiple(np.asarray(zs), batch_size)
+    weights = np.zeros((xs.shape[0],), np.float32)
     weights[:real] = 1.0
-    return pad(xs), (None if zs is None else pad(np.asarray(zs))), weights
+    return xs, zs_p, weights
 
 
 # ------------------------------------------ SIGTERM-graceful interruption

@@ -3,6 +3,8 @@
 GPU: the quickest proof that the port still starts on the card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dist-cards 4   # phase 16 (b), one NCCL rank
+                                           # per card, on a 4-card host
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit; build the CUDA kernels from
@@ -261,8 +263,26 @@ Phases, each printing its own lines:
      live serving; the default artifact (the plain math, one file for
      cuda and cpu) loaded on the card and on the CPU, each within 1e-5 of
      the live plain forward (pallas mode "0") there, and a symbolic-batch
-     one at B = 3 and 8; export and load seconds, bytes, and expl/s of
-     each artifact against its live path at B = 8 (`[export]` lines).
+     one at B = 3 and 8, both of the final's first 4 layers
+     (`EXPORT_PLAIN_LAYERS`: at full depth their traces and loads were the
+     phase's largest part); export and load seconds, bytes, and expl/s of each
+     artifact against its live path at B = 8 (`[export]` lines).
+  16. (run right after phase 4) the multi-device slice, in child
+     processes started together (`--dist-child`, each with its own
+     timeout; budget 75 s, ~40-55 s measured): (a) a world of one
+     through the CLI's own initialisation (AUTOGNOTHI_DIST_* on
+     127.0.0.1, NCCL): phase 4's explainer step at B = 8 x M = 32 bit-
+     identical to the step without the world, and a W8A8 serve of phase
+     3's requests bit-identical to phase 3's answers with its kernel
+     calls a slab; (b) two gloo ranks on the one card (NCCL takes one rank
+     per card): the data-parallel step (4 images a rank) against the
+     one-process step in the same arithmetic (loss within 1e-6 relative,
+     the parameters within 1e-6 where the gradient is settled, the ranks
+     bit for bit), the tensor-parallel (model 2) step in mode "0" at B =
+     2 x M = 4 against the one-process plain step, the W8A8 slabs split
+     over the ranks (each rank's kernel calls a slab) and a
+     `--data-parallel 2 --kernels` artifact served, both against phase
+     3's answers (`[dist]` lines, each with the card).
 
 Any failure raises, exits non-zero and prints no result.  The last three
 lines are the card, the kernel table (JSON) and the status line (JSON).
@@ -2566,6 +2586,8 @@ def phase_timing(dev, card: str, service) -> dict:
             t_lib = None
             if name == "masked_attention" and tag.endswith(" add"):
                 t_lib = time_library_attention(args, card)
+            if name == "ladder_attention" and name not in per_op:
+                t_lib = time_library_ladder_attention(args, card)
             if name in ("mlp_block_int8", "head_block") \
                     and name not in per_op:
                 t_lib = time_library_int8(name, args, card)
@@ -2618,6 +2640,37 @@ def time_library_attention(args, card: str) -> float:
           f"F.scaled_dot_product_attention {tuple(q.shape)} {q.dtype}: "
           f"{t_lib:.4f} ms "
           f"(max|sdpa - plain| = {err:.3e}) | {card}", flush=True)
+    return t_lib
+
+
+def time_library_ladder_attention(args, card: str) -> float:
+    """`F.scaled_dot_product_attention` per branch on the ladder attention
+    op's inputs, its 0/1 mask row as a boolean `attn_mask`: the yardstick
+    of K10, timed here only.  A masked key is left out there, while the
+    op's "mul" mode multiplies its score by 0 (the JAX package's quirk):
+    the same work, another function, so the difference is printed, not
+    held."""
+    import torch.nn.functional as F
+
+    from autognothi_tpu_torch.ops import ladder_block as lb
+
+    qkvs, mask_row, n_heads, mode = args
+    keep = mask_row.bool()[:, None, None, :]
+    heads = [tuple(lb._heads(x, n_heads) for x in tr) for tr in qkvs]
+
+    def sdpa():
+        return [F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+                for q, k, v in heads]
+
+    want = _ladder_attention_plain(qkvs, mask_row, n_heads, mode, mode=mode)
+    err = max(float((g.transpose(1, 2).reshape(w.shape) - w).abs().max())
+              for g, w in zip(sdpa(), want))
+    t_lib = cuda_time(sdpa, reps=10)
+    print(f"[time] ladder_attention library yardstick "
+          f"F.scaled_dot_product_attention x {len(qkvs)} "
+          f"{tuple(heads[0][0].shape)} {qkvs[0][0].dtype}, boolean mask: "
+          f"{t_lib:.4f} ms (max|sdpa - plain {mode}| = {err:.3e}, another "
+          f"function) | {card}", flush=True)
     return t_lib
 
 
@@ -4876,6 +4929,32 @@ def phase_demos(dev, tmp: pathlib.Path, card: str) -> dict:
 EXPORT_PATHS = (("vit fp32", "vit", False), ("vit int8", "vit", True),
                 ("bert int8", "bert", True))
 EXPORT_TOL = 1e-5  # the default (plain) artifact against the live plain path
+EXPORT_PLAIN_LAYERS = 4  # the default artifacts' depth (a cut for time)
+
+
+def shallow_final(exp: pathlib.Path, layers: int, tmp: pathlib.Path, dev):
+    """The experiment's LTT ViT final cut to its first `layers` trunk
+    layers and ladder steps, as an experiment of its own -> (its dir, its
+    config, the cut model on `dev`)."""
+    import re
+
+    from autognothi_tpu_torch.models.ltt_vit import LttViTConfig
+    from autognothi_tpu_torch.params import (from_jax_params,
+                                             load_params_file, save_params)
+
+    hp = json.loads((exp / ".hparams.json").read_text())
+    hp["net"]["params"]["num_hidden_layers"] = layers
+    out = tmp / f"{exp.name}_{layers}_layers"
+    out.mkdir()
+    (out / ".hparams.json").write_text(json.dumps(hp, indent=2))
+    layer = re.compile(r"\.(?:layers\.|s_attn_layers\.\d+_|s_attn_maps\.\d+_)"
+                       r"(\d+)\.")
+    flat = {k: v for k, v in load_params_file(
+        exp / "final-epoch-0.ckpt").items()
+        if not (m := layer.search(k)) or int(m.group(1)) < layers}
+    save_params(out / "final-epoch-0.ckpt", flat)
+    cfg = LttViTConfig(**hp["net"]["params"])
+    return out, cfg, from_jax_params(flat, cfg, dev)
 
 
 def export_timed(exp: pathlib.Path, into: pathlib.Path, card: str,
@@ -4991,18 +5070,22 @@ def phase_export(dev, tmp: pathlib.Path, card: str, exps: dict,
         art.unlink()
         torch.cuda.empty_cache()
 
-    # the default artifact: fixed B = 8, and symbolic
+    # the default artifact, fixed B = 8 and symbolic, of the final's first
+    # EXPORT_PLAIN_LAYERS layers: its traces were phase 15's largest part
     live = services["vit"]
     xs = inputs["vit"]
+    shallow, cfg_s, model_s = shallow_final(exps["vit"], EXPORT_PLAIN_LAYERS,
+                                            tmp, dev)
 
-    def fw_plain(m=live.model, x=xs):
+    def fw_plain(m=model_s, x=xs):
         with pallas_override("0"), torch.inference_mode():
-            return live.recipe.fw_final(live.m_config, m, x)
+            return live.recipe.fw_final(cfg_s, m, x)
 
     for batch in (8, 0):
         art = tmp / f"default_{batch}.agx"
-        tag = f"vit default B={batch or 'symbolic'}"
-        meta = export_timed(exps["vit"], art, card, tag, batch_size=batch)
+        tag = (f"vit default {EXPORT_PLAIN_LAYERS} layers "
+               f"B={batch or 'symbolic'}")
+        meta = export_timed(shallow, art, card, tag, batch_size=batch)
         check(meta["platforms"] == ["cuda", "cpu"] and not meta["kernels"],
               f"{tag}: exported {meta}")
         fw = load_timed(art, "cuda", card, tag)
@@ -5017,7 +5100,7 @@ def phase_export(dev, tmp: pathlib.Path, card: str, exps: dict,
             rates_in_turns({"live plain": fw_plain,
                             "artifact": lambda f=fw: f(xs)}, 8, card, tag)
             fw_cpu = load_timed(art, "cpu", card, tag)
-            model_cpu = copy.deepcopy(live.model).cpu()
+            model_cpu = copy.deepcopy(model_s).cpu()
             got = fw_cpu(xs.cpu())
             want = fw_plain(m=model_cpu, x=xs.cpu())
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
@@ -5030,6 +5113,458 @@ def phase_export(dev, tmp: pathlib.Path, card: str, exps: dict,
         del fw
         art.unlink()
         torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------- phase 16: multi-device (M10a)
+
+DIST_TIMEOUT = 300  # seconds a child of phase 16 may take
+TP_B, TP_M = 2, 4  # the tensor-parallel step's images x coalitions
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def settled_diff(got: dict, want: dict, grads: dict, lr: float):
+    """-> (largest |got - want| where the reference gradient is settled,
+    |g| > 1e-4 max|g|, largest elsewhere): AdamW's first update is about
+    lr sign(g), so where g is float noise the update may move by 2 lr."""
+    import torch
+
+    g_max = max(float(g.abs().max()) for g in grads.values())
+    sure, loose = 0.0, 0.0
+    for k, w in want.items():
+        d = (got[k].float() - w.float()).abs()
+        g = grads.get(k)
+        mask = (g.abs() > 1e-4 * g_max) if g is not None \
+            else torch.ones_like(d, dtype=torch.bool)
+        if mask.any():
+            sure = max(sure, float(d[mask].max()))
+        if (~mask).any():
+            loose = max(loose, float(d[~mask].max()))
+    check(loose <= 2.02 * lr, f"an unsettled parameter moved {loose:.3e}")
+    return sure, loose
+
+
+def trainable_copy(case, model=None):
+    """-> (model, AdamW, the gradients the update saw) on a fresh copy of
+    the phase-4 explainer."""
+    from autognothi_tpu_torch.pipeline.training import AdamW
+
+    model = copy.deepcopy(case.explainer if model is None else model)
+    for name, p in model.named_parameters():
+        p.requires_grad_(case.trainable(name))
+    params = dict(model.named_parameters())
+    opt = AdamW(params, case.trainable)
+    grads, update = {}, opt.update
+
+    def spy(p, g, lr, mask):
+        grads.update({k: v.detach().clone() for k, v in g.items()
+                      if v is not None})
+        return update(p, g, lr, mask)
+
+    opt.update = spy
+    return model, opt, grads
+
+
+def step_on(case, step, model, opt, xs, masks, srg=None):
+    """One explainer step of `step` (lr 5e-5, every parameter's mask 1)."""
+    ones = {k: 1.0 for k, _ in model.named_parameters()}
+    return step(model, opt, case.srg if srg is None else srg, case.null, xs,
+                None, 5e-5, ones, case.cfg.num_hidden_layers, masks=masks)
+
+
+def warm_step_ms(run, reps: int = 3) -> float:
+    """Host ms a step, over `reps` steps after the first (warm) ones."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def dist_child(spec_path: str) -> int:
+    """One rank of phase 16 (`python3 chip_smoke.py --dist-child spec`):
+    "a", a world of one through the CLI's own initialisation (NCCL), or
+    "b", a rank of a world of two gloo ranks on the one card, or of one
+    NCCL rank per card (`--dist-cards`, the CLI's initialisation)."""
+    import torch.distributed as dist
+
+    from autognothi_tpu_torch.parallel.distributed import \
+        maybe_initialize_distributed
+    from autognothi_tpu_torch.utils.devices import resolve_device
+
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    out = {}
+    if spec["check"] == "b" and spec["backend"] == "gloo":
+        # the port picks NCCL for cuda; two ranks on one card take gloo
+        dist.init_process_group("gloo", init_method=spec["init"],
+                                world_size=spec["world"], rank=spec["rank"])
+    elif spec["check"] == "b":
+        check(maybe_initialize_distributed(device="cuda"), "no world")
+    dev = resolve_device("cuda")
+    case = TrainCase(dev, pathlib.Path(spec["train_exp"]))
+    live_int8 = json.loads(pathlib.Path(spec["live_int8"]).read_text())
+    if spec["check"] == "a":
+        dist_child_a(case, spec, out, live_int8)
+    else:
+        dist_child_b(case, spec, out, live_int8)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    pathlib.Path(spec["out"]).write_text(json.dumps(out))
+    return 0
+
+
+def dist_child_a(case, spec: dict, out: dict, live_int8: dict) -> None:
+    """A world of one: the explainer step bit-identical to the same step
+    without the environment, and a W8A8 serve of phase 3's requests
+    bit-identical to phase 3's answers, with its kernel calls a slab."""
+    import torch
+
+    from autognothi_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed, process_info)
+    from autognothi_tpu_torch.parallel.mesh import setup_data_parallel
+    from autognothi_tpu_torch.parallel.train_step import \
+        make_explainer_train_step
+
+    start = copy.deepcopy(case.explainer)
+    model, opt, _ = trainable_copy(case, start)
+    loss0 = step_on(case, case.step, model, opt, case.xs, case.masks).item()
+    want = {k: v.clone() for k, v in model.state_dict().items()}
+    check(maybe_initialize_distributed(device="cuda"), "no world engaged")
+    out["info"] = process_info()
+    import torch.distributed as dist
+
+    out["backend"] = dist.get_backend()
+    mesh, place_params, _ = setup_data_parallel(case.xs.device)
+    check(mesh is None, "a world of one built a mesh")
+    step = make_explainer_train_step(case.recipe, case.cfg, case.n_players,
+                                     TRAIN_M, mesh=mesh)
+    model, opt, _ = trainable_copy(case, place_params(start))
+    loss1 = step_on(case, step, model, opt, case.xs, case.masks).item()
+    got = model.state_dict()
+    out["step_loss"] = [loss0, loss1]
+    out["step_bit_identical"] = loss0 == loss1 and all(
+        torch.equal(got[k], want[k]) for k in want)
+    with int8_mode(True):
+        calls, service, answers = serve_requests(
+            pathlib.Path(spec["exp"]), vit_requests(), INT8_COUNTS,
+            "dist a serve W8A8")
+    del service
+    out["serve_calls"] = calls
+    out["serve_drift"] = drift(answers, live_int8)
+
+
+def dist_child_b(case, spec: dict, out: dict, live_int8: dict) -> None:
+    """Two gloo ranks on the one card: the data-parallel explainer step
+    (4 images a rank) against the one-process step in the same arithmetic
+    (the teacher's kernels, the differentiated forward in mode "0"), the
+    ranks' parameters bit for bit; the tensor-parallel (model 2) step in
+    mode "0" against the one-process plain step; a served W8A8 slab split
+    over the ranks; a `--data-parallel 2 --kernels` artifact served."""
+    import torch
+    import torch.distributed as dist
+
+    from autognothi_tpu_torch.models.common import pallas_override
+    from autognothi_tpu_torch.parallel import train_step as ts
+    from autognothi_tpu_torch.parallel.distributed import process_info
+    from autognothi_tpu_torch.parallel.mesh import (make_mesh,
+                                                    setup_data_parallel,
+                                                    shard_params)
+    from autognothi_tpu_torch.params import to_flat
+
+    rank = dist.get_rank()
+    out["info"] = process_info()
+    out["backend"] = dist.get_backend()
+    start = copy.deepcopy(case.explainer)
+    # data parallel, B = 8 x M = 32: 4 images a rank
+    mesh, place_params, _ = setup_data_parallel(case.xs.device)
+    step = ts.make_explainer_train_step(case.recipe, case.cfg,
+                                        case.n_players, TRAIN_M, mesh=mesh)
+    model, opt, _ = trainable_copy(case, place_params(start))
+    reset_counts()
+    loss = step_on(case, step, model, opt, case.xs, case.masks).item()
+    out["dp_calls"] = {k: v for k, v in read_counts().items() if v}
+    trained = {k: p.detach() for k, p in model.named_parameters()
+               if p.requires_grad}
+    same = True
+    for k, p in trained.items():  # rank 0's parameters against each rank's
+        theirs = p.clone()
+        dist.broadcast(theirs, src=0)
+        same &= bool(torch.equal(theirs, p))
+    flag = torch.tensor([0.0 if same else 1.0], device=case.xs.device)
+    dist.all_reduce(flag)
+    out["dp_ranks_bit_identical"] = flag.item() == 0.0
+    out["dp_loss"] = loss
+    if rank == 0:
+        # the same arithmetic in one process: the teacher's kernels on all
+        # 8 images, the forward in mode "0" (world > 1 pins it)
+        ref, ref_opt, grads = trainable_copy(case, start)
+        with mock.patch.object(ts, "_teacher_on",
+                               lambda *a: contextlib.nullcontext()):
+            ref_loss = step_on(case, case.step, ref, ref_opt, case.xs,
+                               case.masks).item()
+        sure, loose = settled_diff(
+            {k: p.detach() for k, p in model.named_parameters()},
+            {k: p.detach() for k, p in ref.named_parameters()}, grads, 5e-5)
+        out["dp_ref_loss"] = ref_loss
+        out["dp_param_diff"] = [sure, loose]
+        with mock.patch.object(ts, "_teacher_on",
+                               lambda *a: contextlib.nullcontext()):
+            out["ref_ms"] = warm_step_ms(
+                lambda: step_on(case, case.step, ref, ref_opt, case.xs,
+                                case.masks))
+        del ref, ref_opt, grads
+    dist.barrier()
+    out["dp_ms"] = warm_step_ms(
+        lambda: step_on(case, step, model, opt, case.xs, case.masks))
+    del model, opt
+    # tensor parallel (model 2), mode "0", B = 2 x M = 4
+    xs, masks = case.xs[:TP_B], case.masks[:TP_B, :TP_M]
+    tp_mesh = make_mesh(dist.get_world_size(), model_parallel=2)
+    srg = shard_params(copy.deepcopy(case.srg), tp_mesh)
+    model, opt, _ = trainable_copy(case, start)
+    shard_params(model, tp_mesh)
+    params = dict(model.named_parameters())
+    opt = type(opt)(params, case.trainable)
+    tp_step = ts.make_explainer_train_step(case.recipe, case.cfg,
+                                           case.n_players, TP_M,
+                                           mesh=tp_mesh)
+    with pallas_override("0"):
+        reset_counts()
+        tp_loss = step_on(case, tp_step, model, opt, xs, masks,
+                          srg=srg).item()
+        out["tp_calls"] = {k: v for k, v in read_counts().items() if v}
+        tp_params = to_flat(model)  # gathered whole on every rank
+        if rank == 0:
+            ref, ref_opt, grads = trainable_copy(case, start)
+            ref_step = ts.make_explainer_train_step(
+                case.recipe, case.cfg, case.n_players, TP_M)
+            ref_loss = step_on(case, ref_step, ref, ref_opt, xs,
+                               masks).item()
+            sure, loose = settled_diff(
+                {k: torch.from_numpy(tp_params[k]) for k in grads},
+                {k: p.detach().cpu() for k, p in ref.named_parameters()
+                 if k in grads}, {k: g.cpu() for k, g in grads.items()},
+                5e-5)
+            out["tp_loss"], out["tp_ref_loss"] = tp_loss, ref_loss
+            out["tp_param_diff"] = [sure, loose]
+            del ref, ref_opt, grads
+    del model, opt, srg, tp_params
+    torch.cuda.empty_cache()
+    dist.barrier()
+    # serving: the live W8A8 final, then the --data-parallel 2 artifact
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.serve import ExplainService
+
+    deadline = time.time() + DIST_TIMEOUT  # the parent exports it meanwhile
+    while not pathlib.Path(spec["artifact"]).exists():
+        check(time.time() < deadline, "(b): no --data-parallel 2 artifact")
+        time.sleep(0.2)
+    for tag, artifact in (("live", None), ("artifact", spec["artifact"])):
+        with int8_mode(True):
+            if rank == 0:
+                calls, service, answers = serve_requests(
+                    pathlib.Path(spec["exp"]), vit_requests(), INT8_COUNTS,
+                    f"dist b serve W8A8 {tag}",
+                    artifact=None if artifact is None
+                    else pathlib.Path(artifact))
+                out[f"serve_{tag}_calls"] = calls
+                out[f"serve_{tag}_drift"] = drift(answers, live_int8)
+                del service
+            else:
+                with ExpEnv(pathlib.Path(spec["exp"])) as env:
+                    service = ExplainService(env, 8, device="cuda",
+                                             artifact=artifact)
+                    reset_counts()
+                    slabs = service.follow()
+                    out[f"serve_{tag}_slabs"] = slabs
+                    out[f"serve_{tag}_calls"] = {
+                        k: v for k, v in read_counts().items() if v}
+                    del service
+        torch.cuda.empty_cache()
+
+
+def run_dist_children(tmp: pathlib.Path, spec: dict, world: int) -> list:
+    """Start `world` ranks of `spec` -> (process, log, result file) of
+    each, in rank order (`wait_dist_children` waits for them)."""
+    port = _free_port()
+    procs = []
+    for rank in range(world):
+        child = dict(spec, world=world, rank=rank,
+                     init=f"tcp://127.0.0.1:{port}",
+                     out=str(tmp / f"dist_{spec['check']}_{rank}.json"))
+        path = tmp / f"dist_{spec['check']}_{rank}_spec.json"
+        path.write_text(json.dumps(child))
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("AUTOGNOTHI_DIST_")}
+        if spec["check"] == "a" or spec.get("backend") == "nccl":
+            # the CLI's own variables
+            env.update({"AUTOGNOTHI_DIST_COORD": f"127.0.0.1:{port}",
+                        "AUTOGNOTHI_DIST_NPROCS": str(world),
+                        "AUTOGNOTHI_DIST_PROC_ID": str(rank)})
+        log = open(tmp / f"dist_{spec['check']}_{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--dist-child",
+             str(path)], cwd=REPO, env=env, stdout=log,
+            stderr=subprocess.STDOUT), log, child["out"]))
+    return procs
+
+
+def wait_dist_children(procs: list, tag: str) -> list:
+    """Each rank's result; a rank that fails, or outlives DIST_TIMEOUT, is
+    a failure, and every rank still running is killed."""
+    outs = []
+    try:
+        for proc, log, out in procs:
+            try:
+                proc.wait(timeout=DIST_TIMEOUT)
+            finally:
+                log.close()
+            text = pathlib.Path(log.name).read_text()
+            (OUT / pathlib.Path(log.name).name).write_text(text)
+            for line in text.splitlines():
+                if line.startswith("[dist"):
+                    print(line, flush=True)
+            check(proc.returncode == 0,
+                  f"{tag}: a rank exited {proc.returncode}:\n"
+                  f"{text[-3000:]}")
+            outs.append(json.loads(pathlib.Path(out).read_text()))
+    finally:
+        for proc, _, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
+def phase_distributed(dev, tmp: pathlib.Path, card: str, exp: pathlib.Path,
+                      train_exp: pathlib.Path, live_int8: dict,
+                      cards: int = 1) -> dict:
+    """Phase 16, the multi-device slice (M10a), in child processes started
+    together: (a) a world of one through the CLI's own initialisation
+    (AUTOGNOTHI_DIST_*, NCCL) and (b) two gloo ranks on the one card (NCCL
+    takes one rank per card); with `cards` past 1 (`--dist-cards`) only
+    (b), as one NCCL rank per card.  -> the kernel calls of their served
+    slabs."""
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.export import export_final
+
+    tmp = tmp / "dist"
+    tmp.mkdir()
+    live = tmp / "live_int8.json"
+    live.write_text(json.dumps(live_int8))
+    art = tmp / "vit_int8_dp2.agx"
+    spec = dict(exp=str(exp), train_exp=str(train_exp), live_int8=str(live),
+                artifact=str(art))
+    children_a = ([] if cards > 1 else
+                  run_dist_children(tmp, dict(spec, check="a"), 1))
+    # (b) waits for the artifact only before its last check
+    children_b = run_dist_children(
+        tmp, dict(spec, check="b", backend="nccl" if cards > 1 else "gloo"),
+        max(cards, 2))
+    try:
+        with int8_mode(True), ExpEnv(exp) as env:
+            t0 = time.perf_counter()
+            meta = export_final(env, art, 8, platforms=["cuda"],
+                                kernels=True, data_parallel=2,
+                                device="cuda")
+        check(meta["nr_devices"] == 2 and meta["quant"] == "int8",
+              f"the --data-parallel 2 artifact: {meta}")
+        print(f"[dist] --data-parallel 2 --kernels W8A8 artifact: export "
+              f"{time.perf_counter() - t0:.2f} s, {meta['bytes']} bytes, "
+              f"traced at 4 rows a rank | {card}", flush=True)
+        a = wait_dist_children(children_a, "phase 16 (a)")
+        b = wait_dist_children(children_b, "phase 16 (b)")
+    finally:
+        for proc, log, _ in children_a + children_b:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    launches: dict = {}
+    if a:
+        launches = check_dist_a(a[0], card)
+    return _scaled((1, launches), (1, check_dist_b(b, card)))
+
+
+def check_dist_a(a: dict, card: str) -> dict:
+    """Phase 16 (a)'s lines and checks -> the kernel calls it served."""
+    print(f"[dist] (a) world of one: {a['info']}, backend {a['backend']}; "
+          f"step losses {a['step_loss'][0]!r} {a['step_loss'][1]!r}, "
+          f"bit-identical {a['step_bit_identical']} | {card}", flush=True)
+    check(a["backend"] == "nccl" and a["info"]["process_count"] == 1,
+          f"(a): {a['info']} on {a['backend']}")
+    check(a["step_bit_identical"], "(a): the step in a world of one differs "
+                                   "from the step without one")
+    print(f"[dist] (a) W8A8 serve, 3 slabs of 8: kernel calls "
+          f"{a['serve_calls']}; max|diff| from phase 3's answers "
+          f"{a['serve_drift']:.3e} | {card}", flush=True)
+    check(a["serve_drift"] == 0.0, "(a): served answers differ from phase 3")
+    return a["serve_calls"]
+
+
+def check_dist_b(b: list, card: str) -> dict:
+    """Phase 16 (b)'s lines and checks over its ranks -> the kernel calls
+    they served."""
+    r0, r1 = b[:2]
+    world = f"{r0['backend']}, {len(b)} ranks"
+    check(all(r["info"]["process_count"] == len(b) for r in b),
+          f"(b): not a world of {len(b)}")
+    launches: dict = {}
+    rel = abs(r0["dp_loss"] - r0["dp_ref_loss"]) / abs(r0["dp_ref_loss"])
+    print(f"[dist] (b) {world}: data-parallel step, {TRAIN_B // len(b)} "
+          f"images a rank x M = {TRAIN_M}: loss {r0['dp_loss']!r} vs one "
+          f"process {r0['dp_ref_loss']!r} (rel {rel:.3e}, limit 1e-6); "
+          f"parameters max|diff| {r0['dp_param_diff'][0]:.3e} where the "
+          f"gradient is settled (limit 1e-6), {r0['dp_param_diff'][1]:.3e} "
+          f"elsewhere (limit 2 lr); ranks bit-identical "
+          f"{all(r['dp_ranks_bit_identical'] for r in b)}; kernel calls "
+          f"rank 0 {r0['dp_calls']}, rank 1 {r1['dp_calls']}; warm ms a "
+          f"step {r0['dp_ms']:.1f}, the one-process step in the same "
+          f"arithmetic {r0['ref_ms']:.1f} | {card}", flush=True)
+    check(rel <= 1e-6 and r0["dp_param_diff"][0] <= 1e-6,
+          "(b): the data-parallel step differs from the one-process step")
+    check(all(r["dp_ranks_bit_identical"] and r["dp_loss"] == r0["dp_loss"]
+              for r in b), "(b): the ranks' parameters or losses differ")
+    check(all(r["dp_calls"] == r0["dp_calls"] for r in b) and r0["dp_calls"],
+          "(b): the ranks' teachers launched different kernels")
+    rel = abs(r0["tp_loss"] - r0["tp_ref_loss"]) / abs(r0["tp_ref_loss"])
+    print(f"[dist] (b) {world}: tensor-parallel step (model 2), mode "
+          f"\"0\", B = {TP_B} x M = {TP_M}: loss {r0['tp_loss']!r} vs the "
+          f"one-process plain step {r0['tp_ref_loss']!r} (rel {rel:.3e}, "
+          f"limit 1e-6); "
+          f"parameters max|diff| {r0['tp_param_diff'][0]:.3e} settled "
+          f"(limit 1e-6), {r0['tp_param_diff'][1]:.3e} elsewhere; kernel "
+          f"calls {r0['tp_calls']} | {card}", flush=True)
+    check(rel <= 1e-6 and r0["tp_param_diff"][0] <= 1e-6,
+          "(b): the tensor-parallel step differs from the plain step")
+    check(not any(r["tp_calls"] for r in b),
+          "(b): a kernel ran under tensor parallelism")
+    for tag in ("live", "artifact"):
+        slabs = r1[f"serve_{tag}_slabs"]
+        per_slab = {k: v / slabs for k, v in r1[f"serve_{tag}_calls"].items()}
+        print(f"[dist] (b) {world}: W8A8 serve {tag}, each slab of 8 "
+              f"split over the ranks: rank 0 kernel calls "
+              f"{r0[f'serve_{tag}_calls']} over 3 slabs; rank 1 "
+              f"{r1[f'serve_{tag}_calls']} over {slabs} slabs ({per_slab} "
+              f"a slab); max|diff| from phase 3's answers "
+              f"{r0[f'serve_{tag}_drift']:.3e} (limit "
+              f"{TOL_INT8['float32']}) | {card}", flush=True)
+        check(per_slab == {k: float(v) for k, v in INT8_COUNTS.items()},
+              f"(b) {tag}: rank 1's kernel calls a slab")
+        check(r0[f"serve_{tag}_drift"] <= TOL_INT8["float32"],
+              f"(b) {tag}: the sharded answers differ from phase 3's")
+        launches = _scaled((1, launches),
+                           *((1, r[f"serve_{tag}_calls"]) for r in b))
     return launches
 
 
@@ -5063,6 +5598,41 @@ KERNELS = {
 NOT_ON_A_PATH = ("ladder_attention",)
 
 
+def main_cards(cards: int) -> int:
+    """`python3 chip_smoke.py --dist-cards N` on a host of N cards: phase
+    1, phase 3's W8A8 serve, phase 4's experiment and phase 16 (b) with
+    one NCCL rank per card (the CLI's initialisation), the world the JAX
+    package's mesh tests model on one host."""
+    import torch
+
+    from autognothi_tpu_torch.utils.devices import resolve_device
+
+    check(torch.cuda.device_count() >= cards,
+          f"--dist-cards {cards}: {torch.cuda.device_count()} card(s)")
+    dev = resolve_device("cuda:0")
+    card = nvidia_smi_line()
+    name = torch.cuda.get_device_name(0)
+    print(f"[device] {name} x {torch.cuda.device_count()} | nvidia-smi: "
+          f"{card} | torch {torch.__version__} cuda {torch.version.cuda}",
+          flush=True)
+    phase_device()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        exp = write_experiment(tmp)
+        _, _, got_int8 = phase_serve(dev, exp, int8=True)
+        train_exp = write_train_experiment(tmp)
+        t0 = time.perf_counter()
+        phase_distributed(dev, tmp, card, exp, train_exp, got_int8,
+                          cards=cards)
+        print(f"[phase] 16 multi-device over {cards} cards: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5071,6 +5641,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs "
               "an NVIDIA GPU", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--dist-child"]:  # a rank of phase 16
+        return dist_child(sys.argv[2])
+    if sys.argv[1:2] == ["--dist-cards"]:  # phase 16 (b) over N cards
+        return main_cards(int(sys.argv[2]))
     from autognothi_tpu_torch.utils.devices import resolve_device
 
     dev = resolve_device("cuda:0")
@@ -5126,6 +5700,10 @@ def main() -> int:
         per_step = timed("4 train steps", phase_train_steps, case)
         launches_train = timed("4 train_explainer CLI", phase_train_cli,
                                train_exp, per_step)
+        # phase 16: a world of one (NCCL) and two gloo ranks on the card
+        launches_dist = timed("16 multi-device", phase_distributed, dev,
+                              pathlib.Path(tmp), card, exp, train_exp,
+                              got_int8)
         launches_all = timed("6 LTT ViT train_all", phase_train_all, dev,
                              pathlib.Path(tmp), per_step, card)
         launches_reports = timed("7 LTT ViT run_all", phase_run_all, dev,
@@ -5171,7 +5749,7 @@ def main() -> int:
         # the duo towers' serves and run_all (11), KernelSHAP's serves and
         # faithfulness (12), the ViT-L final's serves, paths and image demo
         # (13), the text demo, the Shapley preview and pretrain_classifier
-        # (14)
+        # (14), and the served slabs of phase 16's ranks
         for k in launches:
             launches[k] += (launches_int8[k] + launches_bert[k]
                             + launches_bert_int8[k]
@@ -5180,7 +5758,8 @@ def main() -> int:
                             + launches_reports.get(k, 0)
                             + launches_bert_run_all.get(k, 0)
                             + launches_towers.get(k, 0)
-                            + launches_export.get(k, 0))
+                            + launches_export.get(k, 0)
+                            + launches_dist.get(k, 0))
         per_op = timed("5 timing, ViT", phase_timing, dev, card, service)
         # the ViT shapes keep their rows; K8q and the bf16 float chain run
         # only at BERT's.  The four BERT forwards counted there are main

@@ -2530,3 +2530,131 @@ def test_w8a8_kernels_artifact_bit_identical_to_live_serving(dev, tmp_path,
         for key in ("logits", "attributions"):
             assert np.array_equal(np.asarray(live[key]),
                                   np.asarray(art[key])), key
+
+
+def test_world_of_one_over_nccl_is_the_one_device_path(dev, tmp_path,
+                                                       monkeypatch):
+    """A world of one process through the CLI's own initialisation
+    (AUTOGNOTHI_DIST_* on 127.0.0.1, NCCL): at the LTT ViT-B/16@224 widths
+    (2 of the 12 layers), one explainer step at B = 8 x M = 32 is bit-
+    identical to the same step before the world, and a W8A8 serve of 3
+    slabs of 8 answers bit for bit as before, with the same kernel calls
+    a slab."""
+    import copy
+    import json
+    import pathlib
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from autognothi_tpu_torch import RECIPE_VERSION
+    from autognothi_tpu_torch.models.ltt_vit import (LttViTConfig,
+                                                     init_ltt_vit,
+                                                     init_ltt_vit_final)
+    from autognothi_tpu_torch.ops.shapley import mask_shapley
+    from autognothi_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed, process_info)
+    from autognothi_tpu_torch.parallel.mesh import setup_data_parallel
+    from autognothi_tpu_torch.parallel.train_step import \
+        make_explainer_train_step
+    from autognothi_tpu_torch.params import save_params, to_flat
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.serve import ExplainService
+    from autognothi_tpu_torch.pipeline.training import AdamW
+    from autognothi_tpu_torch.recipes.ltt_vit import ltt_vit_recipe
+
+    monkeypatch.delenv("AUTOGNOTHI_PALLAS", raising=False)
+    monkeypatch.setenv("AUTOGNOTHI_INT8", "0")
+    params = {k: v for k, v in _shipped_params(
+        "vit_base_imagenette_vanilla").items() if k in (
+            "hidden_size", "intermediate_size", "num_attention_heads",
+            "layer_norm_eps", "img_channels", "img_px_size",
+            "img_patch_size", "attention_probs_dropout_prob",
+            "hidden_dropout_prob")}
+    params.update(num_hidden_layers=2, num_labels=10,
+                  explainer_s_attn_num_layers=1,
+                  explainer_s_head_hidden_size=3072,
+                  explainer_normalize=True, s_attn_hidden_size=96,
+                  s_attn_intermediate_size=384)
+    cfg = LttViTConfig(**params)
+    recipe = ltt_vit_recipe()
+    n_players = recipe.n_players(cfg)
+    srg = init_ltt_vit(cfg, "surrogate", torch.Generator().manual_seed(171)
+                       ).to(dev).requires_grad_(False)
+    start = init_ltt_vit(cfg, "explainer", torch.Generator().manual_seed(172)
+                         ).to(dev)
+    trainable = recipe.trainable(cfg, "explainer")
+    g = torch.Generator().manual_seed(173)
+    xs = torch.rand((8, 3, 224, 224), generator=g).to(dev)
+    masks = mask_shapley(g, 8 * 32, n_players).reshape(8, 32, n_players
+                                                       ).to(dev)
+    null = torch.full((1, 10), 0.1, device=dev)
+
+    def one_step(mesh):
+        model = copy.deepcopy(start)
+        for name, p in model.named_parameters():
+            p.requires_grad_(trainable(name))
+        params = dict(model.named_parameters())
+        step = make_explainer_train_step(recipe, cfg, n_players, 32,
+                                         mesh=mesh)
+        loss = step(model, AdamW(params, trainable), srg, null, xs, None,
+                    5e-5, {k: 1.0 for k in params}, 2, masks=masks)
+        return loss.item(), {k: v.clone() for k, v in
+                             model.state_dict().items()}
+
+    hp = json.loads((pathlib.Path(__file__).resolve().parents[1]
+                     / "experiments" / "vit_base_imagenette_vanilla"
+                     / ".hparams.json").read_text())
+    hp["net"] = {"kind": "ltt_vit", "version": RECIPE_VERSION,
+                 "base_model": "random_init", "params": params}
+    exp = tmp_path / "ltt_vit"
+    exp.mkdir()
+    (exp / ".hparams.json").write_text(json.dumps(hp))
+    save_params(exp / "final-epoch-0.ckpt", to_flat(init_ltt_vit_final(
+        cfg, torch.Generator().manual_seed(174))))
+    rng = np.random.RandomState(175)
+    payloads = [{"images": rng.rand(3, 3, 224, 224).tolist()},
+                {"images_u8": rng.randint(0, 256, (9, 3, 224, 224)
+                                          ).tolist()}]
+    def serve_w8a8():
+        monkeypatch.setenv("AUTOGNOTHI_INT8", "1")
+        with ExpEnv(exp) as env:
+            service = ExplainService(env, batch_size=8, device="cuda")
+            try:
+                service.warmup()
+                before = _export_counts()
+                answers = [service.explain(p) for p in payloads]
+                torch.cuda.synchronize()
+                calls = {k: v - before[k]
+                         for k, v in _export_counts().items()}
+            finally:
+                service.close()
+        monkeypatch.setenv("AUTOGNOTHI_INT8", "0")
+        return answers, {k: v for k, v in calls.items() if v}
+
+    want_step, want_serve = one_step(None), serve_w8a8()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("AUTOGNOTHI_DIST_COORD", f"127.0.0.1:{port}")
+    monkeypatch.setenv("AUTOGNOTHI_DIST_NPROCS", "1")
+    monkeypatch.setenv("AUTOGNOTHI_DIST_PROC_ID", "0")
+    assert maybe_initialize_distributed(device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        assert process_info()["process_count"] == 1
+        mesh, _, _ = setup_data_parallel(dev)
+        assert mesh is None
+        got_step, got_serve = one_step(mesh), serve_w8a8()
+    finally:
+        dist.destroy_process_group()
+    assert got_step[0] == want_step[0]
+    for k, v in want_step[1].items():
+        assert torch.equal(got_step[1][k], v), k
+    assert got_serve[1] == want_serve[1]
+    assert got_serve[1]["attention_block_int8"] == 3 * 3  # 3 slabs x 3
+    for live, world in zip(want_serve[0], got_serve[0]):
+        for key in ("logits", "attributions"):
+            assert np.array_equal(np.asarray(live[key]),
+                                  np.asarray(world[key])), key

@@ -477,7 +477,50 @@ def test_fail_closed(tmp_path):
                         platforms=platforms)
     with pytest.raises(SystemExit, match="--platforms"):
         port_export(exp, tmp_path / "x.agx", platforms=["tpu"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        port_export(exp, tmp_path / "x.agx", data_parallel=2)
+    # a mesh-sharded artifact needs a fixed batch that N divides
+    with pytest.raises(SystemExit, match="not divisible by --data-parallel"):
+        port_export(exp, tmp_path / "x.agx", batch_size=3, data_parallel=2)
+    with pytest.raises(SystemExit, match="cannot be mesh-sharded"):
+        port_export(exp, tmp_path / "x.agx", batch_size=0, data_parallel=2)
     assert not (tmp_path / "x.agx").exists()
     assert not list(tmp_path.glob("*.tmp"))
+
+
+def test_data_parallel_artifact_over_two_ranks(tmp_path):
+    """`export_final --data-parallel 2` (JAX tests/test_export.py:96, :223,
+    :276): the program runs batch / 2 rows; two gloo ranks each run theirs
+    and gather the one-device live rows; `serve --artifact` on rank 0, with
+    rank 1 following, answers as the one-device service; a world of one
+    refuses the artifact."""
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.export import load_exported
+    from autognothi_tpu_torch.pipeline.serve import ExplainService
+    from tests.test_torch_port_scaleout import run_world
+
+    exp = write_final_exp(tmp_path, "ltt_vit")
+    art = tmp_path / "dp2.agx"
+    meta = port_export(exp, art, batch_size=4, data_parallel=2)
+    assert meta["nr_devices"] == 2 and meta["in_shape"] == [4, 3, 16, 16]
+    with pytest.raises(ValueError, match="2 devices"):
+        load_exported(art, device="cpu")
+    xs = inputs("ltt_vit", exp, b=4, seed=3)
+    spec = dict(tag="artifact", jobs=["artifact"], artifact=str(art),
+                exp=str(exp), call=xs.tolist(), payload=xs[:3].tolist())
+    ranks = run_world(spec, 2, tmp_path)
+    want = port_live(exp, xs)
+    with ExpEnv(exp) as env:
+        service = ExplainService(env, batch_size=4, device="cpu")
+        try:
+            served = service.explain({"images": xs[:3].tolist()})
+        finally:
+            service.close()
+    for info, arr in ranks:
+        close((arr["artifact/probs"], arr["artifact/attr"]), want, TOL_PORT,
+              "dp2 artifact")
+        assert info["artifact/batch_size"] == 4  # the artifact's slab
+    info0, arr0 = ranks[0]
+    close((arr0["served/logits"], arr0["served/attr"]),
+          (served["logits"], served["attributions"]), TOL_PORT, "served")
+    # one explained slab: a header and the slab out, the outputs in
+    assert info0["served/counts"] == {"broadcast": 2, "all_gather": 2}
+    assert ranks[1][0]["followed_slabs"] == 3  # two warmup slabs + one

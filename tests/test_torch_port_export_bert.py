@@ -77,6 +77,19 @@ def test_cli_verb(tmp_path):
             "autognothi.mlp_ladder_block.default",
             "autognothi.mlp_block_int8.default",
             "autognothi.head_block.default"} == ops
+    # a mesh-sharded artifact: the program at batch / N rows, and a world
+    # of one process refuses to load it
     proc = _cli("export_final", exp, "--into", tmp_path / "dp.agx",
-                "--data-parallel", "2", "--device", "cpu")
-    assert proc.returncode != 0 and "not ported yet" in proc.stderr
+                "--batch-size", "4", "--data-parallel", "2", "--device",
+                "cpu")
+    assert proc.returncode == 0, proc.stderr
+    ep, meta = _program(tmp_path / "dp.agx")
+    assert meta["nr_devices"] == 2 and meta["in_shape"][0] == 4
+    xs_node = [n for n in ep.graph.nodes if n.op == "placeholder"][-1]
+    assert xs_node.meta["val"].shape[0] == 2  # a rank's rows
+    with pytest.raises(ValueError, match="2 devices"):
+        load_exported(tmp_path / "dp.agx", device="cpu")
+    proc = _cli("export_final", exp, "--into", tmp_path / "dp3.agx",
+                "--batch-size", "3", "--data-parallel", "2", "--device",
+                "cpu")
+    assert proc.returncode != 0 and "not divisible" in proc.stderr

@@ -3,8 +3,8 @@ the CPU load the same JAX-written `final-epoch-0.ckpt` of a mini LTT ViT
 and answer the same `images` / `images_u8` requests; logits and
 attributions agree to atol 1e-5.  Plus the port's serving contract: its
 import graph is free of JAX, it never falls back from CUDA to the CPU, it
-drains on SIGTERM, and what is not ported raises (export_final
---data-parallel past 1) or names itself (an unknown net kind)."""
+drains on SIGTERM, an artifact for more devices than the world has is
+refused, and an unknown net kind names itself."""
 
 import json
 import pathlib
@@ -240,12 +240,15 @@ def test_unported_verbs_and_kinds_raise(tmp_path):
     from autognothi_tpu_torch.cli import main
     from autognothi_tpu_torch.pipeline.config import parse_config
 
-    # a mesh-sharded artifact waits for the multi-device slice (M10)
+    # a mesh-sharded artifact (M10a): written by one process, refused by a
+    # world of fewer ranks than it was exported for
+    from autognothi_tpu_torch.pipeline.export import load_exported
+
     exp = _write_exp(tmp_path)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(["export_final", str(exp), "--into", str(tmp_path / "a.agx"),
-              "--data-parallel", "2", "--device", "cpu"])
-    assert not (tmp_path / "a.agx").exists()
+    main(["export_final", str(exp), "--into", str(tmp_path / "a.agx"),
+          "--data-parallel", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="2 devices"):
+        load_exported(tmp_path / "a.agx", device="cpu")
     # every net kind of the JAX package is ported: an unknown kind raises
     # a ValueError naming it, as the JAX package's schema does
     hp = _ltt_vit_hparams()
@@ -268,14 +271,24 @@ def test_port_reads_no_environment_switch():
     # losses are fetched), AUTOGNOTHI_PAD_RAGGED (padding of the last batch),
     # AUTOGNOTHI_DEBUG_NANS (autograd anomaly detection), AUTOGNOTHI_ZOO
     # (where local base models are stored), AUTOGNOTHI_PROFILE_DIR (where
-    # the performance report writes its profiler trace), and AUTOGNOTHI_PP /
-    # AUTOGNOTHI_PP_TP, which only refuse (not ported)
+    # the performance report writes its profiler trace), AUTOGNOTHI_PP /
+    # AUTOGNOTHI_PP_TP, which only refuse (not ported), and the world of
+    # processes (parallel/distributed.py, read from an `env` mapping that
+    # defaults to os.environ): AUTOGNOTHI_DIST_COORD / _NPROCS / _PROC_ID
+    # and torchrun's LOCAL_RANK, which pick the rank's own card, never the
+    # CPU
     import re
 
     src = (REPO / "autognothi_tpu_torch").rglob("*.py")
+    dist_py = "autognothi_tpu_torch/parallel/distributed.py"
     reads = {p.relative_to(REPO).as_posix():
              sorted(re.findall(r'os\.environ\.get\("(\w+)"', p.read_text()))
-             for p in src if "os.environ" in p.read_text()}
+             for p in src if "os.environ" in p.read_text()
+             and p.relative_to(REPO).as_posix() != dist_py}
+    assert sorted(set(re.findall(r'env\.get\("(\w+)"', (
+        REPO / dist_py).read_text()))) == [
+            "AUTOGNOTHI_DIST_COORD", "AUTOGNOTHI_DIST_NPROCS",
+            "AUTOGNOTHI_DIST_PROC_ID", "LOCAL_RANK"]
     assert reads == {
         "autognothi_tpu_torch/models/common.py":
             ["AUTOGNOTHI_FUSED_MIN_HIDDEN", "AUTOGNOTHI_INT8",
@@ -295,4 +308,4 @@ def test_port_reads_no_environment_switch():
     assert '("AUTOGNOTHI_PP", "AUTOGNOTHI_PP_TP")' in src
     total = sum(p.read_text().count("os.environ")
                 for p in (REPO / "autognothi_tpu_torch").rglob("*.py"))
-    assert total == 12
+    assert total == 15  # 12, and parallel/distributed.py's three defaults
