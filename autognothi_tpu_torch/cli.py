@@ -307,12 +307,16 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.command == "preload_all":
         preload_all()
         return
+    import torch.distributed as dist
+
     from .parallel.distributed import (distributed_env_configured,
                                        maybe_initialize_distributed,
                                        process_info)
 
-    # before any device is chosen: "cuda" is then the rank's own card
-    engaged = maybe_initialize_distributed(device=args.device)
+    # before any device is chosen: "cuda" is then the rank's own card; a
+    # group the caller initialized stays the caller's to destroy
+    owned = not dist.is_initialized()
+    engaged = maybe_initialize_distributed(device=args.device) and owned
     if distributed_env_configured():
         print(f"[distributed] {process_info()}", file=sys.stderr)
     from .pipeline.env import ExpEnv
@@ -348,8 +352,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     finally:
         env.close()
         if engaged:
-            import torch.distributed as dist
-
             dist.destroy_process_group()
 
 

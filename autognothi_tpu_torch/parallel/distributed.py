@@ -69,6 +69,19 @@ def agree(value):
     return box[0]
 
 
+def any_rank(flag: bool) -> bool:
+    """True on every rank when `flag` is True on any (one MAX all-reduce
+    of an int tensor; `flag` itself outside a world): a stop that one rank
+    sees, such as a SIGTERM, is taken by all at the same batch."""
+    if world_size() < 2:
+        return flag
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def local_rank(env: Optional[dict] = None) -> int:
     """This process's device index on its host: torchrun's LOCAL_RANK,
     else the rank modulo the host's CUDA devices (one process per device;

@@ -9,6 +9,8 @@ mesh.py`) on `torch.distributed`, one process per device.
 - The mesh: `make_mesh` is a `torch.distributed.device_mesh.DeviceMesh`
   of shape (world / model, model) over ("data", "model"); a "model" group
   is model consecutive ranks, as the JAX package reshapes its devices.
+  With a "pipe" axis (`parallel/pipeline.py:make_pipe_mesh`) it is
+  ("data", "pipe") or ("data", "pipe", "model").
 - Data parallelism: every rank holds the whole (global) batch, as loaded
   from the same data, and the sharded functions take its rows along
   "data" (`data_rows`): `sharded_call` runs a function on the rank's rows
@@ -40,16 +42,23 @@ from .tp import TpShard
 Spec = Tuple[Optional[str], ...]
 
 
-def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1):
+def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
+              pipe: int = 1):
     """DeviceMesh over ("data", "model") of the world's ranks;
-    model_parallel=1 is pure data (coalition) parallelism."""
+    model_parallel=1 is pure data (coalition) parallelism.  With `pipe`
+    past 1 the mesh is ("data", "pipe"), or ("data", "pipe", "model") when
+    model_parallel > 1, "model" innermost (the pipeline-parallel mesh of
+    `parallel/pipeline.py:make_pipe_mesh`)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     visible = world_size()
     n = n_devices or visible
-    if n % model_parallel != 0:
+    if n % (pipe * model_parallel) != 0:
         raise ValueError(
-            f"{n} devices not divisible by model={model_parallel}")
+            f"{n} devices not divisible by model={model_parallel}"
+            if pipe == 1 else
+            f"{n} devices not divisible by pipe={pipe}"
+            + (f" x model={model_parallel}" if model_parallel > 1 else ""))
     if n > visible:
         raise ValueError(
             f"requested a {n}-device mesh but only {visible} device(s) "
@@ -63,13 +72,20 @@ def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1):
         raise ValueError("a mesh needs an initialized process group "
                          "(parallel.distributed.maybe_initialize_distributed)")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (n // model_parallel, model_parallel),
-                            mesh_dim_names=("data", "model"))
+    if pipe == 1:
+        shape, names = ((n // model_parallel, model_parallel),
+                        ("data", "model"))
+    elif model_parallel == 1:
+        shape, names = (n // pipe, pipe), ("data", "pipe")
+    else:
+        shape, names = ((n // (pipe * model_parallel), pipe, model_parallel),
+                        ("data", "pipe", "model"))
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
 def axis_size(mesh, axis: str) -> int:
-    """The size of a mesh axis; `mesh` is a DeviceMesh or a mapping of the
-    axis sizes."""
+    """The size of a mesh axis, 1 for an axis the mesh lacks; `mesh` is a
+    DeviceMesh or a mapping of the axis sizes."""
     if isinstance(mesh, Mapping):
         return int(mesh.get(axis, 1))
     names = mesh.mesh_dim_names

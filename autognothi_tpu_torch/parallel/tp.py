@@ -65,10 +65,12 @@ class _ReduceFromModel(torch.autograd.Function):
         return grad, None
 
 
-def gather_shard(p: torch.Tensor) -> torch.Tensor:
+def gather_shard(p: torch.Tensor,
+                 of: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The whole of a parameter: all-gathered over its "model" group when
-    it is a shard (every rank of the group must call), else itself."""
-    shard = tp_shard(p)
+    it is a shard (every rank of the group must call), else itself.  `of`:
+    the parameter whose shard `p` is shaped as (an optimizer moment)."""
+    shard = tp_shard(p if of is None else of)
     if shard is None:
         return p
     parts = [torch.empty_like(p) for _ in range(shard.size)]

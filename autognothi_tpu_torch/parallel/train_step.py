@@ -29,6 +29,10 @@ regression loss, the backward, and the AdamW update in place.
   and every rank applies the same AdamW update.  The step gathers
   nothing.  A batch that does not divide "data" runs whole on every rank
   in mode "0", as a Megatron (tensor-parallel) mesh always does.
+- On a pipe mesh (`pp`, `pipeline/pp_trainer.py`) the same step runs the
+  rank's pipeline stage: the teacher on the rank's "data" rows with its
+  kernels (all the rows where "data" is 1), the pipelined forward and
+  backward, the loss from the last stage.
 """
 
 from __future__ import annotations
@@ -83,10 +87,13 @@ def _teacher(recipe, m_config, srg_model, xs, masks):
 
 
 def _teacher_on(mesh, sharded: bool):
-    """The teacher's pallas scope: the kernels on the rank's rows of a pure
-    data mesh (or on one device), mode "0" wherever the JAX teacher runs
-    its XLA path (a Megatron mesh, a batch run whole on every rank)."""
-    if mesh is not None and sharded and axis_size(mesh, "model") == 1:
+    """The teacher's pallas scope: the kernels on the rank's rows of a mesh
+    without a "model" axis past 1 (its rows the whole batch where "data"
+    is 1, as on a pipe mesh), or on one device; mode "0" wherever the JAX
+    teacher runs its XLA path (a Megatron mesh, a batch run whole on every
+    rank of several data ranks)."""
+    if mesh is not None and axis_size(mesh, "model") == 1 and (
+            sharded or axis_size(mesh, "data") == 1):
         return contextlib.nullcontext()
     return mesh_safe_pallas()
 
@@ -95,12 +102,16 @@ def make_teacher(recipe, m_config, mesh=None) -> Callable:
     """-> teacher(srg_model, xs, masks) -> (v_s, v_1) over the GLOBAL
     batch: on a pure data mesh each rank sweeps its rows with the kernels
     and the values are all-gathered (`sharded_call`), as the JAX
-    `_make_teacher`; otherwise the whole batch, in mode "0" past one
-    rank."""
+    `_make_teacher` (on a mesh of one data rank the rank sweeps the whole
+    batch with the kernels); otherwise the whole batch, in mode "0" past
+    one rank."""
 
     def teacher(srg_model, xs, masks):
         n = axis_size(mesh, "data") if mesh is not None else 1
-        if mesh is not None and axis_size(mesh, "model") == 1 and n > 1 \
+        if mesh is not None and axis_size(mesh, "model") == 1 and n == 1:
+            # one data rank (a pipe mesh): its rows are the batch
+            return _teacher(recipe, m_config, srg_model, xs, masks)
+        if mesh is not None and axis_size(mesh, "model") == 1 \
                 and xs.shape[0] % n == 0 and xs.shape[0] >= n:
             return sharded_call(
                 lambda m, x, k: _teacher(recipe, m_config, m, x, k), mesh,
@@ -117,9 +128,18 @@ def _sample_masks(generator: torch.Generator, b: int, n_mask_samples: int,
     return masks.reshape(b, n_mask_samples, n_players).to(device)
 
 
+def _explainer_fw(recipe: ModelRecipe, m_config: Any, pp) -> Callable:
+    """-> fw(model, xs, mask, grand, null, **kw) -> (attributions, obs):
+    the recipe's, or on a pipe mesh the pipelined one of the rank's stage
+    (`pipeline/pp_trainer.PPContext`)."""
+    if pp is not None:
+        return pp.fw_explainer
+    return lambda *args, **kw: recipe.fw_explainer(m_config, *args, **kw)
+
+
 def make_explainer_train_step(recipe: ModelRecipe, m_config: Any,
                               n_players: int, n_mask_samples: int,
-                              mesh=None) -> Callable:
+                              mesh=None, pp=None) -> Callable:
     """-> step(model, opt, srg_model, surrogate_null, xs, generator, lr,
                update_mask, ltt_active, weights=None, masks=None) -> loss
 
@@ -128,7 +148,12 @@ def make_explainer_train_step(recipe: ModelRecipe, m_config: Any,
     masks and then the dropout masks; `masks` <B, M, P>, when given,
     replaces the drawn coalitions (the tests and the chip smoke run hand
     both versions the same masks).  Returns the loss, a 0-d tensor (the
-    global batch's over a mesh: module docstring)."""
+    global batch's over a mesh: module docstring).
+
+    `pp` (`pipeline/pp_trainer.PPContext`, with `mesh` its pipe mesh):
+    `model` is the rank's stage, the forward is pipelined, the last stage
+    computes the loss and every stage returns it."""
+    fw_explainer = _explainer_fw(recipe, m_config, pp)
 
     def step(model: torch.nn.Module, opt: AdamW, srg_model: torch.nn.Module,
              surrogate_null: torch.Tensor, xs: torch.Tensor,
@@ -152,12 +177,13 @@ def make_explainer_train_step(recipe: ModelRecipe, m_config: Any,
                             device=xs.device)
         with record_function("forward"), mesh_safe_pallas(), \
                 quant_override("none"):
-            phi, _ = recipe.fw_explainer(
-                m_config, model, xs, mask_1, v_1, surrogate_null,
+            phi, _ = fw_explainer(
+                model, xs, mask_1, v_1, surrogate_null,
                 deterministic=False, rng=generator,
                 **_ltt_kwargs(recipe, ltt_active))
-            loss = loss_shapley(masks, surrogate_null, v_s, v_1, phi,
-                                weights)
+            # before the last pipeline stage phi is the pipe's token
+            loss = phi if pp is not None and not pp.last else loss_shapley(
+                masks, surrogate_null, v_s, v_1, phi, weights)
         with record_function("backward"):
             grads = torch.autograd.grad(
                 loss if share is None else loss * share,
@@ -169,17 +195,19 @@ def make_explainer_train_step(recipe: ModelRecipe, m_config: Any,
             loss, _, grads = dp_merge(mesh, share, loss, (), grads)
         with record_function("adamw"):
             opt.update(params, dict(zip(trainable, grads)), lr, update_mask)
-        return loss
+        return loss if pp is None else pp.finish(loss)
 
     return step
 
 
 def make_explainer_eval_step(recipe: ModelRecipe, m_config: Any,
                              n_players: int, n_mask_samples: int,
-                             mesh=None) -> Callable:
+                             mesh=None, pp=None) -> Callable:
     """-> eval(model, srg_model, surrogate_null, xs, generator, ltt_active,
                weights=None, masks=None) -> loss  (deterministic forward,
-    the same teacher sweep, no gradient; the global loss over a mesh)."""
+    the same teacher sweep, no gradient; the global loss over a mesh; `pp`
+    as the train step's)."""
+    fw_explainer = _explainer_fw(recipe, m_config, pp)
 
     def eval_step(model: torch.nn.Module, srg_model: torch.nn.Module,
                   surrogate_null: torch.Tensor, xs: torch.Tensor,
@@ -200,13 +228,13 @@ def make_explainer_eval_step(recipe: ModelRecipe, m_config: Any,
                             device=xs.device)
         # quant pinned off as in the train step's forward
         with torch.no_grad(), mesh_safe_pallas(), quant_override("none"):
-            phi, _ = recipe.fw_explainer(
-                m_config, model, xs, mask_1, v_1, surrogate_null,
+            phi, _ = fw_explainer(
+                model, xs, mask_1, v_1, surrogate_null,
                 **_ltt_kwargs(recipe, ltt_active))
-            loss = loss_shapley(masks, surrogate_null, v_s, v_1, phi,
-                                weights)
+            loss = phi if pp is not None and not pp.last else loss_shapley(
+                masks, surrogate_null, v_s, v_1, phi, weights)
         if share is not None:
             loss, _, _ = dp_merge(mesh, share, loss, ())
-        return loss
+        return loss if pp is None else pp.finish(loss)
 
     return eval_step

@@ -17,7 +17,7 @@ from __future__ import annotations
 import importlib
 import os
 import pathlib
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -211,11 +211,15 @@ def save_opt_state(path: pathlib.Path, section: str, epoch: int,
 
 
 def maybe_restore_opt_state(path: pathlib.Path, section: str, epoch: int,
-                            opt: AdamW) -> AdamW:
+                            opt: AdamW, names: Optional[list] = None,
+                            take: Optional[Callable] = None) -> AdamW:
     """Exact resume: load the optimizer state saved at `epoch` into `opt`
     (the freshly built one, in place).  A no-op when AUTOGNOTHI_CKPT_OPT is
     off, at epoch 0, or without an opt file.  Raises where the file's
-    names or shapes are not `opt`'s, and for a JAX-written file."""
+    names or shapes are not `opt`'s, and for a JAX-written file.  A
+    pipeline stage holds part of the moments: `names` are the file's
+    (default `opt.names`), and `take(name, array)` cuts a moment to the
+    rank's tensor-parallel shard."""
     file = opt_path(path, section, epoch)
     if not opt_ckpt_enabled() or epoch <= 0 or not file.exists():
         return opt
@@ -225,7 +229,8 @@ def maybe_restore_opt_state(path: pathlib.Path, section: str, epoch: int,
             f"optimizer checkpoint {file.name} was written by the JAX "
             f"package (optax leaves by position); the port reads only its "
             f"own named moments: delete it to resume with fresh moments")
-    want = {"count", *(f"{m}/{k}" for m in ("mu", "nu") for k in opt.names)}
+    want = {"count", *(f"{m}/{k}" for m in ("mu", "nu")
+                       for k in (opt.names if names is None else names))}
     if set(arrays) != want:
         raise ValueError(
             f"optimizer checkpoint {file.name} holds other parameters than "
@@ -236,6 +241,8 @@ def maybe_restore_opt_state(path: pathlib.Path, section: str, epoch: int,
     for k in opt.names:
         for m, store in (("mu", opt.mu), ("nu", opt.nu)):
             got = arrays[f"{m}/{k}"]
+            if take is not None:
+                got = np.ascontiguousarray(take(k, got))
             if got.shape != tuple(store[k].shape):
                 raise ValueError(
                     f"optimizer checkpoint {file.name}: {m}/{k} has shape "

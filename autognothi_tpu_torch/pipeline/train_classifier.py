@@ -17,8 +17,8 @@ device seeded with `derive_seed(seed, "train_classifier[epoch=e][train]")`
 (the stage draws no coalition masks).  In a world of ranks the stage is
 data-parallel (`parallel/mesh.py:setup_data_parallel`,
 `training.make_train_step`), its forwards in pallas mode "0"
-(`mesh_safe_pallas`).  Pipeline-parallel training is not ported and
-raises.
+(`mesh_safe_pallas`).  With AUTOGNOTHI_PP the stage is pipeline-
+parallel (`pp_trainer.setup_pp_classifier`; vanilla kinds only).
 """
 
 from __future__ import annotations
@@ -31,19 +31,20 @@ import numpy as np
 import torch
 
 from ..models.common import quant_override
-from ..params import to_flat
+from ..params import from_jax_params
 from ..parallel.mesh import axis_size, setup_data_parallel
+from ..parallel.pipeline import pp_config_from_env
 from ..parallel.train_step import mesh_safe_pallas
 from ..utils.devices import resolve_device
 from ..utils.seeding import iterative_generator, set_iterative_seed
 from .env import ExpEnv
-from .resources import (get_recipe, load_cfg_dataset, load_epoch_model,
+from .resources import (get_recipe, load_cfg_dataset, load_epoch_params,
                         load_misc, maybe_restore_opt_state, save_epoch_ckpt)
 from .training import (AdamW, LossDrain, cast_input, cosine_lr,
                        cross_entropy_on_probs, filter_mask, graceful_training,
                        make_eval_step, make_train_step,
-                       maybe_enable_debug_nans, ones_mask,
-                       pad_batch, refuse_pipeline_parallel)
+                       ckpt_of, maybe_enable_debug_nans, ones_mask,
+                       pad_batch)
 
 
 def classifier_loss(recipe, m_config, is_ltt: bool):
@@ -71,7 +72,6 @@ def train_classifier(env: ExpEnv, device: str = "cuda",
     if not recipe.training.support_classifier:
         env.log("[[[ skip: classifier cannot be trained ]]]")
         return
-    refuse_pipeline_parallel()
     t_cfg = config.train_classifier
     if t_cfg is None:
         raise ValueError("the experiment config has no train_classifier")
@@ -81,35 +81,51 @@ def train_classifier(env: ExpEnv, device: str = "cuda",
     m_misc = load_misc(env, recipe, m_config)
     gen_input = recipe.gen_input(m_config, m_misc)
 
-    epoch_start, model = load_epoch_model(env, recipe, "classifier", dev)
+    epoch_start, flat = load_epoch_params(env, "classifier")
     if epoch_start >= t_cfg.epochs:
         env.log("[[[ classifier already trained ]]]")
         return
-    mesh, place_params, _ = setup_data_parallel(dev)
-    if mesh is not None:
-        env.log(f"[[[ data-parallel over {axis_size(mesh, 'data')} "
-                "devices ]]]")
-        model = place_params(model)
     trainable = ((lambda name: True) if unfreeze_all
                  else recipe.trainable(m_config, "classifier"))
-    for name, p in model.named_parameters():
-        p.requires_grad_(trainable(name))
-    params = dict(model.named_parameters())
-    # exact resume (AUTOGNOTHI_CKPT_OPT=1); otherwise fresh moments
-    opt = maybe_restore_opt_state(env.model_path, "classifier", epoch_start,
-                                  AdamW(params, trainable))
     is_ltt = recipe.progressive_trainable is not None
     full_depth = getattr(m_config, "num_hidden_layers", 0)
-    loss_fn = classifier_loss(recipe, m_config, is_ltt)
-    step = make_train_step(loss_fn, mesh, in_axes=(0, 0, 0, None, None, 0))
+    pp_cfg = pp_config_from_env()
+    if pp_cfg is not None:
+        from .pp_trainer import setup_pp_classifier
 
-    def eval_loss(xs, mask, labels, ltt_active, weights):
-        kw = {"ltt_active_layers": ltt_active} if is_ltt else {}
-        with mesh_safe_pallas(), quant_override("none"):
-            probs, _ = recipe.fw_classifier(m_config, model, xs, mask, **kw)
-            return cross_entropy_on_probs(probs, labels, weights), probs
+        pp, step, eval_fwd = setup_pp_classifier(
+            env, config, m_config, flat, trainable, *pp_cfg, device=dev)
+        model = pp.model
+        params = dict(model.named_parameters())
+        opt = pp.restore_opt(env.model_path, "classifier", epoch_start,
+                             pp.opt)
+    else:
+        pp = None
+        model = from_jax_params(flat, m_config, dev, section="classifier")
+        mesh, place_params, _ = setup_data_parallel(dev)
+        if mesh is not None:
+            env.log(f"[[[ data-parallel over {axis_size(mesh, 'data')} "
+                    "devices ]]]")
+            model = place_params(model)
+        for name, p in model.named_parameters():
+            p.requires_grad_(trainable(name))
+        params = dict(model.named_parameters())
+        # exact resume (AUTOGNOTHI_CKPT_OPT=1); otherwise fresh moments
+        opt = maybe_restore_opt_state(env.model_path, "classifier",
+                                      epoch_start, AdamW(params, trainable))
+        loss_fn = classifier_loss(recipe, m_config, is_ltt)
+        step = make_train_step(loss_fn, mesh,
+                               in_axes=(0, 0, 0, None, None, 0))
 
-    eval_fwd = make_eval_step(eval_loss, mesh, in_axes=(0, 0, 0, None, 0))
+        def eval_loss(xs, mask, labels, ltt_active, weights):
+            kw = {"ltt_active_layers": ltt_active} if is_ltt else {}
+            with mesh_safe_pallas(), quant_override("none"):
+                probs, _ = recipe.fw_classifier(m_config, model, xs, mask,
+                                                **kw)
+                return cross_entropy_on_probs(probs, labels, weights), probs
+
+        eval_fwd = make_eval_step(eval_loss, mesh,
+                                  in_axes=(0, 0, 0, None, 0))
 
     def run_epoch(epoch: int, gen: Optional[torch.Generator], lr: float,
                   update_mask, ltt_active: int, train: bool):
@@ -177,5 +193,5 @@ def train_classifier(env: ExpEnv, device: str = "cuda",
                 f"train_loss: cls {train_loss:.6f} // "
                 f"test_loss: cls {test_loss:.6f} // test_acc: {test_acc:.3f}")
         save_epoch_ckpt(env.model_path, "classifier", t_cfg, epoch,
-                        to_flat(model), opt=opt)
+                        *ckpt_of(pp, model, opt))
         env.flush_cfg()

@@ -47,7 +47,7 @@ from .training import (AdamW, LossDrain, cast_input, cosine_lr,
                        cross_entropy_on_probs, graceful_training,
                        make_eval_step, make_train_step,
                        maybe_enable_debug_nans, ones_mask,
-                       pad_batch, refuse_pipeline_parallel)
+                       pad_batch)
 
 
 def duo_loss(recipe: ModelRecipe, m_config: Any, n_players: int) -> Callable:
@@ -126,7 +126,6 @@ def train_duo_explainer(env: ExpEnv, device: str = "cuda") -> None:
     maybe_enable_debug_nans()
     config = env.config
     recipe, m_config = get_recipe(config)
-    refuse_pipeline_parallel()
     t_cfg = config.train_explainer
     if t_cfg is None:
         raise ValueError("the experiment config has no train_explainer")

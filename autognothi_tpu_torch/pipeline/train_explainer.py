@@ -14,10 +14,10 @@ training device seeded with `derive_seed(seed, "train_explainer[epoch=e]
 (the joint classification + Shapley loss), the KernelSHAP recipe with
 `train_kernel_shap_explainer.py` (k-means), as in the JAX package.  In a
 world of ranks the stage is data-parallel (`parallel/mesh.py:
-setup_data_parallel`; the step's docstring says how).  Pipeline-parallel
-training (AUTOGNOTHI_PP, AUTOGNOTHI_PP_TP above 1) is not ported and
-raises.  With AUTOGNOTHI_CKPT_OPT=1 the optimizer state is checkpointed
-beside each epoch and reloaded on resume.
+setup_data_parallel`; the step's docstring says how).  With AUTOGNOTHI_PP
+the explainer is pipeline-parallel (`pp_trainer.setup_pp_explainer`;
+vanilla kinds only).  With AUTOGNOTHI_CKPT_OPT=1 the optimizer state is
+checkpointed beside each epoch and reloaded on resume.
 """
 
 from __future__ import annotations
@@ -27,18 +27,31 @@ import time
 
 import torch
 
-from ..params import to_flat
+from ..params import from_jax_params
 from ..parallel.mesh import axis_size, setup_data_parallel
+from ..parallel.pipeline import pp_config_from_env
 from ..parallel.train_step import (make_explainer_eval_step,
                                    make_explainer_train_step)
 from ..utils.devices import resolve_device
 from ..utils.seeding import iterative_generator, set_iterative_seed
 from .env import ExpEnv
 from .resources import (get_recipe, load_cfg_dataset, load_epoch_model,
-                        load_misc, maybe_restore_opt_state, save_epoch_ckpt)
-from .training import (AdamW, LossDrain, cast_input, cosine_lr, filter_mask,
-                       graceful_training, maybe_enable_debug_nans, ones_mask,
-                       pad_batch, refuse_pipeline_parallel)
+                        load_epoch_params, load_misc,
+                        maybe_restore_opt_state, save_epoch_ckpt)
+from .training import (AdamW, LossDrain, cast_input, ckpt_of, cosine_lr,
+                       filter_mask, graceful_training,
+                       maybe_enable_debug_nans, ones_mask, pad_batch)
+
+
+def _surrogate_null(recipe, m_config, m_misc, srg_model, dev):
+    """The surrogate on the all-on null input, once."""
+    n_players = recipe.n_players(m_config)
+    with torch.no_grad():
+        nil_xs = torch.from_numpy(recipe.gen_null(m_config, m_misc)).to(dev)
+        null, _ = recipe.fw_surrogate(
+            m_config, srg_model, nil_xs,
+            torch.ones((1, n_players), dtype=torch.int32, device=dev))
+    return null
 
 
 @graceful_training
@@ -58,7 +71,6 @@ def train_explainer(env: ExpEnv, device: str = "cuda") -> None:
         from .train_kernel_shap_explainer import train_kernel_shap_explainer
 
         return train_kernel_shap_explainer(env, device=device)
-    refuse_pipeline_parallel()
     t_cfg = config.train_explainer
     if t_cfg is None:
         raise ValueError("the experiment config has no train_explainer")
@@ -69,35 +81,47 @@ def train_explainer(env: ExpEnv, device: str = "cuda") -> None:
     gen_input = recipe.gen_input(m_config, m_misc)
 
     _, srg_model = load_epoch_model(env, recipe, "surrogate", dev)
-    epoch_start, model = load_epoch_model(env, recipe, "explainer", dev)
+    epoch_start, flat = load_epoch_params(env, "explainer")
     if epoch_start >= t_cfg.epochs:
         env.log("[[[ explainer already trained ]]]")
         return
-    # multi-device: replicate the models, shard the batch/coalition rows
-    mesh, place_params, _ = setup_data_parallel(dev)
-    if mesh is not None:
-        env.log(f"[[[ data-parallel over {axis_size(mesh, 'data')} "
-                "devices ]]]")
-        model, srg_model = place_params(model), place_params(srg_model)
     srg_model.requires_grad_(False)
     trainable = recipe.trainable(m_config, "explainer")
-    for name, p in model.named_parameters():
-        p.requires_grad_(trainable(name))
-    params = dict(model.named_parameters())
-    # exact resume (AUTOGNOTHI_CKPT_OPT=1); otherwise fresh moments
-    opt = maybe_restore_opt_state(env.model_path, "explainer", epoch_start,
-                                  AdamW(params, trainable))
-    step = make_explainer_train_step(recipe, m_config, n_players,
-                                     t_cfg.n_mask_samples, mesh=mesh)
-    eval_step = make_explainer_eval_step(recipe, m_config, n_players,
-                                         t_cfg.n_mask_samples, mesh=mesh)
+    pp_cfg = pp_config_from_env()
+    if pp_cfg is not None:
+        from .pp_trainer import setup_pp_explainer
 
-    # surrogate_null: the surrogate on the all-on null input, once
-    with torch.no_grad():
-        nil_xs = torch.from_numpy(recipe.gen_null(m_config, m_misc)).to(dev)
-        surrogate_null, _ = recipe.fw_surrogate(
-            m_config, srg_model, nil_xs,
-            torch.ones((1, n_players), dtype=torch.int32, device=dev))
+        # the null before a tensor-parallel stage shards the surrogate
+        surrogate_null = _surrogate_null(recipe, m_config, m_misc,
+                                         srg_model, dev)
+        pp, srg_model, step, eval_step = setup_pp_explainer(
+            env, config, m_config, flat, srg_model, recipe, *pp_cfg,
+            device=dev)
+        model = pp.model
+        params = dict(model.named_parameters())
+        opt = pp.restore_opt(env.model_path, "explainer", epoch_start,
+                             pp.opt)
+    else:
+        pp = None
+        model = from_jax_params(flat, m_config, dev, section="explainer")
+        # multi-device: replicate the models, shard the batch/coalition rows
+        mesh, place_params, _ = setup_data_parallel(dev)
+        if mesh is not None:
+            env.log(f"[[[ data-parallel over {axis_size(mesh, 'data')} "
+                    "devices ]]]")
+            model, srg_model = place_params(model), place_params(srg_model)
+        for name, p in model.named_parameters():
+            p.requires_grad_(trainable(name))
+        params = dict(model.named_parameters())
+        # exact resume (AUTOGNOTHI_CKPT_OPT=1); otherwise fresh moments
+        opt = maybe_restore_opt_state(env.model_path, "explainer",
+                                      epoch_start, AdamW(params, trainable))
+        step = make_explainer_train_step(recipe, m_config, n_players,
+                                         t_cfg.n_mask_samples, mesh=mesh)
+        eval_step = make_explainer_eval_step(recipe, m_config, n_players,
+                                             t_cfg.n_mask_samples, mesh=mesh)
+        surrogate_null = _surrogate_null(recipe, m_config, m_misc,
+                                         srg_model, dev)
 
     full_depth = getattr(m_config, "num_hidden_layers", 0)
 
@@ -161,5 +185,5 @@ def train_explainer(env: ExpEnv, device: str = "cuda") -> None:
                 f"train_loss: shap {train_loss:.6f} // "
                 f"test_loss: shap {test_loss:.6f}")
         save_epoch_ckpt(env.model_path, "explainer", t_cfg, epoch,
-                        to_flat(model), opt=opt)
+                        *ckpt_of(pp, model, opt))
         env.flush_cfg()

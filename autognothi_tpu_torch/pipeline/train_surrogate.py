@@ -19,8 +19,10 @@ EXPERIMENTAL_progressive_training one more ladder layer unfreezes every
 three epochs.  In a world of ranks the stage is data-parallel
 (`parallel/mesh.py:setup_data_parallel`, `training.make_train_step`):
 the teacher and the student run on each rank's rows in pallas mode "0"
-(`mesh_safe_pallas`), as the JAX stage runs them on its mesh.
-Pipeline-parallel training is not ported and raises.
+(`mesh_safe_pallas`), as the JAX stage runs them on its mesh.  With
+AUTOGNOTHI_PP the student is pipeline-parallel (`pp_trainer.
+setup_pp_surrogate`; vanilla kinds only) and the teacher runs on each
+rank's "data" rows of the pipe mesh.
 """
 
 from __future__ import annotations
@@ -33,19 +35,21 @@ import torch
 
 from ..models.common import quant_override
 from ..ops.shapley import loss_logits_kl_divergence, mask_purely_uniform
-from ..params import to_flat
+from ..params import from_jax_params
 from ..parallel.mesh import axis_size, setup_data_parallel, sharded_eval_fn
+from ..parallel.pipeline import pp_config_from_env
 from ..parallel.train_step import mesh_safe_pallas
 from ..utils.devices import resolve_device
 from ..utils.seeding import iterative_generator, set_iterative_seed
 from .env import ExpEnv
 from .resources import (get_recipe, load_cfg_dataset, load_epoch_model,
-                        load_misc, maybe_restore_opt_state, save_epoch_ckpt)
+                        load_epoch_params, load_misc,
+                        maybe_restore_opt_state, save_epoch_ckpt)
 from .training import (AdamW, LossDrain, cast_input, cosine_lr,
                        cross_entropy_on_probs, filter_mask, graceful_training,
                        make_eval_step, make_train_step,
-                       maybe_enable_debug_nans, ones_mask,
-                       pad_batch, refuse_pipeline_parallel)
+                       ckpt_of, maybe_enable_debug_nans, ones_mask,
+                       pad_batch)
 
 
 def surrogate_loss(recipe, m_config, is_ltt: bool):
@@ -95,7 +99,6 @@ def train_surrogate(env: ExpEnv, device: str = "cuda") -> None:
     if not recipe.training.support_surrogate:
         env.log("[[[ skip: surrogate cannot be trained ]]]")
         return
-    refuse_pipeline_parallel()
     t_cfg = config.train_surrogate
     if t_cfg is None:
         raise ValueError("the experiment config has no train_surrogate")
@@ -106,39 +109,55 @@ def train_surrogate(env: ExpEnv, device: str = "cuda") -> None:
     gen_input = recipe.gen_input(m_config, m_misc)
 
     _, cls_model = load_epoch_model(env, recipe, "classifier", dev)
-    epoch_start, model = load_epoch_model(env, recipe, "surrogate", dev)
+    epoch_start, flat = load_epoch_params(env, "surrogate")
     if epoch_start >= t_cfg.epochs:
         env.log("[[[ surrogate already trained ]]]")
         return
-    mesh, place_params, _ = setup_data_parallel(dev)
-    if mesh is not None:
-        env.log(f"[[[ data-parallel over {axis_size(mesh, 'data')} "
-                "devices ]]]")
-        model, cls_model = place_params(model), place_params(cls_model)
     cls_model.requires_grad_(False)
     trainable = recipe.trainable(m_config, "surrogate")
-    for name, p in model.named_parameters():
-        p.requires_grad_(trainable(name))
-    params = dict(model.named_parameters())
-    # exact resume (AUTOGNOTHI_CKPT_OPT=1); otherwise fresh moments
-    opt = maybe_restore_opt_state(env.model_path, "surrogate", epoch_start,
-                                  AdamW(params, trainable))
     is_ltt = recipe.progressive_trainable is not None
     full_depth = getattr(m_config, "num_hidden_layers", 0)
-    step = make_train_step(surrogate_loss(recipe, m_config, is_ltt), mesh,
-                           in_axes=(0, 0, 0, 0, None, None, 0))
+    pp_cfg = pp_config_from_env()
+    if pp_cfg is not None:
+        from .pp_trainer import setup_pp_surrogate
+
+        pp, cls_model, step, eval_fwd = setup_pp_surrogate(
+            env, config, m_config, flat, cls_model, trainable, *pp_cfg,
+            device=dev)
+        model, mesh = pp.model, pp.mesh
+        params = dict(model.named_parameters())
+        opt = pp.restore_opt(env.model_path, "surrogate", epoch_start,
+                             pp.opt)
+    else:
+        pp = None
+        model = from_jax_params(flat, m_config, dev, section="surrogate")
+        mesh, place_params, _ = setup_data_parallel(dev)
+        if mesh is not None:
+            env.log(f"[[[ data-parallel over {axis_size(mesh, 'data')} "
+                    "devices ]]]")
+            model, cls_model = place_params(model), place_params(cls_model)
+        for name, p in model.named_parameters():
+            p.requires_grad_(trainable(name))
+        params = dict(model.named_parameters())
+        # exact resume (AUTOGNOTHI_CKPT_OPT=1); otherwise fresh moments
+        opt = maybe_restore_opt_state(env.model_path, "surrogate",
+                                      epoch_start, AdamW(params, trainable))
+        step = make_train_step(surrogate_loss(recipe, m_config, is_ltt),
+                               mesh, in_axes=(0, 0, 0, 0, None, None, 0))
+
+        def eval_loss(xs, mask, orig_ys, labels, ltt_active, weights):
+            kw = {"ltt_active_layers": ltt_active} if is_ltt else {}
+            with mesh_safe_pallas(), quant_override("none"):
+                adapt_ys, _ = recipe.fw_surrogate(m_config, model, xs, mask,
+                                                  **kw)
+                return (loss_logits_kl_divergence(orig_ys, adapt_ys,
+                                                  weights),
+                        cross_entropy_on_probs(adapt_ys, labels, weights),
+                        adapt_ys)
+
+        eval_fwd = make_eval_step(eval_loss, mesh,
+                                  in_axes=(0, 0, 0, 0, None, 0))
     teacher = surrogate_teacher(recipe, m_config, mesh)
-
-    def eval_loss(xs, mask, orig_ys, labels, ltt_active, weights):
-        kw = {"ltt_active_layers": ltt_active} if is_ltt else {}
-        with mesh_safe_pallas(), quant_override("none"):
-            adapt_ys, _ = recipe.fw_surrogate(m_config, model, xs, mask,
-                                              **kw)
-            return (loss_logits_kl_divergence(orig_ys, adapt_ys, weights),
-                    cross_entropy_on_probs(adapt_ys, labels, weights),
-                    adapt_ys)
-
-    eval_fwd = make_eval_step(eval_loss, mesh, in_axes=(0, 0, 0, 0, None, 0))
 
     def run_epoch(epoch: int, gen: torch.Generator, lr: float, update_mask,
                   ltt_active: int, train: bool):
@@ -217,5 +236,5 @@ def train_surrogate(env: ExpEnv, device: str = "cuda") -> None:
                 f"test_loss: kld {test_kld:.6f} cls {test_cls:.6f} // "
                 f"test_acc: {test_acc:.3f}")
         save_epoch_ckpt(env.model_path, "surrogate", t_cfg, epoch,
-                        to_flat(model), opt=opt)
+                        *ckpt_of(pp, model, opt))
         env.flush_cfg()

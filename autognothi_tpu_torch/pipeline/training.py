@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..parallel.distributed import any_rank
 from ..parallel.mesh import (all_reduce_sum, data_rows, gather_rows,
                              pad_to_multiple, shard_batch)
 
@@ -111,14 +112,16 @@ def cast_input(xs: torch.Tensor) -> torch.Tensor:
     return xs.to(compute_dtype()) if xs.is_floating_point() else xs
 
 
-def refuse_pipeline_parallel() -> None:
-    """Pipeline-parallel training (AUTOGNOTHI_PP, AUTOGNOTHI_PP_TP above 1)
-    is not ported: a trainer raises before it trains."""
-    if any(os.environ.get(k, "").strip() not in ("", "0", "1")
-           for k in ("AUTOGNOTHI_PP", "AUTOGNOTHI_PP_TP")):
-        raise NotImplementedError(
-            "pipeline-parallel training (AUTOGNOTHI_PP, AUTOGNOTHI_PP_TP) "
-            "is not ported yet")
+def ckpt_of(pp, model: torch.nn.Module, opt: AdamW) -> tuple:
+    """-> (the flat parameters, the optimizer) an epoch checkpoint saves:
+    the module's and `opt`, or under a pipeline (`pp`, a
+    `pp_trainer.PPContext`) the stages gathered to the writer.  Every
+    rank calls it."""
+    if pp is None:
+        from ..params import to_flat
+
+        return to_flat(model), opt
+    return pp.to_flat(model), pp.opt_for_ckpt(opt)
 
 
 def defer_loss_fetch() -> bool:
@@ -384,7 +387,9 @@ class LossDrain:
                      for v in vals)
 
     def push(self, device_vals: tuple, host_vals: tuple = ()) -> None:
-        if shutdown_requested():
+        # in a world of ranks every rank stops at the same batch, or one
+        # would wait for the others in the next collective
+        if any_rank(shutdown_requested()):
             raise TrainingInterrupted(
                 "SIGTERM: stopped at a batch boundary; completed epochs are "
                 "checkpointed, rerun the same command to resume")

@@ -5361,6 +5361,10 @@ def dist_child_b(case, spec: dict, out: dict, live_int8: dict) -> None:
     del model, opt, srg, tp_params
     torch.cuda.empty_cache()
     dist.barrier()
+    # pipeline parallelism (M10b): the vanilla towers' PP trainers
+    dist_child_pp(spec, out, case.xs.device)
+    torch.cuda.empty_cache()
+    dist.barrier()
     # serving: the live W8A8 final, then the --data-parallel 2 artifact
     from autognothi_tpu_torch.pipeline.env import ExpEnv
     from autognothi_tpu_torch.pipeline.serve import ExplainService
@@ -5391,6 +5395,280 @@ def dist_child_b(case, spec: dict, out: dict, live_int8: dict) -> None:
                         k: v for k, v in read_counts().items() if v}
                     del service
         torch.cuda.empty_cache()
+
+
+PP_LR = 5e-5  # the PP steps' learning rate
+
+
+def _spied_opt(model, trainable):
+    """-> (AdamW over `model`'s parameters, the gradients its update
+    sees); the parameters' requires_grad set by `trainable`."""
+    from autognothi_tpu_torch.pipeline.training import AdamW
+
+    for name, p in model.named_parameters():
+        p.requires_grad_(trainable(name))
+    opt = AdamW(dict(model.named_parameters()), trainable)
+    grads, update = {}, opt.update
+
+    def spy(params, g, lr, mask):
+        grads.update({k: v.detach().clone() for k, v in g.items()
+                      if v is not None})
+        return update(params, g, lr, mask)
+
+    opt.update = spy
+    return opt, grads
+
+
+def _state_bytes(model, opt) -> list:
+    """-> [parameter bytes, AdamW moment bytes, the encoder stack's
+    parameter bytes] of a rank."""
+    return [sum(p.numel() * p.element_size() for p in model.parameters()),
+            sum(t.numel() * t.element_size()
+                for store in (opt.mu, opt.nu) for t in store.values()),
+            sum(p.numel() * p.element_size()
+                for k, p in model.named_parameters()
+                if ".encoder.layers." in k)]
+
+
+def pp_case(out: dict, key: str, ctx, pp_call, ref_make) -> None:
+    """One pipeline-parallel step `pp_call()` -> its loss, against the
+    same step in one process (rank 0): `ref_make()` -> (model, AdamW,
+    gradients, call).  Records the losses, the settled parameter
+    difference (the stages gathered to rank 0), each rank's state bytes
+    and the one process's, the kernel calls of each, the hops and their
+    path, and warm ms a step of both (over 2 steps after the first)."""
+    import torch
+    import torch.distributed as dist
+
+    from autognothi_tpu_torch.parallel.pipeline import HOPS
+
+    t0 = time.perf_counter()
+    reset_counts()
+    HOPS.clear()
+    loss = float(pp_call())
+    res = {"loss": loss, "calls": {k: v for k, v in read_counts().items()
+                                   if v},
+           "hops": dict(HOPS), "bytes": _state_bytes(ctx.model, ctx.opt)}
+    flat = ctx.to_flat(ctx.model)
+    res["ms"] = warm_step_ms(pp_call, reps=2)
+    if dist.get_rank() == 0:
+        model, opt, grads, call = ref_make()
+        reset_counts()
+        res["ref_loss"] = float(call())
+        res["ref_calls"] = {k: v for k, v in read_counts().items() if v}
+        res["ref_bytes"] = _state_bytes(model, opt)
+        res["param_diff"] = settled_diff(
+            {k: torch.from_numpy(flat[k]) for k in grads},
+            {k: p.detach().cpu() for k, p in model.named_parameters()
+             if k in grads}, {k: g.cpu() for k, g in grads.items()}, PP_LR)
+        res["ref_ms"] = warm_step_ms(call, reps=2)
+        del model, opt, grads
+    dist.barrier()
+    torch.cuda.empty_cache()
+    res["s"] = time.perf_counter() - t0
+    out[key] = res
+
+
+def pp_explainer_case(out: dict, key: str, model_of: tuple, exp_flat: dict,
+                      mb: int, tp: int, dev, gen, log) -> None:
+    """`pp_case` of the explainer step (`setup_pp_explainer`) at the
+    experiment's batch and M, the teacher with its kernels per rank on a
+    mesh without a "model" axis (the one process patches its teacher
+    scope to the same), in mode "0" when tp > 1 (both sides)."""
+    import torch
+
+    from autognothi_tpu_torch.params import from_jax_params
+    from autognothi_tpu_torch.parallel import train_step as ts
+    from autognothi_tpu_torch.pipeline import pp_trainer as ppt
+
+    _, config, recipe, cfg, srg_flat = model_of
+    t_cfg = config.train_explainer
+    b, m, n_players = t_cfg.batch_size, t_cfg.n_mask_samples, \
+        recipe.n_players(cfg)
+    if recipe.id == "vanilla_vit":
+        xs = torch.randn((b, 3, cfg.img_px_size, cfg.img_px_size),
+                         generator=gen, device=dev)
+    else:
+        xs = torch.randint(5, cfg.vocab_size, (b, n_players + 1),
+                           generator=gen, device=dev)
+    masks = (torch.rand((b, m, n_players), generator=gen, device=dev)
+             > 0.5).to(torch.int32)
+    null = torch.softmax(torch.randn((1, cfg.num_labels), generator=gen,
+                                     device=dev), dim=-1)
+    srg = from_jax_params(srg_flat, cfg, dev, section="surrogate")
+    srg.requires_grad_(False)
+    ctx, srg, step, _ = ppt.setup_pp_explainer(
+        log, config, cfg, exp_flat, srg, recipe, 2, mb, tp, device=dev)
+    every = lambda model: {k: 1.0 for k, _ in model.named_parameters()}  # noqa
+
+    def ref_make():
+        model = from_jax_params(exp_flat, cfg, dev, section="explainer")
+        opt, grads = _spied_opt(model, lambda k: True)
+        full = from_jax_params(srg_flat, cfg, dev, section="surrogate")
+        full.requires_grad_(False)
+        ref = ts.make_explainer_train_step(recipe, cfg, n_players, m)
+        teacher_on = ((lambda *a: contextlib.nullcontext()) if tp == 1
+                      else ts._teacher_on)
+
+        def call():
+            with mock.patch.object(ts, "_teacher_on", teacher_on):
+                return ref(model, opt, full, null, xs, None, PP_LR,
+                           every(model), cfg.num_hidden_layers, masks=masks)
+        return model, opt, grads, call
+
+    pp_case(out, key, ctx, lambda: step(
+        ctx.model, ctx.opt, srg, null, xs, None, PP_LR, every(ctx.model),
+        cfg.num_hidden_layers, masks=masks), ref_make)
+
+
+def dist_child_pp(spec: dict, out: dict, dev) -> None:
+    """Pipeline parallelism (M10b) on the ranks of phase 16 (b): over two
+    gloo ranks on the one card a (data 1 x pipe 2) mesh, over four NCCL
+    cards (data 2 x pipe 2) and (data 1 x pipe 2 x model 2).  On each,
+    the random vanilla ViT-B/16@224 (12 layers, 6 a stage) classifier
+    step (every parameter trainable, as `pretrain_classifier`), surrogate
+    step and explainer step at B = 8 x M = 32 (microbatches 2, and 4 on
+    the one card), and the random BERT-base@512 classifier step at B = 8,
+    each against the same step in one process in the same arithmetic
+    (`pp_case`); then the `train_explainer` CLI for one epoch under
+    AUTOGNOTHI_PP=2, whose flat checkpoint rank 0 loads."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from autognothi_tpu_torch.cli import main as cli_main
+    from autognothi_tpu_torch.params import from_jax_params, save_params
+    from autognothi_tpu_torch.parallel.pipeline import HOPS
+    from autognothi_tpu_torch.pipeline import pp_trainer as ppt
+    from autognothi_tpu_torch.pipeline.config import parse_config
+    from autognothi_tpu_torch.pipeline.resources import get_recipe
+    from autognothi_tpu_torch.pipeline.train_classifier import \
+        classifier_loss
+    from autognothi_tpu_torch.pipeline.train_surrogate import surrogate_loss
+    from autognothi_tpu_torch.pipeline.training import make_train_step
+
+    t_all = time.perf_counter()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    layouts = ([("pp2", 1, (2, 4))] if world == 2 else
+               [("dp2xpp2", 1, (2,)), ("pp2xtp2", 2, (2,))])
+    log = SimpleNamespace(log=lambda *_: None)
+    t0 = time.perf_counter()
+    models = {}
+    for family in ("vit", "bert"):
+        exp = pathlib.Path(spec[f"pp_{family}"])
+        config = parse_config(json.loads(
+            (exp / ".hparams.json").read_text()))
+        recipe, cfg = get_recipe(config)
+        cls = recipe.init_classifier(cfg, torch.Generator().manual_seed(SEED))
+        models[family] = (exp, config, recipe, cfg, cls)
+    exp, config, recipe, cfg, srg_flat = models["vit"]
+    exp_flats = {family: m[2].init_explainer(
+        m[3], torch.Generator().manual_seed(SEED + 1))
+        for family, m in models.items() if family == "vit" or world == 2}
+    exp_flat = exp_flats["vit"]
+    if rank == 0:  # the CLI's checkpoints
+        save_params(exp / "surrogate-epoch-1.ckpt", srg_flat)
+        save_params(exp / "explainer-epoch-0.ckpt", exp_flat)
+    out["pp_init_s"] = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, n_players = TRAIN_B, recipe.n_players(cfg)
+    xs = torch.randn((b, 3, 224, 224), generator=gen, device=dev)
+    labels = torch.randint(0, cfg.num_labels, (b,), generator=gen,
+                           device=dev)
+    mask_1 = torch.ones((b, n_players), dtype=torch.int32, device=dev)
+    mask_rand = (torch.rand((b, n_players), generator=gen, device=dev)
+                 > 0.5).to(torch.int32)
+    orig = torch.softmax(torch.randn((b, cfg.num_labels), generator=gen,
+                                     device=dev), dim=-1)
+    w = torch.ones((b,), device=dev)
+    _, bconfig, _, bcfg, bflat = models["bert"]
+    ids = torch.randint(5, bcfg.vocab_size, (b, 512), generator=gen,
+                        device=dev)
+    bmask = torch.ones((b, 511), dtype=torch.int32, device=dev)
+    blabels = labels % bcfg.num_labels
+    inputs = {"vit": (xs, mask_1, labels), "bert": (ids, bmask, blabels)}
+    every = lambda model: {k: 1.0 for k, _ in model.named_parameters()}  # noqa
+
+    def ref_cls(family):
+        _, _, rec, c, flat = models[family]
+        model = from_jax_params(flat, c, dev, section="classifier")
+        opt, grads = _spied_opt(model, lambda k: True)
+        ref = make_train_step(classifier_loss(rec, c, False))
+        return model, opt, grads, lambda: ref(
+            model, opt, PP_LR, every(model), *inputs[family], None, None,
+            w)[0]
+
+    for name, tp, mbs in layouts:
+        # the classifier, every parameter trainable
+        ctx, step, _ = ppt.setup_pp_classifier(
+            log, config, cfg, srg_flat, lambda k: True, 2, 2, tp, device=dev)
+        pp_case(out, f"pp {name} vit classifier", ctx, lambda: step(
+            ctx.model, ctx.opt, PP_LR, every(ctx.model), xs, mask_1, labels,
+            None, None, w)[0], lambda: ref_cls("vit"))
+        del ctx, step
+        # the surrogate, its teacher rows given
+        teacher = from_jax_params(srg_flat, cfg, dev, section="classifier")
+        ctx, _, step, _ = ppt.setup_pp_surrogate(
+            log, config, cfg, srg_flat, teacher, lambda k: True, 2, 2, tp,
+            device=dev)
+
+        def ref_srg():
+            model = from_jax_params(srg_flat, cfg, dev, section="surrogate")
+            opt, grads = _spied_opt(model, lambda k: True)
+            ref = make_train_step(surrogate_loss(recipe, cfg, False))
+            return model, opt, grads, lambda: ref(
+                model, opt, PP_LR, every(model), xs, mask_rand, orig,
+                labels, None, None, w)[0]
+
+        pp_case(out, f"pp {name} vit surrogate", ctx, lambda: step(
+            ctx.model, ctx.opt, PP_LR, every(ctx.model), xs, mask_rand, orig,
+            labels, None, None, w)[0], ref_srg)
+        del ctx, step, teacher
+        # the explainer at B = 8 x M = 32: the teacher's kernels per rank
+        # unless tensor parallelism shards it (mode "0" then, both sides)
+        # on the one card also the fp32 teacher (K6 + K7) and the BERT
+        # explainer at the shipped B = 4 x M = 2 (its W8A8 teacher: K6 +
+        # two K8q tiles, by the JAX gates)
+        explainers = [("vit", mb, {}) for mb in mbs]
+        if world == 2:
+            explainers += [("vit", 2, {"AUTOGNOTHI_INT8_TEACHER": "0"}),
+                           ("bert", 2, {})]
+        for family, mb, env in explainers:
+            with mock.patch.dict(os.environ, env):
+                pp_explainer_case(out, f"pp {name} {family} explainer mb{mb}"
+                                  + (" fp32 teacher" if env else ""),
+                                  models[family], exp_flats[family], mb, tp,
+                                  dev, gen, log)
+        # BERT-base@512, the classifier step at B = 8
+        ctx, step, _ = ppt.setup_pp_classifier(
+            log, bconfig, bcfg, bflat, lambda k: True, 2, 2, tp, device=dev)
+        pp_case(out, f"pp {name} bert classifier", ctx, lambda: step(
+            ctx.model, ctx.opt, PP_LR, every(ctx.model), ids, bmask,
+            blabels, None, None, w)[0], lambda: ref_cls("bert"))
+        del ctx, step
+    # the CLI: one epoch of train_explainer under AUTOGNOTHI_PP=2
+    dist.barrier()
+    reset_counts()
+    HOPS.clear()
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, {"AUTOGNOTHI_PP": "2"}):
+        cli_main(["train_explainer", str(exp), "--device", "cuda"])
+    out["pp_cli"] = {"s": time.perf_counter() - t0,
+                     "calls": {k: v for k, v in read_counts().items() if v},
+                     "hops": dict(HOPS)}
+    if rank == 0:
+        from autognothi_tpu_torch.params import load_params_file
+
+        got = load_params_file(exp / "explainer-epoch-1.ckpt")
+        flat_ok = set(got) == set(exp_flat) and all(
+            got[k].shape == exp_flat[k].shape for k in got)
+        from_jax_params(got, cfg, dev, section="explainer")  # strict
+        out["pp_cli"]["flat"] = flat_ok
+        out["pp_cli"]["moved"] = max(
+            float(np.abs(got[k] - exp_flat[k]).max()) for k in got)
+    out["pp_s"] = time.perf_counter() - t_all
 
 
 def run_dist_children(tmp: pathlib.Path, spec: dict, world: int) -> list:
@@ -5463,8 +5741,13 @@ def phase_distributed(dev, tmp: pathlib.Path, card: str, exp: pathlib.Path,
     live = tmp / "live_int8.json"
     live.write_text(json.dumps(live_int8))
     art = tmp / "vit_int8_dp2.agx"
+    # the pipeline-parallel experiments: random vanilla ViT-B/16@224 and
+    # BERT-base@512, written by the ranks (dist_child_pp)
+    pp = {f"pp_{family}": str(write_tower_experiment(
+        tmp, family, f"vanilla_{family}", f"pp_{family}"))
+        for family in ("vit", "bert")}
     spec = dict(exp=str(exp), train_exp=str(train_exp), live_int8=str(live),
-                artifact=str(art))
+                artifact=str(art), **pp)
     children_a = ([] if cards > 1 else
                   run_dist_children(tmp, dict(spec, check="a"), 1))
     # (b) waits for the artifact only before its last check
@@ -5565,7 +5848,69 @@ def check_dist_b(b: list, card: str) -> dict:
               f"(b) {tag}: the sharded answers differ from phase 3's")
         launches = _scaled((1, launches),
                            *((1, r[f"serve_{tag}_calls"]) for r in b))
-    return launches
+    return _scaled((1, launches), (1, check_dist_pp(b, card)))
+
+
+def check_dist_pp(b: list, card: str) -> dict:
+    """Phase 16's `[pp]` lines and checks over the ranks of (b) -> the
+    kernel calls of the CLI's epoch (its teachers')."""
+    world = f"{b[0]['backend']}, {len(b)} ranks"
+    keys = [k for k in b[0] if k.startswith("pp ")]
+    check(len(keys) >= 4, f"(b): the pipeline-parallel cases ran: {keys}")
+    for key in keys:
+        res = [r[key] for r in b]
+        x = res[0]
+        diff = abs(x["loss"] - x["ref_loss"])
+        ranks_same = all(r["loss"] == x["loss"] for r in res)
+        paths = sorted({h.split()[0] for r in res for h in r["hops"]})
+        share = [round(r["bytes"][0] / x["ref_bytes"][0], 4) for r in res]
+        stack = [r["bytes"][2] / x["ref_bytes"][2] for r in res]
+        print(f"[pp] {world}: {key[3:]}: loss {x['loss']!r} vs one process "
+              f"{x['ref_loss']!r} (|diff| {diff:.3e}, limit 1e-6 x "
+              f"max(1, |loss|)); parameters max|diff| "
+              f"{x['param_diff'][0]:.3e} where settled (limit 1e-6), "
+              f"{x['param_diff'][1]:.3e} elsewhere (limit 2 lr); ranks' "
+              f"losses equal {ranks_same}; parameter, moment and stack "
+              f"bytes a rank {[r['bytes'] for r in res]} vs one process "
+              f"{x['ref_bytes']} (parameter share a rank {share}, stack "
+              f"share {[round(v, 4) for v in stack]}); hops a "
+              f"rank {[r['hops'] for r in res]} over {paths}; kernel calls "
+              f"a rank {[r['calls'] for r in res]} vs one process on the "
+              f"same rows {x['ref_calls']}; warm ms a step {x['ms']:.1f} "
+              f"vs one process {x['ref_ms']:.1f}; the check {x['s']:.1f} s "
+              f"| {card}", flush=True)
+        check(diff <= 1e-6 * max(1.0, abs(x["ref_loss"]))
+              and x["param_diff"][0] <= 1e-6,
+              f"(b) {key}: the pipelined step differs from one process")
+        check(ranks_same, f"(b) {key}: the ranks' losses differ")
+        # a data rank of two sweeps half the rows (the one process all),
+        # so its calls are only printed
+        check("dp2" in key or all(r["calls"] == x["ref_calls"] for r in res),
+              f"(b) {key}: a rank's kernel calls are not the one-process "
+              "step's on the same rows")
+        check(all(r["hops"] and sum(r["hops"].values()) > 0 for r in res)
+              and len(paths) == 1, f"(b) {key}: hops {paths}")
+        # 1/P of the stack (pipe 2), less with tensor parallelism; the
+        # moments twice the parameters: nothing of another stage is held
+        check(all(v == 0.5 if "tp" not in key else v <= 0.5
+                  for v in stack)
+              and all(r["bytes"][1] == 2 * r["bytes"][0] for r in res),
+              f"(b) {key}: a rank's stack share is {stack}")
+    cli = [r["pp_cli"] for r in b]
+    print(f"[pp] {world}: the random towers initialized in "
+          f"{b[0]['pp_init_s']:.1f} s; the PP checks took "
+          f"{b[0]['pp_s']:.1f} s | {card}", flush=True)
+    print(f"[pp] {world}: train_explainer CLI, AUTOGNOTHI_PP=2, one epoch "
+          f"(2 steps + 1 eval batch of {TRAIN_B} x M = {TRAIN_M}): "
+          f"{cli[0]['s']:.1f} s; flat checkpoint {cli[0]['flat']} (loads "
+          f"strictly; parameters moved up to {cli[0]['moved']:.3e}); kernel "
+          f"calls a rank {[c['calls'] for c in cli]}; hops a rank "
+          f"{[c['hops'] for c in cli]} | {card}", flush=True)
+    check(cli[0]["flat"] and cli[0]["moved"] > 0,
+          "(b): the PP train_explainer checkpoint is not the flat one")
+    check(all(c["calls"] for c in cli),
+          "(b): a rank's PP teacher launched no kernel")
+    return _scaled(*((1, c["calls"]) for c in cli))
 
 
 # name -> (source, the TPU kernel it replaces: its pl.pallas_call)

@@ -65,8 +65,10 @@ def free_port() -> int:
 
 
 def run_world(spec: dict, nprocs: int, tmp: pathlib.Path,
-              extra_env: dict = None) -> list:
-    """Run `spec` in nprocs gloo processes -> each rank's (json, npz)."""
+              extra_env: dict = None,
+              module: str = "tests.torch_port_dist_child") -> list:
+    """Run `spec` in nprocs gloo processes of `module` -> each rank's
+    (json, npz)."""
     out = tmp / f"out_{nprocs}_{spec['tag']}"
     out.mkdir()
     spec = dict(spec, out=str(out))
@@ -82,8 +84,7 @@ def run_world(spec: dict, nprocs: int, tmp: pathlib.Path,
                     "AUTOGNOTHI_PALLAS": "0", "OMP_NUM_THREADS": "1",
                     **(extra_env or {})})
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "tests.torch_port_dist_child",
-             str(spec_path)], cwd=REPO, env=env, stdout=subprocess.PIPE,
+            [sys.executable, "-m", module, str(spec_path)], cwd=REPO, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))
     try:
         for rank, proc in enumerate(procs):

@@ -140,7 +140,8 @@ def test_import_graph_is_free_of_jax_and_the_jax_package():
                 "pipeline.run_text_explanation",
                 "pipeline.preview_text_shapley",
                 "pipeline.run_image_explanation", "zoo.loader",
-                "pipeline.export", "kernels.library"):
+                "pipeline.export", "kernels.library",
+                "parallel.pipeline", "pipeline.pp_trainer"):
         assert f"autognothi_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
@@ -272,7 +273,8 @@ def test_port_reads_no_environment_switch():
     # AUTOGNOTHI_DEBUG_NANS (autograd anomaly detection), AUTOGNOTHI_ZOO
     # (where local base models are stored), AUTOGNOTHI_PROFILE_DIR (where
     # the performance report writes its profiler trace), AUTOGNOTHI_PP /
-    # AUTOGNOTHI_PP_TP, which only refuse (not ported), and the world of
+    # AUTOGNOTHI_PP_MICROBATCHES / AUTOGNOTHI_PP_TP (pipeline-parallel
+    # training, one process per device as the world's), and the world of
     # processes (parallel/distributed.py, read from an `env` mapping that
     # defaults to os.environ): AUTOGNOTHI_DIST_COORD / _NPROCS / _PROC_ID
     # and torchrun's LOCAL_RANK, which pick the rank's own card, never the
@@ -293,6 +295,9 @@ def test_port_reads_no_environment_switch():
         "autognothi_tpu_torch/models/common.py":
             ["AUTOGNOTHI_FUSED_MIN_HIDDEN", "AUTOGNOTHI_INT8",
              "AUTOGNOTHI_PALLAS"],
+        "autognothi_tpu_torch/parallel/pipeline.py":
+            ["AUTOGNOTHI_PP", "AUTOGNOTHI_PP_MICROBATCHES",
+             "AUTOGNOTHI_PP_TP"],
         "autognothi_tpu_torch/parallel/train_step.py":
             ["AUTOGNOTHI_INT8_TEACHER"],
         "autognothi_tpu_torch/pipeline/measure_performance.py":
@@ -304,8 +309,6 @@ def test_port_reads_no_environment_switch():
              "AUTOGNOTHI_DEFER_LOSS_FETCH", "AUTOGNOTHI_PAD_RAGGED"],
         "autognothi_tpu_torch/zoo/loader.py": ["AUTOGNOTHI_ZOO"],
     }
-    src = (REPO / "autognothi_tpu_torch/pipeline/training.py").read_text()
-    assert '("AUTOGNOTHI_PP", "AUTOGNOTHI_PP_TP")' in src
     total = sum(p.read_text().count("os.environ")
                 for p in (REPO / "autognothi_tpu_torch").rglob("*.py"))
-    assert total == 15  # 12, and parallel/distributed.py's three defaults
+    assert total == 17  # 14, and parallel/distributed.py's three defaults
