@@ -109,7 +109,8 @@ def _device(p: argparse.ArgumentParser) -> None:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="autognothi-tpu-torch",
-        description="AutoGnothi on PyTorch + CUDA (port in progress)")
+        description="AutoGnothi on PyTorch + CUDA: train, serve, measure and "
+                    "export self-explaining transformers on NVIDIA GPUs")
     sub = parser.add_subparsers(dest="command", required=True)
     for name in NOT_PORTED:
         p = sub.add_parser(name, help="not ported yet")

@@ -62,6 +62,11 @@ _SIGNATURES = {
     "ag_ladder_supports": (_I, [_I]),
     "ag_ladder_stage": (_I, [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P, _F, _P, _I, _I, _I, _I, _P]),
+    "ag_ladder_attention_supports": (_I, [_I, _I, _I]),
+    "ag_ladder_attention": (_I, [_I, _I, _I, ctypes.POINTER(_P),
+                                 ctypes.POINTER(_P), ctypes.POINTER(_P),
+                                 ctypes.POINTER(_P), _P, _I, _I, _I, _I,
+                                 _P]),
 }
 
 _lock = threading.Lock()

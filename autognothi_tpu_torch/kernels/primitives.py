@@ -736,6 +736,59 @@ def attention_core(qkv: torch.Tensor, mask_row: torch.Tensor, b: int, t: int,
     return ctx
 
 
+# the most branches, and keys, one launch of `csrc/ladder_attention.cu`
+# takes (a block stages the image's mask row in shared memory)
+LADDER_ATTENTION_MAX_BRANCHES = 16
+LADDER_ATTENTION_MAX_T = 32768
+
+
+def ladder_attention_narrow(qkv_flat: Sequence[torch.Tensor],
+                            mask_row: torch.Tensor, mode: str
+                            ) -> Tuple[torch.Tensor, ...]:
+    """Every branch's masked attention in one launch of
+    `csrc/ladder_attention.cu`: qkv_flat holds q, k, v per branch, each a
+    contiguous CUDA <B, T, S> of one dtype, read as S / 8 heads of d = 8
+    (S a multiple of 8 up to 128, at most LADDER_ATTENTION_MAX_BRANCHES
+    branches, T up to LADDER_ATTENTION_MAX_T); mask_row <B, T> a 0/1 row ("mul") or an additive bias
+    ("add") -> the per-branch head-merged contexts <B, T, S>."""
+    if mode not in ("mul", "add"):
+        raise ValueError(f"unknown mask mode {mode!r}")
+    if not qkv_flat or len(qkv_flat) % 3:
+        raise ValueError("qkv_flat must hold a (q, k, v) triple per branch")
+    q0 = qkv_flat[0]
+    if q0.dim() != 3:
+        raise ValueError(f"q must be <B, T, S>, got {tuple(q0.shape)}")
+    b, t, s = q0.shape
+    nb = len(qkv_flat) // 3
+    lib = load()
+    if not lib.ag_ladder_attention_supports(s, s // 8, nb):
+        raise ValueError(
+            f"the one-launch ladder attention takes S a multiple of 8 up to "
+            f"128 in heads of d = 8 and 1 to {LADDER_ATTENTION_MAX_BRANCHES} "
+            f"branches, got S={s}, {nb} branches")
+    if b > 65535 or not 1 <= t <= LADDER_ATTENTION_MAX_T:
+        raise ValueError(f"at most 65535 images and 1 <= T <= "
+                         f"{LADDER_ATTENTION_MAX_T}, got {b} x {t}")
+    for i, x in enumerate(qkv_flat):
+        if not x.is_cuda or x.shape != q0.shape or x.dtype != q0.dtype \
+                or not x.is_contiguous():
+            raise ValueError(
+                f"q/k/v {i} must be a contiguous CUDA {q0.dtype} "
+                f"<{b}, {t}, {s}>, got {x.dtype} {tuple(x.shape)} strides "
+                f"{x.stride()}")
+        _aligned16(x, f"q/k/v {i}", ())
+    mask, mask_bf16 = _mask_rows(mask_row.to(device=q0.device), (b, t),
+                                 q0.dtype)
+    outs = tuple(torch.empty_like(q0) for _ in range(nb))
+    ptrs = [(_P * nb)(*(x.data_ptr() for x in qkv_flat[part::3]))
+            for part in range(3)]
+    _check(lib.ag_ladder_attention(
+        _dtype_code(q0), int(mode == "mul"), nb, *ptrs,
+        (_P * nb)(*(o.data_ptr() for o in outs)), mask.data_ptr(),
+        mask_bf16, b, t, s, _stream()), "ag_ladder_attention")
+    return outs
+
+
 # ------------------------------------------------------------ autograd
 
 

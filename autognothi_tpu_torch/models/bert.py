@@ -41,7 +41,7 @@ from ..ops.shapley import normalize_shapley_explanation
 from ..parallel.tp import dense_col, dense_row
 from .common import (additive_mask_bias, dense, dense_serving, dropout,
                      fused_dims_ok, gelu, init_embedding, layer_norm,
-                     pallas_mode, quant_mode, self_attention)
+                     maybe_remat, pallas_mode, quant_mode, self_attention)
 from .vit import fill_linear, fill_norm, linear, norm
 
 
@@ -342,9 +342,11 @@ def bert_encoder(bert: BertBackbone, cfg: VanillaBertConfig,
                  h: torch.Tensor, mask_bias: Optional[torch.Tensor], *,
                  deterministic: bool = True,
                  rng: Optional[torch.Generator] = None) -> torch.Tensor:
-    """The encoder layers in order (`:288-309`); mask_bias <B, 1, 1, T>."""
+    """The encoder layers in order (`:288-309`), each under
+    `maybe_remat`; mask_bias <B, 1, 1, T>."""
     for layer in bert.encoder.layers:
-        h = layer(h, mask_bias, cfg, deterministic, rng)
+        h = maybe_remat(layer, h, mask_bias, cfg, deterministic, rng,
+                        generator=rng)
     return h
 
 

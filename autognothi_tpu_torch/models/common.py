@@ -9,9 +9,10 @@ takes its statistics in fp32.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +29,7 @@ __all__ = [
     "quant_mode",
     "quant_override",
     "layer_norm",
+    "maybe_remat",
     "gelu",
     "dropout",
     "split_heads",
@@ -134,6 +136,62 @@ class quant_override:
 
     def __exit__(self, *exc):
         _QUANT_OVERRIDE.pop()
+
+
+def remat_on() -> bool:
+    """AUTOGNOTHI_REMAT=1: per-layer rematerialisation, read per call."""
+    return os.environ.get("AUTOGNOTHI_REMAT") == "1"
+
+
+@contextlib.contextmanager
+def _scopes(pallas: list, quant: list):
+    """The override stacks as they were when a layer first ran."""
+    saved = _PALLAS_OVERRIDE[:], _QUANT_OVERRIDE[:]
+    _PALLAS_OVERRIDE[:], _QUANT_OVERRIDE[:] = pallas, quant
+    try:
+        yield
+    finally:
+        _PALLAS_OVERRIDE[:], _QUANT_OVERRIDE[:] = saved
+
+
+def maybe_remat(body: Callable, *args,
+                generator: Optional[torch.Generator] = None):
+    """body(*args), a layer of a scan of the JAX package (port of
+    `maybe_remat`): with AUTOGNOTHI_REMAT=1 and autograd on, under
+    `torch.utils.checkpoint`, which keeps the layer's inputs and not its
+    activations and runs it again in the backward; else as it is (under
+    no_grad, as `jax.checkpoint` outside differentiation, it changes
+    nothing).
+
+    The recompute must compute what the forward did.  It sees the pallas
+    and quant override scopes the forward ran under (the train steps leave
+    theirs before the backward), and it draws dropout from `generator` as
+    the forward did: the generator's state before the layer is replayed,
+    then the state it had before the recompute is put back (checkpoint
+    itself replays only the default CPU and CUDA generators)."""
+    if not (remat_on() and torch.is_grad_enabled()):
+        return body(*args)
+    from torch.utils.checkpoint import checkpoint
+
+    scopes = _PALLAS_OVERRIDE[:], _QUANT_OVERRIDE[:]
+    state = None if generator is None else generator.get_state()
+    first = [True]
+
+    def run(*xs):
+        if first[0]:
+            first[0] = False
+            return body(*xs)
+        with _scopes(*scopes):
+            if generator is None:
+                return body(*xs)
+            after = generator.get_state()
+            generator.set_state(state)
+            try:
+                return body(*xs)
+            finally:
+                generator.set_state(after)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def dense_serving(x: torch.Tensor, w: torch.Tensor,

@@ -39,7 +39,7 @@ from .bert import (BertBackbone, BertLayer, VanillaBertConfig,
                    bert_embeddings, bert_explainer_mlp, explainer_mlp_module,
                    fill_bert_backbone, pooled_probs)
 from .common import (additive_mask_bias, dense, dropout, fused_dims_ok, gelu,
-                     pallas_mode)
+                     maybe_remat, pallas_mode)
 from .vit import fill_linear, linear
 
 BRANCHES = (0, 1)
@@ -226,8 +226,10 @@ def ltt_bert_encoder(model: LttBert, cfg: LttBertConfig, emb: torch.Tensor,
         and gates.ladder_block_fits(cfg.hidden_size,
                                     cfg.max_position_embeddings, s_hidden,
                                     heads, len(branches)))
-    h = emb
-    for i, layer in enumerate(enc.layers):
+
+    def body(i, layer, h, *sides):
+        # the trunk layer and every branch's ladder update: one JAX scan
+        # body, one `maybe_remat`
         h = layer(h, mask_bias, trunk_cfg, deterministic, rng)
         ladders = [_ladder_weights(model, b, i) for b in branches]
         if use_ladder_kernel:
@@ -243,8 +245,12 @@ def ltt_bert_encoder(model: LttBert, cfg: LttBertConfig, emb: torch.Tensor,
                     side + joint[..., slot * s_hidden:(slot + 1) * s_hidden],
                     mask_bias, side_cfg, deterministic, rng)
                 for slot, (b, side) in enumerate(zip(branches, sides))]
-        sides = [upd if i < active else side
-                 for upd, side in zip(upds, sides)]
+        return (h, *(upd if i < active else side
+                     for upd, side in zip(upds, sides)))
+
+    h = emb
+    for i, layer in enumerate(enc.layers):
+        h, *sides = maybe_remat(body, i, layer, h, *sides, generator=rng)
     return h, sides
 
 

@@ -34,8 +34,8 @@ from torch import nn
 from ..ops import gates
 from ..ops.ladder_block import ladder_block, mlp_ladder_block
 from ..ops.shapley import normalize_shapley_explanation
-from .common import (dense, fused_dims_ok, gelu, layer_norm, pallas_mode,
-                     quant_mode)
+from .common import (dense, fused_dims_ok, gelu, layer_norm, maybe_remat,
+                     pallas_mode, quant_mode)
 from .vit import (VanillaViTConfig, ViTEmbeddings, ViTLayer,
                   explainer_mlp_head, explainer_mlp_head_module,
                   fill_embeddings, fill_linear, fill_norm, linear, norm,
@@ -239,7 +239,10 @@ def ltt_vit_backbone(model: LttViT, cfg: LttViTConfig,
         and gates.mlp_ladder_fits(cfg.hidden_size, cfg.intermediate_size,
                                   t_cfg, s_hidden, max(len(branches), 1),
                                   heads))
-    for i, layer in enumerate(vit.encoder.layers):
+
+    def body(i, layer, h, *sides):
+        # the trunk layer and every branch's ladder update: one JAX scan
+        # body, one `maybe_remat`
         ladders = [_ladder_weights(model, b, i) for b in branches]
         if use_mlp_ladder:
             h, *upds = mlp_ladder_block(
@@ -261,8 +264,11 @@ def ltt_vit_backbone(model: LttViT, cfg: LttViTConfig,
                                      (slot + 1) * s_hidden],
                         mask, side_cfg, deterministic, rng)
                     for slot, (b, side) in enumerate(zip(branches, sides))]
-        sides = [upd if i < active else side
-                 for upd, side in zip(upds, sides)]
+        return (h, *(upd if i < active else side
+                     for upd, side in zip(upds, sides)))
+
+    for i, layer in enumerate(vit.encoder.layers):
+        h, *sides = maybe_remat(body, i, layer, h, *sides, generator=rng)
     h = layer_norm(h, vit.layernorm.weight, vit.layernorm.bias, eps)
     sides = [layer_norm(side, vit.s_attn_layernorm[str(b)].weight,
                         vit.s_attn_layernorm[str(b)].bias, eps)
@@ -368,16 +374,22 @@ def ltt_vit_surrogate_coalitions_fwd(model: LttViT, cfg: LttViTConfig,
         and gates.ladder_block_fits(cfg.hidden_size,
                                     cfg.into().n_patches + 1, s_hidden,
                                     heads, 1))
-    for i, layer in enumerate(vit.encoder.layers):
+
+    def body(i, layer, h, side):
         h = layer(h, flat_masks, trunk_cfg)
         if use_ladder_kernel:
             (side,) = ladder_block(h, [side], flat_masks,
                                    [_ladder_weights(model, 0, i)], heads,
                                    "mul", True, eps)
-            continue
+            return h, side
         s_map = vit.encoder.s_attn_maps[f"0_{i}"]
         side = side + gelu(dense(h, s_map.weight, s_map.bias))
-        side = vit.encoder.s_attn_layers[f"0_{i}"](side, flat_masks, side_cfg)
+        return h, vit.encoder.s_attn_layers[f"0_{i}"](side, flat_masks,
+                                                      side_cfg)
+
+    # a no-grad teacher sweep: `maybe_remat` runs each layer as it is
+    for i, layer in enumerate(vit.encoder.layers):
+        h, side = maybe_remat(body, i, layer, h, side)
     side = layer_norm(side, vit.s_attn_layernorm["0"].weight,
                       vit.s_attn_layernorm["0"].bias, eps)
     return _cls_head(model.s_attn_classifier, side).reshape(b, m, -1)

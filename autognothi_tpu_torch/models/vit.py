@@ -36,7 +36,7 @@ from ..ops.shapley import normalize_shapley_explanation
 from ..parallel.tp import dense_col, dense_row
 from .common import (dense, dense_serving, dropout, fused_dims_ok, gelu,
                      init_embedding, init_layer_norm, init_linear,
-                     layer_norm, pallas_mode,
+                     layer_norm, maybe_remat, pallas_mode,
                      quant_mode, self_attention)
 
 
@@ -422,9 +422,11 @@ def explainer_mlp_head(head: nn.ModuleDict, h: torch.Tensor) -> torch.Tensor:
 def vit_encoder(vit: ViTBackbone, cfg: VanillaViTConfig, h: torch.Tensor,
                 mask: Optional[torch.Tensor], *, deterministic: bool = True,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
-    """The encoder layers in order (`:286-309`)."""
+    """The encoder layers in order (`:286-309`), each under
+    `maybe_remat`."""
     for layer in vit.encoder.layers:
-        h = layer(h, mask, cfg, deterministic, rng)
+        h = maybe_remat(layer, h, mask, cfg, deterministic, rng,
+                        generator=rng)
     return h
 
 

@@ -47,9 +47,12 @@ launches on h.
 
 `ladder_attention` is the masked attention core for every branch at once
 (K10), replacing `_make_attn_fn` (body `_attn_kernel`, public
-`ladder_attention`): separate q, k, v <B, T, S> per branch.  It is a thin
-wrapper over K9's core (`csrc/attention.cu`), launched once per branch on
-the <B, T, S> tensors' own head-merged strides; no model calls it.
+`ladder_attention`): separate q, k, v <B, T, S> per branch; no model calls
+it.  `ladder_attention_route` picks by shape: heads of d = 8 (S a multiple
+of 8 up to 128, the only head width the ladders build) take one launch of
+`csrc/ladder_attention.cu` for every branch ("narrow"); any other head
+takes K9's core (`csrc/attention.cu`) once per branch on the <B, T, S>
+tensors' own head-merged strides ("per_branch").
 
 `ladder_block`, `mlp_ladder_block` and `ladder_attention` take the plain
 version for CPU tensors and the kernel for CUDA tensors; there is no other
@@ -67,11 +70,14 @@ import torch.nn.functional as F
 from ..kernels.build import LaunchCounter
 from ..kernels.primitives import (CORE_HEAD_DIMS, EPI_BIAS_GELU,
                                   EPI_BIAS_RESID, EPI_WG_BIAS,
+                                  LADDER_ATTENTION_MAX_BRANCHES,
+                                  LADDER_ATTENTION_MAX_T,
                                   EPI_WG_BIAS_RESID, EPI_WG_GELU_RESID_SPLIT,
                                   LADDER_ATTENTION, LADDER_MLP, LADDER_QKV,
                                   WG_MAX_BRANCHES, attention_core,
                                   attention_heads, core_head_dim, dispatch,
-                                  gemm, gemm_wg, ladder_stage, layernorm_,
+                                  gemm, gemm_wg, ladder_attention_narrow,
+                                  ladder_stage, layernorm_,
                                   rows_prep, rowstats)
 from ..models.common import dense, gelu, layer_norm
 from .attention_block import (_attend, attention_block_plain,
@@ -514,10 +520,29 @@ def ladder_attention_plain(mask_row, *qkv_flat, n_heads: int,
     return tuple(outs)
 
 
+def ladder_attention_route(s: int, n_heads: int, n_branches: int,
+                           t: int) -> str:
+    """The route K10 takes on the card, by shape: "narrow" (one launch of
+    `csrc/ladder_attention.cu` for every branch) for heads of d = 8 with S
+    a multiple of 8 up to 128, at most LADDER_ATTENTION_MAX_BRANCHES
+    branches and T up to LADDER_ATTENTION_MAX_T; "per_branch" (K9's core
+    once per branch) for any other."""
+    narrow = (s % 8 == 0 and 8 <= s <= 128 and n_heads * 8 == s
+              and 1 <= n_branches <= LADDER_ATTENTION_MAX_BRANCHES
+              and 1 <= t <= LADDER_ATTENTION_MAX_T)
+    return "narrow" if narrow else "per_branch"
+
+
 def ladder_attention_launch(mask_row, *qkv_flat, n_heads: int,
                             mode: str) -> Tuple[torch.Tensor, ...]:
-    """The CUDA version: one core launch per branch (no counting, no
+    """The CUDA version on `ladder_attention_route`'s route: one launch for
+    every branch, or one core launch per branch (no counting, no
     autograd)."""
+    b, t, s = qkv_flat[0].shape
+    if ladder_attention_route(s, n_heads, len(qkv_flat) // 3,
+                              t) == "narrow":
+        return ladder_attention_narrow(
+            [x.contiguous() for x in qkv_flat], mask_row, mode)
     outs = []
     for s in range(len(qkv_flat) // 3):
         q, k, v = qkv_flat[3 * s:3 * s + 3]

@@ -61,7 +61,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..models.common import additive_mask_bias, dropout, layer_norm
+from ..models.common import (additive_mask_bias, dropout, layer_norm,
+                             maybe_remat)
 from .mesh import (_tree_map, axis_size, check_shardable, make_mesh,
                    param_pspec, shard_params)
 from .tp import gather_shard
@@ -359,13 +360,14 @@ def _stage_layers(layers, mesh, n_layers: int) -> List[Tuple[int, object]]:
 def _stage_scanner(layers, cfg, deterministic: bool, rng: Optional[int],
                    device: torch.device) -> Callable:
     """The stage body: the stage's layers in order on one microbatch, each
-    layer's dropout from the generator of (rng, global microbatch,
-    layer)."""
+    under `maybe_remat` with its dropout from the generator of (rng,
+    global microbatch, layer)."""
 
     def body(x, side, global_mb):
         for i, layer in layers:
-            x = layer(x, side, cfg, deterministic,
-                      generator(fold(rng, global_mb, i), device))
+            gen = generator(fold(rng, global_mb, i), device)
+            x = maybe_remat(layer, x, side, cfg, deterministic, gen,
+                            generator=gen)
         return x
 
     return body

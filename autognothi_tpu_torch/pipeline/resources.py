@@ -26,7 +26,8 @@ from ..data.loader import (CvTransforms, DatasetLoader, load_cv_samples,
                            load_imagenette, load_nlp_samples,
                            load_yelp_polarity, load_yelp_polarity_mini)
 from ..parallel.distributed import barrier, is_writer
-from ..params import from_jax_params, load_params_file, save_params
+from ..params import (dir_backend, from_jax_params, load_params_file,
+                      owned, remove_ckpt, save_params)
 from ..recipes.types import ModelRecipe
 from ..utils.strings import ranged_modulo_test
 from .config import (NET_KINDS, Config_Dataset, Config_Train,
@@ -202,11 +203,15 @@ def opt_path(path: pathlib.Path, section: str, epoch: int) -> pathlib.Path:
 
 def save_opt_state(path: pathlib.Path, section: str, epoch: int,
                    opt: AdamW) -> None:
-    """`opt`'s count and moments under their names, atomically."""
+    """`opt`'s count and moments under their names, atomically.  Under the
+    directory backend every rank calls it with its own `opt`, and a
+    moment of a tensor-parallel shard is written as that shard."""
     leaves = {"count": np.asarray(opt.count, np.int64)}
     for k in opt.names:
-        leaves[f"mu/{k}"] = opt.mu[k].detach().cpu().numpy()
-        leaves[f"nu/{k}"] = opt.nu[k].detach().cpu().numpy()
+        for m, store in (("mu", opt.mu), ("nu", opt.nu)):
+            leaves[f"{m}/{k}"] = (
+                owned(store[k], of=opt.params[k]) if dir_backend()
+                else store[k].detach().cpu().numpy())
     save_params(opt_path(path, section, epoch), leaves)
 
 
@@ -261,15 +266,19 @@ def save_epoch_ckpt(path: pathlib.Path, section: str, cfg: Config_Train,
     With AUTOGNOTHI_CKPT_OPT=1 and an `opt`, its state is saved beside the
     parameters, and the previous epoch's opt file goes whatever the
     retention: a resume only ever continues from the newest epoch.  In a
-    world of ranks, rank 0 writes and every rank waits for it."""
+    world of ranks, rank 0 writes and every rank waits for it; under the
+    directory backend (AUTOGNOTHI_CKPT_BACKEND=orbax) every rank writes
+    its own share (`params`: what `training.ckpt_of` gives it), and rank 0
+    alone deletes, behind a barrier."""
     path = pathlib.Path(path)
-    if is_writer():
+    if dir_backend() or is_writer():
         save_params(ckpt_path(path, section, epoch), params)
         if opt is not None and opt_ckpt_enabled():
             save_opt_state(path, section, epoch, opt)
+    if is_writer():
         prev = epoch - 1
         if not (prev == 0 or prev == cfg.epochs
                 or ranged_modulo_test(cfg.ckpt_when)(prev)):
-            ckpt_path(path, section, prev).unlink(missing_ok=True)
-        opt_path(path, section, prev).unlink(missing_ok=True)
+            remove_ckpt(ckpt_path(path, section, prev))
+        remove_ckpt(opt_path(path, section, prev))
     barrier()

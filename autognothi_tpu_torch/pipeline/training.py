@@ -48,11 +48,14 @@ class AdamW:
         u = (mu / (1 - b1^count)) / (sqrt(nu / (1 - b2^count)) + eps)
         p += -lr (u + wd p) * update_mask
     with g already multiplied by update_mask.  Moments are fp32 tensors
-    beside each trainable parameter; updates are applied in place."""
+    beside each trainable parameter; updates are applied in place.
+    `params` keeps the trainable parameters, whose tensor-parallel tags a
+    directory checkpoint of the moments reads."""
 
     def __init__(self, params: Mapping[str, torch.Tensor],
                  trainable: Callable[[str], bool]):
         self.names = [k for k in params if trainable(k)]
+        self.params = {k: params[k] for k in self.names}
         self.mu = {k: torch.zeros_like(params[k]) for k in self.names}
         self.nu = {k: torch.zeros_like(params[k]) for k in self.names}
         self.count = 0
@@ -115,8 +118,14 @@ def cast_input(xs: torch.Tensor) -> torch.Tensor:
 def ckpt_of(pp, model: torch.nn.Module, opt: AdamW) -> tuple:
     """-> (the flat parameters, the optimizer) an epoch checkpoint saves:
     the module's and `opt`, or under a pipeline (`pp`, a
-    `pp_trainer.PPContext`) the stages gathered to the writer.  Every
-    rank calls it."""
+    `pp_trainer.PPContext`) the stages gathered to the writer.  Under the
+    directory backend (AUTOGNOTHI_CKPT_BACKEND=orbax) the rank's own share
+    of its module (`params.owned_state`: its shards, its stage) and its
+    `opt`, with no gather.  Every rank calls it."""
+    from ..params import dir_backend, owned_state
+
+    if dir_backend():
+        return owned_state(model), opt
     if pp is None:
         from ..params import to_flat
 

@@ -914,6 +914,7 @@ def phase_device() -> None:
                                     "gemm_i8_wgmma_kernel", "gemm_wg_kernel",
                                     "rows_prep_kernel", "ladder_qkv_kernel",
                                     "ladder_attn_kernel",
+                                    "ladder_attention_kernel",
                                     "ladder_mlp_kernel", "mlp_narrow_kernel",
                                     "head_d1_kernel")):
         print(f"[build] {line}", flush=True)
@@ -1556,7 +1557,8 @@ def phase_block_launches(dev, card: str) -> None:
             for name, tag, op, _, args, kw in cases_fn(dev, dtype, b, False):
                 int8_block = name in ("mlp_block_int8", "head_block")
                 if not int8_block and (name not in ("ladder_block",
-                                                    "attention_block")
+                                                    "attention_block",
+                                                    "ladder_attention")
                                        or "side" in tag):
                     continue
                 with torch.inference_mode():
@@ -1575,6 +1577,12 @@ def phase_block_launches(dev, card: str) -> None:
                 if name == "ladder_block":
                     check(launches <= 4, f"{name} {tag}: {launches} "
                                          f"launches per ladder step")
+                if name == "ladder_attention":
+                    # K10 at d = 8: every branch in one launch
+                    check(launches == 1 and all(
+                        "ladder_attention_kernel" in k for k in kernels),
+                        f"{name} {tag}: {launches} launches per call "
+                        f"({sorted(kernels)})")
                 if int8_block:
                     check_int8_launches(name, f"{tag} {dtype}", kernels,
                                         launches, "LN-epi" in tag)
@@ -2607,12 +2615,19 @@ def phase_timing(dev, card: str, service) -> dict:
     for name, tag, op, plain, args, kw in op_cases(dev, torch.bfloat16,
                                                    B_TIME, False):
         if name not in ("attention_block", "ladder_block",
-                        "mlp_ladder_block"):
+                        "mlp_ladder_block", "ladder_attention"):
             continue
         with torch.inference_mode():
             _, ok, msg = compare(op(*args, **kw), plain(*args, **kw),
                                  torch.bfloat16, name in INT8_OPS)
-        print(f"[time] {name:20s} {tag:22s} bf16 B={B_TIME}: checked "
+            timed_msg = "checked"
+            if name == "ladder_attention":  # K10 in bf16: timed too
+                t_kern = cuda_time(lambda: op(*args, **kw), reps=10)
+                t_lib = time_library_ladder_attention(args, card)
+                bound_ms, bound_by = op_bound(name, args)
+                timed_msg = (f"kernel {t_kern:.4f} ms, SDPA {t_lib:.4f} "
+                             f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+        print(f"[time] {name:20s} {tag:22s} bf16 B={B_TIME}: {timed_msg} "
               f"({msg})", flush=True)
         check(ok, f"{name} {tag} bf16 B={B_TIME}: kernel disagrees")
     print(f"[time] peak device memory "
@@ -5648,6 +5663,10 @@ def dist_child_pp(spec: dict, out: dict, dev) -> None:
             ctx.model, ctx.opt, PP_LR, every(ctx.model), ids, bmask,
             blabels, None, None, w)[0], lambda: ref_cls("bert"))
         del ctx, step
+    # directory checkpoints of the classifier, TP and PP
+    t0 = time.perf_counter()
+    dist_child_ckpt(spec, out, dev, config, cfg, srg_flat)
+    out["ckpt"]["s"] = time.perf_counter() - t0
     # the CLI: one epoch of train_explainer under AUTOGNOTHI_PP=2
     dist.barrier()
     reset_counts()
@@ -5669,6 +5688,122 @@ def dist_child_pp(spec: dict, out: dict, dev) -> None:
         out["pp_cli"]["moved"] = max(
             float(np.abs(got[k] - exp_flat[k]).max()) for k in got)
     out["pp_s"] = time.perf_counter() - t_all
+
+
+def dist_child_ckpt(spec: dict, out: dict, dev, config, cfg, flat) -> None:
+    """`[ckpt-dir]` on the ranks of phase 16 (b): directory checkpoints
+    (AUTOGNOTHI_CKPT_BACKEND=orbax) of the random vanilla ViT-B/16@224
+    classifier, tensor-parallel (model 2) and as the pipe-2 stages of
+    `setup_pp_classifier`, each rank writing its own share; each rank
+    loads both and holds them bit for bit against `flat`; rank 0 reads
+    which rank file holds each chunk (`out["ckpt"]`).  The optimizer
+    moments' directory is the CPU tests' (tests/test_torch_port_ckpt_dir.py)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    from autognothi_tpu_torch.params import from_jax_params, load_params_file
+    from autognothi_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from autognothi_tpu_torch.pipeline import pp_trainer as ppt
+    from autognothi_tpu_torch.pipeline.resources import save_epoch_ckpt
+    from autognothi_tpu_torch.pipeline.training import ckpt_of
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    root = pathlib.Path(spec["train_exp"]).parent / "ckpt_dir"
+    train = SimpleNamespace(epochs=1, ckpt_when="_:%1==0")
+    log = SimpleNamespace(log=lambda *_: None)
+    res = {}
+
+    def held(path) -> bool:
+        got = load_params_file(path)
+        return set(got) == set(flat) and all(
+            np.array_equal(got[k], flat[k]) for k in flat)
+
+    with mock.patch.dict(os.environ, {"AUTOGNOTHI_CKPT_BACKEND": "orbax"}):
+        model = from_jax_params(flat, cfg, dev, section="classifier")
+        shard_params(model, make_mesh(world, model_parallel=2))
+        dist.barrier()
+        t0 = time.perf_counter()
+        save_epoch_ckpt(root / "tp", "classifier", train, 1,
+                        *ckpt_of(None, model, None))
+        res["tp_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["tp_equal"] = held(root / "tp" / "classifier-epoch-1.ckpt")
+        res["tp_load_s"] = time.perf_counter() - t0
+        del model
+        ctx, _, _ = ppt.setup_pp_classifier(
+            log, config, cfg, flat, lambda k: True, 2, 2, 1, device=dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        save_epoch_ckpt(root / "pp", "classifier", train, 1,
+                        *ckpt_of(None, ctx.model, None))
+        res["pp_write_s"] = time.perf_counter() - t0
+        res["pp_equal"] = held(root / "pp" / "classifier-epoch-1.ckpt")
+        res["pp_keys"] = sorted(k for k, _ in ctx.model.named_parameters())
+        del ctx
+    torch.cuda.empty_cache()
+    if rank == 0:
+        for what in ("tp", "pp"):
+            path = root / what / "classifier-epoch-1.ckpt"
+            meta = dcp.FileSystemReader(str(path)).read_metadata()
+            files: dict = {}
+            for index, info in meta.storage_data.items():
+                files.setdefault(index.fqn, []).append(
+                    [int(info.relative_path.split("_")[2]),
+                     list(index.offset)])
+            res[f"{what}_files"] = files
+            res[f"{what}_bytes"] = sum(f.stat().st_size
+                                       for f in path.iterdir())
+    out["ckpt"] = res
+
+
+def check_dist_ckpt(b: list, card: str) -> None:
+    """`[ckpt-dir]` lines and checks: every rank loads the TP and PP
+    directories bit for bit; in the TP directory
+    each sharded weight's two halves come from ranks of its own "model"
+    coordinate (rank % 2, "model" innermost) and a replicated tensor is
+    written once; in the PP one each stage's encoder layers come from
+    ranks of its stage (rank % 2, "pipe" innermost) only."""
+    world = f"{b[0]['backend']}, {len(b)} ranks"
+    res = [r["ckpt"] for r in b]
+    x = res[0]
+    check(all(r["tp_equal"] and r["pp_equal"] for r in res),
+          f"(b) [ckpt-dir]: a rank's load differs: "
+          f"{[(r['tp_equal'], r['pp_equal']) for r in res]}")
+    q = "vit.encoder.layers.0.attention.self.query.weight"
+    owners = sorted(x["tp_files"][q])
+    check([r % 2 for r, _ in owners] == [0, 1] and owners[0][1][0] == 0
+          and owners[1][1][0] > 0, f"(b) [ckpt-dir] TP {q}: {owners}")
+    for k, chunks in x["tp_files"].items():
+        offsets = [tuple(off) for _, off in chunks]
+        check(len(offsets) == len(set(offsets)),
+              f"(b) [ckpt-dir] TP {k} written twice: {chunks}")
+        if len(chunks) == 2:
+            for r, off in chunks:
+                check((r % 2 == 0) == (max(off) == 0),
+                      f"(b) [ckpt-dir] TP {k}: rank {r} wrote {off}")
+    layer = lambda k: int(k.split(".")[3])  # noqa: E731
+    layers = 1 + max(layer(k) for k in x["pp_files"]
+                     if k.startswith("vit.encoder.layers."))
+    for k, chunks in x["pp_files"].items():
+        check(len(chunks) == 1, f"(b) [ckpt-dir] PP {k}: {chunks}")
+        if k.startswith("vit.encoder.layers."):
+            stage = int(layer(k) >= layers // 2)
+            check(chunks[0][0] % 2 == stage,
+                  f"(b) [ckpt-dir] PP {k} from rank {chunks[0][0]}")
+    sharded = sum(len(c) == 2 for c in x["tp_files"].values())
+    print(f"[ckpt-dir] {world}: AUTOGNOTHI_CKPT_BACKEND=orbax, random "
+          f"vanilla ViT-B/16@224 classifier: TP (model 2) directory "
+          f"{x['tp_bytes']} bytes, {sharded} weights written as two "
+          f"halves by their model ranks, the rest once; written in "
+          f"{x['tp_write_s']:.2f} s, loaded whole by "
+          f"every rank in {x['tp_load_s']:.2f} s, bit for bit; PP (pipe 2) "
+          f"directory {x['pp_bytes']} bytes, each stage's layers from its "
+          f"own ranks, written in {x['pp_write_s']:.2f} s, loaded bit for "
+          f"bit | {card}", flush=True)
 
 
 def run_dist_children(tmp: pathlib.Path, spec: dict, world: int) -> list:
@@ -5848,6 +5983,7 @@ def check_dist_b(b: list, card: str) -> dict:
               f"(b) {tag}: the sharded answers differ from phase 3's")
         launches = _scaled((1, launches),
                            *((1, r[f"serve_{tag}_calls"]) for r in b))
+    check_dist_ckpt(b, card)
     return _scaled((1, launches), (1, check_dist_pp(b, card)))
 
 
@@ -5913,6 +6049,125 @@ def check_dist_pp(b: list, card: str) -> dict:
     return _scaled(*((1, c["calls"]) for c in cli))
 
 
+# ------------------------------------------- per-layer rematerialisation
+
+REMAT_LOSS_TOL = 1e-6  # relative: the loss comes from the first forward
+
+
+def remat_pair(tag: str, make_run, card: str, lower_peak: bool) -> None:
+    """One train step without and with AUTOGNOTHI_REMAT=1, each on a fresh
+    copy of the same parameters and dropout seed (`make_run()` -> run()
+    -> loss): the allocator's peak over the first step, its loss, its
+    kernel calls and the plain recomputes its backward ran, then ms a step
+    (two warm steps).  Checked: the loss within REMAT_LOSS_TOL relative;
+    with `lower_peak`, a lower peak with remat; the same plain recomputes
+    (a kernel op's backward runs once either way); no fewer kernel calls,
+    and more where the differentiated forward runs kernel ops (the
+    checkpoint runs each layer again in the backward)."""
+    import torch
+
+    got = {}
+    for flag in ("0", "1"):
+        with mock.patch.dict(os.environ, {"AUTOGNOTHI_REMAT": flag}):
+            run = make_run()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_counts()
+            before = recomputes()
+            loss = float(run())
+            torch.cuda.synchronize()
+            calls = {k: v for k, v in read_counts().items() if v}
+            peak = torch.cuda.max_memory_allocated()
+            got[flag] = dict(loss=loss, calls=calls, peak=peak, base=base,
+                             recomputes=recomputes() - before,
+                             ms=warm_step_ms(run, reps=2))
+            del run
+            torch.cuda.empty_cache()
+    off, on = got["0"], got["1"]
+    rel = abs(on["loss"] - off["loss"]) / max(abs(off["loss"]), 1e-30)
+    for flag, r in (("off", off), ("on", on)):
+        print(f"[remat] {tag} AUTOGNOTHI_REMAT {flag}: peak "
+              f"{r['peak'] / 2**20:.1f} MiB (above the "
+              f"{r['base'] / 2**20:.1f} MiB held before the step: "
+              f"{(r['peak'] - r['base']) / 2**20:.1f}), {r['ms']:.2f} ms a "
+              f"step, loss {r['loss']!r}, kernel calls {r['calls']}, plain "
+              f"recomputes {r['recomputes']} | {card}", flush=True)
+    print(f"[remat] {tag}: loss |on - off| / |off| = {rel:.3e} (limit "
+          f"{REMAT_LOSS_TOL:g}); peak on / off "
+          f"{(on['peak'] - on['base']) / max(off['peak'] - off['base'], 1):.3f}"
+          f" of the step's own; ms on / off {on['ms'] / off['ms']:.3f} | "
+          f"{card}", flush=True)
+    check(rel <= REMAT_LOSS_TOL, f"[remat] {tag}: loss moved by {rel:.3e}")
+    if lower_peak:
+        check(on["peak"] < off["peak"], f"[remat] {tag}: no lower peak")
+    check(on["recomputes"] == off["recomputes"],
+          f"[remat] {tag}: plain recomputes {off['recomputes']} -> "
+          f"{on['recomputes']}")
+    check(all(on["calls"].get(k, 0) >= v for k, v in off["calls"].items())
+          and (off["recomputes"] == 0
+               or sum(on["calls"].values()) > sum(off["calls"].values())),
+          f"[remat] {tag}: the recompute launched no kernel: "
+          f"{off['calls']} -> {on['calls']}")
+
+
+def phase_remat(dev, card: str, case) -> None:
+    """`[remat]`: per-layer rematerialisation (AUTOGNOTHI_REMAT=1) on the
+    card.  A random vanilla ViT-L/16@224 surrogate step (its shipped
+    `net.params`, dropout 0.1 included, all 24 layers, B = 8, every
+    parameter trainable, random teacher rows: the differentiated forward
+    is the plain math, whose activations autograd keeps, and the peak
+    must fall) and phase 4's LTT ViT-B/16@224 explainer step at B = 8 x M
+    = 32 (dropout 0: the W8A8 teacher, then the differentiated forward on
+    K6, K7 and K5, whose ops keep only their inputs), each without and
+    with the variable (`remat_pair`)."""
+    import torch
+
+    from autognothi_tpu_torch.params import from_jax_params
+    from autognothi_tpu_torch.pipeline.config import parse_config
+    from autognothi_tpu_torch.pipeline.resources import get_recipe
+    from autognothi_tpu_torch.pipeline.train_surrogate import surrogate_loss
+    from autognothi_tpu_torch.pipeline.training import AdamW, make_train_step
+
+    hp = json.loads(TOWER_EXP["vit_large"].read_text())
+    recipe, cfg = get_recipe(parse_config(hp))
+    t0 = time.perf_counter()
+    flat = recipe.init_classifier(cfg, torch.Generator().manual_seed(SEED))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n = recipe.n_players(cfg)
+    xs = torch.randn((TRAIN_B, 3, 224, 224), generator=gen, device=dev)
+    mask = (torch.rand((TRAIN_B, n), generator=gen, device=dev)
+            > 0.5).to(torch.int32)
+    orig = torch.softmax(torch.randn((TRAIN_B, cfg.num_labels),
+                                     generator=gen, device=dev), dim=-1)
+    labels = torch.randint(0, cfg.num_labels, (TRAIN_B,), generator=gen,
+                           device=dev)
+    w = torch.ones((TRAIN_B,), device=dev)
+    step = make_train_step(surrogate_loss(recipe, cfg, False))
+    print(f"[remat] ViT-L/16@224 surrogate: "
+          f"{sum(v.size for v in flat.values())} parameters, "
+          f"{cfg.num_hidden_layers} layers, made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def vit_large():
+        model = from_jax_params(flat, cfg, dev, section="surrogate")
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        opt = AdamW(params, lambda k: True)
+        ones = {k: 1.0 for k in params}
+        drop = torch.Generator(device=dev).manual_seed(SEED)
+        return lambda: step(model, opt, 5e-5, ones, xs, mask, orig, labels,
+                            drop, None, w)[0]
+
+    remat_pair(f"vanilla ViT-L/16@224 surrogate step B={TRAIN_B}, dropout "
+               f"{cfg.hidden_dropout_prob}", vit_large, card, lower_peak=True)
+    del flat, step
+    torch.cuda.empty_cache()
+    remat_pair(f"LTT ViT-B/16@224 explainer step B={TRAIN_B} x "
+               f"M={TRAIN_M}", case.fresh, card, lower_peak=False)
+
+
 # name -> (source, the TPU kernel it replaces: its pl.pallas_call)
 KERNELS = {
     "attention_block": ("autognothi_tpu_torch/csrc/gemm_wgmma.cu",
@@ -5935,7 +6190,7 @@ KERNELS = {
                         "autognothi_tpu/ops/mlp_block.py:318"),
     "masked_attention": ("autognothi_tpu_torch/csrc/attention.cu",
                          "autognothi_tpu/ops/flash_attention.py:158"),
-    "ladder_attention": ("autognothi_tpu_torch/csrc/attention.cu",
+    "ladder_attention": ("autognothi_tpu_torch/csrc/ladder_attention.cu",
                          "autognothi_tpu/ops/ladder_block.py:183"),
 }
 # no model calls the ladder attention op (as in the JAX package): it has no
@@ -6085,6 +6340,9 @@ def main() -> int:
             launches_towers = _scaled(
                 (1, launches_towers),
                 (1, timed(label, fn, dev, pathlib.Path(tmp), card)))
+        # per-layer rematerialisation: ViT-L's surrogate step and phase
+        # 4's explainer step, with and without AUTOGNOTHI_REMAT=1
+        timed("13 remat", phase_remat, dev, card, case)
         # every main path was driven from counts of 0: serve fp32 and int8
         # (ViT and BERT), train_explainer in pallas modes "2" and "1",
         # train_all's seven stages and its served final, run_all's stages

@@ -23,6 +23,9 @@ checkouts can be compared on one card, in turns:
     python3 kernel_ab.py B <checkout B>
     python3 kernel_ab.py A <checkout A>
 
+Op names after the checkout (e.g. `ladder_attention`) keep only those
+ops' cases.
+
 Each run builds that checkout's kernels, checks every op against its plain
 version with `chip_smoke.compare` (fp32 1e-4, bf16 3e-2 x max(1,
 max|ref|), the int8 ops at their own bounds; the GEMM against
@@ -99,10 +102,11 @@ def events_ms(fn) -> float:
 
 
 def main() -> int:
-    if len(sys.argv) != 3:
+    if len(sys.argv) < 3:
         print(__doc__, file=sys.stderr)
         return 2
     label, root = sys.argv[1], pathlib.Path(sys.argv[2]).resolve()
+    keep = set(sys.argv[3:])
     sys.path.insert(0, str(root))
     import torch
 
@@ -379,6 +383,8 @@ def main() -> int:
                           f"<{inter},96>^T", torch.float32, d1_fp32,
                           d1_fp32))
     for op, shape, dtype, kern, plain in cases:
+        if keep and op not in keep:
+            continue
         with torch.inference_mode():
             err, ok, msg = smoke.compare(kern(), plain(), dtype,
                                          op in smoke.INT8_OPS)

@@ -8,6 +8,8 @@ different summation order); bf16 <= 3e-2 * max(1, max|ref|) (one bf16 ulp
 at the cast points, where fp32 sums that differ in order may round apart).
 """
 
+from unittest import mock
+
 import pytest
 import torch
 
@@ -396,6 +398,43 @@ def test_ladder_attention_kernel(dev, d, dtype, mode):
     want = lb.ladder_attention_plain(mask, *(x for tr in qkvs for x in tr),
                                      n_heads=heads, mode=mode)
     for x, y in zip(got, want):
+        _close(x, y, dtype)
+
+
+@pytest.mark.parametrize("mode", ["mul", "mul_soft", "add"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,s,nb", [(2, 197, 96, 2), (3, 1, 8, 1),
+                                      (2, 17, 48, 3), (2, 33, 128, 2),
+                                      (1, 513, 96, 1), (2, 200, 72, 16)])
+def test_ladder_attention_one_launch(dev, b, t, s, nb, dtype, mode):
+    """K10 at d = 8 on its one-launch route (`csrc/ladder_attention.cu`):
+    every branch in one launch at any T, side width (a multiple of 8 up
+    to 128) and branch count up to 16, against the plain version; "mul"
+    with a 0/1 mask (zero K rows) and with other values (the scores
+    multiplied), "add" with BERT's finfo.min bias."""
+    from autognothi_tpu_torch.kernels import primitives as kp
+    from autognothi_tpu_torch.ops import ladder_block as lb
+
+    g = torch.Generator().manual_seed(11)
+    qkvs = [tuple(_rand(g, dev, b, t, s).to(dtype) for _ in range(3))
+            for _ in range(nb)]
+    mask = _mask(g, dev, b, t, True)
+    if mode == "mul_soft":
+        mask = mask * (0.5 + torch.rand(b, t, generator=g).to(dev))
+    if mode == "add":
+        mask = (1 - mask) * torch.finfo(torch.float32).min
+    op = "add" if mode == "add" else "mul"
+    assert lb.ladder_attention_route(s, s // 8, nb, t) == "narrow"
+    calls = []
+    narrow = kp.ladder_attention_narrow
+    with mock.patch.object(lb, "ladder_attention_narrow",
+                           lambda *a: calls.append(1) or narrow(*a)):
+        got = lb.ladder_attention(qkvs, mask, s // 8, op)
+    assert calls == [1]
+    want = lb.ladder_attention_plain(mask, *(x for tr in qkvs for x in tr),
+                                     n_heads=s // 8, mode=op)
+    for x, y in zip(got, want):
+        assert torch.isfinite(x.float()).all()
         _close(x, y, dtype)
 
 

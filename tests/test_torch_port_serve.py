@@ -274,7 +274,9 @@ def test_port_reads_no_environment_switch():
     # (where local base models are stored), AUTOGNOTHI_PROFILE_DIR (where
     # the performance report writes its profiler trace), AUTOGNOTHI_PP /
     # AUTOGNOTHI_PP_MICROBATCHES / AUTOGNOTHI_PP_TP (pipeline-parallel
-    # training, one process per device as the world's), and the world of
+    # training, one process per device as the world's), AUTOGNOTHI_REMAT
+    # (per-layer rematerialisation), AUTOGNOTHI_CKPT_BACKEND (directory
+    # checkpoints), and the world of
     # processes (parallel/distributed.py, read from an `env` mapping that
     # defaults to os.environ): AUTOGNOTHI_DIST_COORD / _NPROCS / _PROC_ID
     # and torchrun's LOCAL_RANK, which pick the rank's own card, never the
@@ -294,7 +296,8 @@ def test_port_reads_no_environment_switch():
     assert reads == {
         "autognothi_tpu_torch/models/common.py":
             ["AUTOGNOTHI_FUSED_MIN_HIDDEN", "AUTOGNOTHI_INT8",
-             "AUTOGNOTHI_PALLAS"],
+             "AUTOGNOTHI_PALLAS", "AUTOGNOTHI_REMAT"],
+        "autognothi_tpu_torch/params.py": ["AUTOGNOTHI_CKPT_BACKEND"],
         "autognothi_tpu_torch/parallel/pipeline.py":
             ["AUTOGNOTHI_PP", "AUTOGNOTHI_PP_MICROBATCHES",
              "AUTOGNOTHI_PP_TP"],
@@ -311,4 +314,4 @@ def test_port_reads_no_environment_switch():
     }
     total = sum(p.read_text().count("os.environ")
                 for p in (REPO / "autognothi_tpu_torch").rglob("*.py"))
-    assert total == 17  # 14, and parallel/distributed.py's three defaults
+    assert total == 19  # 16, and parallel/distributed.py's three defaults

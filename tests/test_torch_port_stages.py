@@ -628,3 +628,39 @@ def test_ladder_route_by_shape(s, heads, inter, t, route):
             ladder_route(s, inter, heads, t)
     else:
         assert ladder_route(s, inter, heads, t) == route
+
+
+# ---------------------------------------------- K10's route on the card
+
+
+@pytest.mark.parametrize("s,heads,branches,t,route", [
+    (96, 12, 2, 197, "narrow"), (128, 16, 2, 197, "narrow"),
+    (8, 1, 1, 1, "narrow"), (48, 6, 3, 17, "narrow"),
+    (96, 12, 16, 513, "narrow"), (72, 9, 1, 32768, "narrow"),
+    (768, 12, 2, 197, "per_branch"), (96, 24, 2, 197, "per_branch"),
+    (96, 6, 2, 197, "per_branch"), (136, 17, 2, 197, "per_branch"),
+    (96, 12, 17, 197, "per_branch"), (96, 12, 2, 32769, "per_branch"),
+    (192, 12, 2, 197, "per_branch")])
+def test_ladder_attention_route_by_shape(s, heads, branches, t, route):
+    """K10 on the card, by shape alone: heads of d = 8 (S a multiple of 8
+    up to 128, at most 16 branches, T up to 32768) take one launch of
+    `csrc/ladder_attention.cu` for every branch; any other head takes
+    K9's core once per branch.  The launcher follows the route: one
+    narrow launch, or one core launch per branch (spied here, on CPU
+    tensors, where no kernel runs)."""
+    from autognothi_tpu_torch.ops import ladder_block as lb
+
+    assert lb.ladder_attention_route(s, heads, branches, t) == route
+    if t > 600:
+        return
+    calls = []
+    qkv = [torch.zeros(1, t, s) for _ in range(3 * branches)]
+    with mock.patch.object(lb, "ladder_attention_narrow",
+                           lambda flat, m, mode: calls.append(len(flat))
+                           or tuple(flat[::3])), \
+            mock.patch.object(lb, "attention_heads",
+                              lambda *a: calls.append("core")):
+        lb.ladder_attention_launch(torch.ones(1, t), *qkv, n_heads=heads,
+                                   mode="mul")
+    assert calls == ([3 * branches] if route == "narrow"
+                     else ["core"] * branches)

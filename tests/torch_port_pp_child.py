@@ -17,6 +17,15 @@ Jobs:
   setup_pp_surrogate` over (data 2 x pipe 2) on the parent's inputs;
 - "teacher": on a (data 1 x pipe = the world) mesh, the explainer step's
   teacher calls of the kernel ops (`dispatch` spied) and its pallas mode;
+- "remat": in a world of 2, a pipeline (data 1 x pipe 2) surrogate step
+  and a tensor-parallel (model 2) explainer step of the mini vanilla ViT,
+  each without and with AUTOGNOTHI_REMAT=1 from the same parameters and
+  dropout seed;
+- "ckpt_dir": in a world of 2, directory checkpoints
+  (AUTOGNOTHI_CKPT_BACKEND=orbax) of a tensor-parallel (model 2) module
+  with its optimizer moments, and of a pipeline (pipe 2) stage, each rank
+  writing its share, beside the npz of the same parameters, and the
+  retention of an earlier epoch's directory;
 - "trainers": in a world of 2, the port's classifier, surrogate and
   explainer trainers under AUTOGNOTHI_PP on the parent's experiments (a
   run's "hparams" written first), an epoch interrupted where the spec
@@ -527,8 +536,148 @@ def run_trainers(spec, inputs, out) -> None:
                 training._SHUTDOWN["requested"] = False
 
 
+def run_remat(spec, inputs, out) -> None:
+    """`<pp|tp>/<0|1>/...`: the step's loss and the rank's parameters after
+    it, without (0) and with (1) AUTOGNOTHI_REMAT=1; `<pp|tp>/recomputed`:
+    whether the second run checkpointed any layer."""
+    from types import SimpleNamespace
+
+    import torch.utils.checkpoint as ckpt
+
+    from autognothi_tpu_torch.params import from_jax_params
+    from autognothi_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from autognothi_tpu_torch.parallel.tp import gather_shard
+    from autognothi_tpu_torch.parallel.train_step import \
+        make_explainer_train_step
+    from autognothi_tpu_torch.pipeline.pp_trainer import setup_pp_surrogate
+    from autognothi_tpu_torch.pipeline.training import AdamW
+    from autognothi_tpu_torch.recipes.vanilla_vit import vanilla_vit_recipe
+
+    recipe, cfg = vanilla_vit_recipe(), _cfg(spec, "vit")
+    env = SimpleNamespace(log=lambda *_: None)
+    t = torch.from_numpy
+    b = inputs["xs"].shape[0]
+    checkpointed = {"n": 0}
+    wrapped = ckpt.checkpoint
+
+    def counted(*args, **kwargs):
+        checkpointed["n"] += 1
+        return wrapped(*args, **kwargs)
+
+    for flag in ("0", "1"):
+        with mock.patch.dict(os.environ, {"AUTOGNOTHI_REMAT": flag}), \
+                mock.patch.object(ckpt, "checkpoint", counted):
+            checkpointed["n"] = 0
+            config = SimpleNamespace(
+                net=SimpleNamespace(kind="vanilla_vit"),
+                train_surrogate=SimpleNamespace(batch_size=b))
+            cls = from_jax_params(_load(inputs, "cls/"), cfg, CPU,
+                                  section="classifier")
+            ctx, _, step, _ = setup_pp_surrogate(
+                env, config, cfg, _load(inputs, "srg/"), cls,
+                lambda k: True, 2, 2, 1, device=CPU)
+            orig = torch.softmax(t(inputs["orig"]), -1)
+            kld, _ = step(ctx.model, ctx.opt, spec["lr"],
+                          {k: 1.0 for k, _ in ctx.model.named_parameters()},
+                          t(inputs["xs"]), t(inputs["mask"]), orig,
+                          t(inputs["labels"]),
+                          torch.Generator().manual_seed(5), None,
+                          torch.ones(b))
+            out["json"][f"pp/{flag}/loss"] = kld.item()
+            for k, p in ctx.model.named_parameters():
+                out["npz"][f"pp/{flag}/{k}"] = p.detach().numpy()
+            out["json"]["pp/recomputed"] = checkpointed["n"] > 0
+
+            checkpointed["n"] = 0
+            mesh = make_mesh(2, model_parallel=2)
+            srg = from_jax_params(_load(inputs, "srg/"), cfg, CPU,
+                                  section="surrogate")
+            model = from_jax_params(_load(inputs, "exp/"), cfg, CPU,
+                                    section="explainer")
+            srg.requires_grad_(False)
+            shard_params(srg, mesh)
+            shard_params(model, mesh)
+            params = dict(model.named_parameters())
+            opt = AdamW(params, lambda k: True)
+            xstep = make_explainer_train_step(
+                recipe, cfg, recipe.n_players(cfg),
+                inputs["masks"].shape[1], mesh=mesh)
+            loss = xstep(model, opt, srg, t(inputs["null"]), t(inputs["xs"]),
+                         torch.Generator().manual_seed(5), spec["lr"],
+                         {k: 1.0 for k in params}, cfg.num_hidden_layers,
+                         masks=t(inputs["masks"]))
+            out["json"][f"tp/{flag}/loss"] = loss.item()
+            for k, p in params.items():
+                out["npz"][f"tp/{flag}/{k}"] = gather_shard(p).detach(
+                ).numpy()
+            out["json"]["tp/recomputed"] = checkpointed["n"] > 0
+
+
+def run_ckpt_dir(spec, inputs, out) -> None:
+    """Writes under spec["ckpt"]: `tp/` (epochs 1 and 2 of a TP-sharded
+    explainer with AUTOGNOTHI_CKPT_OPT=1, the moments 0.5 x the
+    parameters), `pp/` (a pipe-2 classifier stage), and the npz of each
+    under `npz_tp/`, `npz_pp/`; `<tp|pp>/loaded_equal`: whether the rank's
+    load of its directory is the one-device dict bit for bit."""
+    from types import SimpleNamespace
+
+    from autognothi_tpu_torch.params import (from_jax_params,
+                                             load_params_file, save_params,
+                                             to_flat)
+    from autognothi_tpu_torch.parallel.distributed import is_writer
+    from autognothi_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from autognothi_tpu_torch.parallel.pipeline import (
+        make_pipe_mesh, merge_encoder_params)
+    from autognothi_tpu_torch.pipeline.resources import save_epoch_ckpt
+    from autognothi_tpu_torch.pipeline.training import AdamW, ckpt_of
+
+    cfg = _cfg(spec, "vit")
+    root = pathlib.Path(spec["ckpt"])
+    train = SimpleNamespace(epochs=3, ckpt_when="_:%5==0")
+    dirs = {"AUTOGNOTHI_CKPT_BACKEND": "orbax", "AUTOGNOTHI_CKPT_OPT": "1"}
+
+    exp = _load(inputs, "exp/")
+    mesh = make_mesh(2, model_parallel=2)
+    model = from_jax_params(exp, cfg, CPU, section="explainer")
+    shard_params(model, mesh)
+    params = dict(model.named_parameters())
+    opt = AdamW(params, lambda k: True)
+    for k in opt.names:
+        opt.mu[k].copy_(params[k].detach() * 0.5)
+        opt.nu[k].copy_(params[k].detach() * 0.25)
+    opt.count = 3
+    with mock.patch.dict(os.environ, dirs):
+        for epoch in (1, 2):
+            save_epoch_ckpt(root / "tp", "explainer", train, epoch,
+                            *ckpt_of(None, model, opt))
+        out["json"]["tp/loaded_equal"] = all(
+            np.array_equal(v, exp[k]) for k, v in load_params_file(
+                root / "tp" / "explainer-epoch-2.ckpt").items()) and set(
+            load_params_file(root / "tp" / "explainer-epoch-2.ckpt")) == \
+            set(exp)
+    flat = to_flat(model)  # every rank: the gather is collective
+    if is_writer():
+        save_params(root / "npz_tp.ckpt", flat)
+
+    cls = _load(inputs, "cls/")
+    pmesh = make_pipe_mesh(pipe=2)
+    stage, layout = _stage(cls, cfg, pmesh, "classifier")
+    with mock.patch.dict(os.environ, {"AUTOGNOTHI_CKPT_BACKEND": "orbax"}):
+        save_epoch_ckpt(root / "pp", "classifier", train, 1,
+                        *ckpt_of(None, stage, None))
+        got = load_params_file(root / "pp" / "classifier-epoch-1.ckpt")
+    out["json"]["pp/loaded_equal"] = set(got) == set(cls) and all(
+        np.array_equal(v, cls[k]) for k, v in got.items())
+    out["json"]["pp/stage_keys"] = sorted(k for k, _ in
+                                          stage.named_parameters())
+    merged = merge_encoder_params(stage, layout, pmesh)
+    if is_writer():
+        save_params(root / "npz_pp.ckpt", merged)
+
+
 JOBS = {"modules": run_modules, "steps": run_steps, "teacher": run_teacher,
-        "surrogate_step": run_surrogate_step, "trainers": run_trainers}
+        "surrogate_step": run_surrogate_step, "trainers": run_trainers,
+        "remat": run_remat, "ckpt_dir": run_ckpt_dir}
 
 
 def main(spec_path: str) -> None:
