@@ -18,7 +18,8 @@ regression loss, the backward, and the AdamW update in place.
   differentiated; the JAX step differentiates everything and zeroes the
   frozen updates, and the trainable gradients are the same either way.
 - The spans "teacher", "forward", "backward" and "adamw" are
-  `torch.profiler.record_function` ranges, for the step's breakdown.
+  `utils.tracing.span`s (profiler ranges under a trace), for the step's
+  breakdown.
 - Over a mesh (`parallel/mesh.py`) the masks are drawn for the global
   batch on every rank from the one generator, and each rank then runs
   the whole step on its rows along "data" (`pipeline.training.dp_split`):
@@ -42,12 +43,12 @@ import os
 from typing import Any, Callable, Dict, Optional
 
 import torch
-from torch.profiler import record_function
 
 from ..models.common import pallas_override, quant_override
 from ..ops.shapley import loss_shapley, mask_shapley
 from ..pipeline.training import AdamW, dp_merge, dp_split
 from ..recipes.types import ModelRecipe, surrogate_coalition_values
+from ..utils import tracing
 from .distributed import world_size
 from .mesh import axis_size, sharded_call
 
@@ -169,13 +170,13 @@ def make_explainer_train_step(recipe: ModelRecipe, m_config: Any,
             (xs, masks, weights), share = dp_split(mesh, (0, 0, 0),
                                                    (xs, masks, weights))
         b = xs.shape[0]
-        with record_function("teacher"), _teacher_on(mesh, share is not None):
+        with tracing.span("teacher"), _teacher_on(mesh, share is not None):
             v_s, v_1 = _teacher(recipe, m_config, srg_model, xs, masks)
         params = dict(model.named_parameters())
         trainable = {k: p for k, p in params.items() if p.requires_grad}
         mask_1 = torch.ones((b, n_players), dtype=masks.dtype,
                             device=xs.device)
-        with record_function("forward"), mesh_safe_pallas(), \
+        with tracing.span("forward"), mesh_safe_pallas(), \
                 quant_override("none"):
             phi, _ = fw_explainer(
                 model, xs, mask_1, v_1, surrogate_null,
@@ -184,7 +185,7 @@ def make_explainer_train_step(recipe: ModelRecipe, m_config: Any,
             # before the last pipeline stage phi is the pipe's token
             loss = phi if pp is not None and not pp.last else loss_shapley(
                 masks, surrogate_null, v_s, v_1, phi, weights)
-        with record_function("backward"):
+        with tracing.span("backward"):
             grads = torch.autograd.grad(
                 loss if share is None else loss * share,
                 list(trainable.values()), allow_unused=True)
@@ -193,7 +194,7 @@ def make_explainer_train_step(recipe: ModelRecipe, m_config: Any,
             grads = tuple(torch.zeros_like(p) if g is None else g
                           for g, p in zip(grads, trainable.values()))
             loss, _, grads = dp_merge(mesh, share, loss, (), grads)
-        with record_function("adamw"):
+        with tracing.span("adamw"):
             opt.update(params, dict(zip(trainable, grads)), lr, update_mask)
         return loss if pp is None else pp.finish(loss)
 

@@ -9,6 +9,13 @@ and hands the outputs back.  A partial slab waits at most `window_s` from
 the oldest pending request's arrival.  With `depth > 1` a completer thread
 finalizes slab N (the device -> host copy) while the dispatcher launches
 slab N+1.
+
+Spans (`utils/tracing.py`): the dispatcher's loop is tiled by
+`batcher.wait` (an empty queue or the coalescing window), `batcher.pack`
+(taking the rows and assembling the slab), `batcher.run` (`run_slab`) and
+`batcher.blocked` (handing the slab to a full in-flight queue); the
+completer's work by `batcher.fetch` (`finalize`) and `batcher.settle`
+(the rows back to their requests).
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from collections import deque
 from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
+
+from ..utils import tracing
 
 
 def pad_to(x: np.ndarray, size: int, axis: int = 0) -> np.ndarray:
@@ -211,11 +220,14 @@ class MicroBatcher:
         return take, chunks, room
 
     def _loop(self) -> None:
+        # the spans batcher.wait, .pack, .run and .blocked tile this loop
         while True:
+            waiting = tracing.span("batcher.wait").__enter__()
             with self._cv:
                 while not self._queue and not self._closed:
                     self._cv.wait()
                 if self._closed and not self._queue:
+                    waiting.__exit__(None, None, None)
                     return
                 if self.window_s > 0:
                     # the window anchors at the OLDEST pending request's
@@ -231,10 +243,12 @@ class MicroBatcher:
                         if left <= 0:
                             break
                         self._cv.wait(left)
+                waiting.__exit__(None, None, None)
                 if not self._queue:
                     # a completer-side _fail can drain the queue while the
                     # lock was released in wait() — never index an empty one
                     continue
+                packing = tracing.span("batcher.pack").__enter__()
                 take, chunks, room = self._collect()
                 # counted at collect time, like row_count: a failed slab
                 # must not leave rows>capacity (occupancy > 1.0) in /statz
@@ -250,15 +264,19 @@ class MicroBatcher:
                 # dispatcher thread — every later submit() would hang
                 self._fail(take, exc)
                 continue
+            finally:
+                packing.__exit__(None, None, None)
             try:
-                outs = self._run_slab(slab)  # possibly lazy device arrays
+                with tracing.span("batcher.run"):
+                    outs = self._run_slab(slab)  # possibly lazy device arrays
             except BaseException as exc:  # propagate to every waiter
                 self._fail(take, exc)
                 continue
             if self._inflight is None:
                 self._settle(take, outs)
             else:  # pipelined: the completer pays the fetch for this slab
-                self._inflight.put((take, outs))
+                with tracing.span("batcher.blocked"):
+                    self._inflight.put((take, outs))
 
     # ------------------------------------------------------------- completion
 
@@ -271,22 +289,24 @@ class MicroBatcher:
 
     def _settle(self, take, outs) -> None:
         try:
-            outs_np = self._finalize(outs)
+            with tracing.span("batcher.fetch"):
+                outs_np = self._finalize(outs)
         except BaseException as exc:  # device errors often surface at fetch
             self._fail(take, exc)
             return
         try:
-            used = 0
-            for req, _, n in take:
-                rows = tuple(o[used:used + n] for o in outs_np)
-                used += n
-                if req.error is not None:  # an earlier slab failed this one
-                    continue
-                req.parts.append(rows)
-                req.delivered += n
-                if req.delivered == req.xs.shape[0]:
-                    self._record_latency(req)
-                    req.done.set()
+            with tracing.span("batcher.settle"):
+                used = 0
+                for req, _, n in take:
+                    rows = tuple(o[used:used + n] for o in outs_np)
+                    used += n
+                    if req.error is not None:  # an earlier slab failed it
+                        continue
+                    req.parts.append(rows)
+                    req.delivered += n
+                    if req.delivered == req.xs.shape[0]:
+                        self._record_latency(req)
+                        req.done.set()
         except BaseException as exc:
             # distribution bookkeeping failed (e.g. a run_slab output that
             # violates the per-output <batch, ...> contract): fail the take

@@ -10,7 +10,8 @@
     POST /explain {"images_u8": [[[...]]]}  # uint8 rows, dequantized on the
                                             # device (x * scale + offset)
     GET  /healthz
-    GET  /statz                             # slab occupancy + latency
+    GET  /statz                             # slab occupancy, latency and
+                                            # the span totals (`spans`)
 
     python -m autognothi_tpu_torch serve <experiment_dir> --device cuda \\
         --artifact final.agx        # an `export_final` artifact instead of
@@ -45,6 +46,7 @@ import torch
 
 from ..parallel.distributed import rank, world_size
 from ..parallel.mesh import axis_size, setup_data_parallel, sharded_serving_fn
+from ..utils import tracing
 from ..utils.devices import resolve_device
 from .batching import MicroBatcher
 from .env import ExpEnv
@@ -125,15 +127,23 @@ class ExplainService:
         returns device tensors (the completer thread copies them to the
         host).  On rank 0 of a followed world the slab goes to every rank
         first."""
-        xs = torch.as_tensor(np.ascontiguousarray(slab)).to(self.device)
-        if self.followed:
-            _send(_SLAB, xs)
-        return self._forward(xs)
+        with tracing.span("serve.h2d"):
+            xs = torch.as_tensor(np.ascontiguousarray(slab)).to(self.device)
+            if self.followed:
+                _send(_SLAB, xs)
+            xs = self._dequant(xs)
+        with tracing.span("serve.forward"):
+            return self._forward(xs)
+
+    def _dequant(self, xs: torch.Tensor) -> torch.Tensor:
+        """uint8 rows -> float rows on the device (x * scale + offset)."""
+        if xs.dtype != torch.uint8:
+            return xs
+        with torch.inference_mode():
+            return xs.float() * self.u8_scale + self.u8_offset
 
     def _forward(self, xs: torch.Tensor):
         with torch.inference_mode():
-            if xs.dtype == torch.uint8:
-                xs = xs.float() * self.u8_scale + self.u8_offset
             if self.artifact is not None:
                 return self.artifact(xs)
             return self._fw(self.model, xs)
@@ -146,7 +156,7 @@ class ExplainService:
             xs = _receive(self.device)
             if xs is None:
                 return slabs
-            self._forward(xs)
+            self._forward(self._dequant(xs))
             slabs += 1
 
     def close(self) -> None:
@@ -172,14 +182,24 @@ class ExplainService:
                 o.cpu()
 
     def explain(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        with tracing.span("serve.payload"):
+            xs = self._rows(payload)
+        if xs is None or xs.shape[0] == 0:
+            return {"logits": [], "attributions": []}
+        logits, attr = self._batcher.submit(xs)
+        with tracing.span("serve.respond"):
+            return {"logits": logits.tolist(), "attributions": attr.tolist()}
+
+    def _rows(self, payload: Dict[str, Any]):
+        """A request's payload -> its rows (None for an empty text list)."""
         if "texts" in payload:
             if isinstance(payload["texts"], str):
                 raise ValueError("'texts' must be a list of strings")
             raw = list(payload["texts"])
             if not raw:
-                return {"logits": [], "attributions": []}
-            xs, _ = self.gen_input(raw, [0] * len(raw))
-        elif "images" in payload:
+                return None
+            return self.gen_input(raw, [0] * len(raw))[0]
+        if "images" in payload:
             try:
                 xs = np.asarray(payload["images"], dtype=np.float32)
             except (ValueError, TypeError) as err:
@@ -195,15 +215,12 @@ class ExplainService:
                     f"({err})") from err
         else:
             raise ValueError("payload needs 'texts', 'images' or 'images_u8'")
-        if xs.shape[0] == 0:
-            return {"logits": [], "attributions": []}
-        if "texts" not in payload and tuple(xs.shape[1:]) != self._row_shape:
+        if xs.shape[0] and tuple(xs.shape[1:]) != self._row_shape:
             raise ValueError(
                 f"image rows must be shaped {self._row_shape} "
                 f"(<C, H, W> for this model); got rows {tuple(xs.shape[1:])} "
                 f"from payload shape {tuple(xs.shape)}")
-        logits, attr = self._batcher.submit(xs)
-        return {"logits": logits.tolist(), "attributions": attr.tolist()}
+        return xs
 
 
 # the header rank 0 broadcasts before each slab: (op, dtype, ndim, shape)
@@ -258,7 +275,8 @@ def make_server(service: ExplainService, host: str = "127.0.0.1",
             if self.path == "/healthz":
                 self._reply(200, {"status": "ok"})
             elif self.path == "/statz":
-                self._reply(200, service._batcher.stats())
+                self._reply(200, {**service._batcher.stats(),
+                                  "spans": tracing.totals()})
             else:
                 self._reply(404, {"error": "not found"})
 

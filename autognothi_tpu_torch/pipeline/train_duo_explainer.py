@@ -29,7 +29,6 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..models.common import quant_override
 from ..ops.shapley import loss_shapley
@@ -38,6 +37,7 @@ from ..parallel.mesh import axis_size, setup_data_parallel
 from ..parallel.train_step import (_sample_masks, make_teacher,
                                    mesh_safe_pallas)
 from ..recipes.types import ModelRecipe
+from ..utils import tracing
 from ..utils.devices import resolve_device
 from ..utils.seeding import iterative_generator, set_iterative_seed
 from .env import ExpEnv
@@ -89,7 +89,7 @@ def make_duo_explainer_steps(recipe: ModelRecipe, m_config: Any,
         if masks is None:
             masks = _sample_masks(generator, xs.shape[0], n_mask_samples,
                                   n_players, xs.device)
-        with record_function("teacher"):
+        with tracing.span("teacher"):
             v_s, v_1 = teacher(srg_model, xs, masks)
         return masks, v_s, v_1
 

@@ -28,11 +28,11 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..parallel.distributed import any_rank
 from ..parallel.mesh import (all_reduce_sum, data_rows, gather_rows,
                              pad_to_multiple, shard_batch)
+from ..utils import tracing
 
 # torch.optim.AdamW defaults; the reference never overrides them
 ADAMW_BETAS = (0.9, 0.999)
@@ -223,7 +223,7 @@ def make_train_step(loss_fn: Callable[..., Tuple[torch.Tensor, object]],
     gradients of the trainable parameters (those that require grad) by
     `torch.autograd.grad`, then `opt.update` with `update_mask` (which
     multiplies gradients and updates).  aux is returned detached.  The
-    spans "forward", "backward" and "adamw" are `record_function` ranges.
+    spans "forward", "backward" and "adamw" are `utils.tracing.span`s.
 
     With a data `mesh` (`parallel.mesh.setup_data_parallel`) each rank
     runs its rows of the batch (`dp_split`: `in_axes` per batch argument,
@@ -238,9 +238,9 @@ def make_train_step(loss_fn: Callable[..., Tuple[torch.Tensor, object]],
         share = None
         if mesh is not None:
             batch, share = dp_split(mesh, in_axes, batch)
-        with record_function("forward"):
+        with tracing.span("forward"):
             loss, aux = loss_fn(model, *batch)
-        with record_function("backward"):
+        with tracing.span("backward"):
             # a section that trains nothing (the vanilla classifier) has
             # no graph to differentiate
             grads = torch.autograd.grad(
@@ -252,7 +252,7 @@ def make_train_step(loss_fn: Callable[..., Tuple[torch.Tensor, object]],
             grads = tuple(torch.zeros_like(p) if g is None else g
                           for g, p in zip(grads, trainable.values()))
             loss, aux, grads = dp_merge(mesh, share, loss, aux, grads)
-        with record_function("adamw"):
+        with tracing.span("adamw"):
             opt.update(params, dict(zip(trainable, grads)), lr, update_mask)
         return loss, aux
 

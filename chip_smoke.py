@@ -80,7 +80,7 @@ Phases, each printing its own lines:
      ms/step and masked forwards/s (B x M per step) with the kernels and
      with the plain versions in both modes, its peak device memory, its
      split into teacher, forward, backward and AdamW (CUDA events at the
-     step's `record_function` spans: the profiler attributes no device
+     step's spans (`utils.tracing.span`): the profiler attributes no device
      time to the backward span, whose ops the autograd engine runs on its
      own thread), and one profiled step's kernels and device idle share;
      and
@@ -2119,8 +2119,7 @@ def phase_stage_timing(case: StageCase, card: str,
     is outside them)."""
     import torch
 
-    from autognothi_tpu_torch.parallel import train_step
-    from autognothi_tpu_torch.pipeline import train_duo_explainer, training
+    from autognothi_tpu_torch.utils import tracing
 
     reps = 3
     for label, stage, teacher in runs:
@@ -2146,10 +2145,7 @@ def phase_stage_timing(case: StageCase, card: str,
             ctx = plain_ops() if which == "plain" else contextlib.nullcontext()
             timer = SpanTimer()
             with train_env("2", teacher), ctx, \
-                    mock.patch.object(training, "record_function", timer), \
-                    mock.patch.object(train_step, "record_function", timer), \
-                    mock.patch.object(train_duo_explainer, "record_function",
-                                      timer):
+                    mock.patch.object(tracing, "span", timer):
                 steps[which]()
             spans = timer.totals()
             print(f"{tag} {label} {which:7s} step split (CUDA "
@@ -2391,8 +2387,8 @@ def phase_ladder_route(dev, card: str) -> None:
 
 
 class SpanTimer:
-    """Stands in for `record_function` in the train step: CUDA events at
-    each span's ends, so each span's time on the card's stream is read."""
+    """Stands in for the port's one span primitive (`utils.tracing.span`)
+    in the train step: CUDA events at each span's ends, so each span's time on the card's stream is read."""
 
     def __init__(self):
         self.spans = []
@@ -2480,7 +2476,7 @@ def phase_train_timing(case: TrainCase, card: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from autognothi_tpu_torch.parallel import train_step as ts
+    from autognothi_tpu_torch.utils import tracing
 
     reps = 3
     for pallas, teacher in CLI_TEACHER.items():
@@ -2511,7 +2507,7 @@ def phase_train_timing(case: TrainCase, card: str) -> None:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             with train_env(pallas, teacher), ctx, \
-                    mock.patch.object(ts, "record_function", timer):
+                    mock.patch.object(tracing, "span", timer):
                 runs[which]()
             spans = timer.totals()
             peak = torch.cuda.max_memory_allocated() / 2**20

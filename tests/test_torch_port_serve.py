@@ -141,7 +141,7 @@ def test_import_graph_is_free_of_jax_and_the_jax_package():
                 "pipeline.preview_text_shapley",
                 "pipeline.run_image_explanation", "zoo.loader",
                 "pipeline.export", "kernels.library",
-                "parallel.pipeline", "pipeline.pp_trainer"):
+                "parallel.pipeline", "pipeline.pp_trainer", "utils.tracing"):
         assert f"autognothi_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
