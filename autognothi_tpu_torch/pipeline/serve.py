@@ -22,6 +22,26 @@ the JAX package's framework-free batcher).  Its dispatcher thread
 launches every slab on PyTorch's current stream; its completer thread
 copies the results to the host, which waits for that stream.
 
+On a card a slab's device work (the u8 dequant and `fw_final`) is one
+CUDA graph per input key (the host slab's shape and dtype): the first slab
+of a key runs eagerly, which fills the one-time caches (kernel loading,
+shared-memory attributes, weight codes), the second is captured, and every
+later one is replayed, one launch in place of several hundred.  Around a
+replay every copy is queued on the stream: the slab goes through a pinned
+staging buffer into the graph's static input, and the graph, which ends
+by writing every output into one flat float32 buffer, is followed by that
+buffer's copy into a fresh pinned host buffer, which the completer reads
+once the slab's event has passed.  The dispatcher then waits until the
+card reaches the slab, and packs the next one while the card runs it, so
+the card always has the next slab queued.  `warmup`
+runs each of its slabs twice, so the served keys replay from the first
+request.  A key whose capture raises runs eagerly for the rest of the
+service's life.  A followed world, an artifact and a host final
+(`replays_slabs`) always run eagerly.  `/statz` counts `graph_captures`,
+`graph_replays`, `eager_slabs` and `graph_fallbacks`.  The kernel ops'
+`LaunchCounter`s count the calls that went to a kernel: an eager or a
+captured slab's, and nothing for a replay.
+
 In a world of N ranks (`parallel/distributed.py`) rank 0 owns the HTTP
 server and the batcher, and the slab batch is rounded up to a multiple of
 N.  For each slab rank 0 broadcasts a small header and then the padded
@@ -37,9 +57,10 @@ alone.
 from __future__ import annotations
 
 import json
+import math
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +72,106 @@ from ..utils.devices import resolve_device
 from .batching import MicroBatcher
 from .env import ExpEnv
 from .resources import get_recipe, load_epoch_model
+
+# a slab's input key: the host slab's shape and dtype
+SlabKey = Tuple[Tuple[int, ...], str]
+
+
+def replays_slabs(device: torch.device, followed: bool, artifact,
+                  host_final: bool) -> bool:
+    """Whether a service replays its slabs as CUDA graphs: on a card, for a
+    live final that runs on this process's device alone.  A followed world
+    keeps its per-slab broadcast and collectives eager, an artifact runs
+    its own program, and a host final (KernelSHAP's WLS) leaves the
+    device."""
+    return (device.type == "cuda" and not followed and artifact is None
+            and not host_final)
+
+
+def _recorded(cuda: bool) -> Optional[torch.cuda.Event]:
+    """An event recorded on the current stream (None off a card)."""
+    if not cuda:
+        return None
+    event = torch.cuda.Event()
+    event.record()
+    return event
+
+
+class SlabOutputs:
+    """A replayed slab's outputs: one flat float32 host tensor, which holds
+    each output in turn once `done` has passed, and the outputs' shapes."""
+
+    __slots__ = ("flat", "shapes", "done")
+
+    def __init__(self, flat: torch.Tensor,
+                 shapes: Tuple[Tuple[int, ...], ...],
+                 done: Optional[torch.cuda.Event] = None):
+        self.flat, self.shapes, self.done = flat, shapes, done
+
+    def fetch(self) -> Tuple[np.ndarray, ...]:
+        if self.done is not None:
+            self.done.synchronize()
+        host = self.flat.numpy()
+        outs, at = [], 0
+        for shape in self.shapes:
+            n = math.prod(shape)
+            outs.append(host[at:at + n].reshape(shape))
+            at += n
+        return tuple(outs)
+
+
+def fetch(outs) -> Tuple[np.ndarray, ...]:
+    """A slab's outputs on the host as float32 arrays (the completer's
+    work): a replayed slab's from its host buffer, an eager slab's copied
+    one by one."""
+    if isinstance(outs, SlabOutputs):
+        return outs.fetch()
+    return tuple(o.float().cpu().numpy() for o in outs)
+
+
+class SlabGraph:
+    """One input key's captured slab: the static device input, the graph of
+    its device work, which ends by writing every output into one static
+    flat buffer, the outputs' shapes, and the pinned staging buffer each
+    slab passes through on its way to the static input."""
+
+    def __init__(self, graph, static_in: torch.Tensor, flat: torch.Tensor,
+                 shapes: Tuple[Tuple[int, ...], ...]):
+        self.graph, self.static_in, self.flat = graph, static_in, flat
+        self.shapes = shapes
+        self.cuda = flat.is_cuda
+        self.staging = torch.empty(static_in.shape, dtype=static_in.dtype,
+                                   pin_memory=self.cuda)
+        self._copied: Optional[torch.cuda.Event] = None
+
+    def load(self, slab: np.ndarray) -> None:
+        """Queue the slab's copy, through the staging buffer, into the
+        static input."""
+        self._reached()
+        self.staging.numpy()[...] = slab
+        self.static_in.copy_(self.staging, non_blocking=True)
+        self._copied = _recorded(self.cuda)
+
+    def replay(self) -> SlabOutputs:
+        """Queue the graph on the loaded slab and the copy of its outputs
+        into a fresh host buffer (the next replay overwrites the static
+        ones, and at the batcher's depth 2 the completer may fetch slab n
+        after slab n + 1 was replayed); then wait until the card has
+        reached the slab.  So the card has the slab queued behind the one
+        it runs, and the dispatcher packs the next slab from the queue as
+        it stands when this one starts, not a slab earlier."""
+        self.graph.replay()
+        host = torch.empty(self.flat.shape, pin_memory=self.cuda)
+        host.copy_(self.flat, non_blocking=True)
+        outs = SlabOutputs(host, self.shapes, _recorded(self.cuda))
+        self._reached()
+        return outs
+
+    def _reached(self) -> None:
+        """Wait until the last loaded slab's copy has run: the card has
+        reached that slab, and the staging buffer is free again."""
+        if self._copied is not None:
+            self._copied.synchronize()
 
 
 class ExplainService:
@@ -88,12 +209,22 @@ class ExplainService:
             batch_size = self._load_artifact(artifact, batch_size)
         self.batch_size = batch_size
         self.u8_scale, self.u8_offset = (float(v) for v in u8_dequant)
+        self.replays = replays_slabs(self.device, self.followed,
+                                     self.artifact, self.recipe.fw_final_host)
+        # written by the one thread that runs slabs (the dispatcher, or
+        # warmup's caller before it)
+        self._graphs: Dict[SlabKey, SlabGraph] = {}
+        self._seen: Set[SlabKey] = set()       # keys run eagerly once
+        self._eager_keys: Set[SlabKey] = set()  # keys whose capture failed
+        self._capture_stream = (torch.cuda.Stream(self.device)
+                                if self.replays else None)
+        self.slab_counts = {"graph_captures": 0, "graph_replays": 0,
+                            "eager_slabs": 0, "graph_fallbacks": 0}
         self._batcher = None
         if rank() == 0:
             self._batcher = MicroBatcher(
                 self._run_slab, batch_size, window_s=window_s, depth=2,
-                finalize=lambda outs: tuple(o.float().cpu().numpy()
-                                            for o in outs))
+                finalize=fetch)
 
     def _load_artifact(self, artifact, batch_size: int) -> int:
         """Serve an `export_final` artifact: the program and its weights are
@@ -124,16 +255,59 @@ class ExplainService:
 
     def _run_slab(self, slab: np.ndarray):
         """One fixed-size slab through fw_final (or the artifact's program);
-        returns device tensors (the completer thread copies them to the
-        host).  On rank 0 of a followed world the slab goes to every rank
-        first."""
+        returns device tensors, or a replayed slab's `SlabOutputs` (the
+        completer thread copies them to the host, `fetch`).  A captured key
+        replays its graph; on rank 0 of a followed world the slab goes to
+        every rank first."""
+        slab = np.ascontiguousarray(slab)
+        key = (slab.shape, slab.dtype.str)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            with tracing.span("serve.h2d"):
+                graph.load(slab)
+            with tracing.span("serve.forward"):
+                return self._replay(graph)
         with tracing.span("serve.h2d"):
-            xs = torch.as_tensor(np.ascontiguousarray(slab)).to(self.device)
+            xs = torch.as_tensor(slab).to(self.device)
             if self.followed:
                 _send(_SLAB, xs)
-            xs = self._dequant(xs)
         with tracing.span("serve.forward"):
-            return self._forward(xs)
+            if self.replays and key in self._seen and \
+                    key not in self._eager_keys:
+                try:
+                    graph = self._capture(xs)
+                except Exception as exc:  # noqa: BLE001 — the key runs eager
+                    self._eager_keys.add(key)
+                    self.slab_counts["graph_fallbacks"] += 1
+                    self.env.log(f"[[[ serve: slabs {key} stay eager, their "
+                                 f"capture failed: {exc!r} ]]]")
+                else:
+                    self._graphs[key] = graph
+                    self.slab_counts["graph_captures"] += 1
+                    return self._replay(graph)
+            self._seen.add(key)
+            self.slab_counts["eager_slabs"] += 1
+            return self._forward(self._dequant(xs))
+
+    def _replay(self, graph: SlabGraph) -> SlabOutputs:
+        self.slab_counts["graph_replays"] += 1
+        return graph.replay()
+
+    def _capture(self, xs: torch.Tensor) -> SlabGraph:
+        """The device work of a slab whose input is `xs`, captured; `xs`
+        becomes the graph's static input.  The key ran eagerly before, so
+        no one-time work is captured."""
+        graph = torch.cuda.CUDAGraph()
+        # the outer context restores the current stream should the capture
+        # fail in `capture_end`; thread_local: the completer may fetch
+        # while this thread captures
+        with torch.cuda.stream(self._capture_stream), torch.cuda.graph(
+                graph, stream=self._capture_stream,
+                capture_error_mode="thread_local"), torch.inference_mode():
+            outs = tuple(self._forward(self._dequant(xs)))
+            flat = torch.cat([o.float().reshape(-1) for o in outs])
+        return SlabGraph(graph, xs, flat,
+                         tuple(tuple(o.shape) for o in outs))
 
     def _dequant(self, xs: torch.Tensor) -> torch.Tensor:
         """uint8 rows -> float rows on the device (x * scale + offset)."""
@@ -167,19 +341,20 @@ class ExplainService:
             self._batcher = None
             if world_size() > 1:
                 _send(_STOP, None, self.device)
+        self._graphs.clear()  # their memory pools
 
     def warmup(self) -> None:
         """Run the null slab (and, for float rows, its u8 form) to the end,
-        so kernels are built and loaded before the server reports ready."""
+        so kernels are built and loaded before the server reports ready;
+        where slabs replay, twice each, so that their keys are captured."""
         null = np.repeat(self.recipe.gen_null(self.m_config, self.misc),
                          self.batch_size, axis=0)
         slabs = [null]
         if np.issubdtype(null.dtype, np.floating):
             slabs.append(np.clip(null * 255.0, 0, 255).astype(np.uint8))
         for slab in slabs:
-            outs = self._run_slab(slab)
-            for o in outs:
-                o.cpu()
+            for _ in range(2 if self.replays else 1):
+                fetch(self._run_slab(slab))
 
     def explain(self, payload: Dict[str, Any]) -> Dict[str, Any]:
         with tracing.span("serve.payload"):
@@ -276,6 +451,7 @@ def make_server(service: ExplainService, host: str = "127.0.0.1",
                 self._reply(200, {"status": "ok"})
             elif self.path == "/statz":
                 self._reply(200, {**service._batcher.stats(),
+                                  **service.slab_counts,
                                   "spans": tracing.totals()})
             else:
                 self._reply(404, {"error": "not found"})

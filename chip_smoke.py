@@ -42,7 +42,10 @@ Phases, each printing its own lines:
      batch 8, once on the fp32 path and once with AUTOGNOTHI_INT8=1; each
      time an `images` request of 3 rows and an `images_u8` request of 9
      rows (two slabs) are checked for shape, normalisation, finiteness, the
-     kernel call counts per slab (fp32: 13 attention, 13 MLP, 12 ladder;
+     kernel call counts per slab that went through the kernels (a CUDA
+     graph's replay calls none: warmup's eager and captured slabs hold
+     the counts, and every request slab is a replay, `hold_slab_calls`;
+     fp32: 13 attention, 13 MLP, 12 ladder;
      int8: 13 int8 attention, 12 trunk MLP + ladder, 1 int8 MLP, 1 head;
      none of the other path's) and agreement with the plain-version
      forward of the same module on the same path.  The same for a random
@@ -1049,13 +1052,55 @@ def bert_requests():
     return [("texts x3", "texts", CORPUS[:3]), ("texts x9", "texts", CORPUS[:9])]
 
 
+# served paths whose capture raises, so that the service runs them eagerly:
+# ViT-L's W8A8 final (its eager W8A8 denses copy a host tensor to the card
+# inside the forward)
+EAGER_SERVES = ("serve vanilla vit_large int8",)
+
+
+def hold_slab_calls(tag: str, service, per_slab: dict, warm: dict,
+                    warm_runs: dict, calls: dict, runs: dict,
+                    slabs: int) -> dict:
+    """The kernel ops count the calls of the slabs that ran through them,
+    an eager slab's and a captured one's, and nothing for a replayed slab
+    (`pipeline/serve.py`).  Holds the requests' calls (and, where the
+    service replays, its warmup's, from counts of 0 before it started)
+    against `per_slab` times those slabs; `runs` (the service's
+    `slab_counts` over the requests) against the `slabs` served: every one
+    replayed where the service replays, as warmup captured its keys, else
+    every one eager.  A path of `EAGER_SERVES` must have fallen back in
+    warmup (whose calls then include the failed captures') and serve
+    eagerly.  -> the calls the service's kernels made."""
+    fell_back = tag in EAGER_SERVES
+    if fell_back:
+        check(service.replays and warm_runs["graph_fallbacks"] > 0
+              and warm_runs["graph_captures"] == 0,
+              f"{tag}: expected every capture to fall back, {warm_runs}")
+    for what, got, ran in (("warmup", warm, warm_runs),
+                           ("requests", calls, runs)):
+        n = ran["eager_slabs"] + ran["graph_captures"]
+        want = {name: per_slab.get(name, 0) * n for name in got}
+        print(f"[{tag}] {what}: {ran}; kernel calls {got} (expected "
+              f"{want}: {n} slabs through the kernels)", flush=True)
+        if what == "warmup" and (fell_back or not service.replays):
+            continue
+        check(got == want, f"{tag} {what}: kernel calls differ from "
+                           f"{per_slab} per slab")
+    way = ("graph_replays" if service.replays and not fell_back
+           else "eager_slabs")
+    check(runs[way] == slabs and runs["graph_fallbacks"] == 0,
+          f"{tag}: {slabs} slabs served, {runs}")
+    return _scaled((1, warm if service.replays else {}), (1, calls))
+
+
 def serve_requests(exp: pathlib.Path, requests: list, per_slab: dict,
                    tag: str, artifact: pathlib.Path = None):
     """Serve the experiment's final (or `artifact`, an `export_final`
     artifact) on the card at batch 8 and post `requests`; the counts set
-    to 0 just before the requests and read just after -> (kernel calls,
-    service, the responses by request label).  Three slabs of 8 (1 + 2),
-    their kernel calls against `per_slab`."""
+    to 0 just before the server starts and again just before the
+    requests -> (kernel calls, service, the responses by request label).
+    Three slabs of 8 (1 + 2), their kernel calls held against `per_slab`
+    (`hold_slab_calls`)."""
     import numpy as np
 
     from autognothi_tpu_torch.pipeline.env import ExpEnv
@@ -1063,23 +1108,26 @@ def serve_requests(exp: pathlib.Path, requests: list, per_slab: dict,
 
     env = ExpEnv(exp)
     t0 = time.perf_counter()
+    reset_counts()
     server, service, thread = serve_in_thread(env, port=0, batch_size=8,
                                               device="cuda",
                                               artifact=artifact)
+    warm, warm_runs = read_counts(), dict(service.slab_counts)
     port = server.server_address[1]
     print(f"[{tag}] server up on the card in "
           f"{time.perf_counter() - t0:.1f} s (warmup slabs run)",
           flush=True)
     try:
         check(_get(port, "/healthz") == {"status": "ok"}, "healthz")
-        slabs0 = _get(port, "/statz")["slabs"]
-        for c in counters().values():
-            c.reset()
+        stats0 = _get(port, "/statz")
+        reset_counts()
         got = {label: _post(port, {kind: np.asarray(rows).tolist()
                                    if kind != "texts" else rows})
                for label, kind, rows in requests}
-        launches = {name: c.count for name, c in counters().items()}
-        slabs = _get(port, "/statz")["slabs"] - slabs0
+        launches = read_counts()
+        stats = _get(port, "/statz")
+        slabs = stats["slabs"] - stats0["slabs"]
+        runs = {k: stats[k] - stats0[k] for k in warm_runs}
     finally:
         server.shutdown()
         server.server_close()
@@ -1088,12 +1136,10 @@ def serve_requests(exp: pathlib.Path, requests: list, per_slab: dict,
     check(not thread.is_alive(), "server thread did not stop")
     env.close()
 
-    expected = {name: per_slab.get(name, 0) * slabs for name in launches}
-    print(f"[{tag}] {slabs} slabs; kernel calls {launches} "
-          f"(expected {expected})", flush=True)
+    print(f"[{tag}] {slabs} slabs", flush=True)
     check(slabs == 3, f"expected 3 slabs (1 + 2), got {slabs}")
-    check(launches == expected,
-          f"{tag} kernel call counts differ from {per_slab} per slab")
+    launches = hold_slab_calls(tag, service, per_slab, warm, warm_runs,
+                               launches, runs, slabs)
     return launches, service, got
 
 
@@ -2167,8 +2213,10 @@ def serve_final(dev, exp: pathlib.Path, texts: list = None,
     from autognothi_tpu_torch.pipeline.serve import serve_in_thread
 
     env = ExpEnv(exp)
+    reset_counts()
     server, service, thread = serve_in_thread(env, port=0, batch_size=8,
                                               device="cuda")
+    warm, warm_runs = read_counts(), dict(service.slab_counts)
     port = server.server_address[1]
     if texts is None:
         rows = np.random.RandomState(SEED + 7).rand(3, 3, 224, 224).astype(
@@ -2182,7 +2230,8 @@ def serve_final(dev, exp: pathlib.Path, texts: list = None,
     try:
         reset_counts()
         got = _post(port, payload)
-        calls = {k: v for k, v in read_counts().items() if v}
+        calls = read_counts()
+        runs = {k: v - warm_runs[k] for k, v in service.slab_counts.items()}
     finally:
         server.shutdown()
         server.server_close()
@@ -2201,9 +2250,9 @@ def serve_final(dev, exp: pathlib.Path, texts: list = None,
         print(f"{tag} served final, {label} x{len(rows)}, {what} "
               f"{tuple(mine.shape)} vs plain forward: {msg}", flush=True)
         check(ok, f"the served final's {what} differ from the plain forward")
-    check(calls == _depth(want_calls, layers),
-          f"the served request's kernel calls {calls}")
-    return calls
+    return hold_slab_calls(f"{tag.strip('[]')} serve", service,
+                           _depth(want_calls, layers), warm, warm_runs,
+                           calls, runs, 1)
 
 
 def opt_resume_bit_identical(tmp: pathlib.Path, src: pathlib.Path) -> None:

@@ -2499,6 +2499,15 @@ def _export_counts() -> dict:
     return {name: op.resolve()[2].count for name, op in library.OPS.items()}
 
 
+def _calls_a_slab(service, before: dict) -> dict:
+    """The kernel calls since `before` over the slabs that ran through the
+    kernels (eager and captured ones; a replayed slab calls none)."""
+    ran = (service.slab_counts["eager_slabs"]
+           + service.slab_counts["graph_captures"])
+    return {k: (v - before[k]) / ran
+            for k, v in _export_counts().items() if v != before[k]}
+
+
 def test_w8a8_kernels_artifact_bit_identical_to_live_serving(dev, tmp_path,
                                                              monkeypatch):
     """A random LTT ViT-B/16@224 final (2 of the 12 layers, full widths)
@@ -2550,21 +2559,23 @@ def test_w8a8_kernels_artifact_bit_identical_to_live_serving(dev, tmp_path,
         meta = export_final(env, tmp_path / "k.agx", 8, platforms=["cuda"],
                             kernels=True)
         assert meta["quant"] == "int8"
-        answers, calls = [], []
+        answers, calls, replays = [], [], []
         for artifact in (None, tmp_path / "k.agx"):
             service = ExplainService(env, batch_size=8, device="cuda",
                                      artifact=artifact)
             try:
-                service.warmup()
                 before = _export_counts()
+                service.warmup()
                 answers.append([service.explain(p) for p in payloads])
                 torch.cuda.synchronize()
-                calls.append({k: v - before[k]
-                              for k, v in _export_counts().items()})
+                calls.append(_calls_a_slab(service, before))
+                replays.append(service.slab_counts["graph_replays"])
             finally:
                 service.close()
+    # live: warmup's two keys captured, then 3 slabs replayed
+    assert replays == [2 + 3, 0], replays
     assert calls[0] == calls[1], calls
-    assert calls[0]["attention_block_int8"] == 3 * 3  # 3 slabs x 3
+    assert calls[0]["attention_block_int8"] == 3
     for live, art in zip(*answers):
         for key in ("logits", "attributions"):
             assert np.array_equal(np.asarray(live[key]),
@@ -2661,16 +2672,17 @@ def test_world_of_one_over_nccl_is_the_one_device_path(dev, tmp_path,
         with ExpEnv(exp) as env:
             service = ExplainService(env, batch_size=8, device="cuda")
             try:
-                service.warmup()
                 before = _export_counts()
+                service.warmup()
                 answers = [service.explain(p) for p in payloads]
                 torch.cuda.synchronize()
-                calls = {k: v - before[k]
-                         for k, v in _export_counts().items()}
+                calls = _calls_a_slab(service, before)
+                # warmup's two keys captured, then 3 slabs replayed
+                assert service.slab_counts["graph_replays"] == 2 + 3
             finally:
                 service.close()
         monkeypatch.setenv("AUTOGNOTHI_INT8", "0")
-        return answers, {k: v for k, v in calls.items() if v}
+        return answers, calls
 
     want_step, want_serve = one_step(None), serve_w8a8()
     with socket.socket() as s:
@@ -2692,8 +2704,259 @@ def test_world_of_one_over_nccl_is_the_one_device_path(dev, tmp_path,
     for k, v in want_step[1].items():
         assert torch.equal(got_step[1][k], v), k
     assert got_serve[1] == want_serve[1]
-    assert got_serve[1]["attention_block_int8"] == 3 * 3  # 3 slabs x 3
+    assert got_serve[1]["attention_block_int8"] == 3
     for live, world in zip(want_serve[0], got_serve[0]):
         for key in ("logits", "attributions"):
             assert np.array_equal(np.asarray(live[key]),
                                   np.asarray(world[key])), key
+
+
+# --------------------------------------------- served slabs as CUDA graphs
+
+
+def _served_exp(tmp_path, family: str, layers: int = 2):
+    """An experiment `ExplainService` loads: a random LTT ViT-B/16@224 or
+    LTT BERT-base@512 final (`layers` of the 12 layers, full widths,
+    dropout 0), BERT's with a small WordPiece vocabulary."""
+    import json
+    import pathlib
+    import string
+
+    from autognothi_tpu_torch import RECIPE_VERSION
+    from autognothi_tpu_torch.params import save_params, to_flat
+
+    root = pathlib.Path(__file__).resolve().parents[1] / "experiments"
+    if family == "vit":
+        from autognothi_tpu_torch.models.ltt_vit import (LttViTConfig,
+                                                         init_ltt_vit_final)
+
+        hp = json.loads((root / "vit_base_imagenette_vanilla"
+                         / ".hparams.json").read_text())
+        params = {k: v for k, v in hp["net"]["params"].items() if k in (
+            "hidden_size", "intermediate_size", "num_attention_heads",
+            "layer_norm_eps", "img_channels", "img_px_size",
+            "img_patch_size")}
+        params.update(num_labels=10, explainer_s_attn_num_layers=1,
+                      explainer_s_head_hidden_size=3072,
+                      explainer_normalize=True, s_attn_hidden_size=96,
+                      s_attn_intermediate_size=384)
+        kind = "ltt_vit"
+    else:
+        from autognothi_tpu_torch.models.ltt_bert import (LttBertConfig,
+                                                          init_ltt_bert)
+
+        hp = json.loads((root / "bert_base_tayp_ltt" / ".hparams.json"
+                         ).read_text())
+        params = dict(hp["net"]["params"])
+        kind = "ltt_bert"
+    params.update(attention_probs_dropout_prob=0.0, hidden_dropout_prob=0.0,
+                  num_hidden_layers=layers)
+    hp["net"] = {"kind": kind, "version": RECIPE_VERSION,
+                 "base_model": "random_init", "params": params}
+    exp = tmp_path / kind
+    exp.mkdir()
+    (exp / ".hparams.json").write_text(json.dumps(hp))
+    g = torch.Generator().manual_seed(231)
+    if family == "vit":
+        final = init_ltt_vit_final(LttViTConfig(**params), g)
+    else:
+        final = init_ltt_bert(LttBertConfig(**params), "final", g)
+        (exp / "tokenizer").mkdir()
+        (exp / "tokenizer" / "vocab.txt").write_text("\n".join(
+            ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+            + [c for ch in string.ascii_lowercase for c in (ch, "##" + ch)])
+            + "\n")
+    save_params(exp / "final-epoch-0.ckpt", to_flat(final))
+    return exp
+
+
+def _slabs(kind: str, n: int, seed: int, rows: int = 8):
+    """n distinct host slabs of one key: u8 or f32 images, or token ids."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    if kind == "vit_u8":
+        return [rng.randint(0, 256, (rows, 3, 224, 224)).astype(np.uint8)
+                for _ in range(n)]
+    if kind == "vit_f32":
+        return [rng.rand(rows, 3, 224, 224).astype(np.float32)
+                for _ in range(n)]
+    out = []
+    for _ in range(n):
+        ids = rng.randint(5, 30000, (rows, 512)).astype(np.int64)
+        ids[:, 0] = 2
+        out.append(ids)
+    return out
+
+
+def _launches():
+    """Each kernel op's calls so far, by its counter's name."""
+    from autognothi_tpu_torch.kernels.build import LaunchCounter
+    from autognothi_tpu_torch.ops import (attention_block, flash_attention,
+                                          head_block, ladder_block,
+                                          mlp_block)
+
+    return {c.name: c.count
+            for m in (attention_block, flash_attention, head_block,
+                      ladder_block, mlp_block)
+            for c in vars(m).values() if isinstance(c, LaunchCounter)}
+
+
+def _eager(service, slab):
+    """A slab through the service's eager path alone, on the host."""
+    from autognothi_tpu_torch.pipeline.serve import fetch
+
+    return fetch(service._forward(service._dequant(
+        torch.as_tensor(slab).to(service.device))))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("kind", ["vit_u8", "vit_f32", "bert"])
+def test_replayed_slabs_are_bit_identical_to_eager(dev, tmp_path,
+                                                   monkeypatch, kind, int8):
+    """Two distinct slabs of one key at B = 8 (2 of the 12 layers, full
+    widths), fp32 and W8A8: the first runs eagerly, the second is captured
+    and replayed, then both replay, queued back to back before any is
+    fetched; every answer equals the eager path's bit for bit."""
+    import numpy as np
+
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.serve import ExplainService, fetch
+
+    monkeypatch.setenv("AUTOGNOTHI_INT8", "1" if int8 else "0")
+    monkeypatch.delenv("AUTOGNOTHI_PALLAS", raising=False)
+    exp = _served_exp(tmp_path, "bert" if kind == "bert" else "vit")
+    s1, s2 = _slabs(kind, 2, 232)
+    with ExpEnv(exp) as env:
+        service = ExplainService(env, batch_size=8, device="cuda")
+        try:
+            assert service.replays
+            want = [_eager(service, s) for s in (s1, s2)]
+            outs = [service._run_slab(s) for s in (s1, s2, s1, s2)]
+            got = [fetch(o) for o in outs]
+            counts = dict(service.slab_counts)
+        finally:
+            service.close()
+    assert counts == {"graph_captures": 1, "graph_replays": 3,
+                      "eager_slabs": 1, "graph_fallbacks": 0}, counts
+    for i, outs in enumerate(got):
+        assert len(outs) == len(want[i % 2]) == 2
+        for g_, w_ in zip(outs, want[i % 2]):
+            assert g_.dtype == np.float32 and np.array_equal(g_, w_), i
+
+
+@pytest.mark.parametrize("kind", ["vit_u8", "bert"])
+def test_captured_slab_counts_the_eager_slabs_launches_and_a_replay_none(
+        dev, tmp_path, monkeypatch, kind):
+    """The kernel ops' `LaunchCounter`s count the calls that went to a
+    kernel: the captured slab's equal the eager slab's (W8A8, whose routes
+    count most), and a replay, which calls no op, adds none of its own
+    while `graph_replays` counts it."""
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.serve import ExplainService, fetch
+
+    monkeypatch.setenv("AUTOGNOTHI_INT8", "1")
+    monkeypatch.delenv("AUTOGNOTHI_PALLAS", raising=False)
+    exp = _served_exp(tmp_path, "bert" if kind == "bert" else "vit")
+    s1, s2 = _slabs(kind, 2, 233)
+    deltas, replays = [], []
+    with ExpEnv(exp) as env:
+        service = ExplainService(env, batch_size=8, device="cuda")
+        try:
+            for slab in (s1, s2, s1, s2):  # eager, captured, replays
+                before = _launches()
+                fetch(service._run_slab(slab))
+                deltas.append({k: v - before[k]
+                               for k, v in _launches().items()
+                               if v != before[k]})
+                replays.append(service.slab_counts["graph_replays"])
+            torch.cuda.synchronize()
+        finally:
+            service.close()
+    assert deltas[0] and deltas[1] == deltas[0], deltas
+    assert deltas[2:] == [{}, {}], deltas
+    assert replays == [0, 1, 2, 3]
+
+
+def test_service_replays_consecutive_distinct_slabs_at_depth_2(
+        dev, tmp_path, monkeypatch):
+    """Twelve distinct full slabs submitted at once through the batcher
+    (depth 2: the completer fetches slab n while slab n + 1 replays): every
+    answer equals an eager service's on the same rows, bit for bit."""
+    import threading
+
+    import numpy as np
+
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.serve import ExplainService
+
+    monkeypatch.setenv("AUTOGNOTHI_INT8", "0")
+    monkeypatch.delenv("AUTOGNOTHI_PALLAS", raising=False)
+    exp = _served_exp(tmp_path, "vit")
+    slabs = _slabs("vit_u8", 12, 234)
+    answers = []
+    with ExpEnv(exp) as env:
+        for replays in (False, True):
+            service = ExplainService(env, batch_size=8, device="cuda")
+            service.replays = replays
+            got = {}
+
+            def client(i, service=service, got=got):
+                got[i] = service._batcher.submit(slabs[i])
+
+            try:
+                service.warmup()
+                threads = [threading.Thread(target=client, args=(i,))
+                           for i in range(len(slabs))]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=300)
+                    assert not t.is_alive()
+                counts = dict(service.slab_counts)
+            finally:
+                service.close()
+            answers.append(got)
+            if replays:  # warmup: the f32 and u8 null slabs, eager + capture
+                assert counts == {"graph_captures": 2, "graph_replays": 14,
+                                  "eager_slabs": 2, "graph_fallbacks": 0}
+            else:
+                assert counts["eager_slabs"] == 2 + 12
+    for i in range(len(slabs)):
+        for e, r in zip(answers[0][i], answers[1][i]):
+            assert np.array_equal(e, r), i
+
+
+def test_a_key_whose_capture_fails_stays_eager(dev, tmp_path, monkeypatch):
+    """A forward that syncs with the host cannot be captured: its key falls
+    back to eager once, is counted once, and answers as before."""
+    import numpy as np
+
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.serve import ExplainService, fetch
+
+    monkeypatch.setenv("AUTOGNOTHI_INT8", "0")
+    monkeypatch.delenv("AUTOGNOTHI_PALLAS", raising=False)
+    exp = _served_exp(tmp_path, "vit")
+    s1, s2 = _slabs("vit_u8", 2, 235)
+    with ExpEnv(exp) as env:
+        service = ExplainService(env, batch_size=8, device="cuda")
+        fw = service._fw
+
+        def syncing(model, xs):
+            outs = fw(model, xs)
+            outs[0].sum().item()  # a host sync inside the slab's work
+            return outs
+
+        service._fw = syncing
+        try:
+            want = [_eager(service, s) for s in (s1, s2)]
+            got = [fetch(service._run_slab(s)) for s in (s1, s2, s1, s2)]
+            counts = dict(service.slab_counts)
+        finally:
+            service.close()
+    assert counts == {"graph_captures": 0, "graph_replays": 0,
+                      "eager_slabs": 4, "graph_fallbacks": 1}, counts
+    for i, outs in enumerate(got):
+        for g_, w_ in zip(outs, want[i % 2]):
+            assert np.array_equal(g_, w_), i

@@ -4,7 +4,10 @@ and answer the same `images` / `images_u8` requests; logits and
 attributions agree to atol 1e-5.  Plus the port's serving contract: its
 import graph is free of JAX, it never falls back from CUDA to the CPU, it
 drains on SIGTERM, an artifact for more devices than the world has is
-refused, and an unknown net kind names itself."""
+refused, an unknown net kind names itself, and slabs replay as CUDA
+graphs only where the rule says (a CPU service runs every slab eagerly,
+and a replayed slab's outputs are copies the next replay cannot
+overwrite)."""
 
 import json
 import pathlib
@@ -12,6 +15,7 @@ import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -109,6 +113,161 @@ def test_port_server_health_stats_and_bad_payloads(servers):
     with urllib.request.urlopen(_url(p_server, "/statz"), timeout=30) as r:
         stats = json.loads(r.read())
     assert stats["batch_size"] == 2 and stats["slabs"] >= 1
+
+
+@pytest.mark.parametrize("device,followed,artifact,host_final,want", [
+    ("cuda", False, None, False, True),
+    ("cpu", False, None, False, False),
+    ("cuda", True, None, False, False),     # a data-parallel world
+    ("cuda", False, "final.agx", False, False),
+    ("cuda", False, None, True, False),     # KernelSHAP's host final
+])
+def test_slabs_replay_only_for_a_live_final_on_one_card(
+        device, followed, artifact, host_final, want):
+    from autognothi_tpu_torch.pipeline.serve import replays_slabs
+
+    assert replays_slabs(torch.device(device), followed, artifact,
+                         host_final) is want
+
+
+def test_cpu_service_runs_every_slab_eagerly_and_statz_counts_them(
+        tmp_path):
+    from autognothi_tpu_torch.pipeline.env import ExpEnv
+    from autognothi_tpu_torch.pipeline.serve import serve_in_thread
+
+    exp = _write_exp(tmp_path)
+    rng = np.random.RandomState(8)
+    with ExpEnv(exp) as env:
+        server, service, _ = serve_in_thread(env, port=0, batch_size=2,
+                                             device="cpu")
+        try:
+            assert not service.replays
+            for n in (1, 3, 2):  # 1 + 2 + 1 slabs of 2
+                rows = rng.randint(0, 256, (n, 3, 16, 16)).tolist()
+                assert _post(server, {"images_u8": rows})[0] == 200
+            with urllib.request.urlopen(_url(server, "/statz"),
+                                        timeout=30) as r:
+                stats = json.loads(r.read())
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+    assert stats["slabs"] == 4
+    # warmup's two: the null slab and its u8 form, once each
+    assert {k: stats[k] for k in ("graph_captures", "graph_replays",
+                                  "eager_slabs", "graph_fallbacks")} == {
+        "graph_captures": 0, "graph_replays": 0, "eager_slabs": 4 + 2,
+        "graph_fallbacks": 0}
+
+
+class _OneBufferGraph:
+    """A captured graph's stand-in: each replay writes its static input,
+    doubled, into the one static output buffer."""
+
+    def __init__(self, static_in: torch.Tensor, out: torch.Tensor):
+        self.static_in, self.out = static_in, out
+
+    def replay(self):
+        self.out.copy_(self.static_in.reshape(-1) * 2)
+
+
+@pytest.mark.parametrize("copies", [True, False])
+def test_replayed_outputs_are_copies_that_the_next_replay_leaves(copies):
+    """Through `MicroBatcher` at depth 2 the completer fetches slab n only
+    after slab n + 1 was replayed (the fetch waits for it here): the host
+    copy `SlabGraph.replay` returns keeps each slab's rows, while the
+    graph's static outputs would hand slab n the rows of slab n + 1."""
+    from autognothi_tpu_torch.pipeline.batching import MicroBatcher
+    from autognothi_tpu_torch.pipeline.serve import (SlabGraph, SlabOutputs,
+                                                     fetch)
+
+    static_in, flat = torch.zeros(4, 3), torch.zeros(12)
+    graph = SlabGraph(_OneBufferGraph(static_in, flat), static_in, flat,
+                      ((4, 3),))
+    n_slabs = 4
+    cv = threading.Condition()
+    runs, fetches = [0], [0]
+
+    def run_slab(slab):
+        graph.load(slab)
+        if copies:
+            outs = graph.replay()
+        else:
+            graph.graph.replay()
+            outs = SlabOutputs(graph.flat, graph.shapes)
+        with cv:
+            runs[0] += 1
+            cv.notify_all()
+        return outs
+
+    def finalize(outs):
+        with cv:
+            assert cv.wait_for(
+                lambda: runs[0] >= min(fetches[0] + 2, n_slabs), timeout=60)
+            fetches[0] += 1
+        return tuple(o.copy() for o in fetch(outs))
+
+    batcher = MicroBatcher(run_slab, 4, window_s=0.0, depth=2,
+                           finalize=finalize)
+    got = {}
+
+    def client(i):
+        got[i] = batcher.submit(np.full((4, 3), i, np.float32))[0]
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(n_slabs)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        batcher.close()
+    own = [np.array_equal(got[i], np.full((4, 3), 2 * i, np.float32))
+           for i in range(n_slabs)]
+    assert all(own) if copies else not all(own), own
+
+
+def test_fetch_splits_a_replayed_slab_as_the_eager_outputs():
+    """A replayed slab's one flat buffer comes back as the eager path's
+    outputs: each output's float32 values in its own shape."""
+    from autognothi_tpu_torch.pipeline.serve import SlabOutputs, fetch
+
+    g = torch.Generator().manual_seed(9)
+    outs = (torch.randn(4, 3, generator=g),
+            torch.randn(4, 5, 2, generator=g).to(torch.bfloat16))
+    packed = SlabOutputs(torch.cat([o.float().reshape(-1) for o in outs]),
+                         tuple(tuple(o.shape) for o in outs))
+    want, got = fetch(outs), fetch(packed)
+    assert len(got) == 2
+    for w, g_ in zip(want, got):
+        assert g_.dtype == np.float32 and np.array_equal(w, g_)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32, np.int64])
+def test_slab_graph_loads_each_slab_through_its_staging_buffer(dtype):
+    """Each loaded slab lands in the graph's static input, whatever its
+    dtype, by way of a staging buffer of its own; a replay's outputs are
+    a fresh host tensor, with no event to wait for off a card."""
+    from autognothi_tpu_torch.pipeline.serve import SlabGraph
+
+    static_in = torch.zeros(2, 3, dtype=torch.from_numpy(
+        np.zeros(0, dtype)).dtype)
+    flat = torch.zeros(6)
+    graph = SlabGraph(_OneBufferGraph(static_in, flat), static_in, flat,
+                      ((2, 3),))
+    assert graph.staging.data_ptr() != static_in.data_ptr()
+    firsts = []
+    for i in (1, 2):
+        slab = np.full((2, 3), 7 * i, dtype)
+        graph.load(slab)
+        assert np.array_equal(static_in.numpy(), slab)
+        outs = graph.replay()
+        assert outs.done is None
+        assert outs.flat.data_ptr() != flat.data_ptr()
+        firsts.append(outs)
+    assert [float(o.fetch()[0][0, 0]) for o in firsts] == [14.0, 28.0]
 
 
 def test_import_graph_is_free_of_jax_and_the_jax_package():
